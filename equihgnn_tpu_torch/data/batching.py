@@ -1,8 +1,9 @@
 """Padding of ragged molecule samples into static-shape batches.
 
 Copy of `spec_for_samples`, `pad_hypergraph_batch` and `iter_batches` from
-`equihgnn_tpu/data/batching.py`, cut to what serving needs: hypergraph
-batches with one slot row per molecule. Row packing (`pack_slots`) and the
+`equihgnn_tpu/data/batching.py`, cut to what serving and training need:
+hypergraph batches with one slot row per molecule, their targets, and the
+shuffled epoch order. Row packing (`pack_slots`) and the
 slot-incidence tables are TPU layouts and are not carried over.
 
 A `BatchSpec` fixes (num_graphs, N_pad, E_pad, nnz_pad, A_max). The LAST
@@ -73,9 +74,13 @@ def spec_for_samples(
 def pad_hypergraph_batch(
     samples: Sequence[HyperGraphSample],
     spec: BatchSpec,
+    target: int | None = None,
     with_pos: bool = False,
 ) -> HyperGraphBatch:
     """Pack molecules into one padded `HyperGraphBatch` (CPU tensors).
+
+    `target` selects a single column of `y` (the `OneTarget` transform);
+    pass None if `y` is already scalar per molecule.
 
     Raises ValueError when the molecules overflow `spec`, or when the
     assembled `hedge_idx` is not non-decreasing: the hyperedge-direction
@@ -97,6 +102,7 @@ def pad_hypergraph_batch(
     hedge_idx = np.full((Z,), E - 1, dtype=np.int64)
     inc_mask = np.zeros((Z,), dtype=bool)
     hedge_mask = np.zeros((E,), dtype=bool)
+    y = np.zeros((G,), dtype=np.float32)
     graph_mask = np.zeros((G,), dtype=bool)
     pos = np.zeros((N, 3), dtype=np.float32) if with_pos else None
     slot_index = np.zeros((G, A), dtype=np.int64) if A else None
@@ -129,6 +135,8 @@ def pad_hypergraph_batch(
         hedge_idx[z0 : z0 + nz] = s.hedge_idx + e0
         inc_mask[z0 : z0 + nz] = True
         hedge_mask[e0 : e0 + ne] = True
+        yv = s.y if target is None else np.asarray(s.y).reshape(-1)[target]
+        y[g] = np.asarray(yv, dtype=np.float32).reshape(())
         graph_mask[g] = True
         if with_pos:
             if s.pos is None:
@@ -150,6 +158,7 @@ def pad_hypergraph_batch(
         inc_mask=inc_mask,
         hedge_mask=hedge_mask,
         graph_mask=graph_mask,
+        y=y,
         pos=pos,
         slot_index=slot_index,
         slot_mask=slot_mask,
@@ -163,13 +172,20 @@ def iter_batches(
     samples: Sequence[HyperGraphSample],
     spec: BatchSpec,
     *,
+    target: int | None = None,
     with_pos: bool = False,
+    shuffle: bool = False,
+    rng: np.random.Generator | None = None,
 ) -> Iterator[HyperGraphBatch]:
-    """Greedy packer, in input order: fill each batch until a capacity
-    would overflow."""
+    """Greedy packer: fill each batch until a capacity would overflow. With
+    `shuffle`, the order is drawn from `rng` (a fresh generator if None)."""
+    order = np.arange(len(samples))
+    if shuffle:
+        (rng or np.random.default_rng()).shuffle(order)
     cur: list = []
     a = e = z = 0
-    for s in samples:
+    for i in order:
+        s = samples[int(i)]
         na, ne, nz = s.n_atoms, s.n_hedges, s.nnz
         over = (
             len(cur) >= spec.max_real_graphs
@@ -178,9 +194,9 @@ def iter_batches(
             or z + nz > spec.nnz
         )
         if over and cur:
-            yield pad_hypergraph_batch(cur, spec, with_pos=with_pos)
+            yield pad_hypergraph_batch(cur, spec, target=target, with_pos=with_pos)
             cur, a, e, z = [], 0, 0, 0
         cur.append(s)
         a, e, z = a + na, e + ne, z + nz
     if cur:
-        yield pad_hypergraph_batch(cur, spec, with_pos=with_pos)
+        yield pad_hypergraph_batch(cur, spec, target=target, with_pos=with_pos)

@@ -2,9 +2,10 @@
 
 `HyperGraphSample` and the feature vocabularies are copied from
 `equihgnn_tpu/data/structures.py`. `HyperGraphBatch` is that module's batch
-as a plain dataclass of torch tensors, cut to the fields the serving path
-reads: the atoms, the incidence arrays, the hyperedge mask, the graph mask,
-the coordinates and the dense slot view of the EGNN encoder. The JAX
+as a plain dataclass of torch tensors, cut to the fields the serving and
+training paths read: the atoms, the incidence arrays, the hyperedge mask,
+the graph mask, the targets, the coordinates and the dense slot view of the
+EGNN encoder. The JAX
 batch's slot-incidence tables are a TPU layout and have no counterpart.
 
 Padding convention (as in the JAX package): a batch holds `num_graphs`
@@ -70,6 +71,7 @@ class HyperGraphBatch:
     inc_mask: torch.Tensor  # [nnz_pad] bool
     hedge_mask: torch.Tensor  # [E_pad] bool
     graph_mask: torch.Tensor  # [num_graphs] bool
+    y: torch.Tensor  # [num_graphs] float32 targets (0 on padding graphs)
     pos: torch.Tensor | None = None  # [N_pad, 3] float32
     # dense slot view for the EGNN encoder: one row per molecule slot
     slot_index: torch.Tensor | None = None  # [R, A_max] flat atom index
@@ -94,15 +96,23 @@ class HyperGraphBatch:
 
         return cls(**{k: conv(v) for k, v in arrays.items()})
 
-    def to(self, device) -> "HyperGraphBatch":
+    def _map(self, fn) -> "HyperGraphBatch":
         return dataclasses.replace(
             self,
             **{
-                f.name: getattr(self, f.name).to(device)
+                f.name: fn(getattr(self, f.name))
                 for f in dataclasses.fields(self)
                 if getattr(self, f.name) is not None
             },
         )
+
+    def to(self, device, non_blocking: bool = False) -> "HyperGraphBatch":
+        return self._map(lambda t: t.to(device, non_blocking=non_blocking))
+
+    def pin_memory(self) -> "HyperGraphBatch":
+        """A copy in page-locked host memory, so that `to(cuda,
+        non_blocking=True)` copies without blocking the host."""
+        return self._map(torch.Tensor.pin_memory)
 
     @property
     def num_atoms(self) -> int:

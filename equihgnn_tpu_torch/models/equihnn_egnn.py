@@ -5,9 +5,14 @@ Port of `equihgnn_tpu/models/equihnn_egnn.py` (`_EGNNBase.encode` `:24-60`,
 atom embeddings, one EGNN layer (k = 16, valid_radius 5.0 against the
 squared distance) on per-molecule neighbourhoods, then the MHNNS trunk.
 
-The port runs in float32 and in eval mode. Configurations it does not
-support yet raise here: `compute_dtype` other than float32,
-`cross_molecule_knn=True`, BatchNorm ("bn") and PReLU.
+The port runs in float32, for serving (`model.eval()`) and training
+(`model.train()`: dropout in the trunk and its MLPs; the EGNN has none, as
+in every model the reference builds). Gradients reach the same parameters
+as in JAX; the EGNN's coordinate branch (`coors_mlp_*`, `coors_norm`)
+gets none in either framework, because `encode` drops the EGNN's
+coordinates. Configurations the port does not support yet raise here:
+`compute_dtype` other than float32, `cross_molecule_knn=True`, BatchNorm
+("bn") and PReLU.
 """
 
 from __future__ import annotations

@@ -33,6 +33,9 @@ SIGNATURES = {
     "sorted_segment_sum_f32": (_P, _P, _P, _I64, _I64, _I64, _P),
     "edge_mlp_fwd_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _P),
+    "edge_mlp_bwd_workspace_f32": (_I, _I, _I, _I, _I, ctypes.POINTER(_I64)),
+    "edge_mlp_bwd_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                         _I, _I, _I, _I, _I, _P),
 }
 
 

@@ -1,9 +1,12 @@
 """Kernel A: segment sum over sorted segment ids (`csrc/segment_sum.cu`).
 
-Replaces `equihgnn_tpu/ops/pallas/segment_sum.py` `sorted_segment_sum`,
-forward only. `sorted_segment_sum` is the wrapper: a CPU tensor goes to
-`sorted_segment_sum_plain`, a CUDA tensor to the kernel, which raises if
-it cannot launch. `sorted_segment_sum.launches` counts kernel launches.
+Replaces `equihgnn_tpu/ops/pallas/segment_sum.py` `sorted_segment_sum`.
+`sorted_segment_sum` is the wrapper: a CPU tensor goes to
+`sorted_segment_sum_plain`, which autograd traces; a CUDA tensor goes
+through `_SortedSegmentSum`, an `autograd.Function` whose forward is the
+kernel (raising if it cannot launch) and whose backward is the gather
+`grad_out[segment_ids]` in plain indexing, as the JAX custom VJP's `_bwd`
+is plain XLA. `sorted_segment_sum.launches` counts kernel launches.
 
 Contract: `segment_ids` is non-decreasing. The kernel relies on it and
 does not check it; `pad_hypergraph_batch` checks it on the host, once per
@@ -43,14 +46,7 @@ def _check(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int):
         raise ValueError(f"unsupported num_segments={num_segments} or D={data.shape[1]}")
 
 
-def sorted_segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
-                       num_segments: int) -> torch.Tensor:
-    """Segment sum for non-decreasing `segment_ids` → [num_segments, D]."""
-    if data.device.type == "cpu":
-        return sorted_segment_sum_plain(data, segment_ids, num_segments)
-    if data.device.type != "cuda":
-        raise ValueError(f"sorted_segment_sum: unsupported device {data.device}")
-    _check(data, segment_ids, num_segments)
+def _launch(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
     m, d = data.shape
     out = torch.empty((num_segments, d), dtype=torch.float32, device=data.device)
     lib = build.library()
@@ -63,6 +59,31 @@ def sorted_segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
     build.check(lib, "sorted_segment_sum_f32", code)
     sorted_segment_sum.launches += 1
     return out
+
+
+class _SortedSegmentSum(torch.autograd.Function):
+    """Kernel A forward; backward the gather of JAX's `_bwd`."""
+
+    @staticmethod
+    def forward(ctx, data, segment_ids, num_segments):
+        ctx.save_for_backward(segment_ids)
+        return _launch(data, segment_ids, num_segments)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        (segment_ids,) = ctx.saved_tensors
+        return grad_out[segment_ids], None, None
+
+
+def sorted_segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
+                       num_segments: int) -> torch.Tensor:
+    """Segment sum for non-decreasing `segment_ids` → [num_segments, D]."""
+    if data.device.type == "cpu":
+        return sorted_segment_sum_plain(data, segment_ids, num_segments)
+    if data.device.type != "cuda":
+        raise ValueError(f"sorted_segment_sum: unsupported device {data.device}")
+    _check(data, segment_ids, num_segments)
+    return _SortedSegmentSum.apply(data, segment_ids, num_segments)
 
 
 sorted_segment_sum.launches = 0

@@ -36,7 +36,7 @@ CFG = dict(mlp_hidden=16, output_hidden=8, all_num_layers=3, output_num_layers=3
 SLOT_TABLES = ("hedge_row", "hedge_slot", "hedge_slot_index", "hedge_slot_mask",
                "inc_slot_atom", "inc_slot_hedge", "inc_slot_mask")
 BATCH_FIELDS = ("atom_feat", "atom_mask", "atom_graph_id", "vertex_idx", "hedge_idx",
-                "inc_mask", "hedge_mask", "graph_mask", "pos", "slot_index",
+                "inc_mask", "hedge_mask", "graph_mask", "y", "pos", "slot_index",
                 "slot_mask", "slot_gid", "atom_slot", "atom_row")
 
 
@@ -88,7 +88,7 @@ def test_pad_hypergraph_batch_matches_jax():
     for f in dataclasses.fields(tspec):
         assert getattr(tspec, f.name) == getattr(jspec, f.name), f.name
     jb = jax_pad(samples, jspec, target=0, with_pos=True)
-    tb = pad_hypergraph_batch(samples, tspec, with_pos=True)
+    tb = pad_hypergraph_batch(samples, tspec, target=0, with_pos=True)
     for name in BATCH_FIELDS:
         got, want = getattr(tb, name).numpy(), np.asarray(getattr(jb, name))
         np.testing.assert_array_equal(got, want, err_msg=name)

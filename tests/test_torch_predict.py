@@ -103,7 +103,8 @@ def test_port_imports_no_jax():
     code = (
         "import sys\n"
         "import equihgnn_tpu_torch, equihgnn_tpu_torch.predict, equihgnn_tpu_torch.convert\n"
-        "import equihgnn_tpu_torch.models\n"
+        "import equihgnn_tpu_torch.models, equihgnn_tpu_torch.main\n"
+        "import equihgnn_tpu_torch.train.trainer, equihgnn_tpu_torch.data.datasets\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'equihgnn_tpu'))\n"
         "print(bad)\n"

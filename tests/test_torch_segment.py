@@ -4,9 +4,11 @@ Inputs are drawn with numpy and fed to both sides. On the CPU the port's
 `sorted_segment_sum` wrapper takes its plain version; the JAX side runs
 its Pallas kernel in interpret mode (`sorted_segment_sum`) or its XLA
 segment sum (`masked_segment_reduce` off the TPU). Tolerance: f32 sums of
-a few terms in another order, atol 1e-6.
+a few terms in another order, atol 1e-6. The gradient of the sorted sum is
+held against the JAX custom VJP (a gather, exact).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -53,6 +55,17 @@ def test_sorted_reduce_matches_jax(reduce):
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
     empty = np.setdiff1d(np.arange(s), ids[mask])
     assert len(empty) > 0 and np.all(got[empty] == 0.0)
+
+
+def test_sorted_sum_grad_matches_jax_custom_vjp():
+    data, ids, _, s = _inputs(6)
+    g = np.random.default_rng(7).standard_normal((s, data.shape[1])).astype(np.float32)
+    x = torch.from_numpy(data).requires_grad_()
+    sorted_segment_sum(x, torch.from_numpy(ids), s).backward(torch.from_numpy(g))
+    jids = jnp.asarray(ids, jnp.int32)
+    _, vjp = jax.vjp(lambda d: jax_sorted_segment_sum(d, jids, s), jnp.asarray(data))
+    (want,) = vjp(jnp.asarray(g))
+    np.testing.assert_array_equal(x.grad.numpy(), np.asarray(want))
 
 
 def test_sorted_sum_matches_jax_pallas_kernel():
