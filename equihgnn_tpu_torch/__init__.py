@@ -4,8 +4,9 @@ Runs on an NVIDIA H100 (`sm_90a`) and, with the plain PyTorch versions of
 its kernels, on the CPU. It mirrors the module paths of the JAX package
 `equihgnn_tpu`, which stays the reference it is tested against, and
 imports nothing from it. Covered so far, in float32: serving
-`egnn_equihnns` (`python -m equihgnn_tpu_torch.predict`) and training it
-(`python -m equihgnn_tpu_torch.main`).
+(`python -m equihgnn_tpu_torch.predict`) and training
+(`python -m equihgnn_tpu_torch.main`) of `egnn_equihnns` and
+`faformer_equihnns`.
 """
 
 __version__ = "0.1.0"

@@ -62,6 +62,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "column_sum.cuh"
+
 namespace {
 
 constexpr int M_OUT = 16;  // message width m
@@ -72,8 +74,6 @@ constexpr unsigned FULL = 0xffffffffu;
 constexpr int BW_COLS = 128;  // backward: f columns per block, one per thread
 constexpr int BW_WARPS = BW_COLS / 32;
 constexpr int BW_ROWS = 2;    // backward: molecule rows per block
-constexpr int SUM_COLS = 32;  // column sum: columns per block (lanes)
-constexpr int SUM_LANES = 8;  // column sum: rows summed in parallel per column
 
 __device__ __forceinline__ float silu(float x) { return x / (1.f + __expf(-x)); }
 
@@ -284,27 +284,6 @@ edge_mlp_bwd_kernel(const float* __restrict__ ui, const float* __restrict__ ujn,
   if (chunk == 0 && tid < M_OUT) part[static_cast<size_t>(f_dim) * (M_OUT + 2) + tid] = db1;
 }
 
-// out[c] = Σ_r in[r, c] for a row-major [rows, cols] matrix. Each block owns
-// SUM_COLS columns; its SUM_LANES thread rows stride over the rows and are
-// then added in a fixed order, so the result is deterministic.
-__global__ void __launch_bounds__(SUM_COLS * SUM_LANES)
-column_sum_kernel(const float* __restrict__ in, float* __restrict__ out,
-                  int64_t rows, int64_t cols) {
-  __shared__ float part[SUM_LANES][SUM_COLS];
-  const int64_t c = static_cast<int64_t>(blockIdx.x) * SUM_COLS + threadIdx.x;
-  float acc = 0.f;
-  if (c < cols)
-    for (int64_t r = threadIdx.y; r < rows; r += SUM_LANES) acc += in[r * cols + c];
-  part[threadIdx.y][threadIdx.x] = acc;
-  __syncthreads();
-  if (threadIdx.y == 0 && c < cols) {
-    float sum = 0.f;
-#pragma unroll
-    for (int w = 0; w < SUM_LANES; ++w) sum += part[w][threadIdx.x];
-    out[c] = sum;
-  }
-}
-
 size_t fwd_smem(int f_dim) { return static_cast<size_t>(M_OUT + 2) * f_dim * sizeof(float); }
 
 size_t bwd_smem(int a_slots, int k_nbrs) {
@@ -316,13 +295,6 @@ template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
-}
-
-cudaError_t column_sum(const float* in, float* out, int64_t rows, int64_t cols,
-                       cudaStream_t stream) {
-  const unsigned blocks = static_cast<unsigned>((cols + SUM_COLS - 1) / SUM_COLS);
-  column_sum_kernel<<<blocks, dim3(SUM_COLS, SUM_LANES), 0, stream>>>(in, out, rows, cols);
-  return cudaGetLastError();
 }
 
 }  // namespace

@@ -5,6 +5,8 @@ Usage:
     python -m equihgnn_tpu_torch.main --data synthetic_hg_3d \\
         --method egnn_equihnns --epochs 3 --device cuda
 
+Ported methods: `egnn_equihnns`, `faformer_equihnns`.
+
 Differences from the JAX CLI:
   * `--device` is a torch device string (default `cuda`, as in
     `equihgnn_tpu_torch.predict`); it replaces the JAX CLI's ignored

@@ -112,7 +112,7 @@ class EGNN(nn.Module):
         nbr_idx, pair_mask, _ = knn_dense(
             pd, slot_mask, self.k,
             valid_radius=self.valid_radius if self.apply_radius_mask else None,
-            slot_gid=slot_gid,
+            squared_radius=True, slot_gid=slot_gid,
         )
         rows = torch.arange(pd.shape[0], device=pd.device)[:, None, None]
         rel_coors = pd[:, :, None, :] - pd[rows, nbr_idx]  # [R, A, k, 3]

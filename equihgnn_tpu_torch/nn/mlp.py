@@ -29,10 +29,13 @@ def normal_(t: torch.Tensor, std: float, generator: torch.Generator) -> torch.Te
 
 class TorchLinear(nn.Module):
     """y = x Wᵀ + b with W [out, in]. Weight init U(±1/√fan_in), or
-    N(0, weight_std²) when `weight_std` is given; bias U(±1/√fan_in)."""
+    N(0, weight_std²) when `weight_std` is given; bias U(±1/√fan_in).
+    `bias=False` makes a layer without a bias parameter (flax's
+    `use_bias=False`)."""
 
     def __init__(self, in_features: int, out_features: int, *,
-                 generator: torch.Generator, weight_std: float | None = None):
+                 generator: torch.Generator, weight_std: float | None = None,
+                 bias: bool = True):
         super().__init__()
         bound = 1.0 / math.sqrt(max(in_features, 1))
         w = torch.empty(out_features, in_features)
@@ -41,7 +44,10 @@ class TorchLinear(nn.Module):
         else:
             normal_(w, weight_std, generator)
         self.weight = nn.Parameter(w)
-        self.bias = nn.Parameter(uniform_(torch.empty(out_features), bound, generator))
+        if bias:
+            self.bias = nn.Parameter(uniform_(torch.empty(out_features), bound, generator))
+        else:
+            self.register_parameter("bias", None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.linear(x, self.weight, self.bias)

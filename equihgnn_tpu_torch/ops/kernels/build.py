@@ -3,8 +3,8 @@
 Every `.cu` file under `equihgnn_tpu_torch/csrc/` is compiled for Hopper
 (`sm_90a`) into one shared library with a plain C interface. The library
 lands in `equihgnn_tpu_torch/_build/` (ignored by git) under a name that
-hashes the sources and flags, so an edited source is rebuilt and an
-unchanged one is reused. The build happens at the first CUDA call of a
+hashes the sources, the headers they share (`*.cuh`) and the flags, so
+an edited source is rebuilt and an unchanged one is reused. The build happens at the first CUDA call of a
 kernel wrapper, never at import.
 """
 
@@ -22,12 +22,13 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-NVCC_FLAGS = (
+NVCC_FLAGS = (  # per source, compiled to an object file
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
-_P, _I64, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+_P, _I64, _I, _U32, _F = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_uint32,
+                          ctypes.c_float)
 # C entry points: name -> argument types (each returns a cudaError_t as int)
 SIGNATURES = {
     "sorted_segment_sum_f32": (_P, _P, _P, _I64, _I64, _I64, _P),
@@ -36,6 +37,10 @@ SIGNATURES = {
     "edge_mlp_bwd_workspace_f32": (_I, _I, _I, _I, _I, ctypes.POINTER(_I64)),
     "edge_mlp_bwd_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _P),
+    "frame_swiglu_fwd_f32": (_P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _U32, _F, _U32, _P),
+    "frame_swiglu_bwd_workspace_f32": (_I64, _I, _I, ctypes.POINTER(_I64)),
+    "frame_swiglu_bwd_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _U32, _F, _U32,
+                             _P),
 }
 
 
@@ -59,32 +64,39 @@ def sources() -> list[Path]:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + sorted(CSRC_DIR.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libequihgnn_kernels-{h.hexdigest()[:16]}.so"
 
 
+def _run(cmds: list[list[str]]) -> None:
+    """Run the commands in parallel; raise on the first that failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    outs = [p.communicate() for p in procs]  # wait for all before raising
+    for cmd, proc, (stdout, stderr) in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{stdout}\n{stderr}"
+            )
+
+
 def build() -> Path:
-    """Compile the kernels unless a library of the same sources exists."""
+    """Compile the kernels unless a library of the same sources exists: one
+    nvcc per source, all started together, then one link."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                f"{proc.stdout}\n{proc.stderr}"
-            )
-        os.replace(tmp, out)  # atomic: a concurrent builder sees all or none
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, src.stem + ".o") for src in sources()]
+        _run([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+              for src, obj in zip(sources(), objs)])
+        lib = os.path.join(tmp, "lib.so")
+        _run([[nvcc, "-shared", "-o", lib, *objs]])
+        os.replace(lib, out)  # atomic: a concurrent build sees all or none
     return out
 
 

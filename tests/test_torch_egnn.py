@@ -52,7 +52,8 @@ def test_knn_dense_matches_jax(a, k, radius):
     gid = np.where(mask, np.arange(r)[:, None] + (np.arange(a)[None, :] >= 9), -1)
     pos = pos * mask[..., None]
     idx, nmask, _ = knn_dense(torch.from_numpy(pos), torch.from_numpy(mask), k,
-                              valid_radius=radius, slot_gid=torch.from_numpy(gid))
+                              valid_radius=radius, squared_radius=True,
+                              slot_gid=torch.from_numpy(gid))
     jidx, jmask, _ = jax_knn_dense(jnp.asarray(pos), jnp.asarray(mask), k, valid_radius=radius,
                                    squared_radius=True, slot_gid=jnp.asarray(gid))
     jidx, jmask = np.asarray(jidx), np.asarray(jmask)

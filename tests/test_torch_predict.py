@@ -60,6 +60,22 @@ def test_predict_cpu_on_real_sdf(tmp_path):
     np.testing.assert_allclose(vals, want, rtol=1e-6, atol=1e-6)
 
 
+def test_predict_faformer_cpu_on_real_sdf(tmp_path):
+    model = create_model("faformer_equihnns", num_target=1, cfg=CFG,
+                         generator=torch.Generator().manual_seed(7))
+    ckpt = save_checkpoint(str(tmp_path / "fa.pt"), model, "faformer_equihnns", CFG, std=2.0)
+    out = str(tmp_path / "preds.csv")
+    run(build_parser().parse_args(
+        ["--ckpt", ckpt, "--sdf", SDF, "--out", out, "--device", "cpu", "--batch_size", "8"]))
+    rows = _rows(out)
+    assert [r["title"] for r in rows][4] == "benzene" and len(rows) == 20
+    vals = np.array([float(r["prediction"]) for r in rows])
+    samples = [s for _, s in featurize_sdf(SDF)]
+    want = predict_samples(model.eval(), samples, 8, torch.device("cpu")) * 2.0
+    assert np.isfinite(vals).all()
+    np.testing.assert_allclose(vals, want, rtol=1e-6, atol=1e-6)
+
+
 def test_methane_has_one_atom_and_no_hyperedges():
     title, sample = featurize_sdf(SDF)[0]
     assert title == "methane"

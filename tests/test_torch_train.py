@@ -224,14 +224,14 @@ def _learnable(n, seed=0):
 
 
 def _trainer(tmp_path, *, epochs, lr=3e-3, resume=False, dropout=0.0, seed=0, hidden=16,
-             train_seed=None):
+             train_seed=None, method="egnn_equihnns"):
     cfg = ModelConfig(mlp_hidden=hidden, output_hidden=8, dropout=dropout)
-    model = create_model("egnn_equihnns", num_target=1, cfg=cfg,
+    model = create_model(method, num_target=1, cfg=cfg,
                          generator=torch.Generator().manual_seed(seed))
     tcfg = TrainConfig(epochs=epochs, lr=lr, seed=seed if train_seed is None else train_seed,
                        log_dir=str(tmp_path), resume=resume,
                        num_bootstraps=5,
-                       run_meta={"method": "egnn_equihnns",
+                       run_meta={"method": method,
                                  "model_config": dataclasses.asdict(cfg), "std": 1.0})
     return Trainer(model, tcfg, std=1.0)
 
@@ -272,6 +272,42 @@ def test_fit_reduces_loss_checkpoints_and_serves(tmp_path):
     assert vals.shape == (20,) and np.isfinite(vals).all()
     mols = [s for _, s in featurize_sdf(SDF)]
     want = predict_samples(tr.model.eval(), mols, 256, torch.device("cpu"))
+    np.testing.assert_allclose(vals, want, rtol=1e-5, atol=1e-6)
+
+
+def test_faformer_fit_reduces_loss_and_serves(tmp_path):
+    """`faformer_equihnns` through the port's Trainer: the loss falls, the
+    FAFormer's own dropout (0.1; cfg.dropout is 0 and reaches the trunk
+    only) is active in train() mode, and ckpt_best.pt serves."""
+    from equihgnn_tpu_torch.predict import build_parser as predict_parser
+    from equihgnn_tpu_torch.predict import featurize_sdf, predict_samples
+    from equihgnn_tpu_torch.predict import run as predict_run
+
+    samples = _learnable(192)
+    spec = spec_for_samples(samples, batch_size=32)
+    tr = _trainer(tmp_path, epochs=8, lr=1e-3, hidden=32, method="faformer_equihnns")
+    tr.fit(*_loaders(samples[:144], samples[144:], spec))
+    losses = [h["train_loss"] for h in tr.history]
+    assert np.all(np.isfinite(losses)) and losses[-1] < losses[0] * 0.8, losses
+
+    batch = next(iter_batches(samples[:32], spec, with_pos=True, target=0))
+    model = tr.model.train()
+    with torch.no_grad():
+        a, b = model(batch), model(batch)
+        assert not torch.allclose(a, b)
+        model.eval()
+        torch.testing.assert_close(model(batch), model(batch), rtol=0, atol=0)
+
+    out = str(tmp_path / "preds.csv")
+    predict_run(predict_parser().parse_args(
+        ["--ckpt", str(tmp_path / "ckpt_best.pt"), "--sdf", SDF, "--out", out,
+         "--device", "cpu"]))
+    with open(out) as f:
+        vals = np.array([float(r.split(",")[-1]) for r in f.read().splitlines()[1:]])
+    tr._restore_checkpoint("best")
+    mols = [s for _, s in featurize_sdf(SDF)]
+    want = predict_samples(tr.model.eval(), mols, 256, torch.device("cpu"))
+    assert vals.shape == (20,) and np.isfinite(vals).all()
     np.testing.assert_allclose(vals, want, rtol=1e-5, atol=1e-6)
 
 
