@@ -17,26 +17,34 @@ result line), each printing its seconds:
    SwiGLU forward) and E (its backward, five gradients) at both FAFormer
    sites (EdgeModule P = 393,728, C = 4; FAFFN P = 24,608, C = 3), and D/E
    with dropout 0.1 at P = 24,608 (the same seed must give the same mask);
-   error and median time of each;
-then, for each model, `egnn_equihnns` and `faformer_equihnns` at the bench
-recipe (hidden 256, 3 MHNNS conv layers, output hidden 128 over 3 layers,
-mean aggregation, LayerNorm, f32; the FAFormer: 2 layers, 2 heads, k = 16),
-with random weights from a seed:
+   F and H (ViSNet's vector aggregation and vector-rejection dot products)
+   and their backwards G and I on the batch's k = 17 neighbourhoods (self
+   included, 5 Å) at L = 8, h = 256, with s1 a strided view as in ViS_MP;
+   error, median time, allocation and the card's least time (`bound_ms`)
+   of each;
+then, for each model, `egnn_equihnns`, `faformer_equihnns` and
+`visnet_equihnns` at the bench recipe (hidden 256, 3 MHNNS conv layers,
+output hidden 128 over 3 layers, mean aggregation, LayerNorm, f32; the
+FAFormer: 2 layers, 2 heads, k = 16; ViSNet: 6 layers, 8 heads, lmax 2,
+k = 17, 32 RBFs, cutoff 5 Å), with random weights from a seed:
 4. serve: saved as a port checkpoint, served through
    `equihgnn_tpu_torch.predict.run` on `datasets/real_sample/sample.sdf`
    and checked against the CPU molecule by molecule; then one request of
    768 synthetic molecules through the same library path. The kernels'
    launch counters must show that both requests ran through the model's
-   kernels (egnn: A 3x and B per forward; faformer: A 3x and D 5x);
+   kernels (egnn: A 3x and B per forward; faformer: A 3x and D 5x;
+   visnet: A 3x, F 6x, H 5x);
 5. gradients: one train step's parameter gradients at full width on 32
    molecules (eval mode: no dropout), on the card (kernels) against the
    CPU (plain versions); every parameter the CPU reaches must be reached
    on the card;
 6. train: `equihgnn_tpu_torch.main.run` on `synthetic_hg_3d` at the
    recipe, batch 768, 3 epochs of ~10 steps, a learnable target, into a
-   temporary log directory. Every train loss finite and the last below the
+   temporary log directory, at lr 1e-3 (visnet 1e-4: it diverges at 5e-4
+   in both frameworks). Every train loss finite and the last below the
    first; the launch counters show the model's kernels on every train step
-   (egnn: A 3x, B, C; faformer: A 3x, D 5x, E 4x) and every eval forward;
+   (egnn: A 3x, B, C; faformer: A 3x, D 5x, E 4x; visnet: A 3x, F 6x, H 5x,
+   G 6x, I 5x) and every eval forward;
    `ckpt_best.pt` serves through `predict.run --device cuda`;
 7. step: one train step at batch 768 (forward + backward + Adam): its
    launches, median device time, peak memory and a `torch.profiler` table
@@ -77,18 +85,24 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SDF = os.path.join(ROOT, "datasets", "real_sample", "sample.sdf")
 BATCH = 768
 HIDDEN = 256
-METHODS = ("egnn_equihnns", "faformer_equihnns")
+METHODS = ("egnn_equihnns", "faformer_equihnns", "visnet_equihnns")
 # kernel launches per forward and per backward of each model's train step
 FWD_LAUNCHES = {
     "egnn_equihnns": {"sorted_segment_sum": 3, "fused_edge_messages": 1},
     # 3 EdgeModules + 2 FAFFNs
     "faformer_equihnns": {"sorted_segment_sum": 3, "fused_frame_swiglu": 5},
+    # 6 ViS_MP layers, the last without the edge update
+    "visnet_equihnns": {"sorted_segment_sum": 3, "vis_vec_agg": 6, "vis_wdot": 5},
 }
 BWD_LAUNCHES = {
     "egnn_equihnns": {"fused_edge_messages_bwd": 1},
     # the last layer's EdgeModule feeds nothing that reaches the loss
     "faformer_equihnns": {"fused_frame_swiglu_bwd": 4},
+    "visnet_equihnns": {"vis_vec_agg_bwd": 6, "vis_wdot_bwd": 5},
 }
+LR = {"visnet_equihnns": "1e-4"}  # the others train at 1e-3
+# the H100 SXM's published peaks: HBM3 bandwidth and dense f32 rate
+PEAK_BYTES_S, PEAK_F32_S = 3.35e12, 67e12
 
 
 def check(ok: bool, msg: str) -> None:
@@ -146,6 +160,28 @@ def profiled_device_ms(fn, calls: int = 20) -> float:
     return sum(t for t, _, _ in device_kernels(prof, calls))
 
 
+def bound(nbytes: float, flops: float) -> dict:
+    """The least time the card could take: bytes over the memory rate or
+    f32 operations over the CUDA cores' peak, whichever is larger."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_F32_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def alloc_mib(fn) -> float:
+    """MiB a call of `fn` allocates at its peak, above what was allocated."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2**20
+
+
 def read_csv(path: str) -> list[dict]:
     with open(path) as f:
         return list(csv.DictReader(f))
@@ -193,12 +229,20 @@ def counters() -> dict:
         fused_frame_swiglu_bwd,
     )
     from equihgnn_tpu_torch.ops.kernels.segment_sum import sorted_segment_sum
+    from equihgnn_tpu_torch.ops.kernels.vis_mix import (
+        vis_vec_agg,
+        vis_vec_agg_bwd,
+        vis_wdot,
+        vis_wdot_bwd,
+    )
 
     return {"sorted_segment_sum": sorted_segment_sum,
             "fused_edge_messages": fused_edge_messages,
             "fused_edge_messages_bwd": fused_edge_messages_bwd,
             "fused_frame_swiglu": fused_frame_swiglu,
-            "fused_frame_swiglu_bwd": fused_frame_swiglu_bwd}
+            "fused_frame_swiglu_bwd": fused_frame_swiglu_bwd,
+            "vis_vec_agg": vis_vec_agg, "vis_vec_agg_bwd": vis_vec_agg_bwd,
+            "vis_wdot": vis_wdot, "vis_wdot_bwd": vis_wdot_bwd}
 
 
 def expected_launches(method: str, forwards: int, backwards: int) -> dict[str, int]:
@@ -256,14 +300,19 @@ def phase_kernels(batch) -> list[dict]:
                                          lambda: sorted_segment_sum_plain(data, ids, s))
     dev_ms = profiled_device_ms(lambda: _launch(data, ids, s))
     dev_plain_ms = profiled_device_ms(lambda: sorted_segment_sum_plain(data, ids, s))
+    # the one PyTorch call that computes the same sum (the plain version adds
+    # its zero allocation around the same call)
+    zeros = torch.zeros(s, HIDDEN, device=dev)
+    library_ms, = median_ms(lambda: zeros.index_add_(0, ids, data))
     print(f"kernel A by CUDA events: launch {ms:.4f} ms, wrapper {wrapper_ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms; device kernels alone (torch.profiler, 20 calls): "
-          f"kernel {dev_ms:.4f} ms, plain {dev_plain_ms:.4f} ms")
+          f"plain {plain_ms:.4f} ms, index_add_ {library_ms:.4f} ms; device kernels alone "
+          f"(torch.profiler, 20 calls): kernel {dev_ms:.4f} ms, plain {dev_plain_ms:.4f} ms")
     rows.append(dict(
         name="sorted_segment_sum", route="cuda",
         source="equihgnn_tpu_torch/csrc/segment_sum.cu",
         replaces="equihgnn_tpu/ops/pallas/segment_sum.py:92",
-        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+        **bound(nbytes(data, ids, ref), m * HIDDEN),
     ))
 
     # kernel B on the real neighbourhoods of the batch's slot view
@@ -293,11 +342,15 @@ def phase_kernels(batch) -> list[dict]:
     check(ok, "kernel B disagrees with its plain version")
     ms, plain_ms = median_ms(lambda: fused_edge_messages(*args),
                              lambda: fused_edge_messages_plain(*args))
+    # operations per edge and column f: the pre-activation (4), its SiLU
+    # (4) and the product with W1 (2m)
+    e_edges = g * a * k
     rows.append(dict(
         name="fused_edge_messages", route="cuda",
         source="equihgnn_tpu_torch/csrc/edge_mlp.cu",
         replaces="equihgnn_tpu/ops/pallas/edge_mlp.py:179",
-        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+        **bound(nbytes(*args, ref), e_edges * f * (2 * mo + 8)),
     ))
 
     # kernel C on the same inputs, for an output gradient at O(1)
@@ -316,17 +369,20 @@ def phase_kernels(batch) -> list[dict]:
         check(ok, f"kernel C's {gname} disagrees with the plain backward")
     ms, plain_ms = median_ms(lambda: fused_edge_messages_bwd(*args, dm),
                              lambda: fused_edge_messages_bwd_plain(*args, dm))
+    # the forward again (2m + 8), dz·W1ᵀ and dW1 (4m), SiLU' (8)
     rows.append(dict(
         name="fused_edge_messages_bwd", route="cuda",
         source="equihgnn_tpu_torch/csrc/edge_mlp.cu",
         replaces="equihgnn_tpu/ops/pallas/edge_mlp.py:222",
-        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+        **bound(nbytes(*args, dm, *ref), e_edges * f * (6 * mo + 16)),
     ))
     rows += frame_swiglu_rows(pd, sm, gen)
+    rows += vis_mix_rows(batch, gen)
     for row in rows:
-        print(f"  {row['name']}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms "
-              f"(median of 20, the two alternating, CUDA events; D and E at the "
-              f"EdgeModule site)")
+        print(f"  {row['name']}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+              f"bound {row['bound_ms']:.4f} ms by {row['bound_by']} (median of 20, the two "
+              f"alternating, CUDA events; D and E at the EdgeModule site)")
     return rows
 
 
@@ -421,12 +477,7 @@ def frame_swiglu_rows(pd, sm, gen) -> list[dict]:
         frames_mb = p * 8 * HIDDEN * 4 / 2**20
         for kname, call in (("D", lambda: fused_frame_swiglu(x, *params)),
                             ("E", lambda: fused_frame_swiglu_bwd(x, *params, dout))):
-            torch.cuda.synchronize()
-            base = torch.cuda.memory_allocated()
-            torch.cuda.reset_peak_memory_stats()
-            call()
-            torch.cuda.synchronize()
-            extra_mb = (torch.cuda.max_memory_allocated() - base) / 2**20
+            extra_mb = alloc_mib(call)
             print(f"kernel {kname} at {site}: {extra_mb:.1f} MiB allocated at peak "
                   f"(the [P, 8, {HIDDEN}] frames would be {frames_mb:.1f} MiB)")
             check(extra_mb < frames_mb / 4, f"kernel {kname} allocated frame-sized memory")
@@ -440,14 +491,108 @@ def frame_swiglu_rows(pd, sm, gen) -> list[dict]:
     err_d = max(err_d, mask_probe(sites["FAFFN"].shape[0], gen, dev))
     (dk, dp), (ek, ep) = times["EdgeModule"]
     src = "equihgnn_tpu_torch/csrc/frame_swiglu.cu"
+    # at the EdgeModule site, whose times the row carries; operations per
+    # position and frame: fc1 (2·C·H), SwiGLU, LayerNorm and mean (~7·H);
+    # the backward recomputes them and adds dx and dw1 (4·C·H) and ~13·H
+    x, p, c = sites["EdgeModule"], *sites["EdgeModule"].shape
+    out_b = p * (HIDDEN // 2) * 4
+    w_b = (c * HIDDEN + HIDDEN + HIDDEN) * 4
     return [
         dict(name="fused_frame_swiglu", route="cuda", source=src,
              replaces="equihgnn_tpu/ops/pallas/frame_swiglu.py:254",
-             max_abs_err=err_d, ms=dk, plain_ms=dp),
+             max_abs_err=err_d, ms=dk, plain_ms=dp, library_ms=None,
+             **bound(nbytes(x) + w_b + out_b, p * 8 * (2 * c * HIDDEN + 7 * HIDDEN))),
         dict(name="fused_frame_swiglu_bwd", route="cuda", source=src,
              replaces="equihgnn_tpu/ops/pallas/frame_swiglu.py:274",
-             max_abs_err=err_e, ms=ek, plain_ms=ep),
+             max_abs_err=err_e, ms=ek, plain_ms=ep, library_ms=None,
+             **bound(2 * nbytes(x) + 2 * w_b + out_b, p * 8 * (6 * c * HIDDEN + 20 * HIDDEN))),
     ]
+
+
+def vis_mix_rows(batch, gen) -> list[dict]:
+    """Kernels F-I at ViSNet's shapes of the batch: the k = 17 neighbourhoods
+    (self included, within 5 Å) of its slot view, d the SH (L = 8) of the
+    real edge directions, h = 256; s1 a strided view of a [.., 2h] tensor,
+    s2m masked, as ViS_MP passes them."""
+    from equihgnn_tpu_torch.nn.visnet import edge_geometry
+    from equihgnn_tpu_torch.ops.kernels.vis_mix import (
+        vec_agg_bwd_plain,
+        vec_agg_plain,
+        vis_vec_agg,
+        vis_vec_agg_bwd,
+        vis_wdot,
+        vis_wdot_bwd,
+        wdot_bwd_plain,
+        wdot_plain,
+    )
+
+    dev = torch.device("cuda")
+    sm = batch.slot_mask.to(dev)
+    pd = batch.pos.to(dev)[batch.slot_index.to(dev)] * sm[..., None]
+    idx, mask, _, _, d = edge_geometry(pd, sm, 17, 5.0, 2, batch.slot_gid.to(dev))
+    g, a, k = idx.shape
+    L, h = d.shape[-1], HIDDEN
+    rnd = lambda *shape: torch.randn(*shape, generator=gen).to(dev)  # noqa: E731
+    vec, u, vv = rnd(g, a, L, h), rnd(g, a, L, h), rnd(g, a, L, h)
+    s12 = rnd(g, a, k, 2 * h)
+    s1 = s12[..., :h]
+    s2m = rnd(g, a, k, h) * mask[..., None]
+    gva, gw = rnd(g, a, L, h), rnd(g, a, k, h)
+    e_all, e_valid = g * a * k, int(mask.sum())
+    live_b = e_valid * h * 4  # s1 (F, G) or gw (I) on the masked-in edges, all they need
+    print(f"ViSNet vector mix inputs: G={g}, A={a}, k={k}, L={L}, h={h}; {e_valid} of "
+          f"{e_all} edges within 5 Å ({e_valid / e_all:.3f})")
+    cases = {
+        # name: (letter, kernel call, plain call, input bytes, output bytes, operations)
+        "vis_vec_agg": ("F", lambda: vis_vec_agg(vec, s1, s2m, d, idx, mask),
+                        lambda: vec_agg_plain(vec, s1, s2m, d, idx, mask),
+                        nbytes(vec, s2m, d, idx, mask) + live_b, nbytes(vec),
+                        (e_valid + e_all) * L * h * 2, ":437"),
+        "vis_vec_agg_bwd": ("G", lambda: vis_vec_agg_bwd(vec, s1, s2m, d, idx, mask, gva),
+                            lambda: vec_agg_bwd_plain(vec, s1, s2m, d, idx, mask, gva),
+                            nbytes(vec, s2m, d, idx, mask, gva) + live_b,
+                            nbytes(vec, s1, s2m, d), (2 * e_valid + 2 * e_all) * L * h * 2,
+                            ":461"),
+        "vis_wdot": ("H", lambda: vis_wdot(d, u, vv, idx, mask),
+                     lambda: wdot_plain(d, u, vv, idx, mask),
+                     nbytes(d, u, vv, idx, mask), nbytes(s2m),
+                     (2 * e_valid + e_all) * L * h * 2 + e_all * h * 4, ":505"),
+        "vis_wdot_bwd": ("I", lambda: vis_wdot_bwd(d, u, vv, idx, mask, gw),
+                         lambda: wdot_bwd_plain(d, u, vv, idx, mask, gw),
+                         nbytes(d, u, vv, idx, mask) + live_b, nbytes(u, vv, d),
+                         e_valid * 16 * L * h, ":528"),
+    }
+    rows = []
+    for name, (letter, call, plain, in_b, out_b, ops, line) in cases.items():
+        got, ref = call(), plain()
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        limit = 1e-5 if letter in "FH" else 1e-4
+        err = 0.0
+        for x, y in zip(got, ref):
+            dmax, scale = float((x - y).abs().max()), float(y.abs().max())
+            err = max(err, dmax)
+            ok = dmax <= limit * scale + 1e-6
+            print(f"kernel {letter} {name} {tuple(x.shape)}: max|d| {dmax:.3e}, max|ref| "
+                  f"{scale:.3e} (limit {limit:g} * max|ref| + 1e-6): {'ok' if ok else 'FAIL'}")
+            check(ok, f"kernel {letter} ({name}) disagrees with its plain version")
+        again = call()
+        again = again if isinstance(again, tuple) else (again,)
+        check(all(torch.equal(x, y) for x, y in zip(got, again)),
+              f"kernel {letter} gave other bits on a second run")
+        del got, ref, again
+        mib, plain_mib = alloc_mib(call), alloc_mib(plain)
+        ms, plain_ms = median_ms(call, plain)
+        row = dict(name=name, route="cuda", source="equihgnn_tpu_torch/csrc/vis_mix.cu",
+                   replaces=f"equihgnn_tpu/ops/pallas/vis_mix.py{line}", max_abs_err=err,
+                   ms=ms, plain_ms=plain_ms, library_ms=None, **bound(in_b + out_b, ops))
+        print(f"kernel {letter} {name}: {ms:.4f} ms vs plain {plain_ms:.4f} ms (median of 20, "
+              f"CUDA events); bound {row['bound_ms']:.4f} ms by {row['bound_by']} "
+              f"({(in_b + out_b) / 1e9:.3f} GB, {ops / 1e9:.2f} GFLOP); a call allocates "
+              f"{mib:.1f} MiB at peak, the plain version {plain_mib:.1f} MiB; deterministic")
+        rows.append(row)
+    return rows
 
 
 def recipe():
@@ -567,9 +712,26 @@ def phase_serve(method: str, samples, smi: str) -> dict[str, int]:
 # O(0.1)) some lie within ~1e-6 of it: on the CPU alone, one draw of a 1e-6
 # relative perturbation of the trunk's input moved trunk.conv.W2's gradient
 # by 4.0e-3 of its max, another by 1e-6 (the phase prints the largest of
-# four draws). The encoder's own gradients, under a smooth loss, are held
-# to 1e-4 for both models.
-STEP_LIMIT = {"egnn_equihnns": 1e-4, "faformer_equihnns": 1e-2}
+# four draws). ViSNet's are O(0.1), and its step gradients agree to 1e-4,
+# unless a trunk activation input within ~2e-6 of 0 falls on the other side
+# on the card: that moved its encoder's step gradients by ~2e-2 of their
+# max. The phase prints the trunk activation inputs that changed sign
+# between CPU and card and fails if one of them was farther than KINK from
+# 0 (more than rounding); only when some changed sign, all within KINK,
+# does ViSNet's limit become KINK_STEP_LIMIT. The encoder's own gradients,
+# under a smooth loss, are held to 1e-4 for every model.
+STEP_LIMIT = {"egnn_equihnns": 1e-4, "faformer_equihnns": 1e-2, "visnet_equihnns": 1e-4}
+KINK_STEP_LIMIT = {"visnet_equihnns": 5e-2}
+KINK = 1e-5  # the largest |CPU value| of a trunk activation input allowed to change sign
+# a parameter of the encoder's first kernel site, its atom embedding, and
+# the trunk's first weight: each must be reached on both devices
+REACHED = {
+    "egnn_equihnns": ("egnn_layer.edge_mlp_0.weight_i", "atom_encoder.atom.embedding"),
+    "faformer_equihnns": ("fa_former.edge_module.coord_mlp.fc1.weight",
+                          "atom_encoder.atom.embedding"),
+    "visnet_equihnns": ("visnet_layer.vis_mp_layers_1.w_src_proj.weight",
+                        "visnet_layer.embedding.atom.embedding"),
+}
 
 
 def phase_grads(method: str, pool) -> None:
@@ -604,8 +766,12 @@ def phase_grads(method: str, pool) -> None:
     def encoder_loss(model, b):
         return torch.sum(model.encode(b)[b.atom_mask] * proj.to(b.pos.device)[b.atom_mask])
 
-    def grads(device, loss_fn, **kw):
+    def grads(device, loss_fn, acts=None, **kw):
+        """Parameter gradients; `acts` collects the inputs of the trunk's
+        activation (one per conv layer)."""
         model = make(device)
+        if acts is not None:
+            model.trunk.act.register_forward_hook(lambda m, i, o: acts.append(i[0].detach().cpu()))
         loss_fn(model, batch.to(device), **kw).backward()
         return {n: (p.grad.cpu() if p.grad is not None else None)
                 for n, p in model.named_parameters()}
@@ -629,25 +795,35 @@ def phase_grads(method: str, pool) -> None:
         return max(float((a[n] - b[n]).abs().max()) / float(b[n].abs().max())
                    for n in b if b[n] is not None and float(b[n].abs().max()) > 0)
 
-    want = grads("cpu", step_loss)
+    cpu_acts, card_acts = [], []
+    want = grads("cpu", step_loss, cpu_acts)
     cpu_spread = max(
         rel_spread(grads("cpu", step_loss,
                          jitter=1e-6 * torch.randn(batch.num_atoms, HIDDEN, generator=gen)), want)
         for _ in range(4))
     reset_launches()
-    got = grads("cuda", step_loss)
+    got = grads("cuda", step_loss, card_acts)
     launches = read_launches()
     check(launches == expected_launches(method, 1, 1),
           f"the card's train step did not run through {method}'s kernels: {launches}")
-    worst, reached = compare(want, got, STEP_LIMIT[method], "train step")
-    first = {"egnn_equihnns": "egnn_layer.edge_mlp_0.weight_i",
-             "faformer_equihnns": "fa_former.edge_module.coord_mlp.fc1.weight"}[method]
-    for name in (first, "atom_encoder.atom.embedding", "trunk.conv.W1.lin_0.weight"):
+    flipped = torch.cat([a[(a > 0) != (b > 0)].abs() for a, b in zip(cpu_acts, card_acts)])
+    kink = float(flipped.max()) if flipped.numel() else 0.0
+    print(f"{method} trunk activation inputs on the other side of 0 on the card: "
+          f"{flipped.numel()} of {sum(a.numel() for a in cpu_acts)}, the largest |CPU value| "
+          f"among them {kink:.3e} (limit {KINK:g})")
+    check(kink <= KINK, "a trunk activation input away from 0 changed sign on the card")
+    limit, why = STEP_LIMIT[method], "no trunk activation input changed sign"
+    if flipped.numel():
+        limit = KINK_STEP_LIMIT.get(method, limit)
+        why = f"trunk activation inputs within {KINK:g} of 0 changed sign"
+    print(f"{method} step gradient limit {limit:g} per tensor ({why})")
+    worst, reached = compare(want, got, limit, "train step")
+    for name in (*REACHED[method], "trunk.conv.W1.lin_0.weight"):
         check(want[name] is not None and float(want[name].abs().max()) > 0, f"{name} unreached")
     print(f"{method} gradients, card vs cpu, one train step at full width on {len(samples)} "
           f"molecules (CPU translation spread <= {spread[pick].max():.1e}): {reached} "
           f"parameters reached on both (of {len(want)}), worst max|d| / max|cpu| {worst:.3e} "
-          f"(limit {STEP_LIMIT[method]:g} per tensor; the CPU's own change under a 1e-6 "
+          f"(limit {limit:g} per tensor; the CPU's own change under a 1e-6 "
           f"relative jitter of the trunk's input, largest of 4 draws: {cpu_spread:.3e}); "
           f"launches {launches}")
     worst, reached = compare(grads("cpu", encoder_loss), grads("cuda", encoder_loss), 1e-4,
@@ -667,7 +843,7 @@ def phase_train(method: str, smi: str) -> dict[str, int]:
     cfg = recipe()
     argv = ["--data", "synthetic_hg_3d", "--method", method, "--device", "cuda",
             "--batch_size", str(BATCH), "--synthetic_size", "9600", "--epochs", "3",
-            "--lr", "1e-3", "--MLP_hidden", str(cfg.mlp_hidden),
+            "--lr", LR.get(method, "1e-3"), "--MLP_hidden", str(cfg.mlp_hidden),
             "--output_hidden", str(cfg.output_hidden),
             "--All_num_layers", str(cfg.all_num_layers),
             "--output_num_layers", str(cfg.output_num_layers),

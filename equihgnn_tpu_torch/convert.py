@@ -30,12 +30,12 @@ _KERNELS = {"kernel": "weight", "kernel_i": "weight_i", "kernel_j": "weight_j",
 def _port_key(path: str, expected: Mapping[str, torch.Tensor]) -> tuple[str, bool]:
     """(state-dict key, transpose?) for one flax path."""
     parts = [p for p in path.split("/") if p != "LayerNorm_0"]
-    leaf, prefix = parts[-1], ".".join(parts[:-1])
+    leaf, prefix = parts[-1], "".join(p + "." for p in parts[:-1])
     if leaf in _KERNELS:
-        return f"{prefix}.{_KERNELS[leaf]}", True
-    if leaf == "scale" and f"{prefix}.scale" not in expected:
-        return f"{prefix}.weight", False
-    return f"{prefix}.{leaf}", False
+        return f"{prefix}{_KERNELS[leaf]}", True
+    if leaf == "scale" and f"{prefix}scale" not in expected:
+        return f"{prefix}weight", False
+    return f"{prefix}{leaf}", False
 
 
 def params_from_jax(flat: Mapping[str, np.ndarray], model: nn.Module) -> dict[str, torch.Tensor]:

@@ -10,6 +10,17 @@ from torch import nn
 from equihgnn_tpu_torch.ops.segment import segment_sum
 
 
+def check_f32_no_remat(cfg) -> None:
+    """Raise on what the port does not run yet: a `compute_dtype` other
+    than float32, and `remat` (both ROADMAP item 11)."""
+    if cfg.compute_dtype not in (None, "float32"):
+        raise NotImplementedError(
+            f"compute_dtype={cfg.compute_dtype!r}: the PyTorch port runs float32 only"
+        )
+    if cfg.remat:
+        raise NotImplementedError("remat is not ported yet: ROADMAP item 11")
+
+
 class Activation(nn.Module):
     """{Id, relu} (`reference equihgnn/models/mhnn.py:23-24`); PReLU is not
     ported yet."""

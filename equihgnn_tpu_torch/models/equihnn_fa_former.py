@@ -23,19 +23,11 @@ from torch import nn
 
 from equihgnn_tpu_torch.common.registry import registry
 from equihgnn_tpu_torch.data.structures import HyperGraphBatch
+from equihgnn_tpu_torch.models.common import check_f32_no_remat
 from equihgnn_tpu_torch.models.config import ModelConfig
 from equihgnn_tpu_torch.models.trunks import TrunkS
 from equihgnn_tpu_torch.nn.encoders import AtomEncoder
 from equihgnn_tpu_torch.nn.faformer import FAFormer
-
-
-def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.compute_dtype not in (None, "float32"):
-        raise NotImplementedError(
-            f"compute_dtype={cfg.compute_dtype!r}: the PyTorch port runs float32 only"
-        )
-    if cfg.remat:
-        raise NotImplementedError("remat is not ported yet: ROADMAP item 11")
 
 
 @registry.register_model("faformer_equihnns")
@@ -47,7 +39,7 @@ class FAFormerEquiHNNS(nn.Module):
     def __init__(self, num_target: int, cfg: ModelConfig, device="cpu",
                  generator: torch.Generator | None = None):
         super().__init__()
-        _check_supported(cfg)
+        check_f32_no_remat(cfg)
         gen = torch.Generator().manual_seed(0) if generator is None else generator
         self.num_target, self.cfg = num_target, cfg
         h = cfg.mlp_hidden

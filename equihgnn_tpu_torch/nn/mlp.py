@@ -30,21 +30,26 @@ def normal_(t: torch.Tensor, std: float, generator: torch.Generator) -> torch.Te
 class TorchLinear(nn.Module):
     """y = x Wᵀ + b with W [out, in]. Weight init U(±1/√fan_in), or
     N(0, weight_std²) when `weight_std` is given; bias U(±1/√fan_in).
-    `bias=False` makes a layer without a bias parameter (flax's
-    `use_bias=False`)."""
+    `xavier=True` is ViSNet's `_Proj` init (`equihgnn_tpu/nn/visnet.py:46`):
+    weight U(±√(6/(fan_in + fan_out))), bias zero. `bias=False` makes a
+    layer without a bias parameter (flax's `use_bias=False`)."""
 
     def __init__(self, in_features: int, out_features: int, *,
                  generator: torch.Generator, weight_std: float | None = None,
-                 bias: bool = True):
+                 bias: bool = True, xavier: bool = False):
         super().__init__()
         bound = 1.0 / math.sqrt(max(in_features, 1))
         w = torch.empty(out_features, in_features)
-        if weight_std is None:
+        if xavier:
+            uniform_(w, math.sqrt(6.0 / (in_features + out_features)), generator)
+        elif weight_std is None:
             uniform_(w, bound, generator)
         else:
             normal_(w, weight_std, generator)
         self.weight = nn.Parameter(w)
-        if bias:
+        if bias and xavier:
+            self.bias = nn.Parameter(torch.zeros(out_features))
+        elif bias:
             self.bias = nn.Parameter(uniform_(torch.empty(out_features), bound, generator))
         else:
             self.register_parameter("bias", None)

@@ -41,6 +41,11 @@ SIGNATURES = {
     "frame_swiglu_bwd_workspace_f32": (_I64, _I, _I, ctypes.POINTER(_I64)),
     "frame_swiglu_bwd_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _U32, _F, _U32,
                              _P),
+    "vis_vec_agg_fwd_f32": (_P, _P, _I64, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "vis_vec_agg_bwd_f32": (_P, _P, _I64, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                            _I, _I, _I, _I, _I, _P),
+    "vis_wdot_fwd_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "vis_wdot_bwd_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 

@@ -10,11 +10,15 @@ The shapes here are the edge cases that the batch-768 shapes do not
 reach: ragged F, k not a multiple of 4, a single slot, empty and trailing
 segments, D not a multiple of 128, no rows at all; for kernels D and E an
 odd P, C = 3 and 4, every H/2 the kernels take, and dropout on and off
-(the same seed gives the same mask in the kernels and the plain version). The autograd tests show
+(the same seed gives the same mask in the kernels and the plain version);
+for kernels F-I masked edges, an all-empty padding row, A < k (the
+neighbour axis padded with masked edges, as `knn_dense` pads it), L = 3
+and 8, h not a multiple of 32 and a strided s1. The autograd tests show
 that a CUDA call of each wrapper is differentiable (its output has a
 `grad_fn`) and gives the gradients of the plain version on the card.
 Gradient tolerance: max |Δ| ≤ 1e-4·max |plain| + 1e-6 per tensor (f32 sums
-in other orders; dW1 and the bias sums add up to G·A·k terms).
+in other orders; dW1 and the bias sums add up to G·A·k terms); kernels F
+and H forward: 1e-5·max |plain| + 1e-6 per tensor.
 """
 
 import pytest
@@ -35,6 +39,16 @@ from equihgnn_tpu_torch.ops.kernels.frame_swiglu import (
 from equihgnn_tpu_torch.ops.kernels.segment_sum import (
     sorted_segment_sum,
     sorted_segment_sum_plain,
+)
+from equihgnn_tpu_torch.ops.kernels.vis_mix import (
+    vec_agg_bwd_plain,
+    vec_agg_plain,
+    vis_vec_agg,
+    vis_vec_agg_bwd,
+    vis_wdot,
+    vis_wdot_bwd,
+    wdot_bwd_plain,
+    wdot_plain,
 )
 
 pytestmark = pytest.mark.cuda
@@ -347,7 +361,8 @@ def _faformer_setup():
 
 def _reset_counts():
     for fn in (sorted_segment_sum, fused_edge_messages, fused_edge_messages_bwd,
-               fused_frame_swiglu, fused_frame_swiglu_bwd):
+               fused_frame_swiglu, fused_frame_swiglu_bwd, vis_vec_agg, vis_vec_agg_bwd,
+               vis_wdot, vis_wdot_bwd):
         fn.launches = 0
 
 
@@ -389,6 +404,190 @@ def test_faformer_grads_on_card_match_cpu(dev):
     nonzero = {n for n, g in want.items() if bool(g.abs().max() > 0)}
     assert {"fa_former.edge_module.coord_mlp.fc1.weight", "fa_former.layers_0.ffn.W_frame.fc1.weight",
             "atom_encoder.atom.embedding", "trunk.conv.W1.lin_0.weight"} <= nonzero
+    for name in nonzero:
+        assert name in got and bool(got[name].abs().max() > 0), name
+        _assert_grad_close(got[name].cpu(), want[name], name)
+
+
+def _mix_args(g, a, k, L, h, seed, knn_pad=0):
+    """vec, s1 (a strided view of a [.., 2h] tensor), s2m, d, idx, mask, u,
+    vv; the last row empty; with `knn_pad`, the last `knn_pad` neighbour
+    columns are masked index-0 padding, as knn_dense pads A < k."""
+    gen = torch.Generator().manual_seed(seed)
+    r = lambda *shape: torch.randn(*shape, generator=gen)  # noqa: E731
+    vec, u, vv = r(g, a, L, h), r(g, a, L, h), r(g, a, L, h)
+    s1 = r(g, a, k, 2 * h)[..., :h]
+    d = r(g, a, k, L)
+    idx = torch.randint(0, a, (g, a, k), generator=gen)
+    mask = torch.rand(g, a, k, generator=gen) > 0.25
+    if knn_pad:
+        idx[..., k - knn_pad:] = 0
+        mask[..., k - knn_pad:] = False
+    if g > 1:
+        mask[-1] = False
+    s2m = r(g, a, k, h) * mask[..., None]
+    return vec, s1, s2m, d, idx, mask, u, vv
+
+
+MIX_CASES = [(6, 32, 17, 8, 256, 0), (4, 10, 17, 8, 40, 7), (3, 5, 7, 3, 16, 0),
+             (1, 3, 4, 8, 33, 0), (2, 1, 1, 3, 8, 0)]
+
+
+@pytest.mark.parametrize("g,a,k,L,h,pad", MIX_CASES)
+def test_vis_mix_kernels(dev, g, a, k, L, h, pad):
+    """Kernels F and H against their plain versions, G and I against
+    autograd through them."""
+    vec, s1, s2m, d, idx, mask, u, vv = (t.to(dev) for t in _mix_args(g, a, k, L, h, g + a + k,
+                                                                        knn_pad=pad))
+    before = (vis_vec_agg.launches, vis_wdot.launches)
+    with torch.no_grad():
+        va, wd = vis_vec_agg(vec, s1, s2m, d, idx, mask), vis_wdot(d, u, vv, idx, mask)
+    assert (vis_vec_agg.launches, vis_wdot.launches) == (before[0] + 1, before[1] + 1)
+    # per tensor: w_dot = uv − ud·vd·(2 − |d|²) cancels where it is small, so
+    # its error scales with its largest terms, not with each value
+    for name, x, y in (("F", va, vec_agg_plain(vec, s1, s2m, d, idx, mask)),
+                       ("H", wd, wdot_plain(d, u, vv, idx, mask))):
+        err, limit = float((x - y).abs().max()), 1e-5 * float(y.abs().max()) + 1e-6
+        assert err <= limit, f"kernel {name}: max |d| {err:.3e} > {limit:.3e}"
+    assert bool((wd[~mask] == 0).all())
+    gen = torch.Generator().manual_seed(1)
+    gva, gw = torch.randn(g, a, L, h, generator=gen).to(dev), torch.randn(g, a, k, h, generator=gen).to(dev)
+    got = vis_vec_agg_bwd(vec, s1, s2m, d, idx, mask, gva)
+    for name, x, y in zip(("dvec", "ds1", "ds2m", "dd"), got,
+                          vec_agg_bwd_plain(vec, s1, s2m, d, idx, mask, gva)):
+        assert x.shape == y.shape, name
+        _assert_grad_close(x, y, f"G {name}")
+    got = vis_wdot_bwd(d, u, vv, idx, mask, gw)
+    for name, x, y in zip(("dd", "du", "dvv"), got, wdot_bwd_plain(d, u, vv, idx, mask, gw)):
+        assert x.shape == y.shape, name
+        _assert_grad_close(x, y, f"I {name}")
+
+
+def test_vis_mix_bwd_is_deterministic(dev):
+    vec, s1, s2m, d, idx, mask, u, vv = (t.to(dev) for t in _mix_args(40, 32, 17, 8, 128, 3))
+    idx[:, :, :8] = 0  # many edges onto one source slot
+    gva, gw = torch.randn_like(vec), torch.randn(40, 32, 17, 128, device=dev)
+    for a_, b_ in zip(vis_vec_agg_bwd(vec, s1, s2m, d, idx, mask, gva),
+                      vis_vec_agg_bwd(vec, s1, s2m, d, idx, mask, gva)):
+        assert torch.equal(a_, b_)
+    for a_, b_ in zip(vis_wdot_bwd(d, u, vv, idx, mask, gw), vis_wdot_bwd(d, u, vv, idx, mask, gw)):
+        assert torch.equal(a_, b_)
+
+
+def test_vis_mix_autograd(dev):
+    """Kernels F/H inside their autograd.Functions: CUDA outputs carry a
+    grad_fn, G/I run once each, and d's two gradients add up as the plain
+    version's; s1 is a view of the s_proj output, as in ViS_MP."""
+    vec, _, s2m, d, idx, mask, u, vv = (t.to(dev) for t in _mix_args(5, 12, 17, 8, 64, 8))
+    s12 = torch.randn(5, 12, 17, 128, device=dev)
+    r1, r2 = torch.randn(5, 12, 8, 64, device=dev), torch.randn(5, 12, 17, 64, device=dev)
+
+    def run(fa, fw):
+        leaves = [t.clone().requires_grad_() for t in (vec, s12, s2m, d, u, vv)]
+        va = fa(leaves[0], leaves[1][..., :64], leaves[2], leaves[3], idx, mask)
+        wd = fw(leaves[3], leaves[4], leaves[5], idx, mask)
+        (torch.sum(va * r1) + torch.sum(wd * r2)).backward()
+        return va, [t.grad for t in leaves]
+
+    before = (vis_vec_agg_bwd.launches, vis_wdot_bwd.launches)
+    va, got = run(vis_vec_agg, vis_wdot)
+    assert va.grad_fn is not None
+    assert (vis_vec_agg_bwd.launches, vis_wdot_bwd.launches) == (before[0] + 1, before[1] + 1)
+    _, want = run(vec_agg_plain, wdot_plain)
+    for name, x, y in zip(("vec", "s12", "s2m", "d", "u", "vv"), got, want):
+        _assert_grad_close(x, y, name)
+
+
+def test_vis_mix_rejects_unsupported_inputs(dev):
+    vec, s1, s2m, d, idx, mask, u, vv = (t.to(dev) for t in _mix_args(2, 6, 5, 8, 32, 1))
+    with pytest.raises(ValueError):  # an index tensor left on the CPU
+        vis_vec_agg(vec, s1, s2m, d, idx.cpu(), mask)
+    with pytest.raises(ValueError):
+        vis_wdot(d, u, vv.cpu(), idx, mask)
+    with pytest.raises(TypeError):
+        vis_vec_agg(vec.double(), s1, s2m, d, idx, mask)
+    with pytest.raises(ValueError):  # L = 5
+        vis_wdot(d[..., :5].contiguous(), u[:, :, :5].contiguous(), vv[:, :, :5].contiguous(),
+                 idx, mask)
+    with pytest.raises(ValueError):  # s2m not contiguous
+        vis_vec_agg(vec, s1, s2m.transpose(1, 2).contiguous().transpose(1, 2), d, idx, mask)
+    with pytest.raises(ValueError):  # s1 with rows not evenly strided
+        vis_vec_agg(vec, s1.transpose(0, 1).contiguous().transpose(0, 1), s2m, d, idx, mask)
+    with pytest.raises(ValueError):  # d of another k
+        vis_vec_agg(vec, s1, s2m, d[:, :, :4].contiguous(), idx, mask)
+    with pytest.raises(ValueError):  # an output gradient of another shape
+        vis_wdot_bwd(d, u, vv, idx, mask, torch.zeros(2, 6, 5, 16, device=dev))
+    big = _mix_args(1, 200, 17, 8, 32, 2)  # A·L·32 floats > shared memory
+    with pytest.raises(RuntimeError, match="A = 200, k = 17, L = 8"):
+        vis_vec_agg(*(t.to(dev) for t in big[:6]))
+    # the refusal leaves no error behind for the next launch
+    assert vis_vec_agg(vec, s1, s2m, d, idx, mask).shape == vec.shape
+
+
+def test_vis_mix_kernels_at_the_largest_slot_axis(dev):
+    """At L = 8, k = 17 a block of G holds a row of A ≤ 70 slots and one of
+    I A ≤ 69 (shared memory): at A = 69 all four kernels match their plain
+    versions; one slot more, I raises, and G at A = 71."""
+    vec, s1, s2m, d, idx, mask, u, vv = (t.to(dev) for t in _mix_args(2, 69, 17, 8, 64, 5))
+    gen = torch.Generator().manual_seed(2)
+    gva, gw = torch.randn(2, 69, 8, 64, generator=gen).to(dev), torch.randn(2, 69, 17, 64, generator=gen).to(dev)
+    for name, x, y in (("F", vis_vec_agg(vec, s1, s2m, d, idx, mask),
+                        vec_agg_plain(vec, s1, s2m, d, idx, mask)),
+                       ("H", vis_wdot(d, u, vv, idx, mask), wdot_plain(d, u, vv, idx, mask))):
+        err, limit = float((x - y).abs().max()), 1e-5 * float(y.abs().max()) + 1e-6
+        assert err <= limit, f"kernel {name}: max |d| {err:.3e} > {limit:.3e}"
+    for name, x, y in zip(("dvec", "ds1", "ds2m", "dd"), vis_vec_agg_bwd(vec, s1, s2m, d, idx, mask, gva),
+                          vec_agg_bwd_plain(vec, s1, s2m, d, idx, mask, gva)):
+        _assert_grad_close(x, y, f"G {name}")
+    for name, x, y in zip(("dd", "du", "dvv"), vis_wdot_bwd(d, u, vv, idx, mask, gw),
+                          wdot_bwd_plain(d, u, vv, idx, mask, gw)):
+        _assert_grad_close(x, y, f"I {name}")
+    vec, s1, s2m, d, idx, mask, u, vv = (t.to(dev) for t in _mix_args(1, 70, 17, 8, 32, 6))
+    vis_vec_agg_bwd(vec, s1, s2m, d, idx, mask, torch.ones_like(vec))
+    with pytest.raises(RuntimeError, match="A = 70, k = 17, L = 8"):
+        vis_wdot_bwd(d, u, vv, idx, mask, torch.ones(1, 70, 17, 32, device=dev))
+    vec, s1, s2m, d, idx, mask, u, vv = (t.to(dev) for t in _mix_args(1, 71, 17, 8, 32, 7))
+    with pytest.raises(RuntimeError, match="A = 71, k = 17, L = 8"):
+        vis_vec_agg_bwd(vec, s1, s2m, d, idx, mask, torch.ones_like(vec))
+
+
+def test_visnet_on_card_matches_cpu(dev):
+    """`visnet_equihnns` at hidden 32: the eval forward and a train step's
+    gradients on the card (kernels A, F-I) against the CPU (plain versions);
+    every parameter the CPU reaches is reached on the card."""
+    from equihgnn_tpu_torch import create_model
+    from equihgnn_tpu_torch.models.config import ModelConfig
+    from equihgnn_tpu_torch.train.trainer import masked_mse
+
+    _, batch = _faformer_setup()
+    cfg = ModelConfig(mlp_hidden=32, output_hidden=8)
+
+    def make(device):
+        return create_model("visnet_equihnns", num_target=1, cfg=cfg,
+                            generator=torch.Generator().manual_seed(1)).to(device)
+
+    with torch.inference_mode():
+        want = make("cpu").eval()(batch)
+        _reset_counts()
+        got = make(dev).eval()(batch.to(dev)).cpu()
+    assert (vis_vec_agg.launches, vis_wdot.launches) == (6, 5)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-4)
+
+    def grads(device):
+        model = make(device)
+        b = batch.to(device)
+        sq, cnt = masked_mse(model(b), b.y, b.graph_mask)
+        (sq / cnt.clamp(min=1.0)).backward()
+        return {n: p.grad for n, p in model.named_parameters() if p.grad is not None}
+
+    want = grads("cpu")
+    _reset_counts()
+    got = grads(dev)
+    assert (vis_vec_agg.launches, vis_wdot.launches, vis_vec_agg_bwd.launches,
+            vis_wdot_bwd.launches) == (6, 5, 6, 5)
+    nonzero = {n for n, g in want.items() if bool(g.abs().max() > 0)}
+    assert {"visnet_layer.vis_mp_layers_1.w_src_proj.weight",
+            "visnet_layer.embedding.atom.embedding", "trunk.conv.W1.lin_0.weight"} <= nonzero
     for name in nonzero:
         assert name in got and bool(got[name].abs().max() > 0), name
         _assert_grad_close(got[name].cpu(), want[name], name)

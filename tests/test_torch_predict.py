@@ -60,10 +60,10 @@ def test_predict_cpu_on_real_sdf(tmp_path):
     np.testing.assert_allclose(vals, want, rtol=1e-6, atol=1e-6)
 
 
-def test_predict_faformer_cpu_on_real_sdf(tmp_path):
-    model = create_model("faformer_equihnns", num_target=1, cfg=CFG,
+def _predict_3d_method_on_real_sdf(tmp_path, method):
+    model = create_model(method, num_target=1, cfg=CFG,
                          generator=torch.Generator().manual_seed(7))
-    ckpt = save_checkpoint(str(tmp_path / "fa.pt"), model, "faformer_equihnns", CFG, std=2.0)
+    ckpt = save_checkpoint(str(tmp_path / "m.pt"), model, method, CFG, std=2.0)
     out = str(tmp_path / "preds.csv")
     run(build_parser().parse_args(
         ["--ckpt", ckpt, "--sdf", SDF, "--out", out, "--device", "cpu", "--batch_size", "8"]))
@@ -74,6 +74,16 @@ def test_predict_faformer_cpu_on_real_sdf(tmp_path):
     want = predict_samples(model.eval(), samples, 8, torch.device("cpu")) * 2.0
     assert np.isfinite(vals).all()
     np.testing.assert_allclose(vals, want, rtol=1e-6, atol=1e-6)
+
+
+def test_predict_faformer_cpu_on_real_sdf(tmp_path):
+    _predict_3d_method_on_real_sdf(tmp_path, "faformer_equihnns")
+
+
+def test_predict_visnet_cpu_on_real_sdf(tmp_path):
+    """ViSNet on the sample SDF, methane (one atom: only its self edge)
+    included."""
+    _predict_3d_method_on_real_sdf(tmp_path, "visnet_equihnns")
 
 
 def test_methane_has_one_atom_and_no_hyperedges():

@@ -382,6 +382,38 @@ def test_main_trains_and_checkpoints(tmp_path, monkeypatch):
     assert meta["model_config"]["mlp_hidden"] == 16 and meta["std"] > 0
 
 
+def test_visnet_main_trains_checkpoints_and_serves(tmp_path, monkeypatch):
+    """`main.run --method visnet_equihnns` on the CPU, one tiny epoch; its
+    `ckpt_best.pt` round-trips: `predict` serves it, equal to the saved
+    weights loaded into a fresh model."""
+    from equihgnn_tpu_torch.predict import build_parser as predict_parser
+    from equihgnn_tpu_torch.predict import featurize_sdf, load_checkpoint, predict_samples
+    from equihgnn_tpu_torch.predict import run as predict_run
+
+    monkeypatch.chdir(tmp_path)
+    args = build_parser().parse_args([
+        "--data", "synthetic_hg_3d", "--method", "visnet_equihnns", "--device", "cpu",
+        "--synthetic_size", "40", "--batch_size", "16", "--epochs", "1", "--lr", "1e-4",
+        "--MLP_hidden", "16", "--output_hidden", "8"])
+    res = run(args)
+    assert len(res["history"]) == 1 and np.isfinite(res["history"][0]["train_loss"])
+    assert np.isfinite(res["test_mae_mean"])
+    ckpt = os.path.join(res["log_dir"], "ckpt_best.pt")
+    out = str(tmp_path / "preds.csv")
+    predict_run(predict_parser().parse_args(
+        ["--ckpt", ckpt, "--sdf", SDF, "--out", out, "--device", "cpu"]))
+    with open(out) as f:
+        vals = np.array([float(r.split(",")[-1]) for r in f.read().splitlines()[1:]])
+    meta, state = load_checkpoint(ckpt)
+    assert meta["method"] == "visnet_equihnns"
+    model = create_model("visnet_equihnns", num_target=1, cfg=ModelConfig(**meta["model_config"]))
+    model.load_state_dict(state)
+    mols = [s for _, s in featurize_sdf(SDF)]
+    want = predict_samples(model.eval(), mols, 256, torch.device("cpu")) * meta["std"]
+    assert vals.shape == (20,) and np.isfinite(vals).all()
+    np.testing.assert_allclose(vals, want, rtol=1e-5, atol=1e-6)
+
+
 def test_main_debug_cli_on_cpu(tmp_path):
     """The documented command, in a fresh interpreter."""
     env = dict(os.environ, PYTHONPATH=os.path.abspath(ROOT))
