@@ -5,8 +5,8 @@ its kernels, on the CPU. It mirrors the module paths of the JAX package
 `equihgnn_tpu`, which stays the reference it is tested against, and
 imports nothing from it. Covered so far, in float32: serving
 (`python -m equihgnn_tpu_torch.predict`) and training
-(`python -m equihgnn_tpu_torch.main`) of `egnn_equihnns` and
-`faformer_equihnns`.
+(`python -m equihgnn_tpu_torch.main`) of `egnn_equihnns`,
+`faformer_equihnns`, `visnet_equihnns` and `se3_transformer_equihnns`.
 """
 
 __version__ = "0.1.0"

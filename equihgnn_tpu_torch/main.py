@@ -5,7 +5,8 @@ Usage:
     python -m equihgnn_tpu_torch.main --data synthetic_hg_3d \\
         --method egnn_equihnns --epochs 3 --device cuda
 
-Ported methods: `egnn_equihnns`, `faformer_equihnns`, `visnet_equihnns`.
+Ported methods: `egnn_equihnns`, `faformer_equihnns`, `visnet_equihnns`,
+`se3_transformer_equihnns`.
 
 Differences from the JAX CLI:
   * `--device` is a torch device string (default `cuda`, as in

@@ -1,0 +1,63 @@
+"""SE(3)-Transformer-encoded hypergraph model `se3_transformer_equihnns`.
+
+Port of `equihgnn_tpu/models/equihnn_se3_transformer.py:21-55`, itself the
+reference's `equihnn_se3_transformer.py:12-91`: AtomEncoder →
+SE3Transformer(dim = MLP_hidden, heads 2, depth 2, dim_head 32,
+num_degrees 2, valid_radius 5 Å, k = 16, attend_self) → its type-0
+output → the MHNNS trunk.
+
+The port runs in float32, for serving (`model.eval()`) and training
+(`model.train()`: the encoder has no dropout; `--dropout` reaches the
+trunk). The pooled ConvSE3 units run kernels J and K on the card.
+Configurations the port does not support yet raise here: `compute_dtype`
+other than float32, `remat`.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from equihgnn_tpu_torch.common.registry import registry
+from equihgnn_tpu_torch.data.structures import HyperGraphBatch
+from equihgnn_tpu_torch.models.common import check_f32_no_remat
+from equihgnn_tpu_torch.models.config import ModelConfig
+from equihgnn_tpu_torch.models.trunks import TrunkS
+from equihgnn_tpu_torch.nn.encoders import AtomEncoder
+from equihgnn_tpu_torch.nn.se3_transformer import SE3Transformer
+
+
+@registry.register_model("se3_transformer_equihnns")
+class SE3TransformerEquiHNNS(nn.Module):
+    """Weights are drawn on the CPU from `generator` (seed 0 when None),
+    so one seed gives the same model on every device, then moved to
+    `device`."""
+
+    def __init__(self, num_target: int, cfg: ModelConfig, device="cpu",
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        check_f32_no_remat(cfg)
+        gen = torch.Generator().manual_seed(0) if generator is None else generator
+        self.num_target, self.cfg = num_target, cfg
+        h = cfg.mlp_hidden
+        self.atom_encoder = AtomEncoder(h, generator=gen)
+        self.se3_transformer_layer = SE3Transformer(
+            dim=h, heads=2, depth=2, dim_head=32, num_degrees=2, valid_radius=5.0,
+            num_neighbors=16, generator=gen)
+        self.trunk = TrunkS(num_target, cfg, generator=gen)
+        self.to(device)
+
+    def encode(self, batch: HyperGraphBatch) -> torch.Tensor:
+        if batch.pos is None or batch.slot_index is None:
+            raise ValueError(
+                "se3_transformer_equihnns needs 3-D coordinates and the slot view: "
+                "build batches with with_pos=True and max_atoms_per_graph > 0"
+            )
+        x = self.atom_encoder(batch.atom_feat)
+        return self.se3_transformer_layer(x, batch.pos, batch.atom_row, batch.slot_index,
+                                          batch.slot_mask, batch.atom_slot,
+                                          slot_gid=batch.slot_gid)
+
+    def forward(self, batch: HyperGraphBatch) -> torch.Tensor:
+        """[num_graphs] float32 predictions (padding graph included)."""
+        return self.trunk(self.encode(batch), batch)

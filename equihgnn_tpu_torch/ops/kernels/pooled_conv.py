@@ -1,0 +1,181 @@
+"""Kernels J and K: the fused pooled ConvSE3 unit, forward and backward
+(`csrc/pooled_conv.cu`).
+
+Replaces `equihgnn_tpu/ops/pallas/pooled_conv.py` `pooled_conv`: the
+forward `_pc_fwd` (kernel J) and its custom VJP `_pc_bwd` (kernel K):
+
+    M[g, a, c, i, f] = Σ_k h[g, a, k, f] · tc[g, a, k, c·I + i]
+    out[g, a, c, o]  = Σ_{i,f} W[f, o, i] · M[g, a, c, i, f]
+
+Layouts are JAX's: h [G, A, K, F]; tc [G, A, K, C·I] (c outer, i inner);
+W [F, O, I], which the kernels read as it lies and give dW in; out
+[G, A, C, O]. JAX's TPU gate
+(`pooled_conv_supported`, a VMEM budget) is not ported: the kernels take
+any K ≥ 0 (K = 0 gives zeros) and any C in 1..64; a K whose chunks do not
+fit a block's shared memory is refused by the C entry, and the wrapper
+raises.
+
+`pooled_conv` is the wrapper. A CPU tensor goes to the plain version
+(`pooled_conv_plain`), which autograd traces. A CUDA tensor goes through
+`_PooledConv`, an `autograd.Function` whose forward is kernel J and whose
+backward is kernel K (`pooled_conv_bwd`); like JAX's custom VJP it saves
+only its inputs. Any other device, type, shape or a non-contiguous h, tc
+or dout raises (W may have any strides: the wrapper makes it contiguous,
+which copies nothing for the model's W[..., J] slices of one J).
+`.launches` on `pooled_conv` and `pooled_conv_bwd` counts calls of the C
+entries.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from equihgnn_tpu_torch.ops.kernels import build
+
+MAX_C = 64  # a row tile of the kernels holds the C rows of at least one site
+# M chunk the plain versions materialize at once (sites × C·I·F floats)
+_PLAIN_CHUNK_FLOATS = 1 << 28
+
+
+# ------------------------------------------------------------ plain versions
+
+
+def _site_chunks(h: torch.Tensor, c: int, i: int) -> int:
+    """Sites of [G·A] per chunk of the plain versions, so that one chunk's M
+    stays under `_PLAIN_CHUNK_FLOATS` floats (1 GiB)."""
+    per_site = max(1, c * i * h.shape[-1])
+    return max(1, _PLAIN_CHUNK_FLOATS // per_site)
+
+
+def pooled_conv_plain(h, tc, w, c: int):
+    """The einsums of JAX's docstring (`pooled_conv.py:272-277`), with M
+    materialized for a chunk of sites at a time."""
+    g, a, k, f = h.shape
+    i = w.shape[2]
+    hs = h.reshape(g * a, k, f)
+    ts = tc.reshape(g * a, k, c, i)
+    step = _site_chunks(h, c, i)
+    outs = []
+    for s0 in range(0, g * a, step):
+        m = torch.einsum("skf,skci->scif", hs[s0:s0 + step], ts[s0:s0 + step])
+        outs.append(torch.einsum("scif,foi->sco", m, w))
+    out = torch.cat(outs) if outs else hs.new_zeros((0, c, w.shape[1]))
+    return out.reshape(g, a, c, w.shape[1])
+
+
+def pooled_conv_bwd_plain(h, tc, w, c: int, dout):
+    """(dh, dtc, dW) for the output gradient `dout` [G, A, C, O]: dM = dout·Wᵀ,
+    dh = Σ_{c,i} tc·dM, dtc = Σ_f h·dM, dW = Σ_{g,a,c} M·dout, chunked as
+    `pooled_conv_plain`."""
+    g, a, k, f = h.shape
+    i = w.shape[2]
+    hs = h.reshape(g * a, k, f)
+    ts = tc.reshape(g * a, k, c, i)
+    ds = dout.reshape(g * a, c, -1)
+    step = _site_chunks(h, c, i)
+    dhs, dtcs = [], []
+    dw = torch.zeros_like(w)
+    for s0 in range(0, g * a, step):
+        hc, tcc, dc = hs[s0:s0 + step], ts[s0:s0 + step], ds[s0:s0 + step]
+        dm = torch.einsum("sco,foi->scif", dc, w)
+        dhs.append(torch.einsum("skci,scif->skf", tcc, dm))
+        dtcs.append(torch.einsum("skf,scif->skci", hc, dm))
+        dw += torch.einsum("scif,sco->foi", torch.einsum("skf,skci->scif", hc, tcc), dc)
+    dh = torch.cat(dhs) if dhs else torch.zeros_like(hs)
+    dtc = torch.cat(dtcs) if dtcs else torch.zeros_like(ts)
+    return dh.reshape(h.shape), dtc.reshape(tc.shape), dw
+
+
+# ----------------------------------------------------------------- checks
+
+
+def _check(h, tc, w, c, dout=None):
+    if h.ndim != 4 or tc.ndim != 4 or w.ndim != 3:
+        raise ValueError(f"pooled_conv takes h [G, A, K, F], tc [G, A, K, C·I], w [F, O, I]; "
+                         f"got {tuple(h.shape)}, {tuple(tc.shape)}, {tuple(w.shape)}")
+    g, a, k, f = h.shape
+    _, o, i = w.shape
+    if not 1 <= c <= MAX_C:
+        raise ValueError(f"pooled_conv kernels take C in 1..{MAX_C}, got {c}")
+    want = {"h": (g, a, k, f), "tc": (g, a, k, c * i), "w": (f, o, i), "dout": (g, a, c, o)}
+    for name, t in (("h", h), ("tc", tc), ("w", w), ("dout", dout)):
+        if t is None:
+            continue
+        if t.dtype != torch.float32:
+            raise TypeError(f"pooled_conv kernel takes float32 {name}, got {t.dtype}")
+        if t.device != h.device:
+            raise ValueError(f"{name} lies on {t.device}, h on {h.device}")
+        if tuple(t.shape) != want[name]:
+            raise ValueError(f"{name} must be {list(want[name])}, got {tuple(t.shape)}")
+        if name != "w" and not t.is_contiguous():  # w is made contiguous
+            raise ValueError(f"pooled_conv kernel takes a contiguous {name}")
+    return g * a, k, i, f, o
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _cuda_only(name, t):
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {t.device}")
+
+
+# --------------------------------------------------------------- kernels
+
+
+def _launch_fwd(h, tc, w, c):
+    s, k, i, f, o = _check(h, tc, w, c)
+    w = w.contiguous()
+    out = torch.empty(h.shape[:2] + (c, o), dtype=torch.float32, device=h.device)
+    lib = build.library()
+    with torch.cuda.device(h.device):
+        code = lib.pooled_conv_fwd_f32(h.data_ptr(), tc.data_ptr(), w.data_ptr(),
+                                       out.data_ptr(), s, k, c, i, f, o, _stream(h))
+    build.check(lib, f"pooled_conv_fwd_f32 at K = {k}, C = {c}", code)
+    pooled_conv.launches += 1
+    return out
+
+
+def pooled_conv_bwd(h, tc, w, c: int, dout):
+    """Kernel K: (dh, dtc, dW) for the output gradient `dout` [G, A, C, O],
+    on CUDA tensors only (`pooled_conv_bwd_plain` is the same backward)."""
+    _cuda_only("pooled_conv_bwd", h)
+    s, k, i, f, o = _check(h, tc, w, c, dout)
+    w = w.contiguous()
+    dh, dtc, dw = torch.empty_like(h), torch.empty_like(tc), torch.empty_like(w)
+    lib = build.library()
+    with torch.cuda.device(h.device):
+        code = lib.pooled_conv_bwd_f32(h.data_ptr(), tc.data_ptr(), w.data_ptr(),
+                                       dout.data_ptr(), dh.data_ptr(), dtc.data_ptr(),
+                                       dw.data_ptr(), s, k, c, i, f, o, _stream(h))
+    build.check(lib, f"pooled_conv_bwd_f32 at K = {k}, C = {c}", code)
+    pooled_conv_bwd.launches += 1
+    return dh, dtc, dw
+
+
+class _PooledConv(torch.autograd.Function):
+    """Kernel J forward, kernel K backward (JAX `_pooled_conv`'s custom VJP)."""
+
+    @staticmethod
+    def forward(ctx, h, tc, w, c):
+        ctx.save_for_backward(h, tc, w)
+        ctx.c = c
+        return _launch_fwd(h, tc, w, c)
+
+    @staticmethod
+    def backward(ctx, dout):
+        dh, dtc, dw = pooled_conv_bwd(*ctx.saved_tensors, ctx.c, dout.contiguous())
+        return dh, dtc, dw, None
+
+
+def pooled_conv(h, tc, w, c: int):
+    """out[g, a, c, o] = Σ_{i,f} W[f, o, i] · Σ_k h[g, a, k, f] · tc[g, a, k, c·I + i]."""
+    if h.device.type == "cpu":
+        return pooled_conv_plain(h, tc, w, c)
+    _cuda_only("pooled_conv", h)
+    return _PooledConv.apply(h, tc, w, c)
+
+
+pooled_conv.launches = 0
+pooled_conv_bwd.launches = 0

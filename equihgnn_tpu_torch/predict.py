@@ -13,7 +13,8 @@ stays aligned with the input. Predictions are de-normalized by `std`.
 
 `--device cuda` needs a card and raises without one; it never falls back
 to the CPU. Covered so far: hypergraph methods with 3-D coordinates
-(`egnn_equihnns`, `faformer_equihnns`, `visnet_equihnns`) from `--sdf`.
+(`egnn_equihnns`, `faformer_equihnns`, `visnet_equihnns`,
+`se3_transformer_equihnns`) from `--sdf`.
 """
 
 from __future__ import annotations

@@ -13,12 +13,16 @@ odd P, C = 3 and 4, every H/2 the kernels take, and dropout on and off
 (the same seed gives the same mask in the kernels and the plain version);
 for kernels F-I masked edges, an all-empty padding row, A < k (the
 neighbour axis padded with masked edges, as `knn_dense` pads it), L = 3
-and 8, h not a multiple of 32 and a strided s1. The autograd tests show
+and 8, h not a multiple of 32 and a strided s1; for kernels J and K
+C = 1, 3, 5, k = 0, 4, 16, a site count G·A that fills no row tile
+exactly, and ragged I, F and O. The autograd tests show
 that a CUDA call of each wrapper is differentiable (its output has a
 `grad_fn`) and gives the gradients of the plain version on the card.
 Gradient tolerance: max |Δ| ≤ 1e-4·max |plain| + 1e-6 per tensor (f32 sums
 in other orders; dW1 and the bias sums add up to G·A·k terms); kernels F
-and H forward: 1e-5·max |plain| + 1e-6 per tensor.
+and H forward: 1e-5·max |plain| + 1e-6 per tensor; kernel J forward
+1e-4·max |plain| + 1e-6 (sums of I·F = 32,768 products at the model's
+widths).
 """
 
 import pytest
@@ -35,6 +39,12 @@ from equihgnn_tpu_torch.ops.kernels.frame_swiglu import (
     frame_swiglu_plain,
     fused_frame_swiglu,
     fused_frame_swiglu_bwd,
+)
+from equihgnn_tpu_torch.ops.kernels.pooled_conv import (
+    pooled_conv,
+    pooled_conv_bwd,
+    pooled_conv_bwd_plain,
+    pooled_conv_plain,
 )
 from equihgnn_tpu_torch.ops.kernels.segment_sum import (
     sorted_segment_sum,
@@ -362,7 +372,7 @@ def _faformer_setup():
 def _reset_counts():
     for fn in (sorted_segment_sum, fused_edge_messages, fused_edge_messages_bwd,
                fused_frame_swiglu, fused_frame_swiglu_bwd, vis_vec_agg, vis_vec_agg_bwd,
-               vis_wdot, vis_wdot_bwd):
+               vis_wdot, vis_wdot_bwd, pooled_conv, pooled_conv_bwd):
         fn.launches = 0
 
 
@@ -588,6 +598,130 @@ def test_visnet_on_card_matches_cpu(dev):
     nonzero = {n for n, g in want.items() if bool(g.abs().max() > 0)}
     assert {"visnet_layer.vis_mp_layers_1.w_src_proj.weight",
             "visnet_layer.embedding.atom.embedding", "trunk.conv.W1.lin_0.weight"} <= nonzero
+    for name in nonzero:
+        assert name in got and bool(got[name].abs().max() > 0), name
+        _assert_grad_close(got[name].cpu(), want[name], name)
+
+
+def _pc_args(g, a, k, c, i, f, o, seed):
+    gen = torch.Generator().manual_seed(seed)
+    return (torch.randn(g, a, k, f, generator=gen), torch.randn(g, a, k, c * i, generator=gen),
+            0.1 * torch.randn(f, o, i, generator=gen)), torch.randn(g, a, c, o, generator=gen)
+
+
+PC_CASES = [(3, 23, 16, 1, 256, 128, 256), (3, 23, 16, 3, 256, 128, 256), (2, 29, 4, 5, 40, 24, 200),
+            (5, 7, 0, 3, 16, 16, 64), (4, 32, 16, 1, 19, 13, 260), (1, 1, 4, 3, 8, 8, 8)]
+
+
+@pytest.mark.parametrize("g,a,k,c,i,f,o", PC_CASES)
+def test_pooled_conv_kernels(dev, g, a, k, c, i, f, o):
+    """Kernel J against the plain version, kernel K against the plain
+    backward; k = 0 gives zeros and a zero dW."""
+    args, dout = _pc_args(g, a, k, c, i, f, o, seed=g + a + k + c)
+    h, tc, w = (t.to(dev) for t in args)
+    dout = dout.to(dev)
+    before = (pooled_conv.launches, pooled_conv_bwd.launches)
+    with torch.no_grad():
+        got = pooled_conv(h, tc, w, c)
+    want = pooled_conv_plain(h, tc, w, c)
+    err, limit = float((got - want).abs().max()), 1e-4 * float(want.abs().max()) + 1e-6
+    assert err <= limit, f"kernel J: max |d| {err:.3e} > {limit:.3e}"
+    grads = pooled_conv_bwd(h, tc, w, c, dout)
+    assert (pooled_conv.launches, pooled_conv_bwd.launches) == (before[0] + 1, before[1] + 1)
+    for name, x, y in zip(("dh", "dtc", "dW"), grads, pooled_conv_bwd_plain(h, tc, w, c, dout)):
+        assert x.shape == y.shape, name
+        _assert_grad_close(x, y, f"K {name}")
+    if k == 0:
+        assert float(got.abs().max()) == float(grads[2].abs().max()) == 0.0
+
+
+def test_pooled_conv_bwd_is_deterministic(dev):
+    args, dout = _pc_args(40, 32, 16, 3, 256, 128, 256, seed=3)
+    h, tc, w = (t.to(dev) for t in args)
+    a_ = pooled_conv_bwd(h, tc, w, 3, dout.to(dev))
+    b_ = pooled_conv_bwd(h, tc, w, 3, dout.to(dev))
+    for x, y in zip(a_, b_):
+        assert torch.equal(x, y)
+
+
+def test_pooled_conv_autograd(dev):
+    """Kernel J inside its autograd.Function: the CUDA output carries a
+    grad_fn, K runs once, and W may be a strided slice (as the conv passes
+    W[..., J])."""
+    args, dout = _pc_args(6, 17, 16, 3, 64, 128, 96, seed=8)
+    h, tc, w2 = args[0].to(dev), args[1].to(dev), torch.randn(128, 96, 64, 2).to(dev)
+    dout = dout.to(dev)
+
+    def run(fn):
+        leaves = [t.clone().requires_grad_() for t in (h, tc, w2)]
+        out = fn(leaves[0], leaves[1], leaves[2][..., 1], 3)
+        out.backward(dout)
+        return out, [t.grad for t in leaves]
+
+    before = pooled_conv_bwd.launches
+    out, got = run(pooled_conv)
+    assert out.grad_fn is not None and pooled_conv_bwd.launches == before + 1
+    _, want = run(pooled_conv_plain)
+    for name, x, y in zip(("h", "tc", "W"), got, want):
+        _assert_grad_close(x, y, name)
+    assert float(got[2][..., 0].abs().max()) == 0.0
+
+
+def test_pooled_conv_rejects_unsupported_inputs(dev):
+    args, dout = _pc_args(2, 5, 4, 3, 8, 8, 8, seed=1)
+    h, tc, w = (t.to(dev) for t in args)
+    with pytest.raises(TypeError):
+        pooled_conv(h.double(), tc, w, 3)
+    with pytest.raises(ValueError):  # tc of another C·I
+        pooled_conv(h, tc[..., :20].contiguous(), w, 3)
+    with pytest.raises(ValueError):  # tc not contiguous
+        pooled_conv(h, tc.transpose(0, 1).contiguous().transpose(0, 1), w, 3)
+    with pytest.raises(ValueError):  # C beyond a row tile
+        pooled_conv(h, torch.zeros(2, 5, 4, 65 * 8, device=dev), w, 65)
+    with pytest.raises(ValueError):  # an index tensor left on the CPU
+        pooled_conv(h, tc.cpu(), w, 3)
+    with pytest.raises(ValueError):
+        pooled_conv_bwd(h, tc, w, 3, dout[..., :4].contiguous().to(dev))
+    assert pooled_conv(h, tc, w, 3).shape == (2, 5, 3, 8)
+
+
+def test_se3_transformer_on_card_matches_cpu(dev):
+    """`se3_transformer_equihnns` at hidden 32: the eval forward and a train
+    step's gradients on the card (kernels A, J, K) against the CPU (plain
+    versions); every parameter the CPU reaches is reached on the card."""
+    from equihgnn_tpu_torch import create_model
+    from equihgnn_tpu_torch.models.config import ModelConfig
+    from equihgnn_tpu_torch.train.trainer import masked_mse
+
+    _, batch = _faformer_setup()
+    cfg = ModelConfig(mlp_hidden=32, output_hidden=8)
+
+    def make(device):
+        return create_model("se3_transformer_equihnns", num_target=1, cfg=cfg,
+                            generator=torch.Generator().manual_seed(1)).to(device)
+
+    with torch.inference_mode():
+        want = make("cpu").eval()(batch)
+        _reset_counts()
+        got = make(dev).eval()(batch.to(dev)).cpu()
+    assert (pooled_conv.launches, sorted_segment_sum.launches) == (4, cfg.all_num_layers)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-4)
+
+    def grads(device):
+        model = make(device)
+        b = batch.to(device)
+        sq, cnt = masked_mse(model(b), b.y, b.graph_mask)
+        (sq / cnt.clamp(min=1.0)).backward()
+        return {n: p.grad for n, p in model.named_parameters() if p.grad is not None}
+
+    want = grads("cpu")
+    _reset_counts()
+    got = grads(dev)
+    assert (pooled_conv.launches, pooled_conv_bwd.launches) == (4, 4)
+    nonzero = {n for n, g in want.items() if bool(g.abs().max() > 0)}
+    assert {"se3_transformer_layer.conv_in.pair_0_1.radial_out_W",
+            "se3_transformer_layer.conv_out.pair_1_0.radial_out_W",
+            "atom_encoder.atom.embedding", "trunk.conv.W1.lin_0.weight"} <= nonzero
     for name in nonzero:
         assert name in got and bool(got[name].abs().max() > 0), name
         _assert_grad_close(got[name].cpu(), want[name], name)

@@ -86,6 +86,10 @@ def test_predict_visnet_cpu_on_real_sdf(tmp_path):
     _predict_3d_method_on_real_sdf(tmp_path, "visnet_equihnns")
 
 
+def test_predict_se3_transformer_cpu_on_real_sdf(tmp_path):
+    _predict_3d_method_on_real_sdf(tmp_path, "se3_transformer_equihnns")
+
+
 def test_methane_has_one_atom_and_no_hyperedges():
     title, sample = featurize_sdf(SDF)[0]
     assert title == "methane"
