@@ -7,7 +7,9 @@ Run from the root of a checkout on a machine with an NVIDIA H100 and the
 CUDA toolkit. Phases, each of which raises on failure (exit code 1, no
 result line), each printing its seconds:
 
-1. device: the card's name and power limit; TF32 off for matmuls and cuDNN;
+1. device: the card's name and power limit; TF32 off for matmuls and cuDNN,
+   and cuBLAS's reduced-precision bf16 reductions off (the references sum
+   in f32, as XLA does);
 2. build: the CUDA kernels compiled from `equihgnn_tpu_torch/csrc/` (one
    nvcc per source, in parallel);
 3. kernels vs their plain PyTorch versions on the card, at the shapes of a
@@ -23,34 +25,48 @@ result line), each printing its seconds:
    J and K (the SE(3)-Transformer's fused pooled ConvSE3 unit, forward and
    backward) at its pooled sites (k = 16, F = 128, I = O = 256; C = 1 at
    three of the four, C = 3 at conv_in's 0 → 1), against the plain
-   versions and the one `torch.einsum` call;
+   versions and the one `torch.einsum` call; L and M (the pooled-M build of
+   the bf16 path's per-J pooled units, forward and backward) in bf16 at k =
+   16, F = 128, X = 64 (three of the four units) and 192 (conv_in's 0 → 1),
+   against the plain versions and, for L, one `torch.bmm` over the sites;
+   then L in f32 at the recipe's C = 1 unit with its projection against J
+   (recorded only);
    error, median time, allocation and the card's least time (`bound_ms`)
    of each;
-then, for each model, `egnn_equihnns`, `faformer_equihnns`,
+then, for each path, `egnn_equihnns`, `faformer_equihnns`,
 `visnet_equihnns` and `se3_transformer_equihnns` at the bench recipe
 (hidden 256, 3 MHNNS conv layers, output hidden 128 over 3 layers, mean
 aggregation, LayerNorm, f32; the FAFormer: 2 layers, 2 heads, k = 16;
 ViSNet: 6 layers, 8 heads, lmax 2, k = 17, 32 RBFs, cutoff 5 Å; the
 SE(3)-Transformer: dim 256, 2 heads, depth 2, dim_head 32, degrees 0 and
-1, k = 16 within 5 Å), with random weights from a seed:
+1, k = 16 within 5 Å), and `se3_transformer_equihnns bf16`, the
+SE(3)-Transformer with `--compute_dtype bfloat16` at the CLI's default
+widths (hidden 64, output hidden 64 over 2 layers; its pooled units take
+kernels L and M), with random weights from a seed:
 4. serve: saved as a port checkpoint, served through
    `equihgnn_tpu_torch.predict.run` on `datasets/real_sample/sample.sdf`
    and checked against the CPU molecule by molecule; then one request of
    768 synthetic molecules through the same library path. The kernels'
    launch counters must show that both requests ran through the model's
    kernels (egnn: A 3x and B per forward; faformer: A 3x and D 5x;
-   visnet: A 3x, F 6x, H 5x; se3: A 3x, J 4x);
+   visnet: A 3x, F 6x, H 5x; se3: A 3x, J 4x; se3 bf16: A 3x, L 4x); the
+   bf16 path is held instead to its CPU run (BF16_SERVE_SHARE of the CPU's
+   bf16-vs-f32 distance), its distance from the f32 model at the same
+   weights on the card recorded;
 5. gradients: one train step's parameter gradients at full width on 32
    molecules (eval mode: no dropout), on the card (kernels) against the
    CPU (plain versions) with the card's pattern of ReLU signs; every
-   parameter the CPU reaches must be reached on the card;
+   parameter the CPU reaches must be reached on the card (the bf16 path:
+   against its CPU bf16 run, as relative L2 over all parameters, a step
+   and the encoder under a smooth loss, BF16_GRAD_SHARE);
 6. train: `equihgnn_tpu_torch.main.run` on `synthetic_hg_3d` at the
    recipe, batch 768, 3 epochs of ~10 steps, a learnable target, into a
    temporary log directory, at lr 1e-3 (visnet 1e-4: it diverges at 5e-4
    in both frameworks). Every train loss finite and the last below the
    first; the launch counters show the model's kernels on every train step
    (egnn: A 3x, B, C; faformer: A 3x, D 5x, E 4x; visnet: A 3x, F 6x, H 5x,
-   G 6x, I 5x; se3: A 3x, J 4x, K 4x) and every eval forward;
+   G 6x, I 5x; se3: A 3x, J 4x, K 4x; se3 bf16: A 3x, L 8x, M 4x) and every
+   eval forward;
    `ckpt_best.pt` serves through `predict.run --device cuda`;
 7. step: one train step at batch 768 (forward + backward + Adam): its
    launches, median device time, peak memory and a `torch.profiler` table
@@ -94,7 +110,15 @@ SDF = os.path.join(ROOT, "datasets", "real_sample", "sample.sdf")
 BATCH = 768
 HIDDEN = 256
 METHODS = ("egnn_equihnns", "faformer_equihnns", "visnet_equihnns", "se3_transformer_equihnns")
-# kernel launches per forward and per backward of each model's train step
+# se3_transformer_equihnns --compute_dtype bfloat16 at the CLI's default widths
+# (`equihgnn_tpu/main.py:62-64`), where JAX's fused pooled unit refuses O = 64
+BF16_PATH = "se3_transformer_equihnns bf16"
+# path → (method, its config's changes to the recipe)
+PATHS = {**{m: (m, {}) for m in METHODS},
+         BF16_PATH: ("se3_transformer_equihnns", dict(mlp_hidden=64, output_hidden=64,
+                                                      output_num_layers=2,
+                                                      compute_dtype="bfloat16"))}
+# kernel launches per forward and per backward of each path's train step
 FWD_LAUNCHES = {
     "egnn_equihnns": {"sorted_segment_sum": 3, "fused_edge_messages": 1},
     # 3 EdgeModules + 2 FAFFNs
@@ -103,6 +127,8 @@ FWD_LAUNCHES = {
     "visnet_equihnns": {"sorted_segment_sum": 3, "vis_vec_agg": 6, "vis_wdot": 5},
     # the pooled units: conv_in 0 → 0 and 0 → 1, conv_out 0 → 0 and 1 → 0
     "se3_transformer_equihnns": {"sorted_segment_sum": 3, "pooled_conv": 4},
+    # the same four units, each a per-J step through kernel L
+    BF16_PATH: {"sorted_segment_sum": 3, "pooled_m": 4},
 }
 BWD_LAUNCHES = {
     "egnn_equihnns": {"fused_edge_messages_bwd": 1},
@@ -111,10 +137,12 @@ BWD_LAUNCHES = {
     "visnet_equihnns": {"vis_vec_agg_bwd": 6, "vis_wdot_bwd": 5},
     # all four reach the loss (conv_in's through the AtomEncoder)
     "se3_transformer_equihnns": {"pooled_conv_bwd": 4},
+    # kernel M, and L again where the checkpointed step is recomputed
+    BF16_PATH: {"pooled_m": 4, "pooled_m_bwd": 4},
 }
 LR = {"visnet_equihnns": "1e-4"}  # the others train at 1e-3
-# the H100 SXM's published peaks: HBM3 bandwidth and dense f32 rate
-PEAK_BYTES_S, PEAK_F32_S = 3.35e12, 67e12
+# the H100 SXM's published peaks: HBM3 bandwidth, dense f32 and bf16 rates
+PEAK_BYTES_S, PEAK_F32_S, PEAK_BF16_S = 3.35e12, 67e12, 989e12
 
 
 def check(ok: bool, msg: str) -> None:
@@ -172,10 +200,11 @@ def profiled_device_ms(fn, calls: int = 20) -> float:
     return sum(t for t, _, _ in device_kernels(prof, calls))
 
 
-def bound(nbytes: float, flops: float) -> dict:
+def bound(nbytes: float, flops: float, peak: float = PEAK_F32_S) -> dict:
     """The least time the card could take: bytes over the memory rate or
-    f32 operations over the CUDA cores' peak, whichever is larger."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_F32_S * 1e3
+    operations over the peak rate of their type (f32 by default),
+    whichever is larger."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, flops / peak * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
@@ -211,8 +240,10 @@ def phase_device() -> tuple[str, str]:
     print(smi)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     print("tf32: torch.backends.cuda.matmul.allow_tf32 = False, "
-          "torch.backends.cudnn.allow_tf32 = False")
+          "torch.backends.cudnn.allow_tf32 = False; "
+          "torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False")
     return name, smi
 
 
@@ -241,6 +272,7 @@ def counters() -> dict:
         fused_frame_swiglu_bwd,
     )
     from equihgnn_tpu_torch.ops.kernels.pooled_conv import pooled_conv, pooled_conv_bwd
+    from equihgnn_tpu_torch.ops.kernels.pooled_m import pooled_m, pooled_m_bwd
     from equihgnn_tpu_torch.ops.kernels.segment_sum import sorted_segment_sum
     from equihgnn_tpu_torch.ops.kernels.vis_mix import (
         vis_vec_agg,
@@ -256,14 +288,15 @@ def counters() -> dict:
             "fused_frame_swiglu_bwd": fused_frame_swiglu_bwd,
             "vis_vec_agg": vis_vec_agg, "vis_vec_agg_bwd": vis_vec_agg_bwd,
             "vis_wdot": vis_wdot, "vis_wdot_bwd": vis_wdot_bwd,
-            "pooled_conv": pooled_conv, "pooled_conv_bwd": pooled_conv_bwd}
+            "pooled_conv": pooled_conv, "pooled_conv_bwd": pooled_conv_bwd,
+            "pooled_m": pooled_m, "pooled_m_bwd": pooled_m_bwd}
 
 
-def expected_launches(method: str, forwards: int, backwards: int) -> dict[str, int]:
+def expected_launches(path: str, forwards: int, backwards: int) -> dict[str, int]:
     want = dict.fromkeys(counters(), 0)
-    for name, n in FWD_LAUNCHES[method].items():
+    for name, n in FWD_LAUNCHES[path].items():
         want[name] += n * forwards
-    for name, n in BWD_LAUNCHES[method].items():
+    for name, n in BWD_LAUNCHES[path].items():
         want[name] += n * backwards
     return want
 
@@ -394,10 +427,12 @@ def phase_kernels(batch) -> list[dict]:
     rows += frame_swiglu_rows(pd, sm, gen)
     rows += vis_mix_rows(batch, gen)
     rows += pooled_conv_rows(batch, gen)
+    rows += pooled_m_rows(batch, gen)
     for row in rows:
         print(f"  {row['name']}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
               f"bound {row['bound_ms']:.4f} ms by {row['bound_by']} (median, the two "
-              f"alternating, CUDA events; D and E at the EdgeModule site, J and K at C = 1)")
+              f"alternating, CUDA events; D and E at the EdgeModule site, J and K at C = 1, "
+              f"L and M at X = 64)")
     return rows
 
 
@@ -700,11 +735,123 @@ def pooled_conv_rows(batch, gen) -> list[dict]:
     return rows
 
 
-def recipe():
+def _bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> int:
+    """The largest distance in bfloat16 ulps (bit patterns as ordered integers)."""
+    def ordered(t):
+        bits = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(bits < 0, -32768 - bits, bits)
+    return int((ordered(got) - ordered(want)).abs().max()) if want.numel() else 0
+
+
+def pooled_m_rows(batch, gen) -> list[dict]:
+    """Kernels L and M at the pooled sites of BF16_PATH (bf16, hidden 64):
+    h [G, A, 16, 128] and tc [G, A, 16, X], zero on the neighbours the 5 Å
+    radius masks; X = C·I = 64 (conv_in 0 → 0, conv_out 0 → 0 and 1 → 0)
+    and 192 (conv_in 0 → 1); dM [G, A, X, 128]. Returns the rows at X = 64;
+    X = 192 is printed. Then, recorded only, L in f32 at the recipe's C = 1
+    unit (X = I = 256) with its projection as one cuBLAS product, against
+    kernel J."""
+    from equihgnn_tpu_torch.ops.kernels.pooled_conv import pooled_conv
+    from equihgnn_tpu_torch.ops.kernels.pooled_m import (
+        pooled_m,
+        pooled_m_bwd,
+        pooled_m_bwd_plain,
+        pooled_m_plain,
+    )
+    from equihgnn_tpu_torch.ops.knn import knn_dense
+
+    dev = torch.device("cuda")
+    sm = batch.slot_mask.to(dev)
+    pd = batch.pos.to(dev)[batch.slot_index.to(dev)] * sm[..., None]
+    g, a = sm.shape
+    _, mask, _ = knn_dense(pd, sm, min(16, a - 1), valid_radius=5.0, exclude_self=True)
+    k, f, s = mask.shape[-1], 128, g * a
+    e_live, s_live = int(mask.sum()), int(mask.any(-1).sum())
+    masked = lambda *shape: (torch.randn(*shape, generator=gen).to(dev)  # noqa: E731
+                             * mask[..., None])
+    rows = []
+    for x in (64, 192):
+        h, tc = masked(g, a, k, f).bfloat16(), masked(g, a, k, x).bfloat16()
+        dm = torch.randn(g, a, x, f, generator=gen).to(dev).bfloat16()
+        # what the function needs: h and tc on the masked-in neighbours and M
+        # in full (L); those, dM at the sites with a neighbour, dh and dtc in
+        # full (M); the products over the masked-in neighbours
+        live_b = e_live * (f + x) * 2
+        cases = {
+            # name: (letter, kernel call, plain call, library call, bytes, operations, line)
+            "pooled_m": ("L", lambda: pooled_m(h, tc), lambda: pooled_m_plain(h, tc),
+                         lambda: torch.bmm(tc.view(s, k, x).transpose(1, 2), h.view(s, k, f)),
+                         live_b + s * x * f * 2, 2 * e_live * x * f, ":109"),
+            "pooled_m_bwd": ("M", lambda: pooled_m_bwd(h, tc, dm),
+                             lambda: pooled_m_bwd_plain(h, tc, dm), None,
+                             live_b + s_live * x * f * 2 + s * k * (f + x) * 2,
+                             4 * e_live * x * f, ":130"),
+        }
+        for name, (letter, call, plain, library, nb, ops, line) in cases.items():
+            with torch.no_grad():
+                got, ref = call(), plain()
+            torch.cuda.synchronize()
+            got = got if isinstance(got, tuple) else (got,)
+            ref = ref if isinstance(ref, tuple) else (ref,)
+            err = 0.0
+            for t, y in zip(got, ref):
+                equal, ulps = float((t == y).float().mean()), _bf16_ulps(t, y)
+                err = max(err, float((t.float() - y.float()).abs().max()))
+                ok = equal >= 0.99 and ulps <= 1
+                print(f"kernel {letter} {name} X={x} {tuple(t.shape)} bf16: {equal:.6f} of the "
+                      f"elements equal to the plain version's, {ulps} bf16 ulps at most (limits "
+                      f"0.99, 1: both round an f32 sum once): {'ok' if ok else 'FAIL'}")
+                check(ok, f"kernel {letter} ({name}) at X = {x} disagrees with its plain version")
+            with torch.no_grad():
+                again = call()
+            again = again if isinstance(again, tuple) else (again,)
+            check(all(torch.equal(t, y) for t, y in zip(got, again)),
+                  f"kernel {letter} at X = {x} gave other bits on a second run")
+            del got, ref, again
+            with torch.no_grad():
+                times = median_ms(*[fn for fn in (call, plain, library) if fn])
+            ms, plain_ms = times[:2]
+            library_ms = times[2] if library else None
+            row = dict(name=name, route="cuda", source="equihgnn_tpu_torch/csrc/pooled_m.cu",
+                       replaces=f"equihgnn_tpu/ops/pallas/pooled_m.py{line}", max_abs_err=err,
+                       ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                       **bound(nb, ops, PEAK_BF16_S))
+            lib_txt = f", torch.bmm {library_ms:.4f} ms" if library else ""
+            print(f"kernel {letter} {name} [G={g}, A={a}, k={k}, F={f}, X={x}] bf16: {ms:.4f} ms vs "
+                  f"plain {plain_ms:.4f} ms{lib_txt} (median of 20, CUDA events); bound "
+                  f"{row['bound_ms']:.4f} ms by {row['bound_by']} ({nb / 1e9:.3f} GB, "
+                  f"{ops / 1e9:.2f} GFLOP at the bf16 peak); {nb / ms / 1e6:.1f} GB/s achieved; "
+                  f"deterministic")
+            if x == 64:
+                rows.append(row)
+        del h, tc, dm
+        torch.cuda.empty_cache()
+
+    # the per-J route in f32 at the recipe's C = 1 unit, against J (record only)
+    i = o = HIDDEN
+    h, tc = masked(g, a, k, f), masked(g, a, k, i)
+    w = (torch.rand(f, o, i, generator=gen) * 2 - 1).to(dev) / f ** 0.5
+    with torch.no_grad():
+        route = lambda: torch.einsum("foi,gaif->gao", w, pooled_m(h, tc).view(g, a, i, f))  # noqa: E731
+        fused = lambda: pooled_conv(h, tc, w, 1)  # noqa: E731
+        d = float((route() - fused()[:, :, 0]).abs().max()) / float(fused().abs().max())
+        l_ms, route_ms, j_ms = median_ms(lambda: pooled_m(h, tc), route, fused, iters=10)
+    print(f"f32 at the recipe's C = 1 unit [G={g}, A={a}, k={k}, I=O={i}, F={f}], recorded only: "
+          f"kernel L {l_ms:.4f} ms, L + the cuBLAS projection {route_ms:.4f} ms, kernel J "
+          f"{j_ms:.4f} ms (median of 10, CUDA events); the two routes differ by {d:.3e} of "
+          f"max|J|")
+    del h, tc, w
+    torch.cuda.empty_cache()
+    return rows
+
+
+def recipe(path: str | None = None):
+    """The bench recipe, with `path`'s changes."""
     from equihgnn_tpu_torch.models.config import ModelConfig
 
-    return ModelConfig(mlp_hidden=HIDDEN, output_hidden=128, all_num_layers=3,
-                       output_num_layers=3, aggregate="mean", normalization="ln")
+    cfg = ModelConfig(mlp_hidden=HIDDEN, output_hidden=128, all_num_layers=3,
+                      output_num_layers=3, aggregate="mean", normalization="ln")
+    return dataclasses.replace(cfg, **PATHS[path][1]) if path else cfg
 
 
 def translation_spread(model, samples, batch_size: int) -> np.ndarray:
@@ -725,17 +872,11 @@ def translation_spread(model, samples, batch_size: int) -> np.ndarray:
     return spread
 
 
-def phase_serve(method: str, samples, smi: str) -> dict[str, int]:
+def phase_serve(path: str, samples, smi: str) -> dict[str, int]:
     from equihgnn_tpu_torch import create_model
-    from equihgnn_tpu_torch.predict import (
-        build_parser,
-        featurize_sdf,
-        predict_samples,
-        run,
-        save_checkpoint,
-    )
+    from equihgnn_tpu_torch.predict import build_parser, predict_samples, run, save_checkpoint
 
-    cfg = recipe()
+    method, cfg = PATHS[path][0], recipe(path)
     dev = torch.device("cuda")
     model = create_model(method, num_target=1, cfg=cfg,
                          generator=torch.Generator().manual_seed(0))
@@ -751,9 +892,9 @@ def phase_serve(method: str, samples, smi: str) -> dict[str, int]:
         model_gpu = model.to(dev).eval()
         preds = predict_samples(model_gpu, samples, BATCH, dev)
         launches = read_launches()
-        print(f"{method} launches while serving (2 requests, 1 batch each): {launches}")
-        check(launches == expected_launches(method, 2, 0),
-              f"the served requests did not run through {method}'s kernels as expected")
+        print(f"{path} launches while serving (2 requests, 1 batch each): {launches}")
+        check(launches == expected_launches(path, 2, 0),
+              f"the served requests did not run through {path}'s kernels as expected")
 
         rows = read_csv(out_gpu)
         vals = np.array([float(r["prediction"]) for r in rows])
@@ -762,28 +903,10 @@ def phase_serve(method: str, samples, smi: str) -> dict[str, int]:
         check(len(rows) == 20, "expected 20 prediction rows")
         check(bool(np.isfinite(vals).all()), "non-finite prediction in the SDF request")
         check(rows[4]["title"] == "benzene", f"row 4 is {rows[4]['title']!r}, not benzene")
-
-        run(build_parser().parse_args(
-            ["--ckpt", ckpt, "--sdf", SDF, "--out", out_cpu, "--device", "cpu",
-             "--batch_size", "32"]))
-        cpu_vals = np.array([float(r["prediction"]) for r in read_csv(out_cpu)])
-        model_cpu = model.to("cpu").eval()
-        # the CPU references in batches of the 20 molecules, not of 256: the
-        # dense encoders compute every padding row, and each molecule's
-        # prediction does not depend on the others
-        spread = translation_spread(model_cpu, [m for _, m in featurize_sdf(SDF)], 32)
-        d = np.abs(vals - cpu_vals)
-        well = spread <= 1e-5
-        bad = well & (d > 1e-5 + 1e-4 * np.abs(cpu_vals))
-        print(f"cuda vs cpu predictions on the {int(well.sum())} of 20 molecules whose CPU "
-              f"prediction moves <= 1e-5 under a translation: max|d| {d[well].max():.3e} "
-              f"(rtol 1e-4, atol 1e-5): {'ok' if not bad.any() else 'FAIL'}")
-        for i in np.flatnonzero(~well):
-            print(f"  ill-posed frames, not compared: {rows[i]['title']}: |d| {d[i]:.3e}, "
-                  f"CPU translation spread {spread[i]:.3e}")
-        check(bool(well.sum() >= 8), "fewer than 8 molecules with well-posed frames")
-        check(not bad.any(), f"card and CPU predictions disagree: molecules "
-                             f"{[rows[i]['title'] for i in np.flatnonzero(bad)]}")
+        if cfg.compute_dtype:
+            check_bf16_serve(model, method, cfg, vals, samples, preds)
+        else:
+            check_serve_against_cpu(model, ckpt, out_cpu, vals, rows)
         model.to(dev)
 
     check(preds.shape == (BATCH,), f"batch-{BATCH} request gave shape {preds.shape}")
@@ -808,11 +931,85 @@ def phase_serve(method: str, samples, smi: str) -> dict[str, int]:
     with torch.inference_mode():
         fwd_ms, = median_ms(lambda: model_gpu(batch_dev), iters=10)
     peak = torch.cuda.max_memory_allocated()
-    print(f"{method} served: {BATCH / t_req:.1f} molecules/s end to end (batch {BATCH}, "
+    print(f"{path} served: {BATCH / t_req:.1f} molecules/s end to end (batch {BATCH}, "
           f"median request {t_req * 1e3:.2f} ms incl. host batching); forward alone "
           f"{fwd_ms:.3f} ms = {BATCH / fwd_ms * 1e3:.1f} molecules/s; peak memory "
           f"{peak / 2**20:.1f} MiB; card: {smi}")
     return launches
+
+
+def check_serve_against_cpu(model, ckpt: str, out_cpu: str, vals, rows) -> None:
+    """The card's SDF predictions against the CPU's, molecule by molecule,
+    where the CPU's prediction is well posed (FAFormer's frames)."""
+    from equihgnn_tpu_torch.predict import build_parser, featurize_sdf, run
+
+    run(build_parser().parse_args(
+        ["--ckpt", ckpt, "--sdf", SDF, "--out", out_cpu, "--device", "cpu",
+         "--batch_size", "32"]))
+    cpu_vals = np.array([float(r["prediction"]) for r in read_csv(out_cpu)])
+    model_cpu = model.to("cpu").eval()
+    # the CPU references in batches of the 20 molecules, not of 256: the
+    # dense encoders compute every padding row, and each molecule's
+    # prediction does not depend on the others
+    spread = translation_spread(model_cpu, [m for _, m in featurize_sdf(SDF)], 32)
+    d = np.abs(vals - cpu_vals)
+    well = spread <= 1e-5
+    bad = well & (d > 1e-5 + 1e-4 * np.abs(cpu_vals))
+    print(f"cuda vs cpu predictions on the {int(well.sum())} of 20 molecules whose CPU "
+          f"prediction moves <= 1e-5 under a translation: max|d| {d[well].max():.3e} "
+          f"(rtol 1e-4, atol 1e-5): {'ok' if not bad.any() else 'FAIL'}")
+    for i in np.flatnonzero(~well):
+        print(f"  ill-posed frames, not compared: {rows[i]['title']}: |d| {d[i]:.3e}, "
+              f"CPU translation spread {spread[i]:.3e}")
+    check(bool(well.sum() >= 8), "fewer than 8 molecules with well-posed frames")
+    check(not bad.any(), f"card and CPU predictions disagree: molecules "
+                         f"{[rows[i]['title'] for i in np.flatnonzero(bad)]}")
+
+
+# The bf16 path's predictions on the card against the CPU's bf16 model (plain
+# versions): max |card − CPU| at most this share of max |CPU bf16 − CPU f32|,
+# i.e. the card's bf16 predictions lie nearer the CPU's than those lie to f32.
+# At the init the bf16 predictions move with the order of their sums (the
+# trunk's ReLU kinks, fed by a bf16 encoder): the first card run read 0.29
+# (SDF) and 0.42 (64 molecules of the request) of that distance.
+BF16_SERVE_SHARE = 1.0
+
+
+def check_bf16_serve(model, method: str, cfg, vals, samples, preds) -> None:
+    """The bf16 model's predictions on the card against its CPU run (plain
+    versions, which `tests/test_torch_se3_bf16.py` holds to JAX's bf16
+    model), on the SDF and the first 64 molecules of the batch-768 request,
+    in batches of 32 on both: within BF16_SERVE_SHARE of the CPU's own
+    bf16-vs-f32 distance at the same weights. Recorded beside it: max |bf16 − f32| / (mean |f32| + 1e-3) on
+    the card, the measure of `tests/test_bf16.py:33-35`, whose bound of 0.1
+    (set at hidden 16 on 6 molecules) JAX's own bf16 model exceeds at these
+    widths (PERF.md)."""
+    from equihgnn_tpu_torch import create_model
+    from equihgnn_tpu_torch.predict import featurize_sdf, predict_samples
+
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    f32 = create_model(method, num_target=1, cfg=dataclasses.replace(cfg, compute_dtype=None))
+    f32.load_state_dict(model.state_dict())
+    sets = {"SDF": ([m for _, m in featurize_sdf(SDF)], vals),
+            f"batch-{BATCH} request": (samples, preds)}
+    for what, (mols, card16) in sets.items():
+        card32 = predict_samples(f32.to(dev).eval(), mols, BATCH, dev)
+        ratio = float(np.abs(card16 - card32).max()) / (float(np.abs(card32).mean()) + 1e-3)
+        print(f"{method} bf16 vs f32 at the same weights on the card, {what}: max|d| / "
+              f"(mean|f32| + 1e-3) = {ratio:.4f} (recorded; tests/test_bf16.py holds hidden 16 "
+              f"to 0.1)")
+    # the same batches on both devices: in bf16 a molecule's prediction moves
+    # with the batch's padding (other product shapes round otherwise)
+    for what, mols in (("SDF", sets["SDF"][0]), ("the first 64 of the request", samples[:64])):
+        card16 = predict_samples(model.to(dev).eval(), mols, 32, dev)
+        cpu16 = predict_samples(model.to(cpu).eval(), mols, 32, cpu)
+        cpu32 = predict_samples(f32.to(cpu).eval(), mols, 32, cpu)
+        d, gap = float(np.abs(card16 - cpu16).max()), float(np.abs(cpu16 - cpu32).max())
+        limit = BF16_SERVE_SHARE * gap
+        print(f"{method} bf16 on the card vs bf16 on the CPU, {what} in batches of 32: max|d| "
+              f"{d:.4e} (limit {BF16_SERVE_SHARE} * the CPU's bf16-vs-f32 distance {gap:.4e} = "
+              f"{limit:.4e})")
+        check(d <= limit, f"the card's bf16 predictions ({what}) disagree with the CPU's")
 
 
 # Per-tensor limit on max|card − CPU| / max|CPU| of a train step's gradients,
@@ -832,7 +1029,8 @@ def phase_serve(method: str, samples, smi: str) -> dict[str, int]:
 STEP_LIMIT = {"egnn_equihnns": 1e-4, "faformer_equihnns": 1e-2, "visnet_equihnns": 1e-4,
               "se3_transformer_equihnns": 1e-2}
 ENCODER_LIMIT = {"se3_transformer_equihnns": 1e-2}  # the others: 1e-4
-GRAD_CUT = {"se3_transformer_equihnns": (16, 1)}  # (molecules, jitter draws); the others (32, 4)
+# (molecules, jitter draws); the others (32, 4)
+GRAD_CUT = {"se3_transformer_equihnns": (16, 1), BF16_PATH: (16, 0)}
 # A ReLU input on the other side of 0 on the card than on the CPU makes the
 # step's gradient jump (a ViSNet trunk input 1.7e-6 from 0 moved its step
 # gradients by 2.2e-2 of their max). So the phase records every ReLU input
@@ -1009,14 +1207,97 @@ def phase_grads(method: str, pool) -> None:
           f"max|d| / max|cpu| {worst:.3e} (limit {enc_limit:g} per tensor{own})")
 
 
-def phase_train(method: str, smi: str) -> dict[str, int]:
+# The bf16 path's gradients on the card against the CPU's bf16 model (plain
+# versions), as relative L2 over all parameters, ‖card − CPU‖ / ‖CPU‖: at most
+# this share of the CPU's own bf16-vs-f32 distance at the same weights (the
+# card's bf16 gradients nearer the CPU's than those lie to f32), for a train
+# step (the CPU runs taking the card's pattern of ReLU signs, as in
+# `phase_grads`: bf16 moves the trunk's ReLU inputs by far more than the f32
+# kink limit) and for the encoder under a smooth loss. Per-tensor limits are
+# not held in bf16: at the init the encoder's first layers' bf16 gradients
+# differ from their f32 ones by about their norm, in JAX as in the port
+# (`tests/test_torch_se3_bf16.py`). The card read 0.38 (step) and 0.39
+# (encoder) of that distance; padding a batch otherwise moved the encoder's
+# bf16 gradients by 0.11-0.13 of it on the CPU alone.
+BF16_GRAD_SHARE = 1.0
+
+
+def _rel_l2(got: dict, want: dict) -> float:
+    names = [n for n, w in want.items() if w is not None]
+    num = sum(float(((got[n].double() - want[n].double()) ** 2).sum()) for n in names)
+    return (num / sum(float((want[n].double() ** 2).sum()) for n in names)) ** 0.5
+
+
+def phase_grads_bf16(path: str, pool) -> None:
+    """The bf16 path's gradients on the card (kernels L and M) against the
+    CPU's bf16 model (their plain versions), eval mode, on GRAD_CUT
+    molecules: of a train step (masked MSE) and of the encoder under a
+    smooth loss, each held to BF16_GRAD_SHARE of the CPU's bf16-vs-f32
+    distance; every parameter the CPU reaches must be reached on the card."""
+    from equihgnn_tpu_torch import create_model
+    from equihgnn_tpu_torch.data.batching import iter_batches, spec_for_samples
+    from equihgnn_tpu_torch.train.trainer import masked_mse
+
+    method, cfg = PATHS[path][0], recipe(path)
+    samples = pool[:GRAD_CUT[path][0]]
+    batch = next(iter_batches(samples, spec_for_samples(samples, len(samples)),
+                              with_pos=True, target=0))
+    proj = torch.randn(batch.num_atoms, cfg.mlp_hidden, generator=torch.Generator().manual_seed(4))
+
+    def step_loss(model, b):
+        sq, cnt = masked_mse(model(b), b.y, b.graph_mask)
+        return sq / torch.clamp(cnt, min=1.0)
+
+    def encoder_loss(model, b):
+        return torch.sum(model.encode(b)[b.atom_mask] * proj.to(b.pos.device)[b.atom_mask])
+
+    def grads(device, loss_fn, dtype=cfg.compute_dtype):
+        model = create_model(method, num_target=1, device=device,
+                             cfg=dataclasses.replace(cfg, compute_dtype=dtype),
+                             generator=torch.Generator().manual_seed(3)).eval()
+        loss_fn(model, batch.to(device)).backward()
+        return {n: (p.grad.cpu() if p.grad is not None else None)
+                for n, p in model.named_parameters()}
+
+    card_relu = []
+    reset_launches()
+    with relu_sites(record=card_relu):
+        got = grads("cuda", step_loss)
+    launches = read_launches()
+    check(launches == expected_launches(path, 1, 1),
+          f"the card's train step did not run through {path}'s kernels: {launches}")
+    runs = {}
+    for dtype in (cfg.compute_dtype, None):
+        with relu_sites(signs=card_relu):
+            runs[dtype] = grads("cpu", step_loss, dtype)
+    want = runs[cfg.compute_dtype]
+    reached = [n for n, w in want.items() if w is not None and float(w.abs().max()) > 0]
+    for name in reached:
+        check(got[name] is not None and float(got[name].abs().max()) > 0,
+              f"{name} has a gradient on the CPU and none on the card")
+    for name in (*REACHED[method], "trunk.conv.W1.lin_0.weight"):
+        check(name in reached, f"{name} unreached")
+    results = [("train step, the card's ReLU pattern", _rel_l2(got, want), _rel_l2(want, runs[None]))]
+    want = grads("cpu", encoder_loss)
+    results.append(("encoder, smooth loss", _rel_l2(grads("cuda", encoder_loss), want),
+                    _rel_l2(want, grads("cpu", encoder_loss, None))))
+    for what, err, gap in results:
+        limit = BF16_GRAD_SHARE * gap
+        print(f"{path} gradients on {len(samples)} molecules, card vs CPU (both bf16), {what}: "
+              f"relative L2 over all parameters {err:.4e} (limit {BF16_GRAD_SHARE} * the CPU's "
+              f"bf16-vs-f32 distance {gap:.4e} = {limit:.4e})")
+        check(err <= limit, f"the card's bf16 gradients ({what}) disagree with the CPU's")
+    print(f"{path}: {len(reached)} of {len(want)} parameters reached on both; launches {launches}")
+
+
+def phase_train(path: str, smi: str) -> dict[str, int]:
     """Train through `equihgnn_tpu_torch.main.run` at the recipe, batch 768."""
     from equihgnn_tpu_torch.data.batching import iter_batches, spec_for_samples
     from equihgnn_tpu_torch.main import build_parser, load_splits, run
     from equihgnn_tpu_torch.predict import build_parser as predict_parser
     from equihgnn_tpu_torch.predict import run as predict_run
 
-    cfg = recipe()
+    method, cfg = PATHS[path][0], recipe(path)
     argv = ["--data", "synthetic_hg_3d", "--method", method, "--device", "cuda",
             "--batch_size", str(BATCH), "--synthetic_size", "9600", "--epochs", "3",
             "--lr", LR.get(method, "1e-3"), "--MLP_hidden", str(cfg.mlp_hidden),
@@ -1024,6 +1305,8 @@ def phase_train(method: str, smi: str) -> dict[str, int]:
             "--All_num_layers", str(cfg.all_num_layers),
             "--output_num_layers", str(cfg.output_num_layers),
             "--aggregate", cfg.aggregate, "--normalization", cfg.normalization]
+    if cfg.compute_dtype:
+        argv += ["--compute_dtype", cfg.compute_dtype]
     args = build_parser().parse_args(argv)
     t0 = time.perf_counter()
     train_s, valid_s, test_s, _ = load_splits(args)
@@ -1049,7 +1332,7 @@ def phase_train(method: str, smi: str) -> dict[str, int]:
             losses = [h["train_loss"] for h in hist]
             steps = sum(h["train_steps"] for h in hist)
             evals = n_val * len(hist) + n_test
-            print(f"{method} train: {len(hist)} epochs, {steps} steps, {evals} eval forwards; "
+            print(f"{path} train: {len(hist)} epochs, {steps} steps, {evals} eval forwards; "
                   f"train loss per epoch {losses}; val_mae_mean "
                   f"{[round(h['val_mae_mean'], 5) for h in hist]}; test_mae_mean "
                   f"{res['test_mae_mean']:.5f}")
@@ -1063,8 +1346,8 @@ def phase_train(method: str, smi: str) -> dict[str, int]:
             check(len(hist) == 3, f"expected 3 epochs, got {len(hist)}")
             check(all(np.isfinite(losses)), "non-finite train loss")
             check(losses[-1] < losses[0], f"the train loss did not fall: {losses}")
-            check(launches == expected_launches(method, steps + evals, steps),
-                  f"training did not run {method}'s kernels on every train step and "
+            check(launches == expected_launches(path, steps + evals, steps),
+                  f"training did not run {path}'s kernels on every train step and "
                   f"every eval forward")
             ckpt = os.path.join(res["log_dir"], "ckpt_best.pt")
             out = os.path.join(tmp, "trained.csv")
@@ -1080,7 +1363,7 @@ def phase_train(method: str, smi: str) -> dict[str, int]:
     return launches
 
 
-def phase_step(method: str, samples, smi: str) -> None:
+def phase_step(path: str, samples, smi: str) -> None:
     """One train step at batch 768: launches, device time, memory, profile."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -1091,7 +1374,7 @@ def phase_step(method: str, samples, smi: str) -> None:
     dev = torch.device("cuda")
     batch = next(iter_batches(samples, spec_for_samples(samples, BATCH), with_pos=True,
                               target=0)).to(dev)
-    model = create_model(method, num_target=1, cfg=recipe(), device=dev)
+    model = create_model(PATHS[path][0], num_target=1, cfg=recipe(path), device=dev)
     trainer = Trainer(model, TrainConfig(lr=1e-4), std=1.0, device=dev)
     trainer.train_step(batch)  # warm-up: cuBLAS handles, Adam state
     reset_launches()
@@ -1103,15 +1386,15 @@ def phase_step(method: str, samples, smi: str) -> None:
         reset_launches()
         model(batch)
         eval_launches = read_launches()
-    print(f"{method} launches of one train step: {step_launches}; of one eval forward: "
+    print(f"{path} launches of one train step: {step_launches}; of one eval forward: "
           f"{eval_launches}")
-    check(step_launches == expected_launches(method, 1, 1), "train step launches")
-    check(eval_launches == expected_launches(method, 1, 0), "eval forward launches")
+    check(step_launches == expected_launches(path, 1, 1), "train step launches")
+    check(eval_launches == expected_launches(path, 1, 0), "eval forward launches")
 
     torch.cuda.reset_peak_memory_stats()
     step_ms, = median_ms(lambda: trainer.train_step(batch), iters=10)
     peak = torch.cuda.max_memory_allocated()
-    print(f"{method} train step at batch {BATCH} (forward + backward + Adam): median "
+    print(f"{path} train step at batch {BATCH} (forward + backward + Adam): median "
           f"{step_ms:.3f} ms device time (CUDA events, 10 steps) = "
           f"{BATCH / step_ms * 1e3:.1f} molecules/s; peak memory {peak / 2**20:.1f} MiB; "
           f"card: {smi}")
@@ -1156,13 +1439,13 @@ def main() -> int:
     batch = next(iter_batches(samples, spec_for_samples(samples, BATCH), with_pos=True))
     kernels = timed("kernels", phase_kernels, batch)
     paths = {}
-    for method in METHODS:
-        served = timed(f"{method} serve", phase_serve, method, samples, smi)
-        timed(f"{method} gradients", phase_grads, method,
-              samples[:2 * GRAD_CUT.get(method, (32,))[0]])
-        trained = timed(f"{method} train", phase_train, method, smi)
-        timed(f"{method} step", phase_step, method, samples, smi)
-        paths[f"{method} serve"], paths[f"{method} train"] = served, trained
+    for path in PATHS:
+        served = timed(f"{path} serve", phase_serve, path, samples, smi)
+        timed(f"{path} gradients", phase_grads_bf16 if path == BF16_PATH else phase_grads, path,
+              samples[:2 * GRAD_CUT.get(path, (32,))[0]])
+        trained = timed(f"{path} train", phase_train, path, smi)
+        timed(f"{path} step", phase_step, path, samples, smi)
+        paths[f"{path} serve"], paths[f"{path} train"] = served, trained
     for row in kernels:
         row["launches"] = sum(counts[row["name"]] for counts in paths.values())
     print(f"launches by path: {paths}")

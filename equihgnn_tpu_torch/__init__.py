@@ -6,7 +6,11 @@ its kernels, on the CPU. It mirrors the module paths of the JAX package
 imports nothing from it. Covered so far, in float32: serving
 (`python -m equihgnn_tpu_torch.predict`) and training
 (`python -m equihgnn_tpu_torch.main`) of `egnn_equihnns`,
-`faformer_equihnns`, `visnet_equihnns` and `se3_transformer_equihnns`.
+`faformer_equihnns`, `visnet_equihnns` and `se3_transformer_equihnns`;
+and `se3_transformer_equihnns` with `compute_dtype="bfloat16"` (its
+encoder in bf16, as in JAX) at widths whose pooled units JAX does not
+fuse, through kernels L and M. Every Pallas kernel of the JAX package has
+its CUDA counterpart (`csrc/`).
 """
 
 __version__ = "0.1.0"

@@ -15,8 +15,14 @@ Differences from the JAX CLI:
     run never carries on on the CPU.
   * Flags of paths that are not ported raise NotImplementedError when set:
     `--data_parallel`, `--streaming`, `--pack_slots`, `--buckets`,
-    `--compute_dtype`, `--remat`. `--num_devices` only sizes the
-    data-parallel path, so it has no effect until that path is ported.
+    `--remat`. `--num_devices` only sizes the data-parallel path, so it has
+    no effect until that path is ported.
+  * `--compute_dtype bfloat16` runs where the model takes it: the encoder
+    of `se3_transformer_equihnns` computes in bfloat16 (its pooled units
+    through kernels L and M on the card) while the parameters, Adam and
+    the loss stay float32, as in JAX; its widths must leave JAX's fused
+    pooled unit out (`--MLP_hidden` not a multiple of 128). Elsewhere the
+    model raises NotImplementedError (ROADMAP item 11).
   * Batches come from `iter_batches` (the JAX package's native packer is
     not ported); each epoch's order is drawn from the same seed.
   * `run` returns the run's `log_dir` beside the metrics, and takes
@@ -53,7 +59,6 @@ UNPORTED_FLAGS = {
     "streaming": "ROADMAP item 4 (packed slot rows and the streaming data path)",
     "pack_slots": "ROADMAP item 4 (packed slot rows and the streaming data path)",
     "buckets": "ROADMAP item 4 (packed slot rows and the streaming data path)",
-    "compute_dtype": "ROADMAP item 11 (bfloat16 and remat)",
     "remat": "ROADMAP item 11 (bfloat16 and remat)",
 }
 

@@ -11,8 +11,8 @@ in every model the reference builds). Gradients reach the same parameters
 as in JAX; the EGNN's coordinate branch (`coors_mlp_*`, `coors_norm`)
 gets none in either framework, because `encode` drops the EGNN's
 coordinates. Configurations the port does not support yet raise here:
-`compute_dtype` other than float32, `cross_molecule_knn=True`, BatchNorm
-("bn") and PReLU.
+`compute_dtype` other than float32, `remat`, `cross_molecule_knn=True`,
+BatchNorm ("bn") and PReLU.
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ from torch import nn
 
 from equihgnn_tpu_torch.common.registry import registry
 from equihgnn_tpu_torch.data.structures import HyperGraphBatch
+from equihgnn_tpu_torch.models.common import check_compute
 from equihgnn_tpu_torch.models.config import ModelConfig
 from equihgnn_tpu_torch.models.trunks import TrunkS
 from equihgnn_tpu_torch.nn.egnn import EGNN
@@ -29,10 +30,7 @@ from equihgnn_tpu_torch.nn.encoders import AtomEncoder
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.compute_dtype not in (None, "float32"):
-        raise NotImplementedError(
-            f"compute_dtype={cfg.compute_dtype!r}: the PyTorch port runs float32 only"
-        )
+    check_compute(cfg, "egnn_equihnns")
     if cfg.cross_molecule_knn:
         raise NotImplementedError(
             "cross_molecule_knn=True (the flat batch-wide kNN path) is not ported yet"

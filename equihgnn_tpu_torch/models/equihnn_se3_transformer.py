@@ -6,11 +6,15 @@ SE3Transformer(dim = MLP_hidden, heads 2, depth 2, dim_head 32,
 num_degrees 2, valid_radius 5 Å, k = 16, attend_self) → its type-0
 output → the MHNNS trunk.
 
-The port runs in float32, for serving (`model.eval()`) and training
-(`model.train()`: the encoder has no dropout; `--dropout` reaches the
-trunk). The pooled ConvSE3 units run kernels J and K on the card.
-Configurations the port does not support yet raise here: `compute_dtype`
-other than float32, `remat`.
+The port serves (`model.eval()`) and trains (`model.train()`: the encoder
+has no dropout; `--dropout` reaches the trunk) in float32, where the
+pooled ConvSE3 units run kernels J and K on the card, and with
+`compute_dtype="bfloat16"`, which as in JAX reaches the encoder only (its
+output is cast back to float32; the AtomEncoder, the trunk, the
+parameters and the loss stay float32), where they run kernels L and M.
+Configurations the port does not support yet raise here: `remat`, another
+`compute_dtype`, and bfloat16 at a width whose pooled units JAX would fuse
+(`MLP_hidden` a multiple of 128; ROADMAP item 11).
 """
 
 from __future__ import annotations
@@ -20,7 +24,7 @@ from torch import nn
 
 from equihgnn_tpu_torch.common.registry import registry
 from equihgnn_tpu_torch.data.structures import HyperGraphBatch
-from equihgnn_tpu_torch.models.common import check_f32_no_remat
+from equihgnn_tpu_torch.models.common import check_compute
 from equihgnn_tpu_torch.models.config import ModelConfig
 from equihgnn_tpu_torch.models.trunks import TrunkS
 from equihgnn_tpu_torch.nn.encoders import AtomEncoder
@@ -36,14 +40,14 @@ class SE3TransformerEquiHNNS(nn.Module):
     def __init__(self, num_target: int, cfg: ModelConfig, device="cpu",
                  generator: torch.Generator | None = None):
         super().__init__()
-        check_f32_no_remat(cfg)
+        check_compute(cfg, "se3_transformer_equihnns")
         gen = torch.Generator().manual_seed(0) if generator is None else generator
         self.num_target, self.cfg = num_target, cfg
         h = cfg.mlp_hidden
         self.atom_encoder = AtomEncoder(h, generator=gen)
         self.se3_transformer_layer = SE3Transformer(
             dim=h, heads=2, depth=2, dim_head=32, num_degrees=2, valid_radius=5.0,
-            num_neighbors=16, generator=gen)
+            num_neighbors=16, dtype=cfg.compute_dtype, generator=gen)
         self.trunk = TrunkS(num_target, cfg, generator=gen)
         self.to(device)
 

@@ -23,7 +23,7 @@ from torch import nn
 
 from equihgnn_tpu_torch.common.registry import registry
 from equihgnn_tpu_torch.data.structures import HyperGraphBatch
-from equihgnn_tpu_torch.models.common import check_f32_no_remat
+from equihgnn_tpu_torch.models.common import check_compute
 from equihgnn_tpu_torch.models.config import ModelConfig
 from equihgnn_tpu_torch.models.trunks import TrunkS
 from equihgnn_tpu_torch.nn.visnet import ViSNet
@@ -38,7 +38,7 @@ class VisNetEquiHNNS(nn.Module):
     def __init__(self, num_target: int, cfg: ModelConfig, device="cpu",
                  generator: torch.Generator | None = None):
         super().__init__()
-        check_f32_no_remat(cfg)
+        check_compute(cfg, "visnet_equihnns")
         gen = torch.Generator().manual_seed(0) if generator is None else generator
         self.num_target, self.cfg = num_target, cfg
         self.visnet_layer = ViSNet(hidden_channels=cfg.mlp_hidden, lmax=2, max_num_neighbors=16,

@@ -9,9 +9,14 @@ with the CG constants of `ops/so3.py` and the harmonics of `ops/sh.py`;
 R_J = W_J·h + b_J with h the radial hidden, never materialized per edge.
 
   * The pooled units (conv_in, conv_out: the neighbour mean) contract h
-    against the neighbours first and apply W_J once per node: that is
-    `ops/kernels/pooled_conv.py`, kernels J and K on the card, the plain
-    version on the CPU; the bias term and Σ_k stay plain, as in JAX.
+    against the neighbours first and apply W_J once per node. In float32
+    that is `ops/kernels/pooled_conv.py`, kernels J and K on the card, the
+    plain version on the CPU; the bias term and Σ_k stay plain, as in JAX.
+    In bfloat16 it is JAX's per-J path: in one checkpointed step per J,
+    the pooled-M build M = Σ_k h_k ⊗ t_k (`ops/kernels/pooled_m.py`,
+    kernels L and M on the card), rounded to bfloat16, then the projection
+    by W_J as one plain product; where JAX's fused unit would take the
+    shape instead (`pooled_conv_shape_ok`), the unit raises.
   * The unpooled units (the attention keys and values, one `stack=2`
     conv) apply W_J at the node sites, place the radial hidden densely on
     [A, A] by a scatter on the neighbour index and mix the two by a batched
@@ -19,6 +24,20 @@ R_J = W_J·h + b_J with h the radial hidden, never materialized per edge.
     computes them. The (stack, input-m) steps that JAX wraps in
     `jax.checkpoint` are `torch.utils.checkpoint`s here, on every device:
     they bound the backward's memory and change no number.
+
+`dtype="bfloat16"` is JAX's `SE3Transformer.dtype`: the features, the
+distances and the harmonics are cast at entry and every module computes
+in their type, with the casts where JAX has them (parameters cast to the
+input's type; LayerNorm statistics, NormSE3's norms and the attention's
+softmax in float32); the type-0 output is cast back to float32. Each
+operation rounds to bfloat16 as XLA's CPU backend does: op by op (so GELU
+in bfloat16 is spelt out as `jax.nn.gelu` composes it), except that the
+last operation before a cast to float32 or a sum is taken in float32
+(XLA's excess precision). The port copies that where JAX has such a cast:
+the radial trunk's bias adds, the attention's scaled logits, Σ_k t of the
+pooled units, and across modules the values that NormSE3 and the type-0
+output cast (the residual stream, the FFN's inner product and the
+convolutions' outputs are carried in float32 for them, `exact`).
 
 Every neighbour gather is an index gather (`index_select`), never a
 one-hot matmul (a TPU workaround) nor `x[idx]` (whose backward is slow on
@@ -39,19 +58,56 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from equihgnn_tpu_torch.nn.mlp import normal_, uniform_
-from equihgnn_tpu_torch.ops.gather import nbr_gather
-from equihgnn_tpu_torch.ops.kernels.pooled_conv import pooled_conv
+from equihgnn_tpu_torch.ops.gather import index_select, nbr_gather
+from equihgnn_tpu_torch.ops.kernels.pooled_conv import pooled_conv, pooled_conv_shape_ok
+from equihgnn_tpu_torch.ops.kernels.pooled_m import pooled_m
 from equihgnn_tpu_torch.ops.knn import knn_dense
 from equihgnn_tpu_torch.ops.numerics import safe_norm
 from equihgnn_tpu_torch.ops.sh import cg_const, spherical_harmonics
 
 
 def _gelu(x: torch.Tensor) -> torch.Tensor:
-    return F.gelu(x, approximate="tanh")
+    """flax's `nn.gelu`, the tanh approximation. Below float32 it is JAX's
+    composition (`jax.nn.gelu`), each operation rounded to x's type, with
+    the constants in that type."""
+    if x.dtype == torch.float32:
+        return F.gelu(x, approximate="tanh")
+    const = lambda v: torch.tensor(v, dtype=x.dtype, device=x.device)  # noqa: E731
+    inner = const(math.sqrt(2 / math.pi)) * (x + const(0.044715) * (x * x * x))
+    return x * (const(0.5) * (1.0 + torch.tanh(inner)))
+
+
+def _rounded(v: float, dtype: torch.dtype) -> float:
+    """The Python scalar v as a tensor of `dtype` holds it: JAX casts a weak
+    scalar to the array's type before it multiplies."""
+    return torch.tensor(v, dtype=dtype).item()
 
 
 def _js(din: int, dout: int) -> list[int]:
     return list(range(abs(din - dout), din + dout + 1))
+
+
+def _check_unfused(dtype: torch.dtype, i: int, f: int, o: int) -> None:
+    """Below float32, a pooled unit whose shape JAX's fused unit takes
+    (`pooled_conv_shape_ok`) is J and K in that type, which the port lacks."""
+    if dtype != torch.float32 and pooled_conv_shape_ok(i, f, o):
+        raise NotImplementedError(
+            f"a {dtype} pooled ConvSE3 unit at I = {i}, F = {f}, O = {o} is JAX's fused unit: "
+            f"kernels J and K in {dtype}, ROADMAP item 11")
+
+
+def _sum_parts(parts: list, dtype: torch.dtype, exact: bool) -> torch.Tensor:
+    """Σ parts, left to right, each rounded to `dtype` and every addition in
+    `dtype`; with `exact`, the last addition is kept in float32, unrounded:
+    what XLA passes to a consumer that casts it to float32 (a sole part, which
+    reaches the cast through a slice in JAX, is rounded)."""
+    acc = parts[0].to(dtype)
+    for p in parts[1:-1]:
+        acc = acc + p.to(dtype)
+    if len(parts) > 1:
+        last = parts[-1].to(dtype)
+        acc = acc.float() + last.float() if exact else acc + last
+    return acc
 
 
 class LinearSE3(nn.Module):
@@ -65,9 +121,14 @@ class LinearSE3(nn.Module):
                         generator)
             setattr(self, f"w{d}", nn.Parameter(w))
 
-    def forward(self, x: dict) -> dict:
-        return {d: torch.einsum("...dm,de->...em", x[d], getattr(self, f"w{d}"))
-                for d in range(self.degrees)}
+    def forward(self, x: dict, exact: bool = False) -> dict:
+        """In x's type; with `exact`, the product of x and the rounded weight
+        in float32, unrounded (for a consumer that casts it to float32)."""
+        out = {}
+        for d in range(self.degrees):
+            xd, w = x[d], getattr(self, f"w{d}").to(x[d].dtype)
+            out[d] = torch.einsum("...dm,de->...em", *((xd.float(), w.float()) if exact else (xd, w)))
+        return out
 
 
 class NormSE3(nn.Module):
@@ -80,12 +141,16 @@ class NormSE3(nn.Module):
             setattr(self, f"scale{d}", nn.Parameter(torch.ones(chan)))
         self.degrees = len(fiber)
 
-    def forward(self, x: dict) -> dict:
+    def forward(self, x: dict, dtype: torch.dtype | None = None) -> dict:
+        """In `dtype` (default: x's type). The norms are taken in float32 of x
+        as given, so a float32 x may hold the unrounded last operation that
+        produced it, as XLA passes it to the cast; the phase takes x rounded."""
         out = {}
         for d in range(self.degrees):
-            t = x[d]
-            norm = torch.clamp(safe_norm(t, dim=-1, keepdim=True), min=self.eps)
-            out[d] = _gelu(norm[..., 0] * getattr(self, f"scale{d}"))[..., None] * (t / norm)
+            dt = dtype or x[d].dtype
+            norm = torch.clamp(safe_norm(x[d].float(), dim=-1, keepdim=True), min=self.eps)
+            gate = _gelu(norm[..., 0] * getattr(self, f"scale{d}"))  # float32
+            out[d] = gate.to(dt)[..., None] * (x[d].to(dt) / norm.to(dt))
         return out
 
 
@@ -106,21 +171,27 @@ class StackedRadialTrunk(nn.Module):
             setattr(self, f"{name}_scale", nn.Parameter(torch.ones(n, f)))
             setattr(self, f"{name}_bias", nn.Parameter(torch.zeros(n, f)))
 
-    def _ln(self, h: torch.Tensor, name: str) -> torch.Tensor:
-        mu = torch.mean(h, dim=-1, keepdim=True)
-        var = torch.mean(torch.square(h - mu), dim=-1, keepdim=True)
-        out = (h - mu) * torch.rsqrt(var + 1e-5)
+    def _ln(self, h32: torch.Tensor, name: str, dtype: torch.dtype) -> torch.Tensor:
+        """Statistics, normalization and affine of the float32 h32, cast to
+        `dtype`."""
+        mu = torch.mean(h32, dim=-1, keepdim=True)
+        var = torch.mean(torch.square(h32 - mu), dim=-1, keepdim=True)
+        out = (h32 - mu) * torch.rsqrt(var + 1e-5)
         return (out * getattr(self, f"{name}_scale")[:, None, None, :]
-                + getattr(self, f"{name}_bias")[:, None, None, :])
+                + getattr(self, f"{name}_bias")[:, None, None, :]).to(dtype)
 
     def forward(self, rel_dist: torch.Tensor) -> torch.Tensor:
-        """[G, A, k, 1] → [n, G, A, k, f]."""
+        """[G, A, k, 1] → [n, G, A, k, f], in rel_dist's type. Each bias add
+        feeds the LayerNorm's cast to float32 and is taken in float32: XLA
+        drops the rounding of the last operation before such a cast."""
         g, a, k = rel_dist.shape[:3]
+        dt = rel_dist.dtype
         rd = rel_dist.reshape(g, a * k, 1)
-        h = rd * self.lin0_w[:, None, None, :] + self.lin0_b[:, None, None, :]
-        h = _gelu(self._ln(h, "ln0"))
-        h = torch.einsum("ngqf,nfe->ngqe", h, self.lin1_w) + self.lin1_b[:, None, None, :]
-        h = _gelu(self._ln(h, "ln1"))
+        h = (rd * self.lin0_w[:, None, None, :].to(dt)).float() + self.lin0_b[:, None, None, :].to(dt)
+        h = _gelu(self._ln(h, "ln0", dt))
+        h = (torch.einsum("ngqf,nfe->ngqe", h, self.lin1_w.to(dt)).float()
+             + self.lin1_b[:, None, None, :].to(dt))
+        h = _gelu(self._ln(h, "ln1", dt))
         return h.reshape(self.n, g, a, k, self.mid_dim)
 
 
@@ -143,14 +214,14 @@ class _ConvSE3Pair(nn.Module):
             setattr(self, f"radial{sfx}_out_b", nn.Parameter(
                 uniform_(torch.empty(nc_out, nc_in, nj), bound, generator)))
 
-    def _params(self):
+    def _params(self, dtype):
         sfx = [f"_{si}" if self.stack > 1 else "" for si in range(self.stack)]
         W = torch.stack([getattr(self, f"radial{x}_out_W") for x in sfx])  # [S, f, o, i, J]
         b = torch.stack([getattr(self, f"radial{x}_out_b") for x in sfx])  # [S, o, i, J]
-        return W, b
+        return W.to(dtype), b.to(dtype)
 
     def forward(self, xn, nbr_idx, nbr_mask, w_sh, h):
-        W, bias = self._params()
+        W, bias = self._params(xn.dtype)
         if self.pool:
             return self._pooled(xn, nbr_idx, nbr_mask, w_sh, h, W, bias)
         return self._unpooled(xn, nbr_idx, nbr_mask, w_sh, h, W, bias)
@@ -162,7 +233,9 @@ class _ConvSE3Pair(nn.Module):
         g, a, k = nbr_idx.shape
         c_out = 2 * self.dout + 1
         xg = nbr_gather(xn, nbr_idx, nbr_mask)  # [G, A, k, i, b]
-        cnt = torch.clamp(torch.sum(nbr_mask.to(xn.dtype), dim=2), min=1.0)[..., None, None]
+        cnt = torch.clamp(torch.sum(nbr_mask.float(), dim=2), min=1.0)[..., None, None]
+        if xn.dtype != torch.float32:
+            return self._pooled_per_j(xg, w_sh, h, W, bias) / cnt[None].to(xn.dtype)
         outs = []
         for si in range(self.stack):
             acc = 0.0
@@ -174,6 +247,35 @@ class _ConvSE3Pair(nn.Module):
                 acc = acc + torch.einsum("oi,gaci->gaco", bias[si, ..., jidx], tsum)
             outs.append(torch.transpose(acc, -1, -2))  # [G, A, o, c]
         return torch.stack(outs) / cnt[None]  # [S, G, A, o, c]
+
+    def _pooled_per_j(self, xg, w_sh, h, W, bias):
+        """JAX's per-J path below float32 (`se3_transformer.py:260-306`): per
+        J one checkpointed step that builds M [G, A, c·i, f] by `pooled_m`
+        (kernel L; rounded to the input's type), projects it by W_J and adds
+        the bias term; the sum over J, undivided, [S, G, A, o, c]."""
+        g, a, k = xg.shape[:3]
+        f, i = h.shape[-1], self.nc_in
+        _check_unfused(xg.dtype, i, f, self.nc_out)
+
+        def one_j(wj, bj, wshj, hs, xg):
+            # XLA sums the unrounded products into Σ_k t (a reduction takes
+            # its input's last operation in float32) and rounds t for M
+            tc32 = torch.einsum("gakbc,gakib->gakci", wshj.float(), xg.float())
+            tc, tsum = tc32.to(xg.dtype), torch.sum(tc32, dim=2).to(xg.dtype)  # [G, A, c, i]
+            c = tc.shape[-2]
+            m2 = pooled_m(hs, tc.reshape(g, a, k, c * i).contiguous()).view(g, a, c, i, f)
+            return (torch.einsum("foi,gacif->gaoc", wj, m2)
+                    + torch.einsum("oi,gaci->gaoc", bj, tsum))
+
+        outs = []
+        for si in range(self.stack):
+            res = None
+            for jidx in range(W.shape[-1]):
+                term = checkpoint(one_j, W[si, ..., jidx], bias[si, ..., jidx],
+                                  w_sh[..., jidx, :, :], h[si], xg, use_reentrant=False)
+                res = term if res is None else res + term
+            outs.append(res)
+        return torch.stack(outs)
 
     def _unpooled(self, xn, nbr_idx, nbr_mask, w_sh, h, W, bias):
         """Per-edge outputs v_e = (W·h_e + b)·x_j, then CG×SH per output column
@@ -206,7 +308,7 @@ class _ConvSE3Pair(nn.Module):
             u = torch.matmul(x2, Wp).view(sp, g, a, p, f)
             v = torch.matmul(hds, u.transpose(-1, -2))  # [S', G, A(j), A(i), p]
             vk = v.reshape(sp, g * a * a, p).index_select(1, dst)
-            ubk = torch.matmul(x2, bp).index_select(1, src)
+            ubk = index_select(torch.matmul(x2, bp), 1, src)
             ek = (vk + ubk).view(sp, g, a, k, nj, self.nc_out)
             return torch.einsum("sgakJo,gakJc->sgakoc", ek, wshb)
 
@@ -250,27 +352,25 @@ class ConvSE3(nn.Module):
                 self.add_module(f"self_interact{f'_{si}' if stack > 1 else ''}",
                                 LinearSE3(fiber_in, fiber_out, generator=generator))
 
-    def forward(self, inp: dict, nbr_idx, nbr_mask, rel_dist, wsh_map):
-        s = self.stack
+    def forward(self, inp: dict, nbr_idx, nbr_mask, rel_dist, wsh_map, exact: bool = False):
+        """In the inputs' type; with `exact`, each output's last operation in
+        float32, unrounded (`_sum_parts`)."""
+        s, dt = self.stack, inp[0].dtype
         h_all = self.radial_trunks(rel_dist)
         h_all = torch.where(nbr_mask[None, ..., None], h_all,
                             torch.zeros((), dtype=h_all.dtype, device=h_all.device))
         h_all = h_all.reshape((len(self.pairs), s) + h_all.shape[1:])
-        outputs = [{} for _ in range(s)]
-        for dout in range(len(self.fiber_out)):
-            acc = None
-            for din in range(len(self.fiber_in)):
-                term = getattr(self, f"pair_{din}_{dout}")(
+        terms = {dout: [getattr(self, f"pair_{din}_{dout}")(
                     inp[din], nbr_idx, nbr_mask, wsh_map[(din, dout)],
-                    h_all[self.pairs.index((din, dout))])
-                acc = term if acc is None else acc + term
-            for si in range(s):
-                outputs[si][dout] = acc[si]
-        if self.self_interaction:
-            for si in range(s):
-                siw = getattr(self, f"self_interact{f'_{si}' if s > 1 else ''}")(inp)
-                outputs[si] = {d: outputs[si][d] + siw[d] if d in siw else outputs[si][d]
-                               for d in outputs[si]}
+                    h_all[self.pairs.index((din, dout))]) for din in range(len(self.fiber_in))]
+                 for dout in range(len(self.fiber_out))}
+        outputs = []
+        for si in range(s):
+            siw = (getattr(self, f"self_interact{f'_{si}' if s > 1 else ''}")(inp)
+                   if self.self_interaction else {})
+            outputs.append({dout: _sum_parts([t[si] for t in parts] + ([siw[dout]] if dout in siw
+                                                                       else []), dt, exact)
+                            for dout, parts in terms.items()})
         return outputs[0] if s == 1 else outputs
 
 
@@ -285,13 +385,14 @@ class FeedForwardSE3(nn.Module):
         self.project_out = LinearSE3(hidden, fiber, generator=generator)
 
     def forward(self, x: dict) -> dict:
-        return self.project_out(self.nonlin(self.project_in(x)))
+        dt = x[0].dtype  # the nonlinearity casts project_in's product to float32
+        return self.project_out(self.nonlin(self.project_in(x, exact=True), dt))
 
 
 class AttentionSE3(nn.Module):
     """`se3_transformer_layer.py:415-608`: LinearSE3 queries, ConvSE3 keys and
     values (one stack=2 conv), self keys and values joined on the neighbour
-    axis, logits masked with −1e9 before the softmax."""
+    axis, logits masked with −1e9 before the softmax, which is float32."""
 
     def __init__(self, fiber, dim_head: int = 24, heads: int = 8, attend_self: bool = True, *,
                  generator: torch.Generator):
@@ -324,23 +425,25 @@ class AttentionSE3(nn.Module):
             q = q.reshape(g, a, nh, dh, m)
             kk = kk.reshape(g, a, kn, nh, dh, m)
             vv = vv.reshape(g, a, kn, nh, dh, m)
-            sim = torch.einsum("gahdm,gakhdm->gahk", q, kk) * dh ** -0.5
-            sim = torch.where(nbr_mask[:, :, None, :], sim,
-                              torch.full((), -1e9, dtype=sim.dtype, device=sim.device))
-            attn = torch.softmax(sim, dim=-1)
+            # the scale in q's type, the product in float32 (it feeds the cast)
+            sim = torch.einsum("gahdm,gakhdm->gahk", q, kk).float() * _rounded(dh ** -0.5, q.dtype)
+            sim = torch.where(nbr_mask[:, :, None, :], sim, torch.full((), -1e9, device=sim.device))
+            attn = torch.softmax(sim, dim=-1).to(vv.dtype)
             out = torch.einsum("gahk,gakhdm->gahdm", attn, vv)
             outputs[d] = out.reshape(g, a, nh * dh, m)
         return self.to_out(outputs)
 
 
 def se3_edges(pd, slot_mask, num_neighbors: int, valid_radius: float, num_degrees: int,
-              slot_gid=None):
+              slot_gid=None, dtype: torch.dtype = torch.float32):
     """The edge inputs every ConvSE3 shares (`se3_transformer.py:560-605`) of the
     slot coordinates pd [G, A, 3]: the k = min(num_neighbors, A − 1) nearest
     other slots within `valid_radius` (nbr_idx, nbr_mask [G, A, k]), rel_dist
     [G, A, k, 1] (0 where masked), and the CG-weighted harmonics of
     rel_pos = p_a − p_j, wsh_map {(din, dout): [G, A, k, J, b, c]} with
-    w_sh[..., J, b, c] = Σ_m CG^{(din,J,dout)}[b, m, c] · Y_J[m]."""
+    w_sh[..., J, b, c] = Σ_m CG^{(din,J,dout)}[b, m, c] · Y_J[m]. rel_dist,
+    the harmonics and the CG constants are computed in float32 and cast to
+    `dtype`, in which the products are taken."""
     g, a = slot_mask.shape
     k = min(num_neighbors, a - 1)
     nbr_idx, nbr_mask, sqd = knn_dense(pd, slot_mask, k, valid_radius=valid_radius,
@@ -349,28 +452,36 @@ def se3_edges(pd, slot_mask, num_neighbors: int, valid_radius: float, num_degree
     zero = torch.zeros((), dtype=pd.dtype, device=pd.device)
     rel_pos = pd[:, :, None, :] - nbr_gather(pd, nbr_idx, torch.ones_like(nbr_mask))
     rel_dist = torch.where(nbr_mask, torch.sqrt(torch.clamp(sqd, min=0.0)), zero)[..., None]
-    sh = spherical_harmonics(2 * (num_degrees - 1), rel_pos)
+    sh = [y.to(dtype) for y in spherical_harmonics(2 * (num_degrees - 1), rel_pos)]
     wsh_map = {}
     for din in range(num_degrees):
         for dout in range(num_degrees):
             wsh_map[(din, dout)] = torch.stack([
                 torch.einsum("bmc,gakm->gakbc",
-                             torch.tensor(cg_const(din, J, dout), device=pd.device), sh[J])
+                             torch.tensor(cg_const(din, J, dout), dtype=dtype, device=pd.device),
+                             sh[J])
                 for J in _js(din, dout)], dim=3)
-    return nbr_idx, nbr_mask, rel_dist, wsh_map
+    return nbr_idx, nbr_mask, rel_dist.to(dtype), wsh_map
 
 
 class SE3Transformer(nn.Module):
     """The trunk (`se3_transformer_layer.py:1117-1693`), dense layout: conv_in,
-    `depth` pre-norm attention + FFN blocks, conv_out; returns type-0
-    features in the flat [N, dim] atom layout."""
+    `depth` pre-norm attention + FFN blocks, conv_out; returns float32 type-0
+    features in the flat [N, dim] atom layout. `dtype` is the compute type
+    (None: float32; "bfloat16"), the parameters stay float32. In bfloat16
+    the pooled units (I = O = dim, F = 128) take kernels L and M, and a dim
+    at which JAX's fused unit would take them (`pooled_conv_shape_ok`)
+    raises."""
 
     def __init__(self, dim: int = 64, heads: int = 2, depth: int = 2, dim_head: int = 32,
                  num_degrees: int = 2, valid_radius: float = 1e5, num_neighbors: int = 16,
-                 attend_self: bool = True, *, generator: torch.Generator):
+                 attend_self: bool = True, dtype: str | None = None, *,
+                 generator: torch.Generator):
         super().__init__()
         self.depth, self.num_degrees = depth, num_degrees
         self.valid_radius, self.num_neighbors = valid_radius, num_neighbors
+        self.dtype = getattr(torch, dtype) if dtype is not None else torch.float32
+        _check_unfused(self.dtype, dim, 128, dim)  # the pooled units of conv_in and conv_out
         fiber_hidden = (dim,) * num_degrees
         self.conv_in = ConvSE3((dim,), fiber_hidden, generator=generator)
         for i in range(depth):
@@ -397,13 +508,17 @@ class SE3Transformer(nn.Module):
         fd = feats.index_select(0, flat).view(g, a, -1) * sm
         pd = coords.index_select(0, flat).view(g, a, 3) * sm
         args = se3_edges(pd, slot_mask, self.num_neighbors, self.valid_radius, self.num_degrees,
-                         slot_gid)
-        x = self.conv_in({0: fd[..., None]}, *args)
+                         slot_gid, self.dtype)
+        # x, the residual stream, holds each value's last operation in
+        # float32: the prenorms and the type-0 output cast it to float32, and
+        # XLA leaves that operation unrounded there; every other use rounds it
+        dt = self.dtype
+        x = self.conv_in({0: fd.to(dt)[..., None]}, *args, exact=True)
         for i in range(self.depth):
-            out = getattr(self, f"attn_{i}")(getattr(self, f"attn_prenorm_{i}")(x), *args)
-            x = {d: out[d] + x[d] for d in out}
-            out = getattr(self, f"ff_{i}")(getattr(self, f"ff_prenorm_{i}")(x))
-            x = {d: out[d] + x[d] for d in out}
-        x = self.conv_out(x, *args)
-        type0 = x[0][..., 0]  # [G, A, dim]
+            out = getattr(self, f"attn_{i}")(getattr(self, f"attn_prenorm_{i}")(x, dt), *args)
+            x = {d: _sum_parts([x[d], out[d]], dt, exact=True) for d in out}
+            out = getattr(self, f"ff_{i}")(getattr(self, f"ff_prenorm_{i}")(x, dt))
+            x = {d: _sum_parts([x[d], out[d]], dt, exact=True) for d in out}
+        x = self.conv_out({d: v.to(dt) for d, v in x.items()}, *args, exact=True)
+        type0 = x[0][..., 0].float()  # [G, A, dim]
         return type0.reshape(g * a, -1).index_select(0, graph_id * a + atom_slot)

@@ -9,11 +9,15 @@ forward `_pc_fwd` (kernel J) and its custom VJP `_pc_bwd` (kernel K):
 
 Layouts are JAX's: h [G, A, K, F]; tc [G, A, K, C·I] (c outer, i inner);
 W [F, O, I], which the kernels read as it lies and give dW in; out
-[G, A, C, O]. JAX's TPU gate
-(`pooled_conv_supported`, a VMEM budget) is not ported: the kernels take
-any K ≥ 0 (K = 0 gives zeros) and any C in 1..64; a K whose chunks do not
-fit a block's shared memory is refused by the C entry, and the wrapper
-raises.
+[G, A, C, O]. The kernels are float32 only. Routing (`nn/se3_transformer.py`
+`_ConvSE3Pair`): a float32 pooled unit takes J and K at every width, since
+the VMEM half of JAX's gate `pooled_conv_supported` is not ported; a
+bfloat16 unit takes the per-J path with kernels L and M
+(`ops/kernels/pooled_m.py`) where the gate's divisibility half,
+`pooled_conv_shape_ok`, fails, as JAX does, and raises where it holds (J
+and K in bfloat16 are ROADMAP item 11). The kernels take any K ≥ 0 (K = 0
+gives zeros) and any C in 1..64; a K whose chunks do not fit a block's
+shared memory is refused by the C entry, and the wrapper raises.
 
 `pooled_conv` is the wrapper. A CPU tensor goes to the plain version
 (`pooled_conv_plain`), which autograd traces. A CUDA tensor goes through
@@ -33,8 +37,19 @@ import torch
 from equihgnn_tpu_torch.ops.kernels import build
 
 MAX_C = 64  # a row tile of the kernels holds the C rows of at least one site
+_ISPLIT = 4  # the i-chunk of JAX's fused unit (`pooled_conv.py` `_ISPLIT`)
 # M chunk the plain versions materialize at once (sites × C·I·F floats)
 _PLAIN_CHUNK_FLOATS = 1 << 28
+
+
+def pooled_conv_shape_ok(i: int, f: int, o: int) -> bool:
+    """The divisibility half of JAX's `pooled_conv_supported`
+    (`pooled_conv.py:80-84`: I % 4, F % 8, O % 128), by which the port
+    routes a bfloat16 pooled unit: where it holds, JAX runs the fused unit
+    (J and K, which the port has in float32 only: the unit raises), and
+    where it fails, the per-J path with the pooled-M build (kernels L and M,
+    `ops/kernels/pooled_m.py`). Its VMEM half is not ported."""
+    return i % _ISPLIT == 0 and f % 8 == 0 and o % 128 == 0
 
 
 # ------------------------------------------------------------ plain versions

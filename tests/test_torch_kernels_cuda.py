@@ -15,14 +15,22 @@ for kernels F-I masked edges, an all-empty padding row, A < k (the
 neighbour axis padded with masked edges, as `knn_dense` pads it), L = 3
 and 8, h not a multiple of 32 and a strided s1; for kernels J and K
 C = 1, 3, 5, k = 0, 4, 16, a site count G·A that fills no row tile
-exactly, and ragged I, F and O. The autograd tests show
+exactly, and ragged I, F and O; for kernels L and M the batch-768 shapes
+(G = 769, A = 32, K = 16, F = 128, X = 64 and 192) in bfloat16 and float32,
+K = 0, 5 and ragged F and X. The autograd tests show
 that a CUDA call of each wrapper is differentiable (its output has a
 `grad_fn`) and gives the gradients of the plain version on the card.
 Gradient tolerance: max |Δ| ≤ 1e-4·max |plain| + 1e-6 per tensor (f32 sums
 in other orders; dW1 and the bias sums add up to G·A·k terms); kernels F
 and H forward: 1e-5·max |plain| + 1e-6 per tensor; kernel J forward
 1e-4·max |plain| + 1e-6 (sums of I·F = 32,768 products at the model's
-widths).
+widths). Kernels L and M in bfloat16: at least 99 % of the elements equal
+to the plain version's and every one within one bfloat16 ulp (both round
+an f32 sum once); in float32 within rtol = atol = 1e-5. The bf16 model on
+the card against the bf16 model on the CPU: predictions within the CPU's
+own bfloat16-vs-float32 distance at the same weights, and the encoder's
+gradients under a smooth loss (relative L2 over all parameters) within
+half of it; cuBLAS's reduced-precision bf16 reductions are off for it.
 """
 
 import pytest
@@ -45,6 +53,12 @@ from equihgnn_tpu_torch.ops.kernels.pooled_conv import (
     pooled_conv_bwd,
     pooled_conv_bwd_plain,
     pooled_conv_plain,
+)
+from equihgnn_tpu_torch.ops.kernels.pooled_m import (
+    pooled_m,
+    pooled_m_bwd,
+    pooled_m_bwd_plain,
+    pooled_m_plain,
 )
 from equihgnn_tpu_torch.ops.kernels.segment_sum import (
     sorted_segment_sum,
@@ -372,7 +386,7 @@ def _faformer_setup():
 def _reset_counts():
     for fn in (sorted_segment_sum, fused_edge_messages, fused_edge_messages_bwd,
                fused_frame_swiglu, fused_frame_swiglu_bwd, vis_vec_agg, vis_vec_agg_bwd,
-               vis_wdot, vis_wdot_bwd, pooled_conv, pooled_conv_bwd):
+               vis_wdot, vis_wdot_bwd, pooled_conv, pooled_conv_bwd, pooled_m, pooled_m_bwd):
         fn.launches = 0
 
 
@@ -725,3 +739,141 @@ def test_se3_transformer_on_card_matches_cpu(dev):
     for name in nonzero:
         assert name in got and bool(got[name].abs().max() > 0), name
         _assert_grad_close(got[name].cpu(), want[name], name)
+
+
+def _pm_args(g, a, k, f, x, dtype, seed):
+    gen = torch.Generator().manual_seed(seed)
+    return [torch.randn(shape, generator=gen).to(dtype)
+            for shape in ((g, a, k, f), (g, a, k, x), (g, a, x, f))]
+
+
+def _assert_pm_close(got, want, name):
+    assert got.dtype == want.dtype and got.shape == want.shape, name
+    if got.dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5, msg=name)
+        return
+    if not want.numel():
+        return
+
+    def ordered(t):  # bf16 bit patterns as ordered integers
+        bits = t.view(torch.int16).to(torch.int32)
+        return torch.where(bits < 0, -32768 - bits, bits)
+
+    equal = float((got == want).float().mean())
+    ulps = int((ordered(got) - ordered(want)).abs().max())
+    assert equal >= 0.99 and ulps <= 1, f"{name}: {equal:.5f} equal, {ulps} ulps at most"
+
+
+PM_CASES = [(769, 32, 16, 128, 64), (769, 32, 16, 128, 192), (3, 11, 5, 13, 9), (2, 3, 0, 16, 8),
+            (1, 1, 16, 24, 200)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("g,a,k,f,x", PM_CASES)
+def test_pooled_m_kernels(dev, g, a, k, f, x, dtype):
+    """Kernel L against the plain version and kernel M against the plain
+    backward, the same bits on a second run, one launch each."""
+    h, tc, dm = (t.to(dev) for t in _pm_args(g, a, k, f, x, dtype, seed=g + k + x))
+    before = (pooled_m.launches, pooled_m_bwd.launches)
+    with torch.no_grad():
+        got = pooled_m(h, tc)
+    _assert_pm_close(got, pooled_m_plain(h, tc), "L")
+    grads = pooled_m_bwd(h, tc, dm)
+    assert (pooled_m.launches, pooled_m_bwd.launches) == (before[0] + 1, before[1] + 1)
+    for name, x_, y_ in zip(("dh", "dtc"), grads, pooled_m_bwd_plain(h, tc, dm)):
+        _assert_pm_close(x_, y_, f"M {name}")
+    with torch.no_grad():
+        assert torch.equal(pooled_m(h, tc), got)
+    for x_, y_ in zip(pooled_m_bwd(h, tc, dm), grads):
+        assert torch.equal(x_, y_)
+    if k == 0:
+        assert float(got.float().abs().max()) == 0.0
+
+
+def test_pooled_m_autograd(dev):
+    """Kernel L inside its autograd.Function: the CUDA output carries a
+    grad_fn, and kernel M runs once for the plain version's gradients."""
+    h, tc, dm = (t.to(dev) for t in _pm_args(7, 9, 16, 128, 64, torch.bfloat16, seed=5))
+    leaves = [t.clone().requires_grad_() for t in (h, tc)]
+    before = pooled_m_bwd.launches
+    out = pooled_m(*leaves)
+    assert out.grad_fn is not None
+    out.backward(dm)
+    assert pooled_m_bwd.launches == before + 1
+    for name, got, want in zip(("dh", "dtc"), (t.grad for t in leaves),
+                               pooled_m_bwd_plain(h, tc, dm)):
+        _assert_pm_close(got, want, name)
+
+
+def test_pooled_m_rejects_unsupported_inputs(dev):
+    h, tc, dm = (t.to(dev) for t in _pm_args(2, 5, 4, 8, 6, torch.bfloat16, seed=1))
+    with pytest.raises(TypeError):
+        pooled_m(h.half(), tc.half())
+    with pytest.raises(TypeError):  # types mixed
+        pooled_m(h, tc.float())
+    with pytest.raises(ValueError):  # tc not contiguous
+        pooled_m(h, tc.transpose(0, 1).contiguous().transpose(0, 1))
+    with pytest.raises(ValueError):  # tc left on the CPU
+        pooled_m(h, tc.cpu())
+    with pytest.raises(ValueError):  # dM of another X
+        pooled_m_bwd(h, tc, dm[:, :, :4].contiguous())
+    with pytest.raises(RuntimeError):  # a site beyond a block's shared memory
+        pooled_m(torch.zeros(1, 1, 64, 1024, dtype=torch.bfloat16, device=dev),
+                 torch.zeros(1, 1, 64, 1024, dtype=torch.bfloat16, device=dev))
+
+
+def _rel_l2(got: dict, want: dict) -> float:
+    num = sum(float(((got[n].double().cpu() - want[n].double()) ** 2).sum()) for n in want)
+    return (num / sum(float((w.double() ** 2).sum()) for w in want.values())) ** 0.5
+
+
+def test_se3_transformer_bf16_on_card_matches_cpu(dev):
+    """`se3_transformer_equihnns` in bfloat16 at hidden 32: kernels L (4 a
+    forward, 8 a train step) and M (4 a step), never J or K, and every
+    parameter the CPU reaches reached; the eval forward and the encoder's
+    gradients under a smooth loss against the CPU's bf16 model (a step's
+    gradients also cross the trunk's ReLU kinks, which bf16 moves)."""
+    from equihgnn_tpu_torch import create_model
+    from equihgnn_tpu_torch.models.config import ModelConfig
+    from equihgnn_tpu_torch.train.trainer import masked_mse
+
+    _, batch = _faformer_setup()
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+    def make(device, dtype="bfloat16"):
+        cfg = ModelConfig(mlp_hidden=32, output_hidden=8, compute_dtype=dtype)
+        return create_model("se3_transformer_equihnns", num_target=1, cfg=cfg,
+                            generator=torch.Generator().manual_seed(1)).to(device)
+
+    with torch.inference_mode():
+        want, want32 = make("cpu").eval()(batch), make("cpu", None).eval()(batch)
+        _reset_counts()
+        got = make(dev).eval()(batch.to(dev)).cpu()
+    assert (pooled_m.launches, pooled_conv.launches) == (4, 0)
+    assert float((got - want).abs().max()) <= float((want - want32).abs().max())
+
+    def grads(device, loss, dtype="bfloat16"):
+        model = make(device, dtype)
+        loss(model, batch.to(device)).backward()
+        return {n: p.grad for n, p in model.named_parameters() if p.grad is not None}
+
+    def step(model, b):
+        sq, cnt = masked_mse(model(b), b.y, b.graph_mask)
+        return sq / cnt.clamp(min=1.0)
+
+    proj = torch.randn(batch.num_atoms, 32, generator=torch.Generator().manual_seed(4))
+
+    def encoder(model, b):
+        return torch.sum(model.encode(b)[b.atom_mask] * proj.to(b.pos.device)[b.atom_mask])
+
+    want = grads("cpu", step)
+    _reset_counts()
+    got = grads(dev, step)
+    assert (pooled_m.launches, pooled_m_bwd.launches, pooled_conv.launches) == (8, 4, 0)
+    nonzero = {n for n, g in want.items() if bool(g.abs().max() > 0)}
+    assert {"se3_transformer_layer.conv_in.pair_0_1.radial_out_W",
+            "atom_encoder.atom.embedding", "trunk.conv.W1.lin_0.weight"} <= nonzero
+    for name in nonzero:
+        assert name in got and bool(got[name].abs().max() > 0), name
+    want, want32 = grads("cpu", encoder), grads("cpu", encoder, None)
+    assert _rel_l2(grads(dev, encoder), want) <= 0.5 * _rel_l2(want, want32)

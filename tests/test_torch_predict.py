@@ -5,6 +5,7 @@ imports nothing of JAX (checked in a fresh interpreter).
 """
 
 import csv
+import dataclasses
 import os
 import subprocess
 import sys
@@ -88,6 +89,30 @@ def test_predict_visnet_cpu_on_real_sdf(tmp_path):
 
 def test_predict_se3_transformer_cpu_on_real_sdf(tmp_path):
     _predict_3d_method_on_real_sdf(tmp_path, "se3_transformer_equihnns")
+
+
+def test_predict_se3_transformer_bf16_checkpoint(tmp_path):
+    """A checkpoint of the bfloat16 model serves in bfloat16 (its meta's
+    `model_config`): the bf16 model's predictions in memory, not the f32
+    model's at the same weights, which lie within 0.1 · mean |f32| (the
+    bound of `tests/test_bf16.py`)."""
+    cfg = dataclasses.replace(CFG, compute_dtype="bfloat16")
+    model = create_model("se3_transformer_equihnns", num_target=1, cfg=cfg,
+                         generator=torch.Generator().manual_seed(7))
+    ckpt = save_checkpoint(str(tmp_path / "m.pt"), model, "se3_transformer_equihnns", cfg, std=2.0)
+    out = str(tmp_path / "preds.csv")
+    run(build_parser().parse_args(
+        ["--ckpt", ckpt, "--sdf", SDF, "--out", out, "--device", "cpu", "--batch_size", "8"]))
+    vals = np.array([float(r["prediction"]) for r in _rows(out)])
+    samples = [s for _, s in featurize_sdf(SDF)]
+    cpu = torch.device("cpu")
+    np.testing.assert_allclose(vals, predict_samples(model.eval(), samples, 8, cpu) * 2.0,
+                               rtol=1e-6, atol=1e-6)
+    f32 = create_model("se3_transformer_equihnns", num_target=1, cfg=CFG)
+    f32.load_state_dict(model.state_dict())
+    ref = predict_samples(f32.eval(), samples, 8, cpu) * 2.0
+    gap = float(np.abs(vals - ref).max())
+    assert 0.0 < gap <= 0.1 * (float(np.abs(ref).mean()) + 1e-3), gap
 
 
 def test_methane_has_one_atom_and_no_hyperedges():

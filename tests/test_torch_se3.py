@@ -497,10 +497,13 @@ def test_one_atom_batch_has_no_neighbours():
 
 
 def test_unported_options_raise():
-    for override in (dict(compute_dtype="bfloat16"), dict(remat=True)):
-        with pytest.raises(NotImplementedError):
+    """remat; another compute dtype; bfloat16 at a width whose pooled units
+    JAX would fuse (`tests/test_torch_se3_bf16.py` runs it at 16)."""
+    for override in (dict(remat=True), dict(compute_dtype="float16"),
+                     dict(compute_dtype="bfloat16", mlp_hidden=256)):
+        with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
             create_model("se3_transformer_equihnns", num_target=1,
-                         cfg=ModelConfig(**CFG, **override))
+                         cfg=ModelConfig(**{**CFG, **override}))
 
 
 def test_init_distributions():

@@ -437,7 +437,8 @@ def test_main_cuda_raises_without_card(tmp_path, monkeypatch):
     assert not os.path.exists(tmp_path / "logs")
 
 
-@pytest.mark.parametrize("flag", sorted(UNPORTED_FLAGS))
+# --compute_dtype now reaches the model, whose check raises on egnn_equihnns
+@pytest.mark.parametrize("flag", sorted([*UNPORTED_FLAGS, "compute_dtype"]))
 def test_unported_flags_raise(flag, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     extra = {"buckets": ["--buckets", "16,24"], "compute_dtype": ["--compute_dtype", "bfloat16"]}
