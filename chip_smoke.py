@@ -24,8 +24,10 @@ result line), each printing its seconds:
    included, 5 Å) at L = 8, h = 256, with s1 a strided view as in ViS_MP;
    J and K (the SE(3)-Transformer's fused pooled ConvSE3 unit, forward and
    backward) at its pooled sites (k = 16, F = 128, I = O = 256; C = 1 at
-   three of the four, C = 3 at conv_in's 0 → 1), against the plain
-   versions and the one `torch.einsum` call; L and M (the pooled-M build of
+   three of the four, C = 3 at conv_in's 0 → 1), J with the sites that
+   have a neighbour as `live` (as the model calls it) and without, against
+   the plain versions and the one `torch.einsum` call, with J's route
+   (3xTF32 on the tensor cores) and its bounds at the TF32 and f32 peaks; L and M (the pooled-M build of
    the bf16 path's per-J pooled units, forward and backward) in bf16 at k =
    16, F = 128, X = 64 (three of the four units) and 192 (conv_in's 0 → 1),
    against the plain versions and, for L, one `torch.bmm` over the sites;
@@ -141,8 +143,11 @@ BWD_LAUNCHES = {
     BF16_PATH: {"pooled_m": 4, "pooled_m_bwd": 4},
 }
 LR = {"visnet_equihnns": "1e-4"}  # the others train at 1e-3
-# the H100 SXM's published peaks: HBM3 bandwidth, dense f32 and bf16 rates
-PEAK_BYTES_S, PEAK_F32_S, PEAK_BF16_S = 3.35e12, 67e12, 989e12
+# the H100 SXM's published peaks: HBM3 bandwidth, dense f32, TF32 and bf16 rates
+PEAK_BYTES_S, PEAK_F32_S, PEAK_TF32_S, PEAK_BF16_S = 3.35e12, 67e12, 495e12, 989e12
+# kernel J's route: its products on the tensor cores in 3xTF32 (three TF32
+# products for each f32 one), `csrc/pooled_conv_fwd.cu`
+J_ROUTE = "3xTF32 (mma.sync.m16n8k8 tensor cores)"
 
 
 def check(ok: bool, msg: str) -> None:
@@ -150,11 +155,36 @@ def check(ok: bool, msg: str) -> None:
         raise RuntimeError(f"chip_smoke: {msg}")
 
 
-def median_ms(*fns, iters: int = 20, warmup_s: float = 0.3) -> list[float]:
+def bench_batch():
+    """(samples, batch): the BATCH synthetic molecules of every phase, seed 0,
+    and their one padded batch with positions."""
+    from equihgnn_tpu_torch.data.batching import iter_batches, spec_for_samples
+    from equihgnn_tpu_torch.data.synthetic import make_synthetic_dataset
+
+    samples = make_synthetic_dataset(BATCH, seed=0, num_targets=1)
+    return samples, next(iter_batches(samples, spec_for_samples(samples, BATCH), with_pos=True))
+
+
+def pooled_mask(batch) -> torch.Tensor:
+    """The neighbour mask [G, A, k] the SE(3)-Transformer's pooled units see,
+    on the card: each slot's 16 nearest (fewer in a narrow batch) within 5 Å."""
+    from equihgnn_tpu_torch.ops.knn import knn_dense
+
+    dev = torch.device("cuda")
+    sm = batch.slot_mask.to(dev)
+    pd = batch.pos.to(dev)[batch.slot_index.to(dev)] * sm[..., None]
+    _, mask, _ = knn_dense(pd, sm, min(16, sm.shape[1] - 1), valid_radius=5.0, exclude_self=True)
+    return mask
+
+
+def median_ms(*fns, iters: int = 20, warmup_s: float = 0.3, reps: int = 1) -> list[float]:
     """Median device time in ms of each of `fns`, from CUDA events around
     each call. The card first runs `warmup_s` seconds of the same work, so
     that it leaves its idle clocks, and the functions then alternate call by
-    call, so that a clock change affects each of them alike."""
+    call, so that a clock change affects each of them alike. With reps > 1 a
+    sample is `reps` calls back to back, and gives their mean: there the
+    host's work for a call overlaps the card's for the one before, which for
+    calls of a fraction of a millisecond would otherwise be timed as well."""
     t_end = time.perf_counter() + warmup_s
     while time.perf_counter() < t_end:
         for fn in fns:
@@ -166,10 +196,11 @@ def median_ms(*fns, iters: int = 20, warmup_s: float = 0.3) -> list[float]:
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            fn()
+            for _ in range(reps):
+                fn()
             end.record()
             end.synchronize()
-            ts.append(start.elapsed_time(end))
+            ts.append(start.elapsed_time(end) / reps)
     return [float(np.median(ts)) for ts in times]
 
 
@@ -432,7 +463,7 @@ def phase_kernels(batch) -> list[dict]:
         print(f"  {row['name']}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
               f"bound {row['bound_ms']:.4f} ms by {row['bound_by']} (median, the two "
               f"alternating, CUDA events; D and E at the EdgeModule site, J and K at C = 1, "
-              f"L and M at X = 64)")
+              f"L and M at X = 64, over 10 calls back to back)")
     return rows
 
 
@@ -649,26 +680,28 @@ def pooled_conv_rows(batch, gen) -> list[dict]:
     """Kernels J and K at the SE(3)-Transformer's pooled sites of the batch:
     h [G, A, 16, 128] (the radial hidden, zero on the neighbours the 5 Å
     radius masks), tc [G, A, 16, C·256], W [128, 256, 256]; C = 1 (conv_in
-    0 → 0, conv_out 0 → 0 and 1 → 0) and C = 3 (conv_in 0 → 1). Returns the
-    rows at C = 1; C = 3 is printed."""
+    0 → 0, conv_out 0 → 0 and 1 → 0) and C = 3 (conv_in 0 → 1). J is called
+    as the model calls it, with the sites that have a neighbour as `live`,
+    and without `live` (every site computed); both held to the plain
+    version. Returns the rows at C = 1 (J: with `live`); C = 3 is printed."""
     from equihgnn_tpu_torch.ops.kernels.pooled_conv import (
+        live_sites,
         pooled_conv,
         pooled_conv_bwd,
         pooled_conv_bwd_plain,
         pooled_conv_plain,
     )
-    from equihgnn_tpu_torch.ops.knn import knn_dense
 
     dev = torch.device("cuda")
-    sm = batch.slot_mask.to(dev)
-    pd = batch.pos.to(dev)[batch.slot_index.to(dev)] * sm[..., None]
-    g, a = sm.shape
-    _, mask, _ = knn_dense(pd, sm, min(16, a - 1), valid_radius=5.0, exclude_self=True)
-    k, f, i, o = mask.shape[-1], 128, HIDDEN, HIDDEN
+    mask = pooled_mask(batch)
+    g, a, k = mask.shape
+    f, i, o = 128, HIDDEN, HIDDEN
     s = g * a
+    live = mask.any(-1)
+    sites = live_sites(live)  # what `_ConvSE3Pair._pooled` passes, built once a conv
     # the function needs h and tc on the masked-in neighbours only, and the
     # projection and the output at the sites that have one: M is 0 elsewhere
-    e_live, s_live = int(mask.sum()), int(mask.any(-1).sum())
+    e_live, s_live = int(mask.sum()), int(live.sum())
     print(f"SE(3)-Transformer pooled sites: G={g}, A={a}, k={k}; {e_live} of {s * k} neighbour "
           f"slots within 5 Å ({e_live / (s * k):.3f}), {s_live} of {s} sites with one at least")
     rows = []
@@ -680,19 +713,27 @@ def pooled_conv_rows(batch, gen) -> list[dict]:
         m_mib = s * c * i * f * 4 / 2**20  # the M the plain version builds
         edge_b, w_b, out_b = e_live * (f + c * i) * 4, f * o * i * 4, s_live * c * o * 4
         m_ops, proj_ops = 2 * e_live * c * i * f, 2 * s_live * c * i * f * o
+        # J's route runs three TF32 products for each f32 one; the f32 bound
+        # (the CUDA cores' peak) is printed beside it
+        j_bound = bound(edge_b + w_b + out_b, 3 * (m_ops + proj_ops), PEAK_TF32_S)
+        j_f32_bound = bound(edge_b + w_b + out_b, m_ops + proj_ops)["bound_ms"]
         cases = {
-            # name: (letter, kernel call, plain call, library call, bytes, operations, line)
-            "pooled_conv": ("J", lambda: pooled_conv(h, tc, w, c),
-                            lambda: pooled_conv_plain(h, tc, w, c),
+            # name: (letter, kernel call, plain call, library call, bound, operations, line)
+            "pooled_conv": ("J", lambda: pooled_conv(h, tc, w, c, sites),
+                            lambda: pooled_conv_plain(h, tc, w, c, live),
                             lambda: torch.einsum("gakf,gakci,foi->gaco", h,
                                                  tc.view(g, a, k, c, i), w),
-                            edge_b + w_b + out_b, m_ops + proj_ops, ":200"),
+                            j_bound, m_ops + proj_ops, ":200"),
+            "pooled_conv (every site)": ("J", lambda: pooled_conv(h, tc, w, c),
+                                         lambda: pooled_conv_plain(h, tc, w, c), None,
+                                         j_bound, m_ops + proj_ops, ":200"),
             # the M rebuild, dh and dtc (3 M-sized contractions), dM = dout·Wᵀ and dW
             "pooled_conv_bwd": ("K", lambda: pooled_conv_bwd(h, tc, w, c, dout),
                                 lambda: pooled_conv_bwd_plain(h, tc, w, c, dout), None,
-                                2 * edge_b + 2 * w_b + out_b, 3 * m_ops + 2 * proj_ops, ":233"),
+                                bound(2 * edge_b + 2 * w_b + out_b, 3 * m_ops + 2 * proj_ops),
+                                3 * m_ops + 2 * proj_ops, ":233"),
         }
-        for name, (letter, call, plain, library, nb, ops, line) in cases.items():
+        for name, (letter, call, plain, library, bnd, ops, line) in cases.items():
             with torch.no_grad():
                 got, ref = call(), plain()
             torch.cuda.synchronize()
@@ -710,7 +751,9 @@ def pooled_conv_rows(batch, gen) -> list[dict]:
                 again = call()
             again = again if isinstance(again, tuple) else (again,)
             check(all(torch.equal(x, y) for x, y in zip(got, again)),
-                  f"kernel {letter} at C = {c} gave other bits on a second run")
+                  f"kernel {letter} ({name}) at C = {c} gave other bits on a second run")
+            if letter == "J":
+                check(not got[0][~live].any(), f"kernel J ({name}) is not 0 at the dead sites")
             del got, ref, again
             with torch.no_grad():
                 mib = alloc_mib(call)
@@ -719,16 +762,21 @@ def pooled_conv_rows(batch, gen) -> list[dict]:
                 times = median_ms(*fns, iters=10)
             ms, plain_ms = times[:2]
             library_ms = times[2] if library else None
-            row = dict(name=name, route="cuda", source="equihgnn_tpu_torch/csrc/pooled_conv.cu",
+            src = "pooled_conv_fwd.cu" if letter == "J" else "pooled_conv.cu"
+            row = dict(name=name, route="cuda", source=f"equihgnn_tpu_torch/csrc/{src}",
                        replaces=f"equihgnn_tpu/ops/pallas/pooled_conv.py{line}", max_abs_err=err,
-                       ms=ms, plain_ms=plain_ms, library_ms=library_ms, **bound(nb, ops))
+                       ms=ms, plain_ms=plain_ms, library_ms=library_ms, **bnd)
             lib_txt = f", torch.einsum {library_ms:.4f} ms" if library else ""
+            route = (f"; route {J_ROUTE}, bound {bnd['bound_ms']:.4f} ms at the TF32 peak "
+                     f"(3 products each), {j_f32_bound:.4f} ms at the f32 peak"
+                     if letter == "J" else "")
             print(f"kernel {letter} {name} [G={g}, A={a}, k={k}, C={c}, I={i}, F={f}, O={o}]: "
                   f"{ms:.4f} ms vs plain {plain_ms:.4f} ms{lib_txt} (median of 10, CUDA events); "
-                  f"bound {row['bound_ms']:.4f} ms by {row['bound_by']} ({nb / 1e9:.3f} GB, "
-                  f"{ops / 1e12:.3f} TFLOP, {ops / ms / 1e9:.1f} TFLOP/s achieved); a call "
-                  f"allocates {mib:.1f} MiB at peak (M would be {m_mib:.1f} MiB); deterministic")
-            if c == 1:
+                  f"bound {row['bound_ms']:.4f} ms by {row['bound_by']}{route}; "
+                  f"{ops / 1e12:.3f} TFLOP of live work, {ops / ms / 1e9:.1f} TFLOP/s achieved; "
+                  f"a call allocates {mib:.1f} MiB at peak (M would be {m_mib:.1f} MiB); "
+                  f"deterministic")
+            if c == 1 and name != "pooled_conv (every site)":
                 rows.append(row)
         del h, tc, w, dout
         torch.cuda.empty_cache()
@@ -758,14 +806,11 @@ def pooled_m_rows(batch, gen) -> list[dict]:
         pooled_m_bwd_plain,
         pooled_m_plain,
     )
-    from equihgnn_tpu_torch.ops.knn import knn_dense
 
     dev = torch.device("cuda")
-    sm = batch.slot_mask.to(dev)
-    pd = batch.pos.to(dev)[batch.slot_index.to(dev)] * sm[..., None]
-    g, a = sm.shape
-    _, mask, _ = knn_dense(pd, sm, min(16, a - 1), valid_radius=5.0, exclude_self=True)
-    k, f, s = mask.shape[-1], 128, g * a
+    mask = pooled_mask(batch)
+    g, a, k = mask.shape
+    f, s = 128, g * a
     e_live, s_live = int(mask.sum()), int(mask.any(-1).sum())
     masked = lambda *shape: (torch.randn(*shape, generator=gen).to(dev)  # noqa: E731
                              * mask[..., None])
@@ -808,8 +853,11 @@ def pooled_m_rows(batch, gen) -> list[dict]:
             check(all(torch.equal(t, y) for t, y in zip(got, again)),
                   f"kernel {letter} at X = {x} gave other bits on a second run")
             del got, ref, again
+            fns = [fn for fn in (call, plain, library) if fn]
             with torch.no_grad():
-                times = median_ms(*[fn for fn in (call, plain, library) if fn])
+                times = median_ms(*fns, reps=10)
+                # and one call a sample, host launch work included (the older method)
+                one = median_ms(*fns)
             ms, plain_ms = times[:2]
             library_ms = times[2] if library else None
             row = dict(name=name, route="cuda", source="equihgnn_tpu_torch/csrc/pooled_m.cu",
@@ -817,8 +865,10 @@ def pooled_m_rows(batch, gen) -> list[dict]:
                        ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                        **bound(nb, ops, PEAK_BF16_S))
             lib_txt = f", torch.bmm {library_ms:.4f} ms" if library else ""
+            one_txt = ", ".join(f"{t:.4f}" for t in one)
             print(f"kernel {letter} {name} [G={g}, A={a}, k={k}, F={f}, X={x}] bf16: {ms:.4f} ms vs "
-                  f"plain {plain_ms:.4f} ms{lib_txt} (median of 20, CUDA events); bound "
+                  f"plain {plain_ms:.4f} ms{lib_txt} (median of 20 samples of 10 calls back to "
+                  f"back, CUDA events; one call a sample: {one_txt} ms); bound "
                   f"{row['bound_ms']:.4f} ms by {row['bound_by']} ({nb / 1e9:.3f} GB, "
                   f"{ops / 1e9:.2f} GFLOP at the bf16 peak); {nb / ms / 1e6:.1f} GB/s achieved; "
                   f"deterministic")
@@ -1432,11 +1482,7 @@ def main() -> int:
     name, smi = phase_device()
     timed("build", phase_build)
 
-    from equihgnn_tpu_torch.data.batching import iter_batches, spec_for_samples
-    from equihgnn_tpu_torch.data.synthetic import make_synthetic_dataset
-
-    samples = make_synthetic_dataset(BATCH, seed=0, num_targets=1)
-    batch = next(iter_batches(samples, spec_for_samples(samples, BATCH), with_pos=True))
+    samples, batch = bench_batch()
     kernels = timed("kernels", phase_kernels, batch)
     paths = {}
     for path in PATHS:

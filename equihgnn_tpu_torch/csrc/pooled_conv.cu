@@ -1,5 +1,5 @@
-// The fused pooled ConvSE3 unit of the SE(3)-Transformer, forward and
-// backward: kernels J and K.
+// The backward of the fused pooled ConvSE3 unit of the SE(3)-Transformer:
+// kernel K (its forward, kernel J, is `pooled_conv_fwd.cu`).
 //
 //   M[s,c,i,f] = Σ_k h[s,k,f] · tc[s,k,c,i]                    (k = the neighbours)
 //   J out[s,c,o] = Σ_{i,f} W[f,o,i] · M[s,c,i,f]
@@ -9,51 +9,43 @@
 //
 // Shapes (s = the G·A sites, r = (s, c) the S·C rows): h [S, K, F];
 // tc [S, K, C·I] (c outer, i inner); W [F, O, I] and dW as JAX lays them
-// out (i contiguous); out and dout [S, C, O]. All f32.
-// Replaces equihgnn_tpu/ops/pallas/pooled_conv.py `_pc_fwd` (J, body
-// `_fwd_kernel`) and `_pc_bwd` (K, body `_bwd_kernel`). Unlike those, the
-// products here are f32 on the CUDA cores (no TF32, no tensor cores yet).
+// out (i contiguous); dout [S, C, O]. All f32.
+// Replaces equihgnn_tpu/ops/pallas/pooled_conv.py `_pc_bwd` (body
+// `_bwd_kernel`). Unlike it, the products here are f32 on the CUDA cores
+// (no TF32, no tensor cores yet).
 //
 // Bound on the H100: operations. At the batch-768 shapes (S = 24,608, K =
-// 16, F = 128, I = O = 256) the projection is a [S·C, I·F] × [I·F, O]
-// product, 0.41 TFLOP a C over all sites, against 0.2-0.6 GB of operands;
-// the padding sites (no neighbour within the radius) need none of it, and
-// chip_smoke.py counts only the live ones. What must not happen is what the
-// plain version does: write M, 3.2 GB a C, to device memory and read it
-// back (and dM in the backward).
+// 16, F = 128, I = O = 256) the backward's products are 2 × 0.41 TFLOP a C
+// over all sites, against 0.2-0.6 GB of operands; the padding sites (no
+// neighbour within the radius) need none of it, and chip_smoke.py counts
+// only the live ones. What must not happen is what the plain version does:
+// write M and dM, 3.2 GB a C each, to device memory and read them back.
 //
 // Design. Every kernel builds the M (or dM) values it needs in shared
 // memory, from staged h and tc chunks (a K-term dot product per value),
 // and never writes them to device memory. A row tile holds the C rows of
 // up to 64 / C whole sites, so that a site never straddles two tiles.
 // W is read in i-chunks of IB (32 contiguous bytes) in every kernel.
-//
-//  J  one block per (row tile, 256 columns of O), 256 threads, each an 8 × 8
-//     register tile of the [64, 256] output. It walks the (i, f) contraction
-//     i-chunk by i-chunk (IB = 8; the tc chunk staged once) and, inside, f
-//     by f (the h chunk staged every FB = 8 f); for each f it builds
-//     M[rows, i-chunk, f] and accumulates it against W[f, :, i-chunk].
-//  K  three kernels, no atomics, each output element owned by one thread
-//     and summed in a fixed order, so two runs give the same bits:
-//     - dtc: one block per (row tile, i-chunk); for each f-chunk it computes
-//       the [rows, IB·FB] dM tile (a product over O) in shared memory and
-//       adds Σ_f h·dM into dtc's accumulator, written at the end;
-//     - dh: one block per (row tile, f-chunk), the same over i-chunks, adding
-//       Σ_{c,i} tc·dM; dh sums over c, which the site-aligned tile holds;
-//     - dW: one block per 64 (i, f) pairs and 256 columns of O; it walks all
-//       S·C rows, 16 at a time, rebuilds M[rows, its (i, f) pairs] and
-//       accumulates Mᵀ · dout in registers.
-//     dM is computed twice (by dtc and by dh): 1.5x the backward's least
-//     work, for no device-memory copy of dM and no cross-block reduction.
-// The operands streamed from device memory (W in J; dout and W in the dM
-// tiles; the h, tc and dout rows of dW) are copied with cp.async into a
-// second buffer while the current one is used, and each warp owns a 32 × 64
-// (J, dW) or 16 × 32 (dM) patch of its block's tile, so that a step reads
-// few distinct shared-memory words. At the batch-768 shapes these kernels
-// still run at ~11 % (J) and ~6 % (K) of the f32 peak, counted over the
-// work the function needs (PERF.md): they also do the padding sites' work,
-// the products between barriers are short (8 columns of the contraction),
-// and 385 blocks of J fill 264 slots in two rounds.
+// Three kernels, no atomics, each output element owned by one thread and
+// summed in a fixed order, so two runs give the same bits:
+//  - dtc: one block per (row tile, i-chunk); for each f-chunk it computes
+//    the [rows, IB·FB] dM tile (a product over O) in shared memory and
+//    adds Σ_f h·dM into dtc's accumulator, written at the end;
+//  - dh: one block per (row tile, f-chunk), the same over i-chunks, adding
+//    Σ_{c,i} tc·dM; dh sums over c, which the site-aligned tile holds;
+//  - dW: one block per 64 (i, f) pairs and 256 columns of O; it walks all
+//    S·C rows, 16 at a time, rebuilds M[rows, its (i, f) pairs] and
+//    accumulates Mᵀ · dout in registers.
+// dM is computed twice (by dtc and by dh): 1.5x the backward's least work,
+// for no device-memory copy of dM and no cross-block reduction. The
+// operands streamed from device memory (dout and W in the dM tiles; the h,
+// tc and dout rows of dW) are copied with cp.async into a second buffer
+// while the current one is used, and each warp owns a 32 × 64 (dW) or
+// 16 × 32 (dM) patch of its block's tile, so that a step reads few
+// distinct shared-memory words. At the batch-768 shapes K still runs at
+// ~6 % of the f32 peak, counted over the work the function needs
+// (PERF.md): it also does the padding sites' work, and its products
+// between barriers are short (8 columns of the contraction).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -61,7 +53,7 @@
 namespace {
 
 constexpr int BM = 64;   // rows of a row tile, at most
-constexpr int BN = 256;  // columns of O of a J or dW block
+constexpr int BN = 256;  // columns of O of a dW block
 constexpr int FB = 8;    // f of a chunk
 constexpr int IB = 8;    // i of a chunk
 constexpr int PB = IB * FB;  // (i, f) pairs of a dM tile or a dW block
@@ -69,7 +61,6 @@ constexpr int OC = 16;   // o of a sub-chunk of the dM product (two buffers)
 constexpr int RC = 16;   // rows of a dW step
 constexpr int THREADS = 256;
 constexpr int DS = BM + 4;  // row stride of the transposed dout / W sub-chunks (float4 aligned)
-constexpr int WS = BN + 4;  // row stride of J's W slice (float4 aligned; its IB rows on other banks)
 constexpr int MS = PB + 1;  // row stride of the dM tile
 
 struct Dims {
@@ -119,7 +110,7 @@ __device__ __forceinline__ void cp_async_wait_all() {
 #endif
 }
 
-// The thread tile of a 64 × 256 block tile (J, dW): warp w of 8 owns rows
+// The thread tile of a 64 × 256 block tile (dW): warp w of 8 owns rows
 // (w / 4)·32 … +31 and columns (w % 4)·64 … +63; its lane (lr, lc) of 4 × 8
 // owns rows +lr·8 … +7 and columns +lc·4 … +3 and +32 + lc·4 … +3. A warp
 // then reads 4 distinct A and 8 distinct B float4s a step, not 32.
@@ -146,102 +137,6 @@ __device__ __forceinline__ void fma8x8(const float* arow, const float* brow, con
   for (int r = 0; r < 8; ++r)
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[r][j] += a[r] * b[j];
-}
-
-// ------------------------------------------------------------- kernel J
-
-size_t fwd_smem(int k, int c) {
-  const int bs = tile_sites(c), rows = bs * c;
-  return sizeof(float) * (static_cast<size_t>(IB) * BM + 2 * IB * WS + bs * (k * FB + 1) +
-                          rows * (k * IB + 1));
-}
-
-// W[f, o0 … o0+BN, i0 … i0+IB] into dst [IB][WS] (dst[ii·WS + o]),
-// asynchronously; consecutive threads copy consecutive i.
-__device__ void load_w(const float* __restrict__ w, const Dims& d, int f, int i0, int o0,
-                       float* dst) {
-  for (int e = threadIdx.x; e < IB * BN; e += THREADS) {
-    const int ii = e % IB, o = e / IB;
-    const bool ok = i0 + ii < d.i && o0 + o < d.o;
-    cp_async4(dst + ii * WS + o,
-              ok ? w + (static_cast<int64_t>(f) * d.o + o0 + o) * d.i + i0 + ii : w, ok);
-  }
-  cp_async_commit();
-}
-
-// Steps run over (i-chunk, f), f fastest: the tc chunk is staged at each
-// i-chunk, the h chunk at every FB-th f, and the W slice of the next step
-// is copied while this step's product runs.
-__global__ void __launch_bounds__(THREADS, 2)
-pooled_conv_fwd_kernel(const float* __restrict__ h, const float* __restrict__ tc,
-                       const float* __restrict__ w, float* __restrict__ out, Dims d) {
-  extern __shared__ __align__(16) float smem[];
-  const int bs = tile_sites(d.c), rows = bs * d.c;
-  const int s0 = blockIdx.x * bs, o0 = blockIdx.y * BN;
-  const int hs_stride = d.k * FB + 1, ts_stride = d.k * IB + 1;
-  float* as = smem;                 // [IB][BM]: M[row, i0 + ii, f]
-  float* bsm = as + IB * BM;        // 2 × [IB][WS]: W[f, o0 + o, i0 + ii], this step and the next
-  float* hs = bsm + 2 * IB * WS;    // [bs][k][FB]
-  float* ts = hs + bs * hs_stride;  // [rows][k][IB]
-  const int tid = threadIdx.x;
-  const Tile8 t;
-  float acc[8][8];
-#pragma unroll
-  for (int r = 0; r < 8; ++r)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[r][j] = 0.f;
-
-  const int n_steps = ((d.i + IB - 1) / IB) * d.f;
-  if (n_steps > 0) load_w(w, d, 0, 0, o0, bsm);
-  for (int step = 0; step < n_steps; ++step) {
-    const int i0 = (step / d.f) * IB, f = step % d.f, ff = f % FB;
-    if (ff == 0) {
-      __syncthreads();  // the last steps' reads of hs and ts
-      if (f == 0) {
-        for (int e = tid; e < rows * d.k * IB; e += THREADS) {
-          const int q = e % IB, k = (e / IB) % d.k, row = e / (IB * d.k);
-          const int s = s0 + row / d.c;
-          ts[row * ts_stride + k * IB + q] =
-              (s < d.s && i0 + q < d.i) ? tc[tc_at(d, s, k, row % d.c, i0 + q)] : 0.f;
-        }
-      }
-      for (int e = tid; e < bs * d.k * FB; e += THREADS) {
-        const int q = e % FB, k = (e / FB) % d.k, site = e / (FB * d.k);
-        const int s = s0 + site;
-        hs[site * hs_stride + k * FB + q] =
-            (s < d.s && f + q < d.f) ? h[(static_cast<int64_t>(s) * d.k + k) * d.f + f + q] : 0.f;
-      }
-    }
-    __syncthreads();  // the staging; the last step's reads of as and of the W buffer refilled below
-    for (int e = tid; e < IB * BM; e += THREADS) {
-      const int row = e % BM, ii = e / BM;
-      float m = 0.f;
-      if (row < rows) {
-        const float* hp = hs + (row / d.c) * hs_stride + ff;
-        const float* tp = ts + row * ts_stride + ii;
-        for (int k = 0; k < d.k; ++k) m += hp[k * FB] * tp[k * IB];
-      }
-      as[ii * BM + row] = m;
-    }
-    cp_async_wait_all();
-    __syncthreads();
-    if (step + 1 < n_steps)
-      load_w(w, d, (step + 1) % d.f, ((step + 1) / d.f) * IB, o0, bsm + ((step + 1) & 1) * IB * WS);
-    const float* bcur = bsm + (step & 1) * IB * WS;
-#pragma unroll
-    for (int ii = 0; ii < IB; ++ii) fma8x8(as + ii * BM, bcur + ii * WS, t, acc);
-  }
-#pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    const int row = t.row + r;
-    if (row >= rows || s0 + row / d.c >= d.s) continue;
-    float* orow = out + (static_cast<int64_t>(s0) * d.c + row) * d.o;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int o = o0 + t.col_of(j);
-      if (o < d.o) orow[o] = acc[r][j];
-    }
-  }
 }
 
 // ----------------------------------------------------- kernel K: dtc, dh
@@ -521,22 +416,6 @@ bool bad_dims(const Dims& d) {
 }
 
 }  // namespace
-
-// Writes out [S, C, O] = J(h [S, K, F], tc [S, K, C·I], w [F, O, I]).
-extern "C" int pooled_conv_fwd_f32(const float* h, const float* tc, const float* w, float* out,
-                                   int s, int k, int c, int i, int f, int o,
-                                   cudaStream_t stream) {
-  const Dims d{s, k, c, i, f, o};
-  if (bad_dims(d)) return static_cast<int>(cudaErrorInvalidValue);
-  if (s == 0 || o == 0) return 0;  // an empty output
-  const size_t smem = fwd_smem(k, c);
-  cudaError_t err = set_smem(pooled_conv_fwd_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int bs = tile_sites(c);
-  const dim3 grid((s + bs - 1) / bs, (o + BN - 1) / BN);
-  pooled_conv_fwd_kernel<<<grid, THREADS, smem, stream>>>(h, tc, w, out, d);
-  return static_cast<int>(cudaGetLastError());
-}
 
 // Writes dh [S, K, F], dtc [S, K, C·I] and dw [F, O, I] for the output
 // gradient dout [S, C, O]: three kernels on `stream`.

@@ -15,23 +15,45 @@
 // Bound on the H100: bytes. At the batch-768 shapes (S = 24,608, K = 16,
 // F = 128, X = 64 or 192, bf16) L writes M, 0.40 or 1.21 GB, for 2·K = 32
 // operations an element, and M reads it back: 2-4 operations a byte, far
-// below the ~20 a byte at which the f32 CUDA cores (67 TFLOP/s) would bind.
+// below the ~295 a byte at which the bf16 tensor cores would bind.
 //
-// Design. One block of 256 threads per site (a grid-stride loop over the
-// sites); a site is owned by one block, so there are no atomics and two runs
-// give the same bits. The block stages the site's operands in shared memory
-// as f32 (16-byte loads where the rows allow them), then:
-//  L  each thread owns a 4 (x) × 8 (f) register tile of M[x, f] and sums
-//     over k in order; it writes its 8 f of a row with one 16-byte store
-//     (bf16) when F allows.
-//  M  dM [X, F] is staged in T with an odd number of 4-byte words a row, so
-//     that 32 threads reading one column of 32 rows hit 32 banks; h and tc
-//     are staged transposed ([F][K'], [X][K'], K' = K rounded up to 4) so
-//     that four k of one column are one 16-byte load. dh's threads own a
-//     4 (k) × 2 (f) tile and sum over x; dtc's own 4 (k) × 2 (x, x + 32)
-//     and sum over f; both kinds share one loop over the block's threads.
-// No tensor cores yet: K = 16 is one mma.sync m16n8k16 step in bf16, for a
-// later design.
+// Design of L in bf16 (the model's path): a persistent, pipelined build.
+//  - A few persistent blocks an SM (as many as fit, one round of the
+//    card, 5 an SM), 4 warps each, walk the sites with a stride of the
+//    grid. A 2-stage cp.async ring holds a site's h [K, F] and tc [K, X] in
+//    bf16 (6 KB a site at X = 64): the next site's copies are in flight
+//    while one is computed and stored. Deeper rings (3-8 sites) were slower
+//    at X = 64 on the card, where L's reads are a quarter of its bytes and
+//    M's writes the rest. M leaves in streaming stores (st.global.cs).
+//  - Each thread owns 8 (x) × 8 (f) tiles of M: per k one 16-byte load of
+//    8 h and one of 8 tc, unpacked to f32 by a shift or a mask (exact), and
+//    64 FMAs, k in order; each sum is rounded once to bf16 and a row's 8
+//    values leave in one 16-byte store.
+//  - Not the tensor cores. mma.sync.m16n8k16 in bf16 was this design's
+//    first version, and it failed L's gate on the card (first call, batch
+//    768, X = 64): 0.999997 of the elements equal to the plain version's,
+//    but 40 bf16 ulps at most (26,560 in a card test), where the gate allows
+//    1. The tensor cores align the 16 products to the largest and truncate,
+//    so a sum that cancels to ~1e-5 of its largest product keeps few
+//    correct bits; the plain version (and this kernel) add the exact f32
+//    products in order, rounding each sum to nearest, and agree to the bit.
+//    The FMAs are ~0.11 ms of CUDA-core time at the batch-768 shapes, below
+//    the 0.16 ms that L's bytes take.
+//  - A site whose h and tc are all ±0 (the SE(3)-Transformer's sites with
+//    no neighbour within the radius) skips the products and writes +0, the
+//    plain version's value; a block-wide OR over the staged copies decides.
+//  - A site is owned by one block and each element by one thread, summed in
+//    a fixed order: no atomics, the same bits twice.
+// L in f32 (an entry no model path reaches) keeps the design of the first
+// port: one block of 256 threads per site, operands staged as f32, each
+// thread a 4 (x) × 8 (f) register tile summed over k in order.
+// M: one block of 256 threads per site (a grid-stride loop over the
+// sites). dM [X, F] is staged in T with an odd number of 4-byte words a
+// row, so that 32 threads reading one column of 32 rows hit 32 banks; h
+// and tc are staged transposed ([F][K'], [X][K'], K' = K rounded up to 4)
+// so that four k of one column are one 16-byte load. dh's threads own a
+// 4 (k) × 2 (f) tile and sum over x; dtc's own 4 (k) × 2 (x, x + 32) and
+// sum over f; both kinds share one loop over the block's threads.
 
 #include <cstdint>
 #include <type_traits>
@@ -241,6 +263,176 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+// ------------------------------------------- kernel L in bf16: the ring
+
+constexpr int RING_THREADS = 128;  // 4 warps
+constexpr int RING_STAGES = 2;     // sites in the ring (deeper rings were slower at X = 64)
+
+// The staged shapes (in bf16 elements): row strides fs of h and xs of tc,
+// F and X rounded up to 8 (whole 16-byte pieces for the thread tiles).
+struct RingDims {
+  int64_t s;
+  int k, f, x, fs, xs;
+  __host__ __device__ int stage() const { return k * (fs + xs); }
+};
+
+size_t ring_smem(const RingDims& d) {
+  return sizeof(__nv_bfloat16) * static_cast<size_t>(RING_STAGES) * d.stage();
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+#if defined(__CUDA_ARCH__)
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+#else
+  *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+#endif
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.commit_group;\n" ::);
+#endif
+}
+
+// Waits until at most N of this thread's copy groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+#endif
+}
+
+// 8 consecutive bf16 of shared memory (16-byte aligned) as f32 (exact: a
+// shift or a mask).
+__device__ __forceinline__ void unpack8(const __nv_bfloat16* p, float (&out)[8]) {
+  const uint4 v = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    out[2 * j] = __uint_as_float(w[j] << 16);
+    out[2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);
+  }
+}
+
+// Site s's h [K, F] and tc [K, X] into a ring stage (h rows fs apart, then
+// tc rows xs apart). VEC: 16-byte copies in flight (F and X multiples of
+// 8, operands aligned); else plain loads and stores.
+template <bool VEC>
+__device__ void ring_load(const __nv_bfloat16* __restrict__ h,
+                          const __nv_bfloat16* __restrict__ tc, const RingDims& d, int64_t s,
+                          __nv_bfloat16* hs) {
+  __nv_bfloat16* ts = hs + d.k * d.fs;
+  const __nv_bfloat16* hsrc = h + s * d.k * d.f;
+  const __nv_bfloat16* tsrc = tc + s * d.k * d.x;
+  if (VEC) {
+    const int hc = d.f / 8, xc = d.x / 8;  // 16-byte pieces of a row
+    for (int e = threadIdx.x; e < d.k * hc; e += RING_THREADS)
+      cp_async16(hs + (e / hc) * d.fs + (e % hc) * 8, hsrc + e * 8);
+    for (int e = threadIdx.x; e < d.k * xc; e += RING_THREADS)
+      cp_async16(ts + (e / xc) * d.xs + (e % xc) * 8, tsrc + e * 8);
+  } else {
+    for (int e = threadIdx.x; e < d.k * d.f; e += RING_THREADS)
+      hs[(e / d.f) * d.fs + e % d.f] = hsrc[e];
+    for (int e = threadIdx.x; e < d.k * d.x; e += RING_THREADS)
+      ts[(e / d.x) * d.xs + e % d.x] = tsrc[e];
+  }
+}
+
+// Whether any of the values this thread copied into a ring stage (after
+// its wait: they are visible to it) is other than ±0.
+template <bool VEC>
+__device__ bool own_nonzero(const RingDims& d, const __nv_bfloat16* hs) {
+  const __nv_bfloat16* ts = hs + d.k * d.fs;
+  uint32_t bits = 0;
+  if (VEC) {
+    const int hc = d.f / 8, xc = d.x / 8;
+    for (int e = threadIdx.x; e < d.k * hc; e += RING_THREADS) {
+      const uint4 v = *reinterpret_cast<const uint4*>(hs + (e / hc) * d.fs + (e % hc) * 8);
+      bits |= v.x | v.y | v.z | v.w;
+    }
+    for (int e = threadIdx.x; e < d.k * xc; e += RING_THREADS) {
+      const uint4 v = *reinterpret_cast<const uint4*>(ts + (e / xc) * d.xs + (e % xc) * 8);
+      bits |= v.x | v.y | v.z | v.w;
+    }
+    bits &= 0x7fff7fffu;  // the signs of both halves
+  } else {
+    const uint16_t* hb = reinterpret_cast<const uint16_t*>(hs);
+    const uint16_t* tb = reinterpret_cast<const uint16_t*>(ts);
+    for (int e = threadIdx.x; e < d.k * d.f; e += RING_THREADS) bits |= hb[(e / d.f) * d.fs + e % d.f];
+    for (int e = threadIdx.x; e < d.k * d.x; e += RING_THREADS) bits |= tb[(e / d.x) * d.xs + e % d.x];
+    bits &= 0x7fffu;
+  }
+  return bits != 0;
+}
+
+// Persistent blocks walk the sites with the grid's stride; the copies of
+// the next RING_STAGES − 1 sites are in flight while one is computed. Each
+// thread owns 8 (x) × 8 (f) tiles of M and sums over k in order. A site
+// whose h and tc are all ±0 (the SE(3)-Transformer's sites with no
+// neighbour within the radius: 48 % at batch 768) skips the products: every
+// sum of its ±0 products from +0 is +0, which it writes.
+template <bool VEC>
+__global__ void __launch_bounds__(RING_THREADS, 5)  // 5 blocks an SM: at most 102 registers
+    pooled_m_fwd_ring_kernel(const __nv_bfloat16* __restrict__ h,
+                             const __nv_bfloat16* __restrict__ tc,
+                             __nv_bfloat16* __restrict__ m, RingDims d) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  const int64_t step = gridDim.x;
+#pragma unroll
+  for (int j = 0; j < RING_STAGES - 1; ++j) {
+    const int64_t s = blockIdx.x + j * step;
+    if (s < d.s) ring_load<VEC>(h, tc, d, s, ring + j * d.stage());
+    cp_async_commit();
+  }
+  const int nft = (d.f + 7) / 8, nxt = (d.x + 7) / 8;
+  int it = 0;
+  for (int64_t s = blockIdx.x; s < d.s; s += step, ++it) {
+    cp_async_wait<RING_STAGES - 2>();
+    const __nv_bfloat16* hs = ring + (it % RING_STAGES) * d.stage();
+    const __nv_bfloat16* ts = hs + d.k * d.fs;
+    // site s staged; every thread done with the stage refilled below
+    const bool nonzero = __syncthreads_or(own_nonzero<VEC>(d, hs));
+    const int64_t next = s + (RING_STAGES - 1) * step;
+    if (next < d.s)
+      ring_load<VEC>(h, tc, d, next, ring + ((it + RING_STAGES - 1) % RING_STAGES) * d.stage());
+    cp_async_commit();
+    __nv_bfloat16* out = m + s * d.x * d.f;
+    for (int item = threadIdx.x; item < nft * nxt; item += RING_THREADS) {
+      const int f0 = (item % nft) * 8, x0 = (item / nft) * 8;
+      float acc[8][8] = {};
+      for (int k = 0; nonzero && k < d.k; ++k) {
+        float hv[8], tv[8];
+        unpack8(hs + k * d.fs + f0, hv);
+        unpack8(ts + k * d.xs + x0, tv);
+#pragma unroll
+        for (int r = 0; r < 8; ++r)
+#pragma unroll
+          for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(tv[r], hv[c], acc[r][c]);
+      }
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        if (x0 + r >= d.x) break;
+        __nv_bfloat16* orow = out + static_cast<int64_t>(x0 + r) * d.f + f0;
+        if (VEC) {
+          uint4 v;
+          uint32_t* w = reinterpret_cast<uint32_t*>(&v);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const __nv_bfloat162 p = __floats2bfloat162_rn(acc[r][2 * j], acc[r][2 * j + 1]);
+            w[j] = *reinterpret_cast<const uint32_t*>(&p);
+          }
+          __stcs(reinterpret_cast<uint4*>(orow), v);  // streamed: M is not read back here
+        } else {
+          for (int c = 0; c < 8 && f0 + c < d.f; ++c) orow[c] = __float2bfloat16_rn(acc[r][c]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+}
+
 template <typename Kernel>
 cudaError_t set_smem(Kernel kernel, size_t smem) {
   if (smem > MAX_SMEM) return cudaErrorInvalidValue;
@@ -274,6 +466,30 @@ int fwd(const T* h, const T* tc, T* m, int64_t s, int k, int f, int x, cudaStrea
   return static_cast<int>(cudaGetLastError());
 }
 
+// L in bf16: persistent blocks, as many as fit the card at once.
+int fwd_ring(const __nv_bfloat16* h, const __nv_bfloat16* tc, __nv_bfloat16* m, int64_t s,
+             int k, int f, int x, cudaStream_t stream) {
+  if (s < 0 || k < 0 || f < 0 || x < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (s == 0 || f == 0 || x == 0) return 0;  // an empty output
+  const RingDims d{s, k, f, x, round_up(f, 8), round_up(x, 8)};
+  const size_t smem = ring_smem(d);
+  const bool vec = f % 8 == 0 && x % 8 == 0 && vec_ok<__nv_bfloat16>(h, 0) &&
+                   vec_ok<__nv_bfloat16>(tc, 0) && vec_ok<__nv_bfloat16>(m, 0);
+  void (*kernel)(const __nv_bfloat16*, const __nv_bfloat16*, __nv_bfloat16*, RingDims) =
+      vec ? pooled_m_fwd_ring_kernel<true> : pooled_m_fwd_ring_kernel<false>;
+  cudaError_t err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, RING_THREADS, smem)) !=
+          cudaSuccess)
+    return static_cast<int>(err);
+  const int64_t slots = static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1);
+  kernel<<<static_cast<int>(s < slots ? s : slots), RING_THREADS, smem, stream>>>(h, tc, m, d);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int bwd(const T* h, const T* tc, const T* dm, T* dh, T* dtc, int64_t s, int k, int f, int x,
         cudaStream_t stream) {
@@ -297,7 +513,7 @@ int bwd(const T* h, const T* tc, const T* dm, T* dh, T* dtc, int64_t s, int k, i
 extern "C" int pooled_m_fwd_bf16(const __nv_bfloat16* h, const __nv_bfloat16* tc,
                                  __nv_bfloat16* m, int64_t s, int k, int f, int x,
                                  cudaStream_t stream) {
-  return fwd(h, tc, m, s, k, f, x, stream);
+  return fwd_ring(h, tc, m, s, k, f, x, stream);
 }
 
 extern "C" int pooled_m_fwd_f32(const float* h, const float* tc, float* m, int64_t s, int k,

@@ -59,7 +59,11 @@ from torch.utils.checkpoint import checkpoint
 
 from equihgnn_tpu_torch.nn.mlp import normal_, uniform_
 from equihgnn_tpu_torch.ops.gather import index_select, nbr_gather
-from equihgnn_tpu_torch.ops.kernels.pooled_conv import pooled_conv, pooled_conv_shape_ok
+from equihgnn_tpu_torch.ops.kernels.pooled_conv import (
+    live_sites,
+    pooled_conv,
+    pooled_conv_shape_ok,
+)
 from equihgnn_tpu_torch.ops.kernels.pooled_m import pooled_m
 from equihgnn_tpu_torch.ops.knn import knn_dense
 from equihgnn_tpu_torch.ops.numerics import safe_norm
@@ -229,13 +233,16 @@ class _ConvSE3Pair(nn.Module):
     def _pooled(self, xn, nbr_idx, nbr_mask, w_sh, h, W, bias):
         """mean_k[(W·h_k + b)·t_k] = (W·Σ_k h_k⊗t_k + b·Σ_k t_k) / cnt, with t
         the CG×SH-contracted neighbour feature (`se3_transformer.py:240-258`).
-        xg is zero on masked neighbours, so are t and Σ_k t."""
+        xg is zero on masked neighbours, so are t and Σ_k t; a site with no
+        neighbour has t = 0 and is passed to J as not live (its output is 0
+        either way), so that J skips its work."""
         g, a, k = nbr_idx.shape
         c_out = 2 * self.dout + 1
         xg = nbr_gather(xn, nbr_idx, nbr_mask)  # [G, A, k, i, b]
         cnt = torch.clamp(torch.sum(nbr_mask.float(), dim=2), min=1.0)[..., None, None]
         if xn.dtype != torch.float32:
             return self._pooled_per_j(xg, w_sh, h, W, bias) / cnt[None].to(xn.dtype)
+        live = live_sites(nbr_mask.any(-1))  # [G, A] and J's list of them, once per conv
         outs = []
         for si in range(self.stack):
             acc = 0.0
@@ -243,7 +250,7 @@ class _ConvSE3Pair(nn.Module):
                 tcj = torch.einsum("gakbc,gakib->gakci", w_sh[..., jidx, :, :], xg)
                 tsum = torch.sum(tcj, dim=2)  # [G, A, c, i]
                 acc = acc + pooled_conv(h[si], tcj.reshape(g, a, k, c_out * self.nc_in)
-                                        .contiguous(), W[si, ..., jidx], c_out)
+                                        .contiguous(), W[si, ..., jidx], c_out, live)
                 acc = acc + torch.einsum("oi,gaci->gaco", bias[si, ..., jidx], tsum)
             outs.append(torch.transpose(acc, -1, -2))  # [G, A, o, c]
         return torch.stack(outs) / cnt[None]  # [S, G, A, o, c]

@@ -46,7 +46,7 @@ SIGNATURES = {
                             _I, _I, _I, _I, _I, _P),
     "vis_wdot_fwd_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "vis_wdot_bwd_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "pooled_conv_fwd_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "pooled_conv_fwd_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "pooled_conv_bwd_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "pooled_m_fwd_bf16": (_P, _P, _P, _I64, _I, _I, _I, _P),
     "pooled_m_fwd_f32": (_P, _P, _P, _I64, _I, _I, _I, _P),

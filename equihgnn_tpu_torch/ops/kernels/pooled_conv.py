@@ -1,23 +1,33 @@
 """Kernels J and K: the fused pooled ConvSE3 unit, forward and backward
-(`csrc/pooled_conv.cu`).
+(`csrc/pooled_conv_fwd.cu`, `csrc/pooled_conv.cu`).
 
 Replaces `equihgnn_tpu/ops/pallas/pooled_conv.py` `pooled_conv`: the
 forward `_pc_fwd` (kernel J) and its custom VJP `_pc_bwd` (kernel K):
 
     M[g, a, c, i, f] = Σ_k h[g, a, k, f] · tc[g, a, k, c·I + i]
-    out[g, a, c, o]  = Σ_{i,f} W[f, o, i] · M[g, a, c, i, f]
+    out[g, a, c, o]  = live[g, a] · Σ_{i,f} W[f, o, i] · M[g, a, c, i, f]
 
 Layouts are JAX's: h [G, A, K, F]; tc [G, A, K, C·I] (c outer, i inner);
 W [F, O, I], which the kernels read as it lies and give dW in; out
-[G, A, C, O]. The kernels are float32 only. Routing (`nn/se3_transformer.py`
-`_ConvSE3Pair`): a float32 pooled unit takes J and K at every width, since
-the VMEM half of JAX's gate `pooled_conv_supported` is not ported; a
-bfloat16 unit takes the per-J path with kernels L and M
-(`ops/kernels/pooled_m.py`) where the gate's divisibility half,
-`pooled_conv_shape_ok`, fails, as JAX does, and raises where it holds (J
-and K in bfloat16 are ROADMAP item 11). The kernels take any K ≥ 0 (K = 0
-gives zeros) and any C in 1..64; a K whose chunks do not fit a block's
-shared memory is refused by the C entry, and the wrapper raises.
+[G, A, C, O]. `live` [G, A] (bool, optional) marks the sites whose output
+is kept; the others' output is 0, and so are their share of the gradients
+(the backward is K applied to dout · live). Without it every site is live.
+J computes only the live sites: `live_sites` turns the mask into the ids of
+the live sites, live ones first, and their count, both on the device (a
+cumsum and a scatter, no host sync), and J's blocks past the count return
+at once. `live` may be that `LiveSites` already, so that a caller that
+passes one mask to several calls (the model's conv, one call a J) builds
+the list once; a bare mask is turned into one at each call. The kernels are float32 only; J's products run
+on the tensor cores in 3xTF32 (`csrc/pooled_conv_fwd.cu`), at ~f32
+accuracy. Routing (`nn/se3_transformer.py` `_ConvSE3Pair`): a float32
+pooled unit takes J and K at every width, since the VMEM half of JAX's
+gate `pooled_conv_supported` is not ported; a bfloat16 unit takes the
+per-J path with kernels L and M (`ops/kernels/pooled_m.py`) where the
+gate's divisibility half, `pooled_conv_shape_ok`, fails, as JAX does, and
+raises where it holds (J and K in bfloat16 are ROADMAP item 11). The
+kernels take any K ≥ 0 (K = 0 gives zeros) and any C in 1..64; a K whose
+chunks do not fit a block's shared memory (J: K > 22) is refused by the C
+entry, and the wrapper raises.
 
 `pooled_conv` is the wrapper. A CPU tensor goes to the plain version
 (`pooled_conv_plain`), which autograd traces. A CUDA tensor goes through
@@ -31,6 +41,8 @@ entries.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -62,9 +74,38 @@ def _site_chunks(h: torch.Tensor, c: int, i: int) -> int:
     return max(1, _PLAIN_CHUNK_FLOATS // per_site)
 
 
-def pooled_conv_plain(h, tc, w, c: int):
+class LiveSites(NamedTuple):
+    """A bool live-site mask [G, A] with the list kernel J walks: the flat
+    ids of the live sites in order, then those of the others (int32
+    [G·A]), and the number of live ones (int32 [1]), on the mask's device."""
+
+    mask: torch.Tensor
+    ids: torch.Tensor
+    count: torch.Tensor
+
+
+def live_sites(live: torch.Tensor) -> LiveSites:
+    """`LiveSites` of a bool `live` [G, A]. A cumsum and a scatter into a
+    permutation: no host sync, the same result every time."""
+    flat = live.reshape(-1)
+    n = flat.numel()
+    pos = torch.cumsum(flat, 0, dtype=torch.int32)  # live sites up to each site
+    count = pos[-1:] if n else pos.new_zeros(1)
+    idx = torch.arange(n, dtype=torch.int32, device=live.device)
+    target = torch.where(flat, pos - 1, count + idx - pos)  # live first, then dead, each in order
+    ids = torch.empty_like(idx).scatter_(0, target.long(), idx)
+    return LiveSites(live, ids, count)
+
+
+def _mask(live):
+    """The bool mask of `live` (a mask, a `LiveSites` or None)."""
+    return live.mask if isinstance(live, LiveSites) else live
+
+
+def pooled_conv_plain(h, tc, w, c: int, live=None):
     """The einsums of JAX's docstring (`pooled_conv.py:272-277`), with M
-    materialized for a chunk of sites at a time."""
+    materialized for a chunk of sites at a time, times `live` (a bool
+    [G, A], a `LiveSites` or None)."""
     g, a, k, f = h.shape
     i = w.shape[2]
     hs = h.reshape(g * a, k, f)
@@ -75,7 +116,9 @@ def pooled_conv_plain(h, tc, w, c: int):
         m = torch.einsum("skf,skci->scif", hs[s0:s0 + step], ts[s0:s0 + step])
         outs.append(torch.einsum("scif,foi->sco", m, w))
     out = torch.cat(outs) if outs else hs.new_zeros((0, c, w.shape[1]))
-    return out.reshape(g, a, c, w.shape[1])
+    out = out.reshape(g, a, c, w.shape[1])
+    live = _mask(live)
+    return out if live is None else out * live[..., None, None]
 
 
 def pooled_conv_bwd_plain(h, tc, w, c: int, dout):
@@ -104,7 +147,7 @@ def pooled_conv_bwd_plain(h, tc, w, c: int, dout):
 # ----------------------------------------------------------------- checks
 
 
-def _check(h, tc, w, c, dout=None):
+def _check(h, tc, w, c, dout=None, live=None):
     if h.ndim != 4 or tc.ndim != 4 or w.ndim != 3:
         raise ValueError(f"pooled_conv takes h [G, A, K, F], tc [G, A, K, C·I], w [F, O, I]; "
                          f"got {tuple(h.shape)}, {tuple(tc.shape)}, {tuple(w.shape)}")
@@ -124,6 +167,10 @@ def _check(h, tc, w, c, dout=None):
             raise ValueError(f"{name} must be {list(want[name])}, got {tuple(t.shape)}")
         if name != "w" and not t.is_contiguous():  # w is made contiguous
             raise ValueError(f"pooled_conv kernel takes a contiguous {name}")
+    if live is not None and (live.dtype != torch.bool or tuple(live.shape) != (g, a)
+                             or live.device != h.device):
+        raise ValueError(f"live must be a bool [{g}, {a}] on {h.device}, got {live.dtype} "
+                         f"{tuple(live.shape)} on {live.device}")
     return g * a, k, i, f, o
 
 
@@ -139,13 +186,19 @@ def _cuda_only(name, t):
 # --------------------------------------------------------------- kernels
 
 
-def _launch_fwd(h, tc, w, c):
-    s, k, i, f, o = _check(h, tc, w, c)
+def _launch_fwd(h, tc, w, c, sites: LiveSites | None = None):
+    s, k, i, f, o = _check(h, tc, w, c, live=_mask(sites))
     w = w.contiguous()
-    out = torch.empty(h.shape[:2] + (c, o), dtype=torch.float32, device=h.device)
+    shape = h.shape[:2] + (c, o)
+    if sites is None:  # J writes every row
+        out = torch.empty(shape, dtype=torch.float32, device=h.device)
+    else:  # J writes the live sites' rows only
+        out = torch.zeros(shape, dtype=torch.float32, device=h.device)
     lib = build.library()
     with torch.cuda.device(h.device):
         code = lib.pooled_conv_fwd_f32(h.data_ptr(), tc.data_ptr(), w.data_ptr(),
+                                       None if sites is None else sites.ids.data_ptr(),
+                                       None if sites is None else sites.count.data_ptr(),
                                        out.data_ptr(), s, k, c, i, f, o, _stream(h))
     build.check(lib, f"pooled_conv_fwd_f32 at K = {k}, C = {c}", code)
     pooled_conv.launches += 1
@@ -170,26 +223,34 @@ def pooled_conv_bwd(h, tc, w, c: int, dout):
 
 
 class _PooledConv(torch.autograd.Function):
-    """Kernel J forward, kernel K backward (JAX `_pooled_conv`'s custom VJP)."""
+    """Kernel J forward, kernel K backward (JAX `_pooled_conv`'s custom VJP)
+    on dout · live."""
 
     @staticmethod
-    def forward(ctx, h, tc, w, c):
-        ctx.save_for_backward(h, tc, w)
+    def forward(ctx, h, tc, w, c, sites):
+        ctx.save_for_backward(h, tc, w, _mask(sites))
         ctx.c = c
-        return _launch_fwd(h, tc, w, c)
+        return _launch_fwd(h, tc, w, c, sites)
 
     @staticmethod
     def backward(ctx, dout):
-        dh, dtc, dw = pooled_conv_bwd(*ctx.saved_tensors, ctx.c, dout.contiguous())
-        return dh, dtc, dw, None
+        h, tc, w, live = ctx.saved_tensors
+        if live is not None:
+            dout = dout * live[..., None, None]
+        dh, dtc, dw = pooled_conv_bwd(h, tc, w, ctx.c, dout.contiguous())
+        return dh, dtc, dw, None, None
 
 
-def pooled_conv(h, tc, w, c: int):
-    """out[g, a, c, o] = Σ_{i,f} W[f, o, i] · Σ_k h[g, a, k, f] · tc[g, a, k, c·I + i]."""
+def pooled_conv(h, tc, w, c: int, live=None):
+    """out[g, a, c, o] = live[g, a] · Σ_{i,f} W[f, o, i] · Σ_k h[g, a, k, f] · tc[g, a, k, c·I + i]
+    (live a bool [G, A], its `LiveSites`, or None: every site)."""
     if h.device.type == "cpu":
-        return pooled_conv_plain(h, tc, w, c)
+        return pooled_conv_plain(h, tc, w, c, live)
     _cuda_only("pooled_conv", h)
-    return _PooledConv.apply(h, tc, w, c)
+    if isinstance(live, torch.Tensor):
+        _check(h, tc, w, c, live=live)  # a bool [G, A], before its list is built
+        live = live_sites(live)
+    return _PooledConv.apply(h, tc, w, c, live)
 
 
 pooled_conv.launches = 0

@@ -15,9 +15,13 @@ for kernels F-I masked edges, an all-empty padding row, A < k (the
 neighbour axis padded with masked edges, as `knn_dense` pads it), L = 3
 and 8, h not a multiple of 32 and a strided s1; for kernels J and K
 C = 1, 3, 5, k = 0, 4, 16, a site count G·A that fills no row tile
-exactly, and ragged I, F and O; for kernels L and M the batch-768 shapes
-(G = 769, A = 32, K = 16, F = 128, X = 64 and 192) in bfloat16 and float32,
-K = 0, 5 and ragged F and X. The autograd tests show
+exactly, and ragged I, F and O, and J with live-site masks (random, all
+dead, all live, C = 3 across tile edges, k = 0): 0 at the dead sites, the
+same bits twice, and K's gradients on dout · live through autograd; for
+kernels L and M the batch-768 shapes (G = 769, A = 32, K = 16, F = 128,
+X = 64 and 192) in bfloat16 and float32, K = 0, 5 and 20, ragged F and X,
+12,000 sites, many more than L's persistent grid has blocks, and sites
+whose operands are all ±0 (L skips their products). The autograd tests show
 that a CUDA call of each wrapper is differentiable (its output has a
 `grad_fn`) and gives the gradients of the plain version on the card.
 Gradient tolerance: max |Δ| ≤ 1e-4·max |plain| + 1e-6 per tensor (f32 sums
@@ -49,6 +53,7 @@ from equihgnn_tpu_torch.ops.kernels.frame_swiglu import (
     fused_frame_swiglu_bwd,
 )
 from equihgnn_tpu_torch.ops.kernels.pooled_conv import (
+    live_sites,
     pooled_conv,
     pooled_conv_bwd,
     pooled_conv_bwd_plain,
@@ -649,6 +654,63 @@ def test_pooled_conv_kernels(dev, g, a, k, c, i, f, o):
         assert float(got.abs().max()) == float(grads[2].abs().max()) == 0.0
 
 
+PC_LIVE_CASES = [  # (g, a, k, c, i, f, o, mask)
+    (3, 23, 16, 1, 256, 128, 256, "random"), (4, 32, 16, 3, 256, 128, 256, "random"),
+    (3, 23, 16, 1, 64, 32, 256, "all_dead"), (3, 23, 16, 3, 64, 32, 128, "all_live"),
+    (7, 19, 5, 3, 40, 24, 200, "random"), (5, 7, 0, 3, 16, 16, 64, "random"),
+]
+
+
+def _live_mask(g, a, kind, seed):
+    gen = torch.Generator().manual_seed(seed)
+    return {"random": torch.rand(g, a, generator=gen) < 0.5,
+            "all_dead": torch.zeros(g, a, dtype=torch.bool),
+            "all_live": torch.ones(g, a, dtype=torch.bool)}[kind]
+
+
+@pytest.mark.parametrize("g,a,k,c,i,f,o,mask", PC_LIVE_CASES)
+def test_pooled_conv_live_kernel(dev, g, a, k, c, i, f, o, mask):
+    """Kernel J with live sites against the plain version (tc as given: J
+    computes the live sites only, and 0 elsewhere), the same bits twice,
+    one launch."""
+    args, _ = _pc_args(g, a, k, c, i, f, o, seed=g + a + c)
+    h, tc, w = (t.to(dev) for t in args)
+    live = _live_mask(g, a, mask, seed=g + k).to(dev)
+    before = pooled_conv.launches
+    with torch.no_grad():
+        got = pooled_conv(h, tc, w, c, live)
+        again = pooled_conv(h, tc, w, c, live)
+    assert pooled_conv.launches == before + 2
+    want = pooled_conv_plain(h, tc, w, c, live)
+    err, limit = float((got - want).abs().max()), 1e-4 * float(want.abs().max()) + 1e-6
+    assert err <= limit, f"kernel J with live: max |d| {err:.3e} > {limit:.3e}"
+    assert not got[~live].any()
+    assert torch.equal(got, again)
+    # the live-site list built once and passed in, as the model's conv does
+    with torch.no_grad():
+        assert torch.equal(pooled_conv(h, tc, w, c, live_sites(live)), got)
+
+
+def test_pooled_conv_live_autograd(dev):
+    """Autograd through J with live sites gives kernel K's gradients on
+    dout · live, which are 0 at the dead sites for dh and dtc."""
+    args, dout = _pc_args(6, 17, 16, 3, 64, 128, 96, seed=9)
+    h, tc, w = (t.to(dev) for t in args)
+    dout = dout.to(dev)
+    live = _live_mask(6, 17, "random", seed=2).to(dev)
+    leaves = [t.clone().requires_grad_() for t in (h, tc, w)]
+    before = pooled_conv_bwd.launches
+    pooled_conv(*leaves, 3, live).backward(dout)
+    assert pooled_conv_bwd.launches == before + 1
+    want = pooled_conv_bwd(h, tc, w, 3, dout * live[..., None, None])
+    for name, leaf, y in zip(("dh", "dtc", "dW"), leaves, want):
+        assert torch.equal(leaf.grad, y), name
+    assert not leaves[0].grad[~live].any() and not leaves[1].grad[~live].any()
+    for name, leaf, y in zip(("dh", "dtc", "dW"), leaves, pooled_conv_bwd_plain(
+            h, tc, w, 3, dout * live[..., None, None])):
+        _assert_grad_close(leaf.grad, y, name)
+
+
 def test_pooled_conv_bwd_is_deterministic(dev):
     args, dout = _pc_args(40, 32, 16, 3, 256, 128, 256, seed=3)
     h, tc, w = (t.to(dev) for t in args)
@@ -696,6 +758,13 @@ def test_pooled_conv_rejects_unsupported_inputs(dev):
         pooled_conv(h, tc.cpu(), w, 3)
     with pytest.raises(ValueError):
         pooled_conv_bwd(h, tc, w, 3, dout[..., :4].contiguous().to(dev))
+    with pytest.raises(ValueError):  # a live mask of another shape
+        pooled_conv(h, tc, w, 3, torch.ones(2, 4, dtype=torch.bool, device=dev))
+    # J stages a chunk's K neighbours in shared memory: at C = 1 it takes K <= 22
+    (h23, tc23, w23), _ = _pc_args(1, 2, 23, 1, 8, 8, 8, seed=2)
+    with pytest.raises(RuntimeError, match="pooled_conv_fwd_f32 at K = 23"):
+        pooled_conv(h23.to(dev), tc23.to(dev), w23.to(dev), 1)
+    # the refusal leaves no error behind for the next launch
     assert pooled_conv(h, tc, w, 3).shape == (2, 5, 3, 8)
 
 
@@ -765,7 +834,7 @@ def _assert_pm_close(got, want, name):
 
 
 PM_CASES = [(769, 32, 16, 128, 64), (769, 32, 16, 128, 192), (3, 11, 5, 13, 9), (2, 3, 0, 16, 8),
-            (1, 1, 16, 24, 200)]
+            (1, 1, 16, 24, 200), (3000, 4, 16, 32, 16), (5, 9, 20, 40, 24)]
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -788,6 +857,23 @@ def test_pooled_m_kernels(dev, g, a, k, f, x, dtype):
         assert torch.equal(x_, y_)
     if k == 0:
         assert float(got.float().abs().max()) == 0.0
+
+
+def test_pooled_m_kernel_zero_sites(dev):
+    """Sites whose h and tc are all ±0 (the SE(3)-Transformer's sites with no
+    neighbour within the radius) skip kernel L's products: their M is +0
+    in every bit, the plain version's value, and the other sites agree with
+    the plain version as everywhere."""
+    h, tc, _ = (t.to(dev) for t in _pm_args(40, 32, 16, 128, 64, torch.bfloat16, seed=4))
+    dead = (torch.rand(40, 32, generator=torch.Generator().manual_seed(5)) < 0.5).to(dev)
+    dead[0, :2] = True
+    h[dead], tc[dead] = 0.0, 0.0
+    h[0, 0], tc[0, 1] = -0.0, -0.0  # signed zeros count as zeros
+    with torch.no_grad():
+        got = pooled_m(h, tc)
+    _assert_pm_close(got, pooled_m_plain(h, tc), "L")
+    assert not got[dead].view(torch.int16).any()
+    assert got[~dead].float().abs().max() > 0
 
 
 def test_pooled_m_autograd(dev):
