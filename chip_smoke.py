@@ -13,28 +13,33 @@ result line), each printing its seconds:
 2. build: the CUDA kernels compiled from `equihgnn_tpu_torch/csrc/` (one
    nvcc per source, in parallel);
 3. kernels vs their plain PyTorch versions on the card, at the shapes of a
-   batch of 768 synthetic molecules at hidden 256: kernel A (sorted segment
-   sum), B (EGNN edge MLP forward), C (its backward, seven gradients against
-   autograd through the plain forward), D (FAFormer's frame-averaged
-   SwiGLU forward) and E (its backward, five gradients) at both FAFormer
-   sites (EdgeModule P = 393,728, C = 4; FAFFN P = 24,608, C = 3), and D/E
-   with dropout 0.1 at P = 24,608 (the same seed must give the same mask);
-   F and H (ViSNet's vector aggregation and vector-rejection dot products)
-   and their backwards G and I on the batch's k = 17 neighbourhoods (self
-   included, 5 Å) at L = 8, h = 256, with s1 a strided view as in ViS_MP;
-   J and K (the SE(3)-Transformer's fused pooled ConvSE3 unit, forward and
-   backward) at its pooled sites (k = 16, F = 128, I = O = 256; C = 1 at
-   three of the four, C = 3 at conv_in's 0 → 1), J with the sites that
-   have a neighbour as `live` (as the model calls it) and without, against
-   the plain versions and the one `torch.einsum` call, with J's route
-   (3xTF32 on the tensor cores) and its bounds at the TF32 and f32 peaks; L and M (the pooled-M build of
-   the bf16 path's per-J pooled units, forward and backward) in bf16 at k =
-   16, F = 128, X = 64 (three of the four units) and 192 (conv_in's 0 → 1),
-   against the plain versions and, for L, one `torch.bmm` over the sites;
-   then L in f32 at the recipe's C = 1 unit with its projection against J
-   (recorded only);
-   error, median time, allocation and the card's least time (`bound_ms`)
-   of each;
+   batch of 768 synthetic molecules at hidden 256: kernel A (sorted
+   segment sum; also at six edge cases at D = 256, each the same bits
+   twice, and timed against `index_add_` one call a sample, 10 calls a
+   sample and device time alone, with its host time a call), B (EGNN
+   edge MLP forward), C (its backward, seven gradients against autograd
+   through the plain forward), D (FAFormer's frame-averaged SwiGLU
+   forward) and E (its backward, five gradients) at both FAFormer sites
+   (EdgeModule P = 393,728, C = 4; FAFFN P = 24,608, C = 3), and D/E
+   with dropout 0.1 at P = 24,608 (the same seed must give the same
+   mask); F and H (ViSNet's vector aggregation and vector-rejection dot
+   products) and their backwards G and I on the batch's k = 17
+   neighbourhoods (self included, 5 Å) at L = 8, h = 256, with s1 a
+   strided view as in ViS_MP; J and K (the SE(3)-Transformer's fused
+   pooled ConvSE3 unit, forward and backward) at its pooled sites (k =
+   16, F = 128, I = O = 256; C = 1 at three of the four, C = 3 at
+   conv_in's 0 → 1), J and K with the sites that have a neighbour as
+   `live` (as the model calls them) and without, against the plain
+   versions (K's on dout · live, 0 at the dead sites) and, for J, the
+   one `torch.einsum` call, with their route (3xTF32 on the tensor
+   cores), their bounds at the TF32 and f32 peaks and K's time by
+   kernel; L and M (the pooled-M build of the bf16 path's per-J pooled
+   units, forward and backward) in bf16 at k = 16, F = 128, X = 64
+   (three of the four units) and 192 (conv_in's 0 → 1), against the
+   plain versions and, for L, one `torch.bmm` over the sites; then L in
+   f32 at the recipe's C = 1 unit with its projection against J
+   (recorded only); error, median time, allocation and the card's least
+   time (`bound_ms`) of each;
 then, for each path, `egnn_equihnns`, `faformer_equihnns`,
 `visnet_equihnns` and `se3_transformer_equihnns` at the bench recipe
 (hidden 256, 3 MHNNS conv layers, output hidden 128 over 3 layers, mean
@@ -145,9 +150,9 @@ BWD_LAUNCHES = {
 LR = {"visnet_equihnns": "1e-4"}  # the others train at 1e-3
 # the H100 SXM's published peaks: HBM3 bandwidth, dense f32, TF32 and bf16 rates
 PEAK_BYTES_S, PEAK_F32_S, PEAK_TF32_S, PEAK_BF16_S = 3.35e12, 67e12, 495e12, 989e12
-# kernel J's route: its products on the tensor cores in 3xTF32 (three TF32
-# products for each f32 one), `csrc/pooled_conv_fwd.cu`
-J_ROUTE = "3xTF32 (mma.sync.m16n8k8 tensor cores)"
+# kernels J's and K's route: their products on the tensor cores in 3xTF32
+# (three TF32 products for each f32 one), `csrc/tf32_mma.cuh`
+TF32_ROUTE = "3xTF32 (mma.sync.m16n8k8 tensor cores)"
 
 
 def check(ok: bool, msg: str) -> None:
@@ -215,6 +220,33 @@ def device_kernels(prof, calls: int) -> list[tuple[float, int, str]]:
                 t = evt.self_cuda_time_total
             rows.append((t / 1e3 / calls, evt.count // calls, evt.key))
     return sorted(rows, reverse=True)
+
+
+def kernel_split(fn, calls: int = 3) -> dict[str, float]:
+    """Device ms a launch of each kernel `fn` launches once a call
+    (torch.profiler over `calls` calls), by the kernel's name without its
+    template arguments and parameters. The mean over the launches the
+    profiler recorded: it can drop a kernel's event in a long run, which a
+    total over `calls` would count as 0."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    split: dict[str, float] = {}
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA or not evt.count:
+            continue
+        t = getattr(evt, "self_device_time_total", None)
+        if t is None:
+            t = evt.self_cuda_time_total
+        name = evt.key.replace("(anonymous namespace)::", "").removeprefix("void ")
+        name = name.split("(")[0].split("<")[0].split("::")[-1]
+        split[name] = split.get(name, 0.0) + t / 1e3 / evt.count
+    return split
 
 
 def profiled_device_ms(fn, calls: int = 20) -> float:
@@ -359,38 +391,45 @@ def phase_kernels(batch) -> list[dict]:
     gen = torch.Generator().manual_seed(1)
     rows = []
 
-    # kernel A at the hyperedge-direction reduction of the trunk
+    # kernel A at the hyperedge-direction reduction of the trunk, then at its
+    # edge cases (D = 256), each against the plain version and twice
     ids = batch.hedge_idx.to(dev)
     m, s = ids.shape[0], batch.num_hedges
     data = torch.randn(m, HIDDEN, generator=gen).to(dev)
-    got = sorted_segment_sum(data, ids, s)
-    ref = sorted_segment_sum_plain(data, ids, s)
-    torch.cuda.synchronize()
-    err = float((got - ref).abs().max())
-    scale = max(1.0, float(ref.abs().max()))
-    print(f"kernel A sorted_segment_sum [M={m}, D={HIDDEN}] -> [S={s}]: "
-          f"max|d| {err:.3e}, max rel {err / scale:.3e} (limit 1e-5 * {scale:.3f})")
-    check(err <= 1e-5 * scale, "kernel A disagrees with its plain version")
-    # the kernel's launch alone (no autograd dispatch in the timed window),
-    # the wrapper (through `_SortedSegmentSum.apply`) and the plain version
-    ms, wrapper_ms, plain_ms = median_ms(lambda: _launch(data, ids, s),
-                                         lambda: sorted_segment_sum(data, ids, s),
-                                         lambda: sorted_segment_sum_plain(data, ids, s))
-    dev_ms = profiled_device_ms(lambda: _launch(data, ids, s))
-    dev_plain_ms = profiled_device_ms(lambda: sorted_segment_sum_plain(data, ids, s))
-    # the one PyTorch call that computes the same sum (the plain version adds
-    # its zero allocation around the same call)
+    err = segment_sum_case("the batch's hedge_idx", data, ids, s)
+    for name, (case_ids, case_s) in segment_sum_cases(gen).items():
+        case_data = torch.randn(case_ids.shape[0], HIDDEN, generator=gen).to(dev)
+        segment_sum_case(name, case_data, case_ids.to(dev), case_s)
+    # The kernel's launch alone (no autograd dispatch in the timed window)
+    # against the one PyTorch call that computes the same sum, `index_add_`
+    # into zeros allocated once (the plain version adds its allocation and
+    # the masking of ids outside [0, S)), under three methods: one call a
+    # sample, samples of 10 calls back to back (the host's work for a call
+    # overlaps the card's for the one before), and the device's kernel time
+    # alone (torch.profiler, 20 calls)
     zeros = torch.zeros(s, HIDDEN, device=dev)
-    library_ms, = median_ms(lambda: zeros.index_add_(0, ids, data))
-    print(f"kernel A by CUDA events: launch {ms:.4f} ms, wrapper {wrapper_ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, index_add_ {library_ms:.4f} ms; device kernels alone "
-          f"(torch.profiler, 20 calls): kernel {dev_ms:.4f} ms, plain {dev_plain_ms:.4f} ms")
+    fns = (lambda: _launch(data, ids, s), lambda: zeros.index_add_(0, ids, data),
+           lambda: sorted_segment_sum(data, ids, s), lambda: sorted_segment_sum_plain(data, ids, s))
+    ms, library_ms, wrapper_ms, plain_ms = median_ms(*fns)
+    ms10, library_ms10 = median_ms(*fns[:2], reps=10)
+    dev_ms, dev_library_ms = (profiled_device_ms(fn) for fn in fns[:2])
+    host_us = host_us_per_call(fns[0])
+    print(f"kernel A vs index_add_ (median of 20 samples, CUDA events): one call a sample "
+          f"{ms:.4f} vs {library_ms:.4f} ms, 10 calls a sample {ms10:.4f} vs {library_ms10:.4f} "
+          f"ms; device kernels alone (torch.profiler, 20 calls) {dev_ms:.4f} vs "
+          f"{dev_library_ms:.4f} ms; the wrapper (autograd.Function) {wrapper_ms:.4f} ms, the "
+          f"plain version {plain_ms:.4f} ms; the launch's host work alone {host_us:.1f} µs a call "
+          f"(enqueue, no sync)")
+    for what, a_ms, lib_ms in (("one call", ms, library_ms), ("10 calls", ms10, library_ms10),
+                               ("device alone", dev_ms, dev_library_ms)):
+        print(f"  kernel A {what}: {a_ms / lib_ms:.3f}x index_add_'s time "
+              f"({'no slower' if a_ms <= lib_ms else 'SLOWER'})")
     rows.append(dict(
         name="sorted_segment_sum", route="cuda",
         source="equihgnn_tpu_torch/csrc/segment_sum.cu",
         replaces="equihgnn_tpu/ops/pallas/segment_sum.py:92",
         max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-        **bound(nbytes(data, ids, ref), m * HIDDEN),
+        **bound(nbytes(data, ids, zeros), m * HIDDEN),
     ))
 
     # kernel B on the real neighbourhoods of the batch's slot view
@@ -465,6 +504,58 @@ def phase_kernels(batch) -> list[dict]:
               f"alternating, CUDA events; D and E at the EdgeModule site, J and K at C = 1, "
               f"L and M at X = 64, over 10 calls back to back)")
     return rows
+
+
+def host_us_per_call(fn, calls: int = 200) -> float:
+    """µs of host time a call of `fn` takes to enqueue, without a sync."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def segment_sum_cases(gen) -> dict:
+    """name → (ids, S): kernel A's edge cases (ids sorted, on the CPU)."""
+    def rand(hi, n):
+        return torch.sort(torch.randint(0, hi, (n,), generator=gen)).values
+
+    return {
+        "no rows (M = 0)": (torch.zeros(0, dtype=torch.int64), 50),
+        "no segments (S = 0)": (rand(5, 300), 0),
+        "empty segments at the start, in the middle and at the end": (7 + 3 * rand(129, 2000), 400),
+        "one segment of 5,000 rows": (torch.cat([rand(20, 700), torch.full((5000,), 20),
+                                                 21 + rand(600, 900)]), 700),
+        "ids >= S": (rand(120, 3000), 80),
+        "every id equal": (torch.full((4000,), 3), 9),
+    }
+
+
+def segment_sum_case(name: str, data, ids, s: int) -> float:
+    """Kernel A against its plain version (1e-5 · max(1, max|ref|)), the same
+    bits on a second call; returns max|d|."""
+    from equihgnn_tpu_torch.ops.kernels.segment_sum import (
+        sorted_segment_sum,
+        sorted_segment_sum_plain,
+    )
+
+    got = sorted_segment_sum(data, ids, s)
+    ref = sorted_segment_sum_plain(data, ids, s)
+    again = sorted_segment_sum(data, ids, s)
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max()) if ref.numel() else 0.0
+    scale = max(1.0, float(ref.abs().max()) if ref.numel() else 0.0)
+    same = torch.equal(got, again)
+    print(f"kernel A sorted_segment_sum, {name} [M={ids.shape[0]}, D={data.shape[1]}] -> "
+          f"[S={s}]: max|d| {err:.3e} (limit 1e-5 * {scale:.3f}), "
+          f"{'the same bits twice' if same else 'OTHER BITS on a second call'}")
+    check(got.shape == ref.shape and err <= 1e-5 * scale,
+          f"kernel A disagrees with its plain version ({name})")
+    check(same, f"kernel A gave other bits on a second call ({name})")
+    return err
 
 
 def mask_probe(p: int, gen, dev) -> float:
@@ -713,10 +804,14 @@ def pooled_conv_rows(batch, gen) -> list[dict]:
         m_mib = s * c * i * f * 4 / 2**20  # the M the plain version builds
         edge_b, w_b, out_b = e_live * (f + c * i) * 4, f * o * i * 4, s_live * c * o * 4
         m_ops, proj_ops = 2 * e_live * c * i * f, 2 * s_live * c * i * f * o
-        # J's route runs three TF32 products for each f32 one; the f32 bound
-        # (the CUDA cores' peak) is printed beside it
+        # the M rebuild, dh and dtc (3 M-sized contractions), dM = dout·Wᵀ and dW
+        k_ops = 3 * m_ops + 2 * proj_ops
+        # J's and K's route runs three TF32 products for each f32 one; the
+        # f32 bound (the CUDA cores' peak) is printed beside it
         j_bound = bound(edge_b + w_b + out_b, 3 * (m_ops + proj_ops), PEAK_TF32_S)
-        j_f32_bound = bound(edge_b + w_b + out_b, m_ops + proj_ops)["bound_ms"]
+        k_bound = bound(2 * edge_b + 2 * w_b + out_b, 3 * k_ops, PEAK_TF32_S)
+        f32_bound = {"J": bound(edge_b + w_b + out_b, m_ops + proj_ops)["bound_ms"],
+                     "K": bound(2 * edge_b + 2 * w_b + out_b, k_ops)["bound_ms"]}
         cases = {
             # name: (letter, kernel call, plain call, library call, bound, operations, line)
             "pooled_conv": ("J", lambda: pooled_conv(h, tc, w, c, sites),
@@ -727,11 +822,13 @@ def pooled_conv_rows(batch, gen) -> list[dict]:
             "pooled_conv (every site)": ("J", lambda: pooled_conv(h, tc, w, c),
                                          lambda: pooled_conv_plain(h, tc, w, c), None,
                                          j_bound, m_ops + proj_ops, ":200"),
-            # the M rebuild, dh and dtc (3 M-sized contractions), dM = dout·Wᵀ and dW
-            "pooled_conv_bwd": ("K", lambda: pooled_conv_bwd(h, tc, w, c, dout),
-                                lambda: pooled_conv_bwd_plain(h, tc, w, c, dout), None,
-                                bound(2 * edge_b + 2 * w_b + out_b, 3 * m_ops + 2 * proj_ops),
-                                3 * m_ops + 2 * proj_ops, ":233"),
+            # K as the model's backward calls it, with the live sites J saved
+            "pooled_conv_bwd": ("K", lambda: pooled_conv_bwd(h, tc, w, c, dout, sites),
+                                lambda: pooled_conv_bwd_plain(h, tc, w, c, dout, live), None,
+                                k_bound, k_ops, ":233"),
+            "pooled_conv_bwd (every site)": ("K", lambda: pooled_conv_bwd(h, tc, w, c, dout),
+                                             lambda: pooled_conv_bwd_plain(h, tc, w, c, dout),
+                                             None, k_bound, k_ops, ":233"),
         }
         for name, (letter, call, plain, library, bnd, ops, line) in cases.items():
             with torch.no_grad():
@@ -752,8 +849,9 @@ def pooled_conv_rows(batch, gen) -> list[dict]:
             again = again if isinstance(again, tuple) else (again,)
             check(all(torch.equal(x, y) for x, y in zip(got, again)),
                   f"kernel {letter} ({name}) at C = {c} gave other bits on a second run")
-            if letter == "J":
-                check(not got[0][~live].any(), f"kernel J ({name}) is not 0 at the dead sites")
+            if name in ("pooled_conv", "pooled_conv_bwd"):  # dead: J's out, K's dh and dtc
+                check(not any(x[~live].any() for x in got[:2 if letter == "K" else 1]),
+                      f"kernel {letter} ({name}) is not 0 at the dead sites")
             del got, ref, again
             with torch.no_grad():
                 mib = alloc_mib(call)
@@ -767,16 +865,21 @@ def pooled_conv_rows(batch, gen) -> list[dict]:
                        replaces=f"equihgnn_tpu/ops/pallas/pooled_conv.py{line}", max_abs_err=err,
                        ms=ms, plain_ms=plain_ms, library_ms=library_ms, **bnd)
             lib_txt = f", torch.einsum {library_ms:.4f} ms" if library else ""
-            route = (f"; route {J_ROUTE}, bound {bnd['bound_ms']:.4f} ms at the TF32 peak "
-                     f"(3 products each), {j_f32_bound:.4f} ms at the f32 peak"
-                     if letter == "J" else "")
             print(f"kernel {letter} {name} [G={g}, A={a}, k={k}, C={c}, I={i}, F={f}, O={o}]: "
                   f"{ms:.4f} ms vs plain {plain_ms:.4f} ms{lib_txt} (median of 10, CUDA events); "
-                  f"bound {row['bound_ms']:.4f} ms by {row['bound_by']}{route}; "
+                  f"bound {row['bound_ms']:.4f} ms by {row['bound_by']}; route {TF32_ROUTE}, "
+                  f"bound {bnd['bound_ms']:.4f} ms at the TF32 peak (3 products each), "
+                  f"{f32_bound[letter]:.4f} ms at the f32 peak; "
                   f"{ops / 1e12:.3f} TFLOP of live work, {ops / ms / 1e9:.1f} TFLOP/s achieved; "
                   f"a call allocates {mib:.1f} MiB at peak (M would be {m_mib:.1f} MiB); "
                   f"deterministic")
-            if c == 1 and name != "pooled_conv (every site)":
+            if letter == "K":  # each of K's kernels' share of the call
+                with torch.no_grad():
+                    split = kernel_split(call)
+                print(f"  kernel K {name} C={c} by kernel (torch.profiler, device time): " +
+                      "; ".join(f"{kname} {t:.4f} ms ({t / sum(split.values()):.1%})"
+                                for kname, t in split.items()))
+            if c == 1 and "every site" not in name:
                 rows.append(row)
         del h, tc, w, dout
         torch.cuda.empty_cache()

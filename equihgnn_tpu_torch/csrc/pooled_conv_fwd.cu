@@ -67,6 +67,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "tf32_mma.cuh"
+
 namespace {
 
 constexpr int BM = 64;         // rows of a row tile, at most
@@ -82,7 +84,6 @@ constexpr int WSLOTS = 3;     // W stages in the ring
 // named barriers (0 is __syncthreads): A slot b full (+b), A slot b and
 // the W stage read with it empty (+b), the producers alone
 constexpr int BAR_FULL = 1, BAR_EMPTY = 3, BAR_PROD = 5;
-constexpr size_t MAX_SMEM = 232448;
 
 struct Dims {
   int s, k, c, i, f, o;  // sites, neighbours, C, I, F, O
@@ -106,85 +107,6 @@ struct Layout {
 
 size_t fwd_smem(int k, int c) {
   return Layout(k, c).floats() * sizeof(float) + tile_sites(c) * sizeof(int);
-}
-
-// ---------------------------------------------------------- primitives
-
-// cp.async of 4 or 16 bytes into shared memory, zero-filled when !valid
-// (then src is any readable address and no byte is read). A host compiler
-// copies at once.
-template <int BYTES>
-__device__ __forceinline__ void cp_async(float* dst, const float* src, bool valid) {
-#if defined(__CUDA_ARCH__)
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  if constexpr (BYTES == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-                 "r"(valid ? 16 : 0));
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
-                 "r"(valid ? 4 : 0));
-#else
-  for (int j = 0; j < BYTES / 4; ++j) dst[j] = valid ? src[j] : 0.f;
-#endif
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-#if defined(__CUDA_ARCH__)
-  asm volatile("cp.async.commit_group;\n" ::);
-#endif
-}
-
-// Waits for this thread's copies; a barrier after it shows them to the
-// other threads.
-__device__ __forceinline__ void cp_async_wait_all() {
-#if defined(__CUDA_ARCH__)
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-#endif
-}
-
-// x rounded to TF32 (10 mantissa bits), to nearest, ties away from zero,
-// as an f32 bit pattern.
-__device__ __forceinline__ uint32_t tf32(float x) {
-  uint32_t r;
-#if defined(__CUDA_ARCH__)
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-#else
-  r = __float_as_uint(x);
-#endif
-  return r;
-}
-
-__device__ __forceinline__ float as_float(uint32_t u) { return __uint_as_float(u); }
-
-// d += a · b for one m16n8k8 TF32 tile of the warp (row.col); the
-// fragments as PTX lays them out: a {(g, t), (g+8, t), (g, t+4),
-// (g+8, t+4)}, b {(t, g), (t+4, g)}, d {(g, 2t), (g, 2t+1), (g+8, 2t),
-// (g+8, 2t+1)} for lane 4g + t, (row, column).
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-#if defined(__CUDA_ARCH__)
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-#endif
-}
-
-// Named barriers: bar_sync waits until n threads have arrived at barrier
-// id (itself included); bar_arrive counts this thread and goes on. Both
-// order this thread's earlier shared-memory writes before the waiters'
-// later reads.
-__device__ __forceinline__ void bar_sync(int id, int n) {
-#if defined(__CUDA_ARCH__)
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
-#endif
-}
-
-__device__ __forceinline__ void bar_arrive(int id, int n) {
-#if defined(__CUDA_ARCH__)
-  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
-#endif
 }
 
 // Where W[f, o, i0 + ii] lies in a [o][8] row of the W stage: the two
@@ -333,11 +255,7 @@ __device__ __forceinline__ void mma_chunk(const Dims& d, int n, const Bufs& b,
       const uint32_t bh0 = tf32(w0), bh1 = tf32(w1);
       const uint32_t bl0 = tf32(w0 - as_float(bh0)), bl1 = tf32(w1 - as_float(bh1));
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        mma_tf32(part[mt][nt], al[mt], bh0, bh1);
-        mma_tf32(part[mt][nt], ah[mt], bl0, bl1);
-        mma_tf32(part[mt][nt], ah[mt], bh0, bh1);
-      }
+      for (int mt = 0; mt < 2; ++mt) mma_3xtf32(part[mt][nt], ah[mt], al[mt], bh0, bh1, bl0, bl1);
     }
   }
 #pragma unroll
@@ -443,17 +361,6 @@ pooled_conv_fwd_tc_kernel(const float* __restrict__ h, const float* __restrict__
       }
     }
 }
-
-template <typename Kernel>
-cudaError_t set_smem(Kernel kernel, size_t smem) {
-  if (smem > MAX_SMEM) return cudaErrorInvalidValue;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) cudaGetLastError();
-  return err;
-}
-
-bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 }  // namespace
 

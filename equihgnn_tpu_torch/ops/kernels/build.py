@@ -31,7 +31,7 @@ _P, _I64, _I, _U32, _F = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.
                           ctypes.c_float)
 # C entry points: name -> argument types (each returns a cudaError_t as int)
 SIGNATURES = {
-    "sorted_segment_sum_f32": (_P, _P, _P, _I64, _I64, _I64, _P),
+    "sorted_segment_sum_f32": (_P, _P, _P, _P, _I64, _I64, _I64, _I64, _P),
     "edge_mlp_fwd_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _P),
     "edge_mlp_bwd_workspace_f32": (_I, _I, _I, _I, _I, ctypes.POINTER(_I64)),
@@ -47,7 +47,8 @@ SIGNATURES = {
     "vis_wdot_fwd_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "vis_wdot_bwd_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "pooled_conv_fwd_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    "pooled_conv_bwd_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "pooled_conv_bwd_workspace_f32": (_I, _I, _I, ctypes.POINTER(_I64)),
+    "pooled_conv_bwd_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "pooled_m_fwd_bf16": (_P, _P, _P, _I64, _I, _I, _I, _P),
     "pooled_m_fwd_f32": (_P, _P, _P, _I64, _I, _I, _I, _P),
     "pooled_m_bwd_bf16": (_P, _P, _P, _P, _P, _I64, _I, _I, _I, _P),

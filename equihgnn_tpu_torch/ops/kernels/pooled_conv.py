@@ -7,41 +7,47 @@ forward `_pc_fwd` (kernel J) and its custom VJP `_pc_bwd` (kernel K):
     M[g, a, c, i, f] = Σ_k h[g, a, k, f] · tc[g, a, k, c·I + i]
     out[g, a, c, o]  = live[g, a] · Σ_{i,f} W[f, o, i] · M[g, a, c, i, f]
 
-Layouts are JAX's: h [G, A, K, F]; tc [G, A, K, C·I] (c outer, i inner);
-W [F, O, I], which the kernels read as it lies and give dW in; out
-[G, A, C, O]. `live` [G, A] (bool, optional) marks the sites whose output
-is kept; the others' output is 0, and so are their share of the gradients
-(the backward is K applied to dout · live). Without it every site is live.
-J computes only the live sites: `live_sites` turns the mask into the ids of
-the live sites, live ones first, and their count, both on the device (a
-cumsum and a scatter, no host sync), and J's blocks past the count return
-at once. `live` may be that `LiveSites` already, so that a caller that
-passes one mask to several calls (the model's conv, one call a J) builds
-the list once; a bare mask is turned into one at each call. The kernels are float32 only; J's products run
-on the tensor cores in 3xTF32 (`csrc/pooled_conv_fwd.cu`), at ~f32
-accuracy. Routing (`nn/se3_transformer.py` `_ConvSE3Pair`): a float32
-pooled unit takes J and K at every width, since the VMEM half of JAX's
-gate `pooled_conv_supported` is not ported; a bfloat16 unit takes the
-per-J path with kernels L and M (`ops/kernels/pooled_m.py`) where the
-gate's divisibility half, `pooled_conv_shape_ok`, fails, as JAX does, and
-raises where it holds (J and K in bfloat16 are ROADMAP item 11). The
-kernels take any K ≥ 0 (K = 0 gives zeros) and any C in 1..64; a K whose
-chunks do not fit a block's shared memory (J: K > 22) is refused by the C
-entry, and the wrapper raises.
+Layouts are JAX's: h [G, A, K, F]; tc [G, A, K, C·I] (c outer, i inner); W
+[F, O, I], which the kernels read as it lies and give dW in; out [G, A, C,
+O]. `live` [G, A] (bool, optional) marks the sites whose output is kept;
+the others' output is 0, and so are their share of the gradients (the
+backward is K applied to dout · live: dh and dtc are exactly 0 at the dead
+sites, which K writes itself, and their dout is never read). Without it
+every site is live. J and K compute only the live sites: `live_sites` turns
+the mask into the ids of the live sites, live ones first, and their count,
+both on the device (a cumsum and a scatter, no host sync); J's blocks past
+the count return at once, K's write their sites' dh and dtc as 0. `live`
+may be that `LiveSites` already, so that a caller that passes one mask to
+several calls (the model's conv, one call a J) builds the list once; a bare
+mask is turned into one at each call. The forward saves the list for K. The
+kernels are float32 only; their products run on the tensor cores in 3xTF32
+(`csrc/tf32_mma.cuh`), at ~f32 accuracy. Routing (`nn/se3_transformer.py`
+`_ConvSE3Pair`): a float32 pooled unit takes J and K at every width, since
+the VMEM half of JAX's gate `pooled_conv_supported` is not ported; a
+bfloat16 unit takes the per-J path with kernels L and M
+(`ops/kernels/pooled_m.py`) where the gate's divisibility half,
+`pooled_conv_shape_ok`, fails, as JAX does, and raises where it holds (J
+and K in bfloat16 are ROADMAP item 11). The kernels take any K ≥ 0 (K = 0
+gives zeros) and any C in 1..64, and K any F ≤ 128 (a thread keeps a row of
+dh sums in registers); a K or C whose chunks do not fit a block's shared
+memory (J and K: K > 22 at the model's widths; K also at K = 22 with C =
+64) is refused by the C entry, and the wrapper raises. K takes a workspace
+of W's size (W re-laid for its copies), allocated by `pooled_conv_bwd`.
 
 `pooled_conv` is the wrapper. A CPU tensor goes to the plain version
 (`pooled_conv_plain`), which autograd traces. A CUDA tensor goes through
 `_PooledConv`, an `autograd.Function` whose forward is kernel J and whose
 backward is kernel K (`pooled_conv_bwd`); like JAX's custom VJP it saves
-only its inputs. Any other device, type, shape or a non-contiguous h, tc
-or dout raises (W may have any strides: the wrapper makes it contiguous,
-which copies nothing for the model's W[..., J] slices of one J).
-`.launches` on `pooled_conv` and `pooled_conv_bwd` counts calls of the C
-entries.
+only its inputs (and the live-site list). Any other device, type, shape or
+a non-contiguous h, tc or dout raises (W may have any strides: the wrapper
+makes it contiguous, which copies nothing for the model's W[..., J] slices
+of one J). `.launches` on `pooled_conv` and `pooled_conv_bwd` counts calls
+of the C entries.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
@@ -121,10 +127,15 @@ def pooled_conv_plain(h, tc, w, c: int, live=None):
     return out if live is None else out * live[..., None, None]
 
 
-def pooled_conv_bwd_plain(h, tc, w, c: int, dout):
-    """(dh, dtc, dW) for the output gradient `dout` [G, A, C, O]: dM = dout·Wᵀ,
+def pooled_conv_bwd_plain(h, tc, w, c: int, dout, live=None):
+    """(dh, dtc, dW) for the output gradient `dout` [G, A, C, O] of
+    `pooled_conv_plain(h, tc, w, c, live)`: with dout · live, dM = dout·Wᵀ,
     dh = Σ_{c,i} tc·dM, dtc = Σ_f h·dM, dW = Σ_{g,a,c} M·dout, chunked as
-    `pooled_conv_plain`."""
+    `pooled_conv_plain` (live a bool [G, A], a `LiveSites` or None: every
+    site). dh and dtc are 0 at the dead sites, as dM is there."""
+    live = _mask(live)
+    if live is not None:
+        dout = dout * live[..., None, None]
     g, a, k, f = h.shape
     i = w.shape[2]
     hs = h.reshape(g * a, k, f)
@@ -205,18 +216,31 @@ def _launch_fwd(h, tc, w, c, sites: LiveSites | None = None):
     return out
 
 
-def pooled_conv_bwd(h, tc, w, c: int, dout):
-    """Kernel K: (dh, dtc, dW) for the output gradient `dout` [G, A, C, O],
-    on CUDA tensors only (`pooled_conv_bwd_plain` is the same backward)."""
+def pooled_conv_bwd(h, tc, w, c: int, dout, sites=None):
+    """Kernel K: (dh, dtc, dW) for the output gradient `dout` [G, A, C, O] of
+    J at the live sites (`sites`: a `LiveSites`, a bool [G, A] or None: every
+    site), on CUDA tensors only (`pooled_conv_bwd_plain` is the same
+    backward). dh and dtc are 0 at the dead sites, written by the kernel;
+    their dout is not read."""
     _cuda_only("pooled_conv_bwd", h)
-    s, k, i, f, o = _check(h, tc, w, c, dout)
+    if isinstance(sites, torch.Tensor):
+        _check(h, tc, w, c, live=sites)
+        sites = live_sites(sites)
+    s, k, i, f, o = _check(h, tc, w, c, dout, live=_mask(sites))
     w = w.contiguous()
     dh, dtc, dw = torch.empty_like(h), torch.empty_like(tc), torch.empty_like(w)
     lib = build.library()
+    floats = ctypes.c_int64()
+    build.check(lib, "pooled_conv_bwd_workspace_f32",
+                lib.pooled_conv_bwd_workspace_f32(i, f, o, ctypes.byref(floats)))
+    ws = torch.empty(floats.value, dtype=torch.float32, device=h.device)  # W re-laid by stage
     with torch.cuda.device(h.device):
         code = lib.pooled_conv_bwd_f32(h.data_ptr(), tc.data_ptr(), w.data_ptr(),
-                                       dout.data_ptr(), dh.data_ptr(), dtc.data_ptr(),
-                                       dw.data_ptr(), s, k, c, i, f, o, _stream(h))
+                                       dout.data_ptr(),
+                                       None if sites is None else sites.ids.data_ptr(),
+                                       None if sites is None else sites.count.data_ptr(),
+                                       dh.data_ptr(), dtc.data_ptr(), dw.data_ptr(),
+                                       ws.data_ptr(), s, k, c, i, f, o, _stream(h))
     build.check(lib, f"pooled_conv_bwd_f32 at K = {k}, C = {c}", code)
     pooled_conv_bwd.launches += 1
     return dh, dtc, dw
@@ -224,20 +248,19 @@ def pooled_conv_bwd(h, tc, w, c: int, dout):
 
 class _PooledConv(torch.autograd.Function):
     """Kernel J forward, kernel K backward (JAX `_pooled_conv`'s custom VJP)
-    on dout · live."""
+    at the live sites, both walking the same list."""
 
     @staticmethod
     def forward(ctx, h, tc, w, c, sites):
-        ctx.save_for_backward(h, tc, w, _mask(sites))
+        ctx.save_for_backward(h, tc, w, *(sites if sites is not None else (None,) * 3))
         ctx.c = c
         return _launch_fwd(h, tc, w, c, sites)
 
     @staticmethod
     def backward(ctx, dout):
-        h, tc, w, live = ctx.saved_tensors
-        if live is not None:
-            dout = dout * live[..., None, None]
-        dh, dtc, dw = pooled_conv_bwd(h, tc, w, ctx.c, dout.contiguous())
+        h, tc, w, mask, ids, count = ctx.saved_tensors
+        sites = None if mask is None else LiveSites(mask, ids, count)
+        dh, dtc, dw = pooled_conv_bwd(h, tc, w, ctx.c, dout.contiguous(), sites)
         return dh, dtc, dw, None, None
 
 

@@ -11,21 +11,37 @@ is plain XLA. `sorted_segment_sum.launches` counts kernel launches.
 Contract: `segment_ids` is non-decreasing. The kernel relies on it and
 does not check it; `pad_hypergraph_batch` checks it on the host, once per
 batch. The JAX package's runtime window check and its fallback have no
-counterpart here.
+counterpart here. Ids outside [0, num_segments) fall in no output row, as
+in `jax.ops.segment_sum`.
+
+The kernel's host path is kept short, since a call's device work is a few
+tens of microseconds: the C entry is looked up once, the output and the
+kernel's workspace (two partial rows per tile of `TILE_ROWS` rows) are one
+allocation, and the call runs on the current device's current stream, read
+as a raw handle (`torch.cuda.current_stream()` builds a Stream object at
+each call; a tensor on another device raises instead of switching
+devices).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from equihgnn_tpu_torch.ops.kernels import build
 
+TILE_ROWS = 32  # rows of a tile of the kernel (`TR` in csrc/segment_sum.cu)
+
 
 def sorted_segment_sum_plain(data: torch.Tensor, segment_ids: torch.Tensor,
                              num_segments: int) -> torch.Tensor:
-    """out[s] = Σ_{i: ids[i] = s} data[i] with `index_add_` (any id order)."""
-    out = data.new_zeros((num_segments,) + tuple(data.shape[1:]))
-    return out.index_add_(0, segment_ids, data)
+    """out[s] = Σ_{i: ids[i] = s} data[i] with `index_add_` (any id order);
+    rows whose id lies outside [0, num_segments) go to a spare row that is
+    cut off."""
+    out = data.new_zeros((num_segments + 1,) + tuple(data.shape[1:]))
+    inside = (segment_ids >= 0) & (segment_ids < num_segments)
+    return out.index_add_(0, torch.where(inside, segment_ids, num_segments), data)[:num_segments]
 
 
 def _check(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int):
@@ -40,23 +56,32 @@ def _check(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int):
         )
     if segment_ids.device != data.device:
         raise ValueError("data and segment_ids lie on different devices")
+    if data.device.index != torch.cuda.current_device():
+        raise ValueError(f"sorted_segment_sum kernel runs on the current device "
+                         f"(cuda:{torch.cuda.current_device()}), data lies on {data.device}")
     if not (data.is_contiguous() and segment_ids.is_contiguous()):
         raise ValueError("sorted_segment_sum kernel takes contiguous tensors")
-    if num_segments < 0 or data.shape[1] > 65535 * 32:
-        raise ValueError(f"unsupported num_segments={num_segments} or D={data.shape[1]}")
+    if num_segments < 0:
+        raise ValueError(f"unsupported num_segments={num_segments}")
+
+
+@functools.cache
+def _entry():
+    lib = build.library()
+    return lib, lib.sorted_segment_sum_f32
 
 
 def _launch(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
     m, d = data.shape
-    out = torch.empty((num_segments, d), dtype=torch.float32, device=data.device)
-    lib = build.library()
-    with torch.cuda.device(data.device):
-        stream = torch.cuda.current_stream(data.device).cuda_stream
-        code = lib.sorted_segment_sum_f32(
-            data.data_ptr(), segment_ids.data_ptr(), out.data_ptr(),
-            m, d, num_segments, stream,
-        )
-    build.check(lib, "sorted_segment_sum_f32", code)
+    ws = 2 * -(-m // TILE_ROWS) * d
+    buf = torch.empty(num_segments * d + ws, dtype=torch.float32, device=data.device)
+    out = buf[:num_segments * d].view(num_segments, d)
+    lib, fn = _entry()
+    code = fn(data.data_ptr(), segment_ids.data_ptr(), buf.data_ptr(),
+              buf.data_ptr() + 4 * num_segments * d, ws, m, d, num_segments,
+              torch._C._cuda_getCurrentRawStream(data.device.index))
+    if code:
+        build.check(lib, "sorted_segment_sum_f32", code)
     sorted_segment_sum.launches += 1
     return out
 

@@ -8,7 +8,10 @@ machine with an H100 (which has no JAX, hence `--noconftest`):
 
 The shapes here are the edge cases that the batch-768 shapes do not
 reach: ragged F, k not a multiple of 4, a single slot, empty and trailing
-segments, D not a multiple of 128, no rows at all; for kernels D and E an
+segments, D not a multiple of 128, no rows at all; for kernel A at D = 256
+also no segments, empty segments at the start, in the middle and at the
+end, one segment of 5,000 rows (across ~160 row tiles), ids ≥ S (in no
+row) and every id equal, each the same bits twice; for kernels D and E an
 odd P, C = 3 and 4, every H/2 the kernels take, and dropout on and off
 (the same seed gives the same mask in the kernels and the plain version);
 for kernels F-I masked edges, an all-empty padding row, A < k (the
@@ -17,7 +20,10 @@ and 8, h not a multiple of 32 and a strided s1; for kernels J and K
 C = 1, 3, 5, k = 0, 4, 16, a site count G·A that fills no row tile
 exactly, and ragged I, F and O, and J with live-site masks (random, all
 dead, all live, C = 3 across tile edges, k = 0): 0 at the dead sites, the
-same bits twice, and K's gradients on dout · live through autograd; for
+same bits twice, and K's gradients on dout · live through autograd; K with
+the same live-site lists (against the plain backward on dout · live, 0 at
+the dead sites, the same bits twice) and refusing a K (23) or C (64 at K =
+22) its shared memory cannot take, or an F over 128; for
 kernels L and M the batch-768 shapes (G = 769, A = 32, K = 16, F = 128,
 X = 64 and 192) in bfloat16 and float32, K = 0, 5 and 20, ragged F and X,
 12,000 sites, many more than L's persistent grid has blocks, and sites
@@ -129,6 +135,45 @@ def test_sorted_segment_sum_kernel(dev, m, s, d):
     assert float((got.double() - want).abs().max()) <= 1e-5 * scale
     counts = torch.bincount(ids, minlength=s)
     assert torch.all(got[counts == 0] == 0)
+
+
+def _segment_case(name, gen):
+    """(ids, S) of kernel A's edge cases at D = 256."""
+    rand = lambda hi, n: torch.sort(torch.randint(0, hi, (n,), generator=gen)).values
+    if name == "no_rows":
+        return torch.zeros(0, dtype=torch.int64), 50
+    if name == "no_segments":
+        return rand(5, 300), 0
+    if name == "empty_start_middle_end":  # ids 7 … 392 in steps of 3: all others empty
+        return 7 + 3 * rand(129, 2000), 400
+    if name == "one_segment_of_5000":
+        return torch.cat([rand(20, 700), torch.full((5000,), 20), 21 + rand(600, 900)]), 700
+    if name == "ids_at_or_above_s":
+        return rand(120, 3000), 80
+    if name == "every_id_equal":
+        return torch.full((4000,), 3), 9
+    raise ValueError(name)
+
+
+@pytest.mark.parametrize("name", ["no_rows", "no_segments", "empty_start_middle_end",
+                                  "one_segment_of_5000", "ids_at_or_above_s", "every_id_equal"])
+def test_sorted_segment_sum_edge_cases(dev, name):
+    """Kernel A against its plain version on the card at D = 256 (1e-5 of
+    max(1, max |plain|)): every output row written once, 0 for an empty
+    segment, nothing for ids outside [0, S); the same bits twice."""
+    gen = torch.Generator().manual_seed(7)
+    ids, s = _segment_case(name, gen)
+    data = torch.randn(ids.shape[0], 256, generator=gen).to(dev)
+    ids = ids.to(dev)
+    got = sorted_segment_sum(data, ids, s)
+    want = sorted_segment_sum_plain(data, ids, s)
+    assert got.shape == want.shape == (s, 256)
+    if s:
+        scale = max(1.0, float(want.abs().max()))
+        assert float((got - want).abs().max()) <= 1e-5 * scale
+        counts = torch.bincount(ids[ids < s], minlength=s)
+        assert torch.all(got[counts == 0] == 0)
+    assert torch.equal(sorted_segment_sum(data, ids, s), got)
 
 
 @pytest.mark.parametrize(
@@ -702,13 +747,62 @@ def test_pooled_conv_live_autograd(dev):
     before = pooled_conv_bwd.launches
     pooled_conv(*leaves, 3, live).backward(dout)
     assert pooled_conv_bwd.launches == before + 1
-    want = pooled_conv_bwd(h, tc, w, 3, dout * live[..., None, None])
+    want = pooled_conv_bwd(h, tc, w, 3, dout, live)  # K with the same live-site list
     for name, leaf, y in zip(("dh", "dtc", "dW"), leaves, want):
         assert torch.equal(leaf.grad, y), name
     assert not leaves[0].grad[~live].any() and not leaves[1].grad[~live].any()
     for name, leaf, y in zip(("dh", "dtc", "dW"), leaves, pooled_conv_bwd_plain(
             h, tc, w, 3, dout * live[..., None, None])):
         _assert_grad_close(leaf.grad, y, name)
+
+
+@pytest.mark.parametrize("g,a,k,c,i,f,o,mask", PC_LIVE_CASES)
+def test_pooled_conv_bwd_live_kernel(dev, g, a, k, c, i, f, o, mask):
+    """Kernel K with live sites (a `LiveSites`, as J's forward saves it)
+    against the plain backward on dout · live; dh and dtc exactly 0 at the
+    dead sites, whose tc and dout are not 0 here; the same bits twice."""
+    args, dout = _pc_args(g, a, k, c, i, f, o, seed=g + a + c + 1)
+    h, tc, w = (t.to(dev) for t in args)
+    dout = dout.to(dev)
+    live = _live_mask(g, a, mask, seed=g + k + 1).to(dev)
+    sites = live_sites(live)
+    before = pooled_conv_bwd.launches
+    got = pooled_conv_bwd(h, tc, w, c, dout, sites)
+    again = pooled_conv_bwd(h, tc, w, c, dout, sites)
+    assert pooled_conv_bwd.launches == before + 2
+    for name, x, y, z in zip(("dh", "dtc", "dW"), got,
+                             pooled_conv_bwd_plain(h, tc, w, c, dout, live), again):
+        assert x.shape == y.shape, name
+        _assert_grad_close(x, y, f"K with live {name}")
+        assert torch.equal(x, z), name
+    assert not got[0][~live].any() and not got[1][~live].any()
+    # a bare mask is turned into the same list
+    assert all(torch.equal(x, y) for x, y in zip(pooled_conv_bwd(h, tc, w, c, dout, live), got))
+
+
+def test_pooled_conv_bwd_rejects_unsupported_inputs(dev):
+    """Kernel K refuses a K or C whose tiles its shared memory cannot take
+    (dW stages two chunks of 32 rows' h and tc: K <= 22; the dM tile of one
+    site of 64 rows at K = 22 is too large) and an F over 128, and a call
+    afterwards runs."""
+    (h23, tc23, w23), d23 = _pc_args(1, 2, 23, 1, 8, 128, 256, seed=4)
+    with pytest.raises(RuntimeError, match="pooled_conv_bwd_f32 at K = 23"):
+        pooled_conv_bwd(h23.to(dev), tc23.to(dev), w23.to(dev), 1, d23.to(dev))
+    (h22, tc22, w22), d22 = _pc_args(1, 2, 22, 64, 8, 128, 256, seed=5)
+    with pytest.raises(RuntimeError, match="pooled_conv_bwd_f32 at K = 22, C = 64"):
+        pooled_conv_bwd(h22.to(dev), tc22.to(dev), w22.to(dev), 64, d22.to(dev))
+    with pytest.raises(ValueError):  # a live mask of another shape
+        pooled_conv_bwd(h22.to(dev), tc22.to(dev), w22.to(dev), 64, d22.to(dev),
+                        torch.ones(2, 1, dtype=torch.bool, device=dev))
+    # a thread keeps one (site, k) row of dh sums in registers: F <= 128
+    (hf, tcf, wf), df = _pc_args(1, 2, 4, 1, 8, 136, 16, seed=7)
+    with pytest.raises(RuntimeError, match="pooled_conv_bwd_f32 at K = 4, C = 1"):
+        pooled_conv_bwd(hf.to(dev), tcf.to(dev), wf.to(dev), 1, df.to(dev))
+    (h, tc, w), dout = _pc_args(2, 5, 22, 1, 8, 128, 256, seed=6)
+    grads = pooled_conv_bwd(h.to(dev), tc.to(dev), w.to(dev), 1, dout.to(dev))
+    for name, x, y in zip(("dh", "dtc", "dW"), grads, pooled_conv_bwd_plain(
+            h.to(dev), tc.to(dev), w.to(dev), 1, dout.to(dev))):
+        _assert_grad_close(x, y, name)
 
 
 def test_pooled_conv_bwd_is_deterministic(dev):

@@ -13,9 +13,16 @@ here, on the plain version (what the wrapper runs for CPU tensors):
     `tests/test_torch_se3.py`; random, all-dead and all-live masks;
   * against the unmasked plain version where tc (and, for the gradients,
     h, as the model zeroes both) is 0 at the dead sites: the same bits;
-  * the live-site list the wrapper hands kernel J (`live_sites`): ids in
-    order, live first, the count as a one-element int32 tensor; passed in
-    built (`LiveSites`), the same output and gradients as the bare mask;
+  * the live-site list the wrapper hands kernels J and K (`live_sites`):
+    ids in order, live first, the count as a one-element int32 tensor;
+    passed in built (`LiveSites`), the same output and gradients as the
+    bare mask, through autograd on the CPU;
+  * kernel K's plain backward with the live sites
+    (`pooled_conv_bwd_plain(h, tc, w, c, dout, live)`, a mask or a
+    `LiveSites`) against `jax.vjp` of JAX's `pooled_conv` (its Pallas
+    kernels in interpret mode, C = 3: C = 1 takes ~3x as long to trace) on
+    dout · live, random, all-dead and all-live masks: 1e-3·max |JAX| + 1e-6
+    per tensor, dh and dtc exactly 0 at the dead sites;
   * the 3xTF32 split of J's products (big = tf32(x), small = tf32(x − big),
     big·big + big·small + small·big summed in f32 per k8 step), emulated in
     torch by bit operations on the int32 view, at the model's contraction
@@ -29,6 +36,7 @@ import numpy as np
 import pytest
 import torch
 
+from equihgnn_tpu.ops.pallas.pooled_conv import pooled_conv as jax_pooled_conv
 from equihgnn_tpu_torch.ops.kernels.pooled_conv import (
     live_sites,
     pooled_conv,
@@ -177,3 +185,60 @@ def test_3xtf32_split_meets_kernel_j_gate_and_one_tf32_does_not():
     one = float((summed([(mb, wb)]).double() - ref).abs().max())
     assert three <= gate, f"3xTF32: max |d| {three:.3e} > {gate:.3e}"
     assert one > gate, f"one TF32 product: max |d| {one:.3e} within {gate:.3e}"
+
+
+_PALLAS_C = 3
+
+
+@jax.jit
+def _pallas_vjp(h, tc, w, dout):
+    """JAX's fused unit (Pallas, interpret mode here) and its VJP at dout."""
+    out, vjp = jax.vjp(lambda *x: jax_pooled_conv(*x, _PALLAS_C), h, tc, w)
+    return out, vjp(dout)
+
+
+@pytest.mark.parametrize("form", ["mask", "sites"])
+@pytest.mark.parametrize("mask", ["random", "all_dead", "all_live"])
+def test_live_bwd_plain_matches_pallas_vjp(mask, form):
+    """Kernel K's plain backward at the live sites against `jax.vjp` of JAX's
+    `pooled_conv` on dout · live, at a shape its TPU gate accepts (I % 4,
+    F % 8, O % 128); the dead sites' tc is not 0 here, so only the live
+    masking zeroes their dh and dtc."""
+    h, tc, w, dout, live = _inputs(2, 5, 4, _PALLAS_C, 8, 16, 128, mask, seed=30)
+    rng = np.random.default_rng(31)
+    tc = rng.standard_normal(tc.shape).astype(np.float32)
+    masked = dout * live[..., None, None]
+    out, want = _pallas_vjp(*map(jnp.asarray, (h, tc, w, masked)))
+    lt = torch.from_numpy(live)
+    got = pooled_conv_bwd_plain(*map(torch.from_numpy, (h, tc, w)), _PALLAS_C,
+                                torch.from_numpy(dout), lt if form == "mask" else live_sites(lt))
+    for name, x, y in zip(("dh", "dtc", "dW"), got, want):
+        _assert_rel(x.numpy(), y, 1e-3, name)
+    assert not got[0][~lt].any() and not got[1][~lt].any()
+    # J's output, which this is the backward of: the live sites' rows of JAX's
+    _assert_rel(pooled_conv_plain(*map(torch.from_numpy, (h, tc, w)), _PALLAS_C, lt).numpy(),
+                np.asarray(out) * live[..., None, None], 1e-4, "out")
+
+
+@pytest.mark.parametrize("mask", ["random", "all_dead", "all_live"])
+@pytest.mark.parametrize("c", [1, 3])
+def test_live_autograd_with_sites_matches_the_mask(c, mask):
+    """Autograd through the wrapper's CPU path with a built `LiveSites`
+    gives the bare mask's gradients bit for bit, those of the plain
+    backward on dout · live (1e-5·max + 1e-6: other summation orders), and
+    exactly 0 in dh and dtc at the dead sites
+    (whose tc is not 0 here)."""
+    h, tc, w, dout, live = _inputs(3, 7, 5, c, 8, 8, 16, mask, seed=40 + c)
+    tc = np.random.default_rng(41).standard_normal(tc.shape).astype(np.float32)
+    lt = torch.from_numpy(live)
+    grads = []
+    for lv in (lt, live_sites(lt)):
+        leaves = [torch.from_numpy(x).requires_grad_() for x in (h, tc, w)]
+        pooled_conv(*leaves, c, lv).backward(torch.from_numpy(dout))
+        grads.append([x.grad for x in leaves])
+    plain = pooled_conv_bwd_plain(*map(torch.from_numpy, (h, tc, w)), c,
+                                  torch.from_numpy(dout), lt)
+    for name, x, y, z in zip(("dh", "dtc", "dW"), *grads, plain):
+        assert torch.equal(x, y), name
+        _assert_rel(x.numpy(), z.numpy(), 1e-5, name)  # other summation orders
+    assert not grads[1][0][~lt].any() and not grads[1][1][~lt].any()
