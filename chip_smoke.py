@@ -20,12 +20,14 @@ result line), each printing its seconds:
    edge MLP forward), C (its backward, seven gradients against autograd
    through the plain forward), D (FAFormer's frame-averaged SwiGLU
    forward) and E (its backward, five gradients) at both FAFormer sites
-   (EdgeModule P = 393,728, C = 4; FAFFN P = 24,608, C = 3), and D/E
+   (EdgeModule P = 393,728, C = 4; FAFFN P = 24,608, C = 3; each site's
+   times with its bounds), and D/E
    with dropout 0.1 at P = 24,608 (the same seed must give the same
    mask); F and H (ViSNet's vector aggregation and vector-rejection dot
    products) and their backwards G and I on the batch's k = 17
    neighbourhoods (self included, 5 Å) at L = 8, h = 256, with s1 a
-   strided view as in ViS_MP; J and K (the SE(3)-Transformer's fused
+   strided view as in ViS_MP (G and I, one cluster of blocks a row, also
+   by their device time alone); J and K (the SE(3)-Transformer's fused
    pooled ConvSE3 unit, forward and backward) at its pooled sites (k =
    16, F = 128, I = O = 256; C = 1 at three of the four, C = 3 at
    conv_in's 0 → 1), J and K with the sites that have a neighbour as
@@ -658,35 +660,60 @@ def frame_swiglu_rows(pd, sm, gen) -> list[dict]:
                        median_ms(lambda: fused_frame_swiglu_bwd(x, *params, dout),
                                  lambda: frame_swiglu_bwd_plain(x, *params, dout)))
         (dk, dp), (ek, ep) = times[site]
-        print(f"kernels D/E at {site} [P={p}, C={c}]: D {dk:.4f} ms vs plain {dp:.4f} ms; "
-              f"E {ek:.4f} ms vs plain backward {ep:.4f} ms (median of 20, CUDA events)")
+        bd, be = frame_swiglu_bounds(x)
+        print(f"kernels D/E at {site} [P={p}, C={c}]: D {dk:.4f} ms vs plain {dp:.4f} ms "
+              f"(bound {bd['bound_ms']:.4f} ms by {bd['bound_by']}); E {ek:.4f} ms vs plain "
+              f"backward {ep:.4f} ms (bound {be['bound_ms']:.4f} ms by {be['bound_by']}) "
+              f"(median of 20, CUDA events)")
     err_d = max(err_d, mask_probe(sites["FAFFN"].shape[0], gen, dev))
     (dk, dp), (ek, ep) = times["EdgeModule"]
     src = "equihgnn_tpu_torch/csrc/frame_swiglu.cu"
-    # at the EdgeModule site, whose times the row carries; operations per
-    # position and frame: fc1 (2·C·H), SwiGLU, LayerNorm and mean (~7·H);
-    # the backward recomputes them and adds dx and dw1 (4·C·H) and ~13·H
-    x, p, c = sites["EdgeModule"], *sites["EdgeModule"].shape
-    out_b = p * (HIDDEN // 2) * 4
-    w_b = (c * HIDDEN + HIDDEN + HIDDEN) * 4
+    bd, be = frame_swiglu_bounds(sites["EdgeModule"])  # the site whose times the row carries
     return [
         dict(name="fused_frame_swiglu", route="cuda", source=src,
              replaces="equihgnn_tpu/ops/pallas/frame_swiglu.py:254",
-             max_abs_err=err_d, ms=dk, plain_ms=dp, library_ms=None,
-             **bound(nbytes(x) + w_b + out_b, p * 8 * (2 * c * HIDDEN + 7 * HIDDEN))),
+             max_abs_err=err_d, ms=dk, plain_ms=dp, library_ms=None, **bd),
         dict(name="fused_frame_swiglu_bwd", route="cuda", source=src,
              replaces="equihgnn_tpu/ops/pallas/frame_swiglu.py:274",
-             max_abs_err=err_e, ms=ek, plain_ms=ep, library_ms=None,
-             **bound(2 * nbytes(x) + 2 * w_b + out_b, p * 8 * (6 * c * HIDDEN + 20 * HIDDEN))),
+             max_abs_err=err_e, ms=ek, plain_ms=ep, library_ms=None, **be),
     ]
 
 
-def vis_mix_rows(batch, gen) -> list[dict]:
-    """Kernels F-I at ViSNet's shapes of the batch: the k = 17 neighbourhoods
-    (self included, within 5 Å) of its slot view, d the SH (L = 8) of the
-    real edge directions, h = 256; s1 a strided view of a [.., 2h] tensor,
-    s2m masked, as ViS_MP passes them."""
+def frame_swiglu_bounds(x: torch.Tensor) -> tuple[dict, dict]:
+    """Kernels D's and E's bounds on the positions x [P, C]. Operations per
+    position and frame: fc1 (2·C·H), SwiGLU, LayerNorm and mean (~7·H); the
+    backward recomputes them and adds dx and dw1 (4·C·H) and ~13·H."""
+    p, c = x.shape
+    out_b = p * (HIDDEN // 2) * 4
+    w_b = (c * HIDDEN + HIDDEN + HIDDEN) * 4
+    return (bound(nbytes(x) + w_b + out_b, p * 8 * (2 * c * HIDDEN + 7 * HIDDEN)),
+            bound(2 * nbytes(x) + 2 * w_b + out_b, p * 8 * (6 * c * HIDDEN + 20 * HIDDEN)))
+
+
+def vis_mix_inputs(batch, gen) -> dict:
+    """Kernels F-I's inputs at ViSNet's shapes of the batch: the k = 17
+    neighbourhoods (self included, within 5 Å) of its slot view, d the SH
+    (L = 8) of the real edge directions, h = 256; s1 a strided view of a
+    [.., 2h] tensor, s2m masked, as ViS_MP passes them; gva and gw the
+    output gradients of F and H."""
     from equihgnn_tpu_torch.nn.visnet import edge_geometry
+
+    dev = torch.device("cuda")
+    sm = batch.slot_mask.to(dev)
+    pd = batch.pos.to(dev)[batch.slot_index.to(dev)] * sm[..., None]
+    idx, mask, _, _, d = edge_geometry(pd, sm, 17, 5.0, 2, batch.slot_gid.to(dev))
+    g, a, k = idx.shape
+    L, h = d.shape[-1], HIDDEN
+    rnd = lambda *shape: torch.randn(*shape, generator=gen).to(dev)  # noqa: E731
+    vec, u, vv = rnd(g, a, L, h), rnd(g, a, L, h), rnd(g, a, L, h)
+    s1 = rnd(g, a, k, 2 * h)[..., :h]
+    s2m = rnd(g, a, k, h) * mask[..., None]
+    return dict(vec=vec, s1=s1, s2m=s2m, d=d, idx=idx, mask=mask, u=u, vv=vv,
+                gva=rnd(g, a, L, h), gw=rnd(g, a, k, h))
+
+
+def vis_mix_rows(batch, gen) -> list[dict]:
+    """Kernels F-I at ViSNet's shapes of the batch (`vis_mix_inputs`)."""
     from equihgnn_tpu_torch.ops.kernels.vis_mix import (
         vec_agg_bwd_plain,
         vec_agg_plain,
@@ -698,18 +725,11 @@ def vis_mix_rows(batch, gen) -> list[dict]:
         wdot_plain,
     )
 
-    dev = torch.device("cuda")
-    sm = batch.slot_mask.to(dev)
-    pd = batch.pos.to(dev)[batch.slot_index.to(dev)] * sm[..., None]
-    idx, mask, _, _, d = edge_geometry(pd, sm, 17, 5.0, 2, batch.slot_gid.to(dev))
+    x = vis_mix_inputs(batch, gen)
+    vec, s1, s2m, d, idx, mask = (x[n] for n in ("vec", "s1", "s2m", "d", "idx", "mask"))
+    u, vv, gva, gw = x["u"], x["vv"], x["gva"], x["gw"]
     g, a, k = idx.shape
     L, h = d.shape[-1], HIDDEN
-    rnd = lambda *shape: torch.randn(*shape, generator=gen).to(dev)  # noqa: E731
-    vec, u, vv = rnd(g, a, L, h), rnd(g, a, L, h), rnd(g, a, L, h)
-    s12 = rnd(g, a, k, 2 * h)
-    s1 = s12[..., :h]
-    s2m = rnd(g, a, k, h) * mask[..., None]
-    gva, gw = rnd(g, a, L, h), rnd(g, a, k, h)
     e_all, e_valid = g * a * k, int(mask.sum())
     live_b = e_valid * h * 4  # s1 (F, G) or gw (I) on the masked-in edges, all they need
     print(f"ViSNet vector mix inputs: G={g}, A={a}, k={k}, L={L}, h={h}; {e_valid} of "
@@ -759,8 +779,11 @@ def vis_mix_rows(batch, gen) -> list[dict]:
         row = dict(name=name, route="cuda", source="equihgnn_tpu_torch/csrc/vis_mix.cu",
                    replaces=f"equihgnn_tpu/ops/pallas/vis_mix.py{line}", max_abs_err=err,
                    ms=ms, plain_ms=plain_ms, library_ms=None, **bound(in_b + out_b, ops))
+        # G and I launch a cluster a row, which adds host work: their device time alone too
+        alone = (f"; device alone {profiled_device_ms(call):.4f} ms (torch.profiler)"
+                 if letter in "GI" else "")
         print(f"kernel {letter} {name}: {ms:.4f} ms vs plain {plain_ms:.4f} ms (median of 20, "
-              f"CUDA events); bound {row['bound_ms']:.4f} ms by {row['bound_by']} "
+              f"CUDA events){alone}; bound {row['bound_ms']:.4f} ms by {row['bound_by']} "
               f"({(in_b + out_b) / 1e9:.3f} GB, {ops / 1e9:.2f} GFLOP); a call allocates "
               f"{mib:.1f} MiB at peak, the plain version {plain_mib:.1f} MiB; deterministic")
         rows.append(row)

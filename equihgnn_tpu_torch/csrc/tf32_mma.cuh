@@ -1,8 +1,9 @@
 // Device helpers shared by kernels J (`pooled_conv_fwd.cu`) and K
 // (`pooled_conv.cu`): cp.async copies into shared memory, the 3xTF32 split,
-// one m16n8k8 TF32 tensor-core product and named barriers. Off the card (a
-// host compiler parsing the sources) the copies are plain copies and the
-// rest does nothing.
+// one m16n8k8 TF32 tensor-core product and named barriers; kernels G and I
+// (`vis_mix.cu`) take the copies and `set_smem`. Off the card (a host
+// compiler parsing the sources) the copies are plain copies and the rest
+// does nothing.
 
 #pragma once
 

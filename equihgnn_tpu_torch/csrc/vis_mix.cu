@@ -24,42 +24,72 @@
 // what the plain version does: build the gathered [G, A, K, L, h]
 // neighbour vectors (3.4 GB) or one [G, A, K, h] temporary per l.
 //
-// Design. A block owns one molecule row g and a chunk of HC = 32 columns of
-// h, one column per lane. It stages the neighbour side of the chunk, vec
-// (F, G) or vv (H, I) [A][L][HC] (32 KB at A = 32, L = 8), and the row's
-// d and indices in shared memory, so that every gather vec[j] is a
-// shared-memory read by index: the TPU kernels' one-hot matmuls
+// Every block owns one molecule row g and a chunk of HC = 32 columns of h,
+// one column per lane; warp w of 16 takes the target slots i ≡ w (mod 16)
+// and, per edge (i, k), reads s1/s2m/gw rows with coalesced 128-byte loads.
+// The gathers by slot index (vec[j], vv[j], gva[i], u[i]) read the chunk
+// staged in shared memory where it fits: the TPU kernels' one-hot matmuls
 // (`_block_onehot`) and their edge-k-major transposes are not carried over.
-// Warp w of 16 takes the target slots i ≡ w (mod 16); per edge (i, k) it reads
-// s1/s2m/gw rows with coalesced 128-byte loads. F and H run a grid of
-// (G, h / 32) blocks. G and I need ~105 KB of shared memory a block at
-// A = 32, so two blocks fit an SM; 16 warps a block keep 32 warps in
-// flight there (with 8, G and I ran slower on the H100).
 //
-// The backward kernels need two things the TPU grid got from running in
-// order. (1) dd sums over all of h: G and I run one block per row that loops
-// over the h chunks itself, and keeps dd's running sums in shared memory,
-// each (i, k) owned by one warp; the 32 lanes' terms of the L (or L + 1)
-// sums are added by one butterfly that reduces all of them at once
-// (`warp_sum_many`: 9 shuffles for 8 values instead of 40). (2) dvec and dvv
-// scatter onto the source slot j: per row the block lists, for each j, the
-// masked-in edges (i, k) whose source is j, in ascending order (counted and
-// filled with shared-memory atomics, then each list sorted, so the order
-// does not depend on the atomics); the warp that owns j sums its list. No
-// global atomics: two runs give the same bits.
+// F and H run a grid of (G, h / 32) blocks, each staging the neighbour side
+// of its chunk, vec or vv [A][L][HC] (32 KB at A = 32), and the row's d and
+// indices; at L = 8, k = 17 that takes A ≤ 142 (227 KB a block).
+//
+// G and I (redesigned for Hopper) need two things the TPU grid got from
+// running in order.
+// (1) dd sums over all of h. The row's h / 32 chunks run as one thread-block
+// cluster of CL = min(h / 32, 8) blocks, rank r taking the chunks r, r + CL,
+// ... (one each at h ≤ 256). Each block keeps its chunk's terms of dd
+// [A·K][L] in its shared memory: the 32 lanes' terms of an edge's L sums
+// are added by one butterfly that reduces all of them at once
+// (`warp_sum_many`: 9 shuffles for 8 values instead of 40). After
+// `cluster.sync()` each rank sums 1/CL of the row's dd over the CL ranks'
+// shared memory (distributed shared memory), in rank order, and writes it:
+// no workspace, no second launch, no atomics, the same bits every run.
+// (2) dvec and dvv scatter onto the source slot j. Per row the block lists,
+// for each j, the masked-in edges (i, k) whose source is j, in ascending
+// order (by warp ballots: no atomics, no sort); the warp that owns j sums
+// its list (the per-source walk), loading a few edges' rows ahead.
+// A block copies the row's d [A·K][L] and its staged chunks into shared
+// memory by cp.async, in flight while the indices load and the lists are
+// built.
+//
+// G: the target pass (ds1, ds2m, dd) gathers vec[j], the walk (dvec) gva[i]
+// and reads s1. With `STAGE` the chunks of vec and gva are staged (103 KB
+// at A = 32: two blocks an SM; A ≤ 70 at L = 8, k = 17); above that the
+// gathers read device memory (L2), 32 lanes a 128-byte row.
+// I: the target pass computes du, the walk dvv and dd, with Σ_c gw·ud·vd
+// folded into the L sums (8 values a butterfly, not 9 in 16), and 2 − |d|²
+// computed once an edge. The live gw rows of the chunk are copied into
+// shared memory once, by their edges' places in the lists, as many as the
+// shared memory left for two blocks an SM takes (409 of 544 at A = 32; a
+// block that takes more than one chunk keeps none): both passes read them
+// there, and the walk leaves each edge's terms of dd in its gw's place. With
+// `STAGE` (A ≤ 97) vv's chunk is staged for the target pass and u's in its
+// place for the walk; above that both are gathered from device memory.
+// G and I take the rows F and H take (A ≤ 142 at L = 8, k = 17) and refuse
+// the others.
 //
 // Contract: every index lies in [0, A), as `knn_dense` gives them; one
 // outside that range counts as a masked edge (the wrapper does not check,
 // which would cost a device-to-host sync).
 
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "tf32_mma.cuh"  // cp_async, set_smem, MAX_SMEM
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int HC = 32;  // h columns per chunk: one per lane
 constexpr int WARPS = 16;
 constexpr int THREADS = WARPS * 32;
+constexpr int MAX_CLUSTER = 8;  // the portable cluster size
+constexpr int AHEAD_G = 8;  // edges whose rows a warp of G loads before it uses them
+constexpr int AHEAD_I = 2;  // and of I
 constexpr unsigned FULL = 0xffffffffu;
 
 __host__ __device__ constexpr int pow2_ceil(int n) { return n <= 1 ? 1 : 2 * pow2_ceil((n + 1) / 2); }
@@ -93,16 +123,49 @@ __device__ __forceinline__ float warp_sum_many(float (&v)[P], int lane) {
   return v[0];
 }
 
-// The row's neighbour indices (-1 where masked or out of range) and its
-// d [A·K][L], staged in shared memory.
-__device__ __forceinline__ void stage_edges(const int64_t* __restrict__ idx,
-                                            const bool* __restrict__ mask,
-                                            const float* __restrict__ d, size_t row_e, int ak,
-                                            int a_slots, int L, int* idx_s, float* d_s) {
+// n rounded up to a multiple of 4 (floats: 16 bytes).
+__host__ __device__ constexpr int pad4(int n) { return (n + 3) & ~3; }
+
+// The row's neighbour indices, -1 where masked or out of range.
+__device__ __forceinline__ void load_idx(const int64_t* __restrict__ idx,
+                                         const bool* __restrict__ mask, size_t row_e, int ak,
+                                         int a_slots, int* idx_s) {
   for (int e = threadIdx.x; e < ak; e += THREADS) {
     const int64_t j = idx[row_e + e];
     idx_s[e] = (mask[row_e + e] && j >= 0 && j < a_slots) ? static_cast<int>(j) : -1;
   }
+}
+
+// An edge's L values of d from the row's d staged in shared memory (16-byte
+// aligned): two 16-byte loads where L = 8.
+template <int L>
+__device__ __forceinline__ void load_d(const float* de, float (&dl)[L]) {
+  if constexpr (L == 8) {
+    const float4 a = reinterpret_cast<const float4*>(de)[0];
+    const float4 b = reinterpret_cast<const float4*>(de)[1];
+    dl[0] = a.x, dl[1] = a.y, dl[2] = a.z, dl[3] = a.w;
+    dl[4] = b.x, dl[5] = b.y, dl[6] = b.z, dl[7] = b.w;
+  } else {
+#pragma unroll
+    for (int l = 0; l < L; ++l) dl[l] = de[l];
+  }
+}
+
+// n contiguous floats from src into x_s by cp.async (committed by the
+// caller): 16-byte copies where both ends allow (`vec4`), else 4-byte ones.
+__device__ __forceinline__ void stage_row_async(const float* __restrict__ src, int n, bool vec4,
+                                                float* x_s) {
+  const int n4 = vec4 ? n / 4 : 0;
+  for (int t = threadIdx.x; t < n4; t += THREADS) cp_async<16>(x_s + 4 * t, src + 4 * t, true);
+  for (int t = 4 * n4 + threadIdx.x; t < n; t += THREADS) cp_async<4>(x_s + t, src + t, true);
+}
+
+// The row's neighbour indices and its d [A·K][L], staged in shared memory.
+__device__ __forceinline__ void stage_edges(const int64_t* __restrict__ idx,
+                                            const bool* __restrict__ mask,
+                                            const float* __restrict__ d, size_t row_e, int ak,
+                                            int a_slots, int L, int* idx_s, float* d_s) {
+  load_idx(idx, mask, row_e, ak, a_slots, idx_s);
   for (int t = threadIdx.x; t < ak * L; t += THREADS) d_s[t] = d[row_e * L + t];
 }
 
@@ -117,34 +180,105 @@ __device__ __forceinline__ void stage_chunk(const float* __restrict__ x, int g, 
   }
 }
 
+// The same by cp.async (committed by the caller): 16-byte copies where the
+// rows are 16-byte aligned (`vec4`), else 4-byte ones.
+__device__ __forceinline__ void stage_chunk_async(const float* __restrict__ x, int g,
+                                                  int a_slots, int L, int h, int c0, bool vec4,
+                                                  float* x_s) {
+  const size_t base = static_cast<size_t>(g) * a_slots * L;
+  if (vec4) {
+    for (int t = threadIdx.x; t < a_slots * L * HC / 4; t += THREADS) {
+      const int cc = (t % (HC / 4)) * 4, al = t / (HC / 4);
+      const bool ok = c0 + cc < h;
+      cp_async<16>(x_s + al * HC + cc, ok ? x + (base + al) * h + c0 + cc : x, ok);
+    }
+  } else {
+    for (int t = threadIdx.x; t < a_slots * L * HC; t += THREADS) {
+      const int cc = t % HC, al = t / HC;
+      const bool ok = c0 + cc < h;
+      cp_async<4>(x_s + t, ok ? x + (base + al) * h + c0 + cc : x, ok);
+    }
+  }
+}
+
 // For each source slot j, the row's masked-in edges e = i·K + k with
-// idx = j, ascending: list_s[off_s[j] .. off_s[j + 1]).
-__device__ void build_source_lists(const int* idx_s, int ak, int a_slots, int* off_s,
-                                   int* cur_s, int* list_s) {
-  const int tid = threadIdx.x;
-  for (int j = tid; j <= a_slots; j += THREADS) off_s[j] = 0;
+// idx = j, ascending, as (i << 16) | e (A·K < 2^16 for any row F and H
+// take): list_s[off_s[j] .. off_s[j + 1]). Warp w takes the slots
+// j ≡ w (mod WARPS) and finds their edges by ballots over 32 edges at a
+// time, U of them in flight: each list comes out in order, with no atomics
+// and no sort.
+__device__ void build_source_lists(const int* idx_s, int ak, int a_slots, int k_nbrs, int* off_s,
+                                   int* list_s) {
+  constexpr int U = 4;  // 32-edge groups a ballot round takes: U independent ballots
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int j = warp; j < a_slots; j += WARPS) {
+    int n = 0;
+    for (int e0 = lane; e0 - lane < ak; e0 += 32 * U) {
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int e = e0 + 32 * u;
+        n += __popc(__ballot_sync(FULL, e < ak && idx_s[e] == j));
+      }
+    }
+    if (lane == 0) off_s[j + 1] = n;
+  }
+  if (threadIdx.x == 0) off_s[0] = 0;
   __syncthreads();
-  for (int e = tid; e < ak; e += THREADS)
-    if (idx_s[e] >= 0) atomicAdd(&off_s[idx_s[e] + 1], 1);
-  __syncthreads();
-  if (tid == 0)
-    for (int j = 0; j < a_slots; ++j) off_s[j + 1] += off_s[j];
-  __syncthreads();
-  for (int j = tid; j < a_slots; j += THREADS) cur_s[j] = off_s[j];
-  __syncthreads();
-  for (int e = tid; e < ak; e += THREADS)
-    if (idx_s[e] >= 0) list_s[atomicAdd(&cur_s[idx_s[e]], 1)] = e;
-  __syncthreads();
-  for (int j = tid; j < a_slots; j += THREADS) {  // insertion sort: a fixed sum order
-    const int lo = off_s[j], hi = off_s[j + 1];
-    for (int p = lo + 1; p < hi; ++p) {
-      const int v = list_s[p];
-      int q = p;
-      for (; q > lo && list_s[q - 1] > v; --q) list_s[q] = list_s[q - 1];
-      list_s[q] = v;
+  if (warp == 0) {  // the counts' running sums, 32 slots at a time
+    int carry = 0;
+    for (int j = 1 + lane; j - lane <= a_slots; j += 32) {
+      int v = j <= a_slots ? off_s[j] : 0;
+#pragma unroll
+      for (int o = 1; o < 32; o *= 2) {
+        const int y = __shfl_up_sync(FULL, v, o);
+        if (lane >= o) v += y;
+      }
+      if (j <= a_slots) off_s[j] = v + carry;
+      carry += __shfl_sync(FULL, v, 31);
     }
   }
   __syncthreads();
+  for (int j = warp; j < a_slots; j += WARPS) {
+    int at = off_s[j];
+    for (int e0 = lane; e0 - lane < ak; e0 += 32 * U) {
+      bool hit[U];
+      unsigned b[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int e = e0 + 32 * u;
+        hit[u] = e < ak && idx_s[e] == j;
+        b[u] = __ballot_sync(FULL, hit[u]);
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int e = e0 + 32 * u;
+        if (hit[u]) list_s[at + __popc(b[u] & ((1u << lane) - 1))] = (e / k_nbrs) << 16 | e;
+        at += __popc(b[u]);
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// Each rank of the row's cluster sums its share of the row's dd entries t
+// over the ranks' partial sums (at `part` + at(t) in each rank's shared
+// memory, at(t) < 0 for a term that is 0), in rank order, and writes them.
+template <typename At>
+__device__ __forceinline__ void cluster_dd_sum(cg::cluster_group& cluster, const float* part,
+                                               At at, int n, float* __restrict__ out) {
+  const int cl = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  cluster.sync();  // every rank's partial sums are complete
+  const int lo = static_cast<int>(static_cast<int64_t>(n) * rank / cl);
+  const int hi = static_cast<int>(static_cast<int64_t>(n) * (rank + 1) / cl);
+  for (int t = lo + static_cast<int>(threadIdx.x); t < hi; t += THREADS) {
+    const int src = at(t);
+    float s = 0.f;
+    if (src >= 0)
+      for (int q = 0; q < cl; ++q) s += cluster.map_shared_rank(part, q)[src];
+    out[t] = s;
+  }
+  cluster.sync();  // no rank leaves while another reads its shared memory
 }
 
 // Kernel F. Grid (G, ceil(h / HC)).
@@ -235,239 +369,395 @@ wdot_fwd_kernel(const float* __restrict__ d, const float* __restrict__ u,
   }
 }
 
-// Kernel G: one block per row g, looping over the h chunks.
-template <int L>
-__global__ void __launch_bounds__(THREADS)
+// Kernel G. Grid (G · CL) in clusters of CL blocks, one cluster per row g.
+// STAGE: vec and gva of the block's chunk in shared memory (else gathered
+// from device memory).
+template <int L, bool STAGE>
+__global__ void __launch_bounds__(THREADS, 2)
 vec_agg_bwd_kernel(const float* __restrict__ vec, const float* __restrict__ s1, int64_t s1_stride,
                    const float* __restrict__ s2m, const float* __restrict__ d,
                    const int64_t* __restrict__ idx, const bool* __restrict__ mask,
                    const float* __restrict__ gva, float* __restrict__ dvec,
                    float* __restrict__ ds1, float* __restrict__ ds2m, float* __restrict__ dd,
-                   int a_slots, int k_nbrs, int h) {
+                   int a_slots, int k_nbrs, int h, bool vec4, bool d4) {
   constexpr int P = pow2_ceil(L);
   constexpr int SPAN = 32 / P;  // lanes that end up holding each sum
-  extern __shared__ float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cl = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  extern __shared__ __align__(16) float smem[];
   const int ak = a_slots * k_nbrs;
-  float* vec_s = smem;                                  // [A][L][HC]
-  float* g_s = vec_s + a_slots * L * HC;                // [A][L][HC]
-  float* d_s = g_s + a_slots * L * HC;                  // [A·K][L]
-  float* dd_s = d_s + ak * L;                           // [A·K][L]
+  const int staged = STAGE ? a_slots * L * HC : 0;
+  float* vec_s = smem;                                  // [A][L][HC] (STAGE)
+  float* g_s = vec_s + staged;                          // [A][L][HC] (STAGE)
+  float* d_s = g_s + staged;                            // [A·K][L] the row's d
+  float* dd_s = d_s + ak * L;                           // [A·K][L] this block's terms of dd
   int* idx_s = reinterpret_cast<int*>(dd_s + ak * L);   // [A·K]
   int* off_s = idx_s + ak;                              // [A + 1]
-  int* cur_s = off_s + a_slots + 1;                     // [A]
-  int* list_s = cur_s + a_slots;                        // [A·K]
-  const int g = blockIdx.x;
+  int* list_s = off_s + a_slots + 1;                    // [A·K]
+  const int g = blockIdx.x / cl;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n_chunks = (h + HC - 1) / HC;
   const size_t row_e = static_cast<size_t>(g) * ak;
-  stage_edges(idx, mask, d, row_e, ak, a_slots, L, idx_s, d_s);
-  for (int t = threadIdx.x; t < ak * L; t += THREADS) dd_s[t] = 0.f;
+  const size_t row_v = static_cast<size_t>(g) * a_slots * L;  // first [h] row of vec, gva
+  // the copies fly while the lists are built
+  stage_row_async(d + row_e * L, ak * L, d4, d_s);
+  if constexpr (STAGE) {
+    stage_chunk_async(vec, g, a_slots, L, h, rank * HC, vec4, vec_s);
+    stage_chunk_async(gva, g, a_slots, L, h, rank * HC, vec4, g_s);
+  }
+  cp_async_commit();
+  load_idx(idx, mask, row_e, ak, a_slots, idx_s);
   __syncthreads();
-  build_source_lists(idx_s, ak, a_slots, off_s, cur_s, list_s);
+  build_source_lists(idx_s, ak, a_slots, k_nbrs, off_s, list_s);
 
-  for (int c0 = 0; c0 < h; c0 += HC) {
-    const int c = c0 + lane;
+  for (int n = rank; n < n_chunks; n += cl) {
+    const int c = n * HC + lane;
     const bool live = c < h;
-    stage_chunk(vec, g, a_slots, L, h, c0, vec_s);
-    stage_chunk(gva, g, a_slots, L, h, c0, g_s);
+    const int cr = live ? c : h - 1;  // a column the dead lanes may read (results dropped)
+    if (STAGE && n != rank) {
+      stage_chunk_async(vec, g, a_slots, L, h, n * HC, vec4, vec_s);
+      stage_chunk_async(gva, g, a_slots, L, h, n * HC, vec4, g_s);
+      cp_async_commit();
+    }
+    cp_async_wait_all();
     __syncthreads();
+    // element (slot, l) of this lane's column of vec / gva
+    auto vec_at = [&](int s, int l) {
+      if constexpr (STAGE) return vec_s[(s * L + l) * HC + lane];
+      else return vec[(row_v + s * L + l) * h + cr];
+    };
+    auto gva_at = [&](int s, int l) {
+      if constexpr (STAGE) return g_s[(s * L + l) * HC + lane];
+      else return gva[(row_v + s * L + l) * h + cr];
+    };
 
-    // per edge (i, k): ds1, ds2m and this chunk's terms of dd
+    // the target pass, per edge (i, k): ds1, ds2m and this chunk's terms of dd
     for (int i = warp; i < a_slots; i += WARPS) {
       float gi[L];
 #pragma unroll
-      for (int l = 0; l < L; ++l) gi[l] = g_s[(i * L + l) * HC + lane];
-      for (int k = 0; k < k_nbrs; ++k) {
-        const int e = i * k_nbrs + k;
-        const int j = idx_s[e];
-        const size_t er = row_e + e;
-        const float a2 = live ? s2m[er * h + c] : 0.f;
-        const float* vj = vec_s + (j >= 0 ? j : 0) * L * HC + lane;
-        float t1 = 0.f, t2 = 0.f, part[P];
+      for (int l = 0; l < L; ++l) gi[l] = gva_at(i, l);
+      for (int k0 = 0; k0 < k_nbrs; k0 += AHEAD_G) {
+        float a2[AHEAD_G];
 #pragma unroll
-        for (int l = 0; l < L; ++l) {
-          t1 = fmaf(vj[l * HC], gi[l], t1);
-          t2 = fmaf(d_s[e * L + l], gi[l], t2);
-          part[l] = a2 * gi[l];
+        for (int q = 0; q < AHEAD_G; ++q) {
+          const size_t er = row_e + i * k_nbrs + k0 + q;
+          a2[q] = (live && k0 + q < k_nbrs) ? s2m[er * h + c] : 0.f;
         }
 #pragma unroll
-        for (int l = L; l < P; ++l) part[l] = 0.f;
-        if (live) {
-          ds1[er * h + c] = j >= 0 ? t1 : 0.f;
-          ds2m[er * h + c] = t2;
+        for (int q = 0; q < AHEAD_G; ++q) {
+          if (k0 + q >= k_nbrs) break;
+          const int e = i * k_nbrs + k0 + q;
+          const int j = idx_s[e];
+          const size_t er = row_e + e;
+          float dl[L], t1 = 0.f, t2 = 0.f, part[P];
+          load_d<L>(d_s + e * L, dl);
+#pragma unroll
+          for (int l = 0; l < L; ++l) {
+            t1 = fmaf(j >= 0 ? vec_at(j, l) : 0.f, gi[l], t1);
+            t2 = fmaf(dl[l], gi[l], t2);
+            part[l] = a2[q] * gi[l];
+          }
+#pragma unroll
+          for (int l = L; l < P; ++l) part[l] = 0.f;
+          if (live) {
+            __stcs(ds1 + er * h + c, t1);
+            __stcs(ds2m + er * h + c, t2);
+          }
+          const float r = warp_sum_many<P>(part, lane);
+          const int l = lane / SPAN;
+          if (lane % SPAN == 0 && l < L) dd_s[e * L + l] = n == rank ? r : dd_s[e * L + l] + r;
         }
-        const float r = warp_sum_many<P>(part, lane);
-        const int l = lane / SPAN;
-        if (lane % SPAN == 0 && l < L) dd_s[e * L + l] += r;
       }
     }
 
-    // dvec[j] = Σ over the edges whose source is j of s1·g_va[i]
+    // the per-source walk: dvec[j] = Σ over the edges whose source is j of s1·gva[i]
     for (int j = warp; j < a_slots; j += WARPS) {
       float acc[L];
 #pragma unroll
       for (int l = 0; l < L; ++l) acc[l] = 0.f;
-      for (int p = off_s[j]; p < off_s[j + 1]; ++p) {
-        const int e = list_s[p];
-        const int i = e / k_nbrs;
-        const float a1 = live ? s1[(row_e + e) * s1_stride + c] : 0.f;
+      const int hi = off_s[j + 1];
+      for (int p0 = off_s[j]; p0 < hi; p0 += AHEAD_G) {
+        float a1[AHEAD_G];
+        int ii[AHEAD_G];
 #pragma unroll
-        for (int l = 0; l < L; ++l) acc[l] = fmaf(a1, g_s[(i * L + l) * HC + lane], acc[l]);
+        for (int q = 0; q < AHEAD_G; ++q) {
+          const int v = p0 + q < hi ? list_s[p0 + q] : 0;
+          ii[q] = v >> 16;
+          a1[q] = (live && p0 + q < hi) ? s1[(row_e + (v & 0xffff)) * s1_stride + c] : 0.f;
+        }
+#pragma unroll
+        for (int q = 0; q < AHEAD_G; ++q) {
+          if (p0 + q >= hi) break;
+#pragma unroll
+          for (int l = 0; l < L; ++l) acc[l] = fmaf(a1[q], gva_at(ii[q], l), acc[l]);
+        }
       }
       if (live) {
-        float* o = dvec + (static_cast<size_t>(g) * a_slots + j) * L * h + c;
+        float* o = dvec + (row_v + j * L) * h + c;
 #pragma unroll
         for (int l = 0; l < L; ++l) o[static_cast<size_t>(l) * h] = acc[l];
       }
     }
-    __syncthreads();  // the chunk's staged tensors are read no more
+    if constexpr (STAGE) __syncthreads();  // the chunk's staged tensors are read no more
   }
-  for (int t = threadIdx.x; t < ak * L; t += THREADS) dd[row_e * L + t] = dd_s[t];
+  cluster_dd_sum(cluster, dd_s, [](int t) { return t; }, ak * L, dd + row_e * L);
 }
 
-// Kernel I: one block per row g, looping over the h chunks.
-template <int L>
-__global__ void __launch_bounds__(THREADS)
+// Kernel I. Grid (G · CL) in clusters of CL blocks, one cluster per row g.
+// STAGE: the target pass gathers vv from the block's chunk staged in shared
+// memory, the walk u from the same place, restaged (else both are gathered
+// from device memory). The live gw rows of the chunk are copied once into
+// shared memory, [keep][HC] by the edge's place p in the source lists, for
+// p < keep (a block that takes one chunk; `keep` is what the shared memory
+// left for two blocks an SM allows), while the staged chunk lands; both
+// passes read them there, the others from device memory, and the walk
+// leaves each edge's terms of dd in its gw's place (p < keep) or in
+// ddx_s [A·K − keep][L].
+template <int L, bool STAGE>
+__global__ void __launch_bounds__(THREADS, 2)
 wdot_bwd_kernel(const float* __restrict__ d, const float* __restrict__ u,
                 const float* __restrict__ vv, const int64_t* __restrict__ idx,
                 const bool* __restrict__ mask, const float* __restrict__ gw,
                 float* __restrict__ du, float* __restrict__ dvv, float* __restrict__ dd,
-                int a_slots, int k_nbrs, int h) {
-  constexpr int P = pow2_ceil(L + 1);  // the L sums of dd's first two terms, and g_dd
+                int a_slots, int k_nbrs, int h, int keep, bool vec4, bool d4) {
+  constexpr int P = pow2_ceil(L);
   constexpr int SPAN = 32 / P;
-  extern __shared__ float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cl = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  extern __shared__ __align__(16) float smem[];
   const int ak = a_slots * k_nbrs;
-  float* vv_s = smem;                                   // [A][L][HC]
-  float* u_s = vv_s + a_slots * L * HC;                 // [A][L][HC]
-  float* d_s = u_s + a_slots * L * HC;                  // [A·K][L]
-  float* ddp_s = d_s + ak * L;                          // [A·K][L]
-  float* gdd_s = ddp_s + ak * L;                        // [A·K]
-  int* idx_s = reinterpret_cast<int*>(gdd_s + ak);      // [A·K]
+  float* x_s = smem;                                    // [A][L][HC] vv, then u (STAGE)
+  float* d_s = x_s + (STAGE ? a_slots * L * HC : 0);    // [A·K][L] the row's d
+  float* t_s = d_s + ak * L;                            // [A·K] 2 − |d|² of each edge
+  float* gw_s = t_s + pad4(ak * (L + 1)) - ak * L;      // [keep][HC] by list place (16-byte aligned)
+  float* ddx_s = gw_s + keep * HC;                      // [A·K − keep][L]
+  int* idx_s = reinterpret_cast<int*>(ddx_s + (ak - keep) * L);  // [A·K]
   int* off_s = idx_s + ak;                              // [A + 1]
-  int* cur_s = off_s + a_slots + 1;                     // [A]
-  int* list_s = cur_s + a_slots;                        // [A·K]
-  const int g = blockIdx.x;
+  int* list_s = off_s + a_slots + 1;                    // [A·K]
+  int* pos_s = list_s + ak;                             // [A·K] an edge's list place, or −1
+  const int g = blockIdx.x / cl;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n_chunks = (h + HC - 1) / HC;
   const size_t row_e = static_cast<size_t>(g) * ak;
-  stage_edges(idx, mask, d, row_e, ak, a_slots, L, idx_s, d_s);
-  for (int t = threadIdx.x; t < ak * L; t += THREADS) ddp_s[t] = 0.f;
-  for (int t = threadIdx.x; t < ak; t += THREADS) gdd_s[t] = 0.f;
+  const size_t row_v = static_cast<size_t>(g) * a_slots * L;
+  stage_row_async(d + row_e * L, ak * L, d4, d_s);
+  if constexpr (STAGE) stage_chunk_async(vv, g, a_slots, L, h, rank * HC, vec4, x_s);
+  cp_async_commit();
+  for (int t = threadIdx.x; t < (ak - keep) * L; t += THREADS) ddx_s[t] = 0.f;
+  for (int e = threadIdx.x; e < ak; e += THREADS) pos_s[e] = -1;
+  load_idx(idx, mask, row_e, ak, a_slots, idx_s);
   __syncthreads();
-  build_source_lists(idx_s, ak, a_slots, off_s, cur_s, list_s);
+  build_source_lists(idx_s, ak, a_slots, k_nbrs, off_s, list_s);
+  for (int p = threadIdx.x; p < off_s[a_slots]; p += THREADS) pos_s[list_s[p] & 0xffff] = p;
+  if (keep > 0) {  // the kept gw rows of the chunk, by list place
+    const int n_keep = off_s[a_slots] < keep ? off_s[a_slots] : keep;
+    const int c0 = rank * HC;
+    for (int t = threadIdx.x; t < n_keep * (vec4 ? HC / 4 : HC); t += THREADS) {
+      const int per = vec4 ? HC / 4 : HC, p = t / per, cc = (t % per) * (vec4 ? 4 : 1);
+      const float* src = gw + (row_e + (list_s[p] & 0xffff)) * h + c0 + cc;
+      const bool ok = c0 + cc < h;
+      if (vec4) cp_async<16>(gw_s + p * HC + cc, ok ? src : gw, ok);
+      else cp_async<4>(gw_s + p * HC + cc, ok ? src : gw, ok);
+    }
+    cp_async_commit();
+  }
 
-  for (int c0 = 0; c0 < h; c0 += HC) {
-    const int c = c0 + lane;
+  cp_async_wait_all();
+  __syncthreads();
+  for (int e = threadIdx.x; e < ak; e += THREADS) {
+    float dl[L], dde = 0.f;
+    load_d<L>(d_s + e * L, dl);
+#pragma unroll
+    for (int l = 0; l < L; ++l) dde = fmaf(dl[l], dl[l], dde);
+    t_s[e] = 2.f - dde;
+  }
+
+  for (int n = rank; n < n_chunks; n += cl) {  // keep > 0: once
+    const int c = n * HC + lane;
     const bool live = c < h;
-    stage_chunk(vv, g, a_slots, L, h, c0, vv_s);
-    stage_chunk(u, g, a_slots, L, h, c0, u_s);
+    const int cr = live ? c : h - 1;  // a column the dead lanes may read (results dropped)
+    if (STAGE && n != rank) {
+      stage_chunk_async(vv, g, a_slots, L, h, n * HC, vec4, x_s);
+      cp_async_commit();
+      cp_async_wait_all();
+    }
     __syncthreads();
 
-    // per target slot i: du, and this chunk's terms of dd
+    // the target pass: du[i] = Σ_k gw·vv[j] + dud·d, dud = −gw·vd·(2 − |d|²)
     for (int i = warp; i < a_slots; i += WARPS) {
-      float ui[L], dui[L];
+      float dui[L];
 #pragma unroll
-      for (int l = 0; l < L; ++l) {
-        ui[l] = u_s[(i * L + l) * HC + lane];
-        dui[l] = 0.f;
-      }
-      for (int k = 0; k < k_nbrs; ++k) {
-        const int e = i * k_nbrs + k;
-        const int j = idx_s[e];
-        // a masked edge (vv_j = 0) adds nothing to du or dd: skip it, and
-        // its gw row with it (j is the same for the whole warp)
-        if (j < 0) continue;
-        const float gwv = live ? gw[(row_e + e) * h + c] : 0.f;
-        const float* vj = vv_s + j * L * HC + lane;
-        float vjl[L], vd = 0.f, ud = 0.f, dde = 0.f;
+      for (int l = 0; l < L; ++l) dui[l] = 0.f;
+      for (int k0 = 0; k0 < k_nbrs; k0 += AHEAD_I) {
+        float gwv[AHEAD_I];
+        int jj[AHEAD_I];
 #pragma unroll
-        for (int l = 0; l < L; ++l) {
-          const float dl = d_s[e * L + l];
-          vjl[l] = vj[l * HC];
-          vd = fmaf(dl, vjl[l], vd);
-          ud = fmaf(ui[l], dl, ud);
-          dde = fmaf(dl, dl, dde);
+        for (int q = 0; q < AHEAD_I; ++q) {
+          // a masked edge (vv_j = 0) adds nothing: its gw row is not read
+          const int e = i * k_nbrs + k0 + q;
+          jj[q] = k0 + q < k_nbrs ? idx_s[e] : -1;
+          const int p = jj[q] >= 0 ? pos_s[e] : 0;
+          gwv[q] = jj[q] < 0 ? 0.f
+                   : p < keep ? gw_s[p * HC + lane]
+                   : live ? gw[(row_e + e) * h + c] : 0.f;
         }
-        const float t = 2.f - dde;
-        const float dud = -gwv * vd * t, dvd = -gwv * ud * t;
-        float part[P];
 #pragma unroll
-        for (int l = 0; l < L; ++l) {
-          dui[l] = fmaf(gwv, vjl[l], fmaf(dud, d_s[e * L + l], dui[l]));
-          part[l] = fmaf(dvd, vjl[l], dud * ui[l]);
-        }
-        part[L] = gwv * ud * vd;
+        for (int q = 0; q < AHEAD_I; ++q) {
+          if (jj[q] < 0) continue;  // the same for the whole warp
+          const int e = i * k_nbrs + k0 + q;
+          float dl[L], vjl[L], vd = 0.f;
+          load_d<L>(d_s + e * L, dl);
 #pragma unroll
-        for (int l = L + 1; l < P; ++l) part[l] = 0.f;
-        const float r = warp_sum_many<P>(part, lane);
-        const int l = lane / SPAN;
-        if (lane % SPAN == 0) {
-          if (l < L) ddp_s[e * L + l] += r;
-          else if (l == L) gdd_s[e] += r;
+          for (int l = 0; l < L; ++l) {
+            if constexpr (STAGE) vjl[l] = x_s[(jj[q] * L + l) * HC + lane];
+            else vjl[l] = vv[(row_v + jj[q] * L + l) * h + cr];
+            vd = fmaf(dl[l], vjl[l], vd);
+          }
+          const float dud = -gwv[q] * vd * t_s[e];
+#pragma unroll
+          for (int l = 0; l < L; ++l) dui[l] = fmaf(gwv[q], vjl[l], fmaf(dud, dl[l], dui[l]));
         }
       }
       if (live) {
-        float* o = du + (static_cast<size_t>(g) * a_slots + i) * L * h + c;
+        float* o = du + (row_v + i * L) * h + c;
 #pragma unroll
         for (int l = 0; l < L; ++l) o[static_cast<size_t>(l) * h] = dui[l];
       }
     }
+    __syncthreads();  // vv's chunk is read no more
+    if constexpr (STAGE) {  // u's chunk takes its place
+      stage_chunk_async(u, g, a_slots, L, h, n * HC, vec4, x_s);
+      cp_async_commit();
+      cp_async_wait_all();
+      __syncthreads();
+    }
 
-    // dvv[j] = Σ over the edges whose source is j of gw·u[i] + dvd·d
+    // the per-source walk: dvv[j] = Σ over the edges whose source is j of
+    // gw·u[i] + dvd·d, dvd = −gw·ud·(2 − |d|²), and each edge's terms of dd:
+    // dvd·vv[j] + dud·u[i] + 2·d·gw·ud·vd
     for (int j = warp; j < a_slots; j += WARPS) {
-      float acc[L];
+      float vj[L], acc[L];
 #pragma unroll
-      for (int l = 0; l < L; ++l) acc[l] = 0.f;
-      for (int p = off_s[j]; p < off_s[j + 1]; ++p) {
-        const int e = list_s[p];
-        const int i = e / k_nbrs;
-        const float gwv = live ? gw[(row_e + e) * h + c] : 0.f;
-        float ud = 0.f, dde = 0.f;
+      for (int l = 0; l < L; ++l) {
+        vj[l] = vv[(row_v + j * L + l) * h + cr];
+        acc[l] = 0.f;
+      }
+      const int hi = off_s[j + 1];
+      for (int p0 = off_s[j]; p0 < hi; p0 += AHEAD_I) {
+        float gwv[AHEAD_I];
+        int vq[AHEAD_I];
 #pragma unroll
-        for (int l = 0; l < L; ++l) {
-          const float dl = d_s[e * L + l];
-          ud = fmaf(u_s[(i * L + l) * HC + lane], dl, ud);
-          dde = fmaf(dl, dl, dde);
+        for (int q = 0; q < AHEAD_I; ++q) {
+          const int p = p0 + q;
+          vq[q] = p < hi ? list_s[p] : 0;
+          gwv[q] = p >= hi ? 0.f
+                   : p < keep ? gw_s[p * HC + lane]
+                   : live ? gw[(row_e + (vq[q] & 0xffff)) * h + c] : 0.f;
         }
-        const float dvd = -gwv * ud * (2.f - dde);
 #pragma unroll
-        for (int l = 0; l < L; ++l)
-          acc[l] = fmaf(gwv, u_s[(i * L + l) * HC + lane], fmaf(dvd, d_s[e * L + l], acc[l]));
+        for (int q = 0; q < AHEAD_I; ++q) {
+          const int p = p0 + q;
+          if (p >= hi) break;
+          const int e = vq[q] & 0xffff, i = vq[q] >> 16;
+          float dl[L], ui[L], ud = 0.f, vd = 0.f;
+          load_d<L>(d_s + e * L, dl);
+#pragma unroll
+          for (int l = 0; l < L; ++l) {
+            if constexpr (STAGE) ui[l] = x_s[(i * L + l) * HC + lane];
+            else ui[l] = u[(row_v + i * L + l) * h + cr];
+            ud = fmaf(ui[l], dl[l], ud);
+            vd = fmaf(vj[l], dl[l], vd);
+          }
+          const float t = t_s[e];
+          const float dvd = -gwv[q] * ud * t, dud = -gwv[q] * vd * t;
+          const float w = 2.f * gwv[q] * ud * vd;
+          float part[P];
+#pragma unroll
+          for (int l = 0; l < L; ++l) {
+            acc[l] = fmaf(gwv[q], ui[l], fmaf(dvd, dl[l], acc[l]));
+            part[l] = fmaf(dvd, vj[l], fmaf(dud, ui[l], w * dl[l]));
+          }
+#pragma unroll
+          for (int l = L; l < P; ++l) part[l] = 0.f;
+          const float r = warp_sum_many<P>(part, lane);
+          const int l = lane / SPAN;
+          __syncwarp();  // every lane has read its gw_s element of this edge
+          if (lane % SPAN == 0 && l < L) {
+            if (p < keep) gw_s[p * HC + l] = r;
+            else ddx_s[(p - keep) * L + l] += r;
+          }
+        }
       }
       if (live) {
-        float* o = dvv + (static_cast<size_t>(g) * a_slots + j) * L * h + c;
+        float* o = dvv + (row_v + j * L) * h + c;
 #pragma unroll
         for (int l = 0; l < L; ++l) o[static_cast<size_t>(l) * h] = acc[l];
       }
     }
-    __syncthreads();
+    if constexpr (STAGE) __syncthreads();  // u's chunk is read no more
   }
-  for (int t = threadIdx.x; t < ak * L; t += THREADS)
-    dd[row_e * L + t] = fmaf(2.f * d_s[t], gdd_s[t / L], ddp_s[t]);
+  // dd's terms of edge e at its list place p, from gw_s (the same offsets
+  // in every rank's shared memory)
+  cluster_dd_sum(cluster, gw_s, [&](int t) {
+    const int p = pos_s[t / L];
+    return p < 0 ? -1 : p < keep ? p * HC + t % L : keep * HC + (p - keep) * L + t % L;
+  }, ak * L, dd + row_e * L);
 }
 
-// Dynamic shared memory of a block. It grows with the slot axis A: at
-// L = 8, k = 17 a block of G takes A ≤ 70 and one of I A ≤ 69 within the
-// 227 KB a Hopper block may use (F and H A ≤ 142).
+// Dynamic shared memory of a block of F or H. It grows with the slot axis
+// A: at L = 8, k = 17 a block takes A ≤ 142 within the 227 KB a Hopper
+// block may use; G and I take the same rows.
 size_t fwd_smem(int a_slots, int k_nbrs, int L) {
   const size_t ak = static_cast<size_t>(a_slots) * k_nbrs;
   return (static_cast<size_t>(a_slots) * L * HC + ak * L) * sizeof(float) + ak * sizeof(int);
 }
 
-// G (extra = 0) and I (extra = 1: the g_dd sums).
-size_t bwd_smem(int a_slots, int k_nbrs, int L, int extra) {
-  const size_t ak = static_cast<size_t>(a_slots) * k_nbrs;
-  return (2 * static_cast<size_t>(a_slots) * L * HC + 2 * ak * L + extra * ak) * sizeof(float) +
-         (2 * ak + 2 * static_cast<size_t>(a_slots) + 1) * sizeof(int);
+// Two blocks an SM (228 KB of shared memory, 1 KB of it reserved a block)
+// keep the target pass of one block going while the other stages its row.
+constexpr size_t TWO_BLOCK_SMEM = 233472 / 2 - 1024;
+
+// G: the staged chunks (STAGE), the row's d, dd's terms, the indices and
+// the lists.
+size_t agg_bwd_smem(int a_slots, int k_nbrs, int L, bool stage) {
+  const size_t a = a_slots, ak = a * k_nbrs;
+  return ((stage ? 2 * a * L * HC : 0) + 2 * ak * L) * sizeof(float) +
+         (2 * ak + a + 1) * sizeof(int);
 }
 
-// Lets `kernel` take `smem` bytes of dynamic shared memory. A refusal (the
-// row's slots do not fit a block) is returned and cleared, so that no later
-// launch, ours or PyTorch's, reports it as its own.
-template <typename Kernel>
-cudaError_t set_smem(Kernel kernel, size_t smem) {
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) cudaGetLastError();
-  return err;
+// I without the kept gw: the staged chunk (STAGE), the row's d and 2 − |d|²,
+// dd's terms, the indices, the lists and the edges' list places; each kept
+// gw row adds HC floats and takes L of dd's.
+size_t wdot_bwd_smem(int a_slots, int k_nbrs, int L, bool stage) {
+  const size_t a = a_slots, ak = a * k_nbrs;
+  return ((stage ? a * L * HC : 0) + pad4(ak * (L + 1)) + ak * L) * sizeof(float) +
+         (3 * ak + a + 1) * sizeof(int);
+}
+
+// Launches a backward kernel on G rows, each a cluster of min(h / 32, 8)
+// blocks (h > 0).
+template <typename... Params, typename... Args>
+cudaError_t launch_rows(void (*kernel)(Params...), int g_rows, int h, size_t smem,
+                        cudaStream_t stream, Args... args) {
+  const cudaError_t err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const int cl = (h + HC - 1) / HC < MAX_CLUSTER ? (h + HC - 1) / HC : MAX_CLUSTER;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cl;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(g_rows) * cl);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t launched = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (launched != cudaSuccess) cudaGetLastError();
+  return launched;
 }
 
 bool bad_l(int L) { return L != 3 && L != 8; }
@@ -504,6 +794,28 @@ extern "C" int vis_wdot_fwd_f32(const float* d, const float* u, const float* vv,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Whether every row's d [A·K][L] starts 16-byte aligned.
+bool rows16(const float* d, int a_slots, int k_nbrs, int L) {
+  return aligned16(d) && static_cast<size_t>(a_slots) * k_nbrs * L % 4 == 0;
+}
+
+// The backward kernels' refusals and empty cases: 0 to launch, else the
+// code to return (a row F and H refuse, an L other than 3 and 8, or
+// nothing to write but dd's zeros when h = 0).
+int bwd_prologue(int g_rows, int a_slots, int k_nbrs, int L, int h, float* dd,
+                 cudaStream_t stream, bool* launch) {
+  *launch = false;
+  if (bad_l(L)) return static_cast<int>(cudaErrorInvalidValue);
+  if (g_rows <= 0 || a_slots <= 0) return 0;
+  if (fwd_smem(a_slots, k_nbrs, L) > MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
+  if (h <= 0) {  // no columns: dd sums nothing
+    const size_t n = static_cast<size_t>(g_rows) * a_slots * k_nbrs * L;
+    return static_cast<int>(n ? cudaMemsetAsync(dd, 0, n * sizeof(float), stream) : cudaSuccess);
+  }
+  *launch = true;
+  return 0;
+}
+
 // Writes dvec [G, A, L, h], ds1 and ds2m [G, A, K, h] (contiguous) and
 // dd [G, A, K, L] for the output gradient gva [G, A, L, h].
 extern "C" int vis_vec_agg_bwd_f32(const float* vec, const float* s1, int64_t s1_stride,
@@ -511,19 +823,17 @@ extern "C" int vis_vec_agg_bwd_f32(const float* vec, const float* s1, int64_t s1
                                    const bool* mask, const float* gva, float* dvec, float* ds1,
                                    float* ds2m, float* dd, int g_rows, int a_slots, int k_nbrs,
                                    int L, int h, cudaStream_t stream) {
-  if (bad_l(L)) return static_cast<int>(cudaErrorInvalidValue);
-  if (g_rows <= 0 || a_slots <= 0) return 0;
-  if (h <= 0) {  // no columns: dd sums nothing
-    const size_t n = static_cast<size_t>(g_rows) * a_slots * k_nbrs * L;
-    return static_cast<int>(n ? cudaMemsetAsync(dd, 0, n * sizeof(float), stream) : cudaSuccess);
-  }
-  const size_t smem = bwd_smem(a_slots, k_nbrs, L, 0);
-  auto kernel = L == 8 ? vec_agg_bwd_kernel<8> : vec_agg_bwd_kernel<3>;
-  const cudaError_t err = set_smem(kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<g_rows, THREADS, smem, stream>>>(vec, s1, s1_stride, s2m, d, idx, mask, gva, dvec, ds1,
-                                            ds2m, dd, a_slots, k_nbrs, h);
-  return static_cast<int>(cudaGetLastError());
+  bool launch;
+  const int code = bwd_prologue(g_rows, a_slots, k_nbrs, L, h, dd, stream, &launch);
+  if (!launch) return code;
+  const bool stage = agg_bwd_smem(a_slots, k_nbrs, L, true) <= MAX_SMEM;
+  const bool vec4 = h % 4 == 0 && aligned16(vec) && aligned16(gva);
+  const size_t smem = agg_bwd_smem(a_slots, k_nbrs, L, stage);
+  auto kernel = L == 8 ? (stage ? vec_agg_bwd_kernel<8, true> : vec_agg_bwd_kernel<8, false>)
+                       : (stage ? vec_agg_bwd_kernel<3, true> : vec_agg_bwd_kernel<3, false>);
+  return static_cast<int>(launch_rows(kernel, g_rows, h, smem, stream, vec, s1, s1_stride, s2m,
+                                      d, idx, mask, gva, dvec, ds1, ds2m, dd, a_slots, k_nbrs,
+                                      h, vec4, rows16(d, a_slots, k_nbrs, L)));
 }
 
 // Writes du, dvv [G, A, L, h] and dd [G, A, K, L] for the output gradient
@@ -532,17 +842,20 @@ extern "C" int vis_wdot_bwd_f32(const float* d, const float* u, const float* vv,
                                 const int64_t* idx, const bool* mask, const float* gw, float* du,
                                 float* dvv, float* dd, int g_rows, int a_slots, int k_nbrs, int L,
                                 int h, cudaStream_t stream) {
-  if (bad_l(L)) return static_cast<int>(cudaErrorInvalidValue);
-  if (g_rows <= 0 || a_slots <= 0) return 0;
-  if (h <= 0) {
-    const size_t n = static_cast<size_t>(g_rows) * a_slots * k_nbrs * L;
-    return static_cast<int>(n ? cudaMemsetAsync(dd, 0, n * sizeof(float), stream) : cudaSuccess);
-  }
-  const size_t smem = bwd_smem(a_slots, k_nbrs, L, 1);
-  auto kernel = L == 8 ? wdot_bwd_kernel<8> : wdot_bwd_kernel<3>;
-  const cudaError_t err = set_smem(kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<g_rows, THREADS, smem, stream>>>(d, u, vv, idx, mask, gw, du, dvv, dd, a_slots, k_nbrs,
-                                            h);
-  return static_cast<int>(cudaGetLastError());
+  bool launch;
+  const int code = bwd_prologue(g_rows, a_slots, k_nbrs, L, h, dd, stream, &launch);
+  if (!launch) return code;
+  const bool stage = wdot_bwd_smem(a_slots, k_nbrs, L, true) <= MAX_SMEM;
+  const size_t base = wdot_bwd_smem(a_slots, k_nbrs, L, stage);
+  const size_t ak = static_cast<size_t>(a_slots) * k_nbrs;
+  const size_t per_row = (HC - L) * sizeof(float);  // a kept gw row less its dd terms
+  size_t keep = 0;  // a block that takes more than one chunk keeps none
+  if ((h + HC - 1) / HC <= MAX_CLUSTER && base < TWO_BLOCK_SMEM)
+    keep = (TWO_BLOCK_SMEM - base) / per_row < ak ? (TWO_BLOCK_SMEM - base) / per_row : ak;
+  const bool vec4 = h % 4 == 0 && aligned16(vv) && aligned16(u) && aligned16(gw);
+  auto kernel = L == 8 ? (stage ? wdot_bwd_kernel<8, true> : wdot_bwd_kernel<8, false>)
+                       : (stage ? wdot_bwd_kernel<3, true> : wdot_bwd_kernel<3, false>);
+  return static_cast<int>(launch_rows(kernel, g_rows, h, base + keep * per_row, stream, d, u, vv,
+                                      idx, mask, gw, du, dvv, dd, a_slots, k_nbrs, h,
+                                      static_cast<int>(keep), vec4, rows16(d, a_slots, k_nbrs, L)));
 }

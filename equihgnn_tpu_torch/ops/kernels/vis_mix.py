@@ -29,11 +29,14 @@ forwards are kernels F / H and whose backwards are kernels G / I
 (`vis_vec_agg_bwd`, `vis_wdot_bwd`); like JAX's custom VJPs they save only
 their inputs. `d` gets a gradient from both (autograd adds them);
 nbr_idx and nbr_mask get none. Any other device, type, shape or stride
-raises, and so does a slot axis A whose row does not fit a block's shared
-memory (at L = 8, k = 17: A ≤ 70 for G, A ≤ 69 for I; the C entry refuses
-the block and the wrapper raises RuntimeError). Contract: every index lies
-in [0, A), as `knn_dense` gives them (the kernels treat one outside as
-masked; checking would cost a sync).
+raises, and so does a slot axis A whose row does not fit a block of F or H
+(its shared memory; at L = 8, k = 17: A ≤ 142): the C entries refuse it,
+G's and I's too, and the wrapper raises RuntimeError. G and I run a row's
+h / 32 chunks as a thread-block cluster and sum dd over its shared memory;
+up to A = 70 (G) and 97 (I) at L = 8, k = 17 they stage the gathered
+chunks in shared memory, above that they gather from device memory.
+Contract: every index lies in [0, A), as `knn_dense` gives them (the
+kernels treat one outside as masked; checking would cost a sync).
 `.launches` on each of the four wrappers counts kernel launches.
 """
 
@@ -134,8 +137,8 @@ def _check(named, nbr_idx, nbr_mask, rows, edges, grad=None):
 
 
 def _done(lib, name, code, a, k, L):
-    """Raise on a CUDA error of the C entry `name`; a block whose staged
-    row (it grows with A) exceeds the card's shared memory is refused there."""
+    """Raise on a CUDA error of the C entry `name`; a row that a block of F
+    or H cannot stage (it grows with A) is refused there, by all four."""
     build.check(lib, f"{name} at A = {a}, k = {k}, L = {L}", code)
 
 

@@ -16,7 +16,10 @@ odd P, C = 3 and 4, every H/2 the kernels take, and dropout on and off
 (the same seed gives the same mask in the kernels and the plain version);
 for kernels F-I masked edges, an all-empty padding row, A < k (the
 neighbour axis padded with masked edges, as `knn_dense` pads it), L = 3
-and 8, h not a multiple of 32 and a strided s1; for kernels J and K
+and 8, h not a multiple of 32 and a strided s1, G and I also over
+clusters of 1, 2 and 8 blocks a row and two turns of one (h = 288), with
+all-masked rows and source slots no edge leads to, and at the largest slot
+axis all four take (A = 142 at L = 8, k = 17; 143 raises); for kernels J and K
 C = 1, 3, 5, k = 0, 4, 16, a site count G·A that fills no row tile
 exactly, and ragged I, F and O, and J with live-site masks (random, all
 dead, all live, C = 3 across tile edges, k = 0): 0 at the dead sites, the
@@ -598,31 +601,55 @@ def test_vis_mix_rejects_unsupported_inputs(dev):
     assert vis_vec_agg(vec, s1, s2m, d, idx, mask).shape == vec.shape
 
 
-def test_vis_mix_kernels_at_the_largest_slot_axis(dev):
-    """At L = 8, k = 17 a block of G holds a row of A ≤ 70 slots and one of
-    I A ≤ 69 (shared memory): at A = 69 all four kernels match their plain
-    versions; one slot more, I raises, and G at A = 71."""
-    vec, s1, s2m, d, idx, mask, u, vv = (t.to(dev) for t in _mix_args(2, 69, 17, 8, 64, 5))
-    gen = torch.Generator().manual_seed(2)
-    gva, gw = torch.randn(2, 69, 8, 64, generator=gen).to(dev), torch.randn(2, 69, 17, 64, generator=gen).to(dev)
-    for name, x, y in (("F", vis_vec_agg(vec, s1, s2m, d, idx, mask),
-                        vec_agg_plain(vec, s1, s2m, d, idx, mask)),
-                       ("H", vis_wdot(d, u, vv, idx, mask), wdot_plain(d, u, vv, idx, mask))):
-        err, limit = float((x - y).abs().max()), 1e-5 * float(y.abs().max()) + 1e-6
-        assert err <= limit, f"kernel {name}: max |d| {err:.3e} > {limit:.3e}"
+def _check_bwd(vec, s1, s2m, d, idx, mask, u, vv, seed):
+    """Kernels G and I against their plain versions on these inputs."""
+    gen = torch.Generator().manual_seed(seed)
+    g, a, L, h = vec.shape
+    gva = torch.randn(g, a, L, h, generator=gen).to(vec.device)
+    gw = torch.randn(g, a, idx.shape[-1], h, generator=gen).to(vec.device)
     for name, x, y in zip(("dvec", "ds1", "ds2m", "dd"), vis_vec_agg_bwd(vec, s1, s2m, d, idx, mask, gva),
                           vec_agg_bwd_plain(vec, s1, s2m, d, idx, mask, gva)):
         _assert_grad_close(x, y, f"G {name}")
     for name, x, y in zip(("dd", "du", "dvv"), vis_wdot_bwd(d, u, vv, idx, mask, gw),
                           wdot_bwd_plain(d, u, vv, idx, mask, gw)):
         _assert_grad_close(x, y, f"I {name}")
-    vec, s1, s2m, d, idx, mask, u, vv = (t.to(dev) for t in _mix_args(1, 70, 17, 8, 32, 6))
-    vis_vec_agg_bwd(vec, s1, s2m, d, idx, mask, torch.ones_like(vec))
-    with pytest.raises(RuntimeError, match="A = 70, k = 17, L = 8"):
-        vis_wdot_bwd(d, u, vv, idx, mask, torch.ones(1, 70, 17, 32, device=dev))
-    vec, s1, s2m, d, idx, mask, u, vv = (t.to(dev) for t in _mix_args(1, 71, 17, 8, 32, 7))
-    with pytest.raises(RuntimeError, match="A = 71, k = 17, L = 8"):
-        vis_vec_agg_bwd(vec, s1, s2m, d, idx, mask, torch.ones_like(vec))
+
+
+@pytest.mark.parametrize("h", [32, 64, 256, 288])
+def test_vis_mix_bwd_clusters_and_empty_sources(dev, h):
+    """G and I over clusters of 1, 2 and 8 blocks a row (h = 32, 64, 256;
+    at 288 the 9 chunks of a row take two turns of a cluster of 8), with a
+    row whose edges are all masked, one whose edges all lead to slot 0 and
+    source slots that no edge leads to."""
+    vec, s1, s2m, d, idx, mask, u, vv = (t.to(dev) for t in _mix_args(4, 12, 17, 8, h, h))
+    idx[idx == 3] = 5  # slot 3 is no edge's source
+    idx[1] = 0  # row 1: every edge leads to slot 0, the other slots to none
+    mask[2] = False  # row 2: all masked (as the padding row 3)
+    s2m = s2m * mask[..., None]
+    _check_bwd(vec, s1, s2m, d, idx, mask, u, vv, h)
+
+
+def test_vis_mix_kernels_at_the_largest_slot_axis(dev):
+    """At L = 8, k = 17 a block of F or H holds a row of A ≤ 142 slots
+    (shared memory), and G and I take the same rows (there they gather from
+    device memory what a row of A ≤ 70 / 97 stages): at A = 142 all four
+    kernels match their plain versions; one slot more, each of the four
+    raises."""
+    vec, s1, s2m, d, idx, mask, u, vv = (t.to(dev) for t in _mix_args(2, 142, 17, 8, 40, 5))
+    for name, x, y in (("F", vis_vec_agg(vec, s1, s2m, d, idx, mask),
+                        vec_agg_plain(vec, s1, s2m, d, idx, mask)),
+                       ("H", vis_wdot(d, u, vv, idx, mask), wdot_plain(d, u, vv, idx, mask))):
+        err, limit = float((x - y).abs().max()), 1e-5 * float(y.abs().max()) + 1e-6
+        assert err <= limit, f"kernel {name}: max |d| {err:.3e} > {limit:.3e}"
+    _check_bwd(vec, s1, s2m, d, idx, mask, u, vv, 2)
+    vec, s1, s2m, d, idx, mask, u, vv = (t.to(dev) for t in _mix_args(1, 143, 17, 8, 32, 6))
+    gw = torch.ones(1, 143, 17, 32, device=dev)
+    for call in (lambda: vis_vec_agg(vec, s1, s2m, d, idx, mask),
+                 lambda: vis_wdot(d, u, vv, idx, mask),
+                 lambda: vis_vec_agg_bwd(vec, s1, s2m, d, idx, mask, torch.ones_like(vec)),
+                 lambda: vis_wdot_bwd(d, u, vv, idx, mask, gw)):
+        with pytest.raises(RuntimeError, match="A = 143, k = 17, L = 8"):
+            call()
 
 
 def test_visnet_on_card_matches_cpu(dev):

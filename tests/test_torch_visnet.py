@@ -41,9 +41,11 @@ from equihgnn_tpu_torch.data.batching import pad_hypergraph_batch, spec_for_samp
 from equihgnn_tpu_torch.models.config import ModelConfig
 from equihgnn_tpu_torch.nn import visnet as tvis
 from equihgnn_tpu_torch.ops.kernels.vis_mix import (
+    vec_agg_bwd_plain,
     vec_agg_plain,
     vis_vec_agg,
     vis_wdot,
+    wdot_bwd_plain,
     wdot_plain,
 )
 
@@ -193,6 +195,32 @@ def test_plain_mix_matches_xla_mix(L):
     # masked edges and the empty row contribute nothing
     assert float(wd.detach()[torch.from_numpy(~mask)].abs().max()) == 0.0
     assert float(va.detach()[-1].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("L", [8, 3])
+def test_plain_backwards_match_xla_mix_vjp_at_a_wide_slot_axis(L):
+    """`vec_agg_bwd_plain` and `wdot_bwd_plain` (the functions of kernels G
+    and I) vs `jax.vjp` of JAX's f32 `_xla_mix` at A = 80 slots a row, k =
+    17: on the card G and I refused rows this wide until they took every
+    row F and H take (A ≤ 142 at L = 8, k = 17). Masked edges and an empty
+    row; max |Δ| ≤ 1e-5·max |JAX| per tensor."""
+    g, a, k, h = 2, 80, 17, 8
+    vec, s1, s2m, d, idx, mask, u, vv = _mix_inputs(g=g, a=a, k=k, L=L, h=h, seed=80 + L)
+    gva, gw = _linear_losses(g, a, k, L, h, seed=90 + L)
+    jidx, jmask = jnp.asarray(idx, jnp.int32), jnp.asarray(mask)
+
+    @jax.jit
+    def vjps(vec, s1, s2m, d, u, vv):
+        _, vjp = jax.vjp(lambda *x: _xla_mix(*x[:4], jidx, jmask, *x[4:]), vec, s1, s2m, d, u, vv)
+        return vjp((gva, jnp.zeros_like(gw)))[:4], vjp((jnp.zeros_like(gva), gw))[3:]
+
+    want_g, want_i = vjps(*map(jnp.asarray, (vec, s1, s2m, d, u, vv)))
+    got_g = vec_agg_bwd_plain(*map(_t, (vec, s1, s2m, d, idx, mask, gva)))
+    got_i = wdot_bwd_plain(*map(_t, (d, u, vv, idx, mask, gw)))
+    for name, x, want in zip(("dvec", "ds1", "ds2m", "dd (G)", "dd (I)", "du", "dvv"),
+                             (*got_g, *got_i), (*want_g, *want_i)):
+        _assert_rel(_np(x), want, 1e-5, name)
+    assert float(got_i[0][torch.from_numpy(~mask)].abs().max()) == 0.0  # masked edges: dd of I
 
 
 def test_plain_mix_matches_pallas_kernels():
