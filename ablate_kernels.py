@@ -1,11 +1,34 @@
-"""Where kernels A, G, I, J, K and L spend their time, on the card: each is
-rebuilt with one part of its work switched off (A: with other tile shapes)
-and timed beside the whole kernel,
-the PyTorch call that computes its function (where there is one) and itself
-again, at the batch-768 shapes of `chip_smoke.py` (its batch, kNN mask and
-timer).
+"""Where kernels A, C, E, G, I, J, K and L spend their time, on the card:
+each is rebuilt with one part of its work switched off (A: with other tile
+shapes) and timed beside the whole kernel, the PyTorch call that computes
+its function (where there is one) and itself again, at the batch-768 shapes
+of `chip_smoke.py` (its batch, kNN mask and timer).
 
-    python3 ablate_kernels.py [--kernels A,GI,J,K,L] [--vis-mix-before FILE]
+    python3 ablate_kernels.py [--kernels A,C,E,GI,J,K,L] [--vis-mix-before FILE]
+        [--edge-mlp-before FILE] [--frame-swiglu-before FILE]
+
+C (`csrc/edge_mlp.cu`, the EGNN edge MLP's backward at `chip_smoke`'s
+  `edge_mlp_inputs`: G = 769, A = 32, k = 16, F = 1026, m = 16), in case
+  (a), dm at O(1) on every edge, and case (b), dm 0 on the edges the model
+  masks: full (z saved by kernel B); z computed again (kernel B's forward
+  writing z, then C: what a step would pay without the saved z); without
+  the skip of zero-gradient edges;
+  with one butterfly an edge for ddist (not one per 8 edges); a quarter
+  of the W1 products (dz·W1ᵀ and dW1: 4 of 16 columns); blocks of 4 rows,
+  not 2; registers for 4 or 6 blocks an SM, not 5; a warp's live edges
+  walked 4 or 16 at a time, not 8; and, with --edge-mlp-before, the kernel of another `edge_mlp.cu`
+  that takes no z (e.g. an earlier commit's, from `git show
+  <commit>:equihgnn_tpu_torch/csrc/edge_mlp.cu`). Kernel B is timed with
+  and without z written.
+E (`csrc/frame_swiglu.cu`, FAFormer's frame-SwiGLU backward at its
+  EdgeModule site, P = 393,728, C = 4, and its FAFFN site, P = 24,608,
+  C = 3, H = 256), in case (a), dout at O(1) everywhere, and case (b), dout
+  0 at the positions the model gives none: full; without the skip; the
+  frame statistics in three dependent chains (mean, variance, mean(dz·z)),
+  not one butterfly; the parameter sums in registers, one block an SM (the
+  layout of the kernel before it); 3 blocks an SM, not 2; and, with
+  --frame-swiglu-before, the kernel of another `frame_swiglu.cu`.
+C and E: one call a sample, and device time alone (torch.profiler).
 
 G and I (`csrc/vis_mix.cu`, ViSNet's vector-mix backward at `chip_smoke`'s
   `vis_mix_inputs`: G = 769, A = 32, k = 17, L = 8, h = 256): full; without
@@ -58,7 +81,10 @@ from pathlib import Path
 import torch
 
 from chip_smoke import (
+    HIDDEN,
     bench_batch,
+    edge_mlp_inputs,
+    frame_swiglu_sites,
     kernel_split,
     median_ms,
     pooled_mask,
@@ -67,8 +93,9 @@ from chip_smoke import (
 )
 from equihgnn_tpu_torch.ops.kernels import build
 
-A_SRC, J_SRC, K_SRC, L_SRC, GI_SRC = (build.CSRC_DIR / n for n in (
-    "segment_sum.cu", "pooled_conv_fwd.cu", "pooled_conv.cu", "pooled_m.cu", "vis_mix.cu"))
+A_SRC, J_SRC, K_SRC, L_SRC, GI_SRC, C_SRC, E_SRC = (build.CSRC_DIR / n for n in (
+    "segment_sum.cu", "pooled_conv_fwd.cu", "pooled_conv.cu", "pooled_m.cu", "vis_mix.cu",
+    "edge_mlp.cu", "frame_swiglu.cu"))
 _TR, _BATCH = "constexpr int TR = 32;", "constexpr int BATCH = 16;"
 A_PATCHES = {  # name -> (patches, rows of a tile)
     "16-row tiles": ([(_TR, "constexpr int TR = 16;")], 16),
@@ -138,6 +165,106 @@ GI_PATCHES = {
     "I no u restage": [("      stage_chunk_async(u, g, a_slots, L, h, n * HC, vec4, x_s);\n", "")],
     "I keeps no gw": [("    keep = (TWO_BLOCK_SMEM - base) / per_row < ak ? (TWO_BLOCK_SMEM - base) / per_row : ak;",
                        "    keep = 0;")],
+}
+C_PATCHES = {
+    "no skip": [
+        ("pf_z[r] = i < n_el && pf_dm[r] != 0.f ? z[row * n_el + i] : 0.f;",
+         "pf_z[r] = i < n_el ? z[row * n_el + i] : 0.f;"),
+        ("sb.dz[i] = v == 0.f ? 0.f : v * dsilu(zz);", "sb.dz[i] = v * dsilu(zz);"),
+        ("sb.live[e0] = (nz & 0xFFFFu) != 0;", "sb.live[e0] = nz == nz;"),
+        ("sb.live[e0 + 1] = (nz >> 16) != 0;", "sb.live[e0 + 1] = nz == nz;")],
+    "a butterfly an edge": [
+        ("          dd[u] = dpre * wdf;",
+         "          float r = dpre * wdf;\n"
+         "          for (int off = 16; off > 0; off >>= 1) r += __shfl_xor_sync(FULL, r, off);\n"
+         "          if (lane == 0) sb.dd[warp * (k_nbrs + 1) + kk] = r;"),
+        ("        const float r = warp_reduce_scatter<GROUP>(dd, lane);\n"
+         "        if (lane % SPAN == 0) sb.dd[warp * (k_nbrs + 1) + list[i0 + lane / SPAN]] = r;",
+         "")],
+    "a quarter of the W1 products": [
+        ("for (int q = 0; q < M_OUT / 4; ++q) {\n            const float4 v = dz4[q];",
+         "for (int q = 0; q < 1; ++q) {\n            const float4 v = dz4[q];")],
+    "4 rows a block": [("constexpr int BW_ROWS = 2;", "constexpr int BW_ROWS = 4;")],
+    "4 blocks an SM": [("constexpr int BW_MIN_BLOCKS = 5;", "constexpr int BW_MIN_BLOCKS = 4;")],
+    "6 blocks an SM": [("constexpr int BW_MIN_BLOCKS = 5;", "constexpr int BW_MIN_BLOCKS = 6;")],
+    "groups of 4 edges": [("constexpr int GROUP = 8;", "constexpr int GROUP = 4;")],
+    "groups of 16 edges": [("constexpr int GROUP = 8;", "constexpr int GROUP = 16;")],
+}
+# kernel E's frame statistics from its pivot-shifted sums in one butterfly
+# (the shipped code), and the same three in dependent chains
+_E_STATS = """      const float piv = __shfl_sync(FULL, y[0], 0);
+      float st[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int q = 0; q < CPL; ++q) {
+        y[q] -= piv;
+        st[0] += y[q];
+        st[1] = fmaf(y[q], y[q], st[1]);
+        st[2] = fmaf(dzn[q], y[q], st[2]);
+      }
+      const float r = warp_reduce_scatter<4>(st, lane);
+      const float dmu = __shfl_sync(FULL, r, 0) / HH;
+      const float var = fmaxf(__shfl_sync(FULL, r, 8) / HH - dmu * dmu, 0.f);
+      const float inv = rsqrtf(var + LN_EPS);
+      const float m2 = inv * (__shfl_sync(FULL, r, 16) / HH - dmu * m1);"""
+_E_CHAINS = """      float s1 = 0.f;
+#pragma unroll
+      for (int q = 0; q < CPL; ++q) s1 += y[q];
+      const float dmu = warp_sum(s1) / HH;
+      float ss = 0.f;
+#pragma unroll
+      for (int q = 0; q < CPL; ++q) ss += (y[q] - dmu) * (y[q] - dmu);
+      const float inv = rsqrtf(warp_sum(ss) / HH + LN_EPS);
+      float t = 0.f;
+#pragma unroll
+      for (int q = 0; q < CPL; ++q) t += dzn[q] * (y[q] - dmu) * inv;
+      const float m2 = warp_sum(t) / HH;"""
+# kernel E's parameter sums in registers, written to the warp's row at the
+# end (PR 3's layout), with one block an SM
+_E_SUMS = """        acc[c * H + j] += xv[c] * (c < 3 ? G[c < 3 ? c : 0][k] : D[k]);
+      acc[C * H + j] += D[k];
+    }
+#pragma unroll
+    for (int q = 0; q < CPL; ++q) {
+      acc[C * H + H + lane + 32 * q] += d[q] * 0.125f * zsum[q];
+      acc[C * H + H + HH + lane + 32 * q] += d[q];
+    }
+  }
+  __syncthreads();"""
+_E_REG_SUMS = """        rdw[c][k] += xv[c] * (c < 3 ? G[c < 3 ? c : 0][k] : D[k]);
+      rdb[k] += D[k];
+    }
+#pragma unroll
+    for (int q = 0; q < CPL; ++q) {
+      rdg[q] += d[q] * 0.125f * zsum[q];
+      rdbe[q] += d[q];
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int j = col<CPL>(k, lane);
+#pragma unroll
+    for (int c = 0; c < C; ++c) acc[c * H + j] = rdw[c][k];
+    acc[C * H + j] = rdb[k];
+  }
+#pragma unroll
+  for (int q = 0; q < CPL; ++q) {
+    acc[C * H + H + lane + 32 * q] = rdg[q];
+    acc[C * H + H + HH + lane + 32 * q] = rdbe[q];
+  }
+  __syncthreads();"""
+_E_G = "  for (int q = 0; q < CPL; ++q) g[q] = ls[lane + 32 * q];\n\n  const int64_t nwarps"
+E_PATCHES = {
+    "no skip": [("    if (!__any_sync(FULL, nz)) {", "    if (false) {")],
+    "chains unbatched": [(_E_STATS, _E_CHAINS)],
+    "sums in registers, one block an SM": [
+        ("for (int c = 0; c < C; ++c) acc[c * H + j] += xv[c]",
+         "for (int c = 0; c < C; ++c)\n        acc[c * H + j] += xv[c]"),
+        (_E_SUMS, _E_REG_SUMS),
+        (_E_G, "  for (int q = 0; q < CPL; ++q) g[q] = ls[lane + 32 * q];\n"
+               "  float rdw[C][K] = {}, rdb[K] = {}, rdg[CPL] = {}, rdbe[CPL] = {};\n\n"
+               "  const int64_t nwarps"),
+        ("constexpr int BWD_MIN_BLOCKS = 2;", "constexpr int BWD_MIN_BLOCKS = 1;")],
+    "3 blocks an SM": [("constexpr int BWD_MIN_BLOCKS = 2;", "constexpr int BWD_MIN_BLOCKS = 3;")],
 }
 L_PATCHES = {
     "no zero-site skip": [("for (int k = 0; nonzero && k < d.k; ++k)", "for (int k = 0; k < d.k; ++k)")],
@@ -301,12 +428,111 @@ def _time_gi(libs, batch) -> None:
             + f", full again {times[-1]:.4f} ms")
 
 
+def _time_c(libs, batch) -> None:
+    """B with and without z, then C of each variant in cases (a) and (b):
+    one call a sample (the variants in turns), then device time alone."""
+    gen = torch.Generator().manual_seed(1)
+    args, pair_mask, _, _ = edge_mlp_inputs(batch, gen)
+    g, a, f = args[0].shape
+    k, dev = args[3].shape[-1], args[0].device
+    dm = torch.randn(g, a, k, 16, generator=gen).to(dev)
+    cases = {"a": dm, "b": dm * pair_mask[..., None]}
+    inp = [t.data_ptr() for t in args]
+    out, z = torch.empty(g, a, k, 16, device=dev), torch.empty(g, a, k, 16, device=dev)
+    outs = [torch.empty(g, a, f, device=dev), torch.empty(g, a, f, device=dev),
+            torch.empty(g, a, k, device=dev), torch.empty(f * 18 + 16, device=dev)]
+    optr = [t.data_ptr() for t in outs]
+    stream = torch.cuda.current_stream().cuda_stream
+    fwd = libs["C full"].edge_mlp_fwd_f32
+    fwd.argtypes = build.SIGNATURES["edge_mlp_fwd_f32"]
+    b_fns = [lambda zp=zp: fwd(*inp, out.data_ptr(), zp, g, a, k, f, 16, stream)
+             for zp in (None, z.data_ptr())]
+    b_fns[1]()  # z for the variants
+    times = median_ms(*b_fns)
+    print(f"B (one call a sample): serving, out only {times[0]:.4f} ms; with z written "
+          f"{times[1]:.4f} ms")
+    P, I = ctypes.c_void_p, ctypes.c_int
+    names = [n for n in libs if n.startswith("C")]
+    fns = {case: [] for case in cases}
+    for name in names:
+        lib, floats = libs[name], ctypes.c_int64()
+        lib.edge_mlp_bwd_workspace_f32.argtypes = build.SIGNATURES["edge_mlp_bwd_workspace_f32"]
+        lib.edge_mlp_bwd_workspace_f32(g, a, k, f, 16, ctypes.byref(floats))
+        ws = torch.empty(floats.value, device=dev)
+        fn = lib.edge_mlp_bwd_f32
+        # an edge_mlp.cu whose kernel C computes z again itself takes no z
+        zs = () if name == "C before" else (z.data_ptr(),)
+        fn.argtypes = (P,) * (14 + len(zs)) + (I,) * 5 + (P,)
+        for case, d in cases.items():
+            fns[case].append(lambda fn=fn, d=d, zs=zs, ws=ws: fn(
+                *inp, d.data_ptr(), *zs, *optr, ws.data_ptr(), g, a, k, f, 16, stream))
+    names.insert(1, "C z computed again")
+    for case, d in cases.items():
+        full = fns[case][0]
+        fns[case].insert(1, lambda full=full: (b_fns[1](), full()))
+    for case, cfns in fns.items():
+        times = median_ms(*cfns, cfns[0])
+        dev_ms = [profiled_device_ms(fn) for fn in cfns]
+        print(f"C case ({case}) (one call a sample; device alone): " + ", ".join(
+            f"{n[2:]} {t:.4f} / {dv:.4f} ms" for n, t, dv in zip(names, times, dev_ms))
+            + f", full again {times[-1]:.4f} ms")
+
+
+def _time_e(libs, batch) -> None:
+    """E of each variant at both FAFormer sites, in cases (a) and (b), and
+    (b) with dropout 0.1 as the model trains: one call a sample, then
+    device time alone."""
+    dev = torch.device("cuda")
+    sm = batch.slot_mask.to(dev)
+    pd = batch.pos.to(dev)[batch.slot_index.to(dev)] * sm[..., None]
+    sites, kept = frame_swiglu_sites(pd, sm)
+    gen = torch.Generator().manual_seed(2)
+    stream = torch.cuda.current_stream().cuda_stream
+    names = [n for n in libs if n.startswith("E")]
+    for site, x in sites.items():
+        p, c = x.shape
+        h = HIDDEN
+        w1 = ((torch.rand(c, h, generator=gen) * 2 - 1) / c ** 0.5).to(dev)
+        b1 = ((torch.rand(h, generator=gen) * 2 - 1) / c ** 0.5).to(dev)
+        ls = (1.0 + 0.2 * torch.randn(h // 2, generator=gen)).to(dev)
+        dout = torch.randn(p, h // 2, generator=gen).to(dev)
+        cases = {"a": (dout, 0), "b": (dout * kept[site][:, None], 0),
+                 "b, drop 0.1": (dout * kept[site][:, None], 1)}
+        dx, dparams = torch.empty(p, c, device=dev), torch.empty(c * h + 2 * h, device=dev)
+        thresh = int(round(0.1 * 2.0 ** 32))
+        fns = {case: [] for case in cases}
+        for name in names:
+            lib, floats = libs[name], ctypes.c_int64()
+            lib.frame_swiglu_bwd_workspace_f32.argtypes = build.SIGNATURES[
+                "frame_swiglu_bwd_workspace_f32"]
+            lib.frame_swiglu_bwd_workspace_f32(p, c, h, ctypes.byref(floats))
+            ws = torch.empty(floats.value, device=dev)
+            fn = lib.frame_swiglu_bwd_f32
+            fn.argtypes = build.SIGNATURES["frame_swiglu_bwd_f32"]
+            for case, (d, drop) in cases.items():
+                fns[case].append(lambda fn=fn, d=d, drop=drop, ws=ws: fn(
+                    x.data_ptr(), w1.data_ptr(), b1.data_ptr(), ls.data_ptr(), d.data_ptr(),
+                    dx.data_ptr(), dparams.data_ptr(), ws.data_ptr(), p, c, h, drop,
+                    thresh if drop else 0, 1.0 / 0.9 if drop else 1.0, 7, stream))
+        for case, cfns in fns.items():
+            times = median_ms(*cfns, cfns[0])
+            dev_ms = [profiled_device_ms(fn) for fn in cfns]
+            print(f"E {site} [P={p}, C={c}] case ({case}) (one call a sample; device alone): "
+                  + ", ".join(f"{n[2:]} {t:.4f} / {dv:.4f} ms"
+                              for n, t, dv in zip(names, times, dev_ms))
+                  + f", full again {times[-1]:.4f} ms")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--kernels", default="A,GI,J,K,L",
-                        help="the kernels to ablate, of A, GI, J, K and L")
+    parser.add_argument("--kernels", default="A,C,E,GI,J,K,L",
+                        help="the kernels to ablate, of A, C, E, GI, J, K and L")
     parser.add_argument("--vis-mix-before", type=Path,
                         help="another vis_mix.cu whose G and I to time beside this one's")
+    parser.add_argument("--edge-mlp-before", type=Path,
+                        help="another edge_mlp.cu (kernel C without z) to time beside this one's")
+    parser.add_argument("--frame-swiglu-before", type=Path,
+                        help="another frame_swiglu.cu whose E to time beside this one's")
     args = parser.parse_args()
     kinds = args.kernels.split(",")
     if not torch.cuda.is_available():
@@ -324,7 +550,8 @@ def main() -> int:
         srcs = {}
         for kind, src, table in (("A", A_SRC, {n: p for n, (p, _) in A_PATCHES.items()}),
                                  ("GI", GI_SRC, GI_PATCHES), ("J", J_SRC, J_PATCHES),
-                                 ("K", K_SRC, K_PATCHES), ("L", L_SRC, L_PATCHES)):
+                                 ("K", K_SRC, K_PATCHES), ("L", L_SRC, L_PATCHES),
+                                 ("C", C_SRC, C_PATCHES), ("E", E_SRC, E_PATCHES)):
             if kind not in kinds:
                 continue
             srcs[f"{kind} full"] = src
@@ -332,10 +559,18 @@ def main() -> int:
                 srcs[f"{kind} {name}"] = _patched(src, patches, tmp / f"v{len(srcs)}.cu")
         if "GI" in kinds and args.vis_mix_before:
             srcs["GI before"] = args.vis_mix_before
+        if "C" in kinds and args.edge_mlp_before:
+            srcs["C before"] = args.edge_mlp_before
+        if "E" in kinds and args.frame_swiglu_before:
+            srcs["E before"] = args.frame_swiglu_before
         libs = _build_all(tmp, srcs)
         batch = bench_batch()[1]
         if "A" in kinds:
             _time_a(libs, batch, dev)
+        if "C" in kinds:
+            _time_c(libs, batch)
+        if "E" in kinds:
+            _time_e(libs, batch)
         if "GI" in kinds:
             _time_gi(libs, batch)
         _time_jkl(libs, batch, dev)

@@ -17,11 +17,16 @@ result line), each printing its seconds:
    segment sum; also at six edge cases at D = 256, each the same bits
    twice, and timed against `index_add_` one call a sample, 10 calls a
    sample and device time alone, with its host time a call), B (EGNN
-   edge MLP forward), C (its backward, seven gradients against autograd
-   through the plain forward), D (FAFormer's frame-averaged SwiGLU
-   forward) and E (its backward, five gradients) at both FAFormer sites
-   (EdgeModule P = 393,728, C = 4; FAFFN P = 24,608, C = 3; each site's
-   times with its bounds), and D/E
+   edge MLP forward; serving, and writing z as training does: the same
+   output bits), C (its backward from B's z, seven gradients against
+   autograd through the plain forward), D (FAFormer's frame-averaged
+   SwiGLU forward) and E (its backward, five gradients) at both FAFormer
+   sites (EdgeModule P = 393,728, C = 4; FAFFN P = 24,608, C = 3; each
+   site's times with its bounds); C and E in case (a), an output gradient
+   at every edge or position, and case (b), 0 where the model masks (the
+   skip must give 0 there, the same bits twice), each timed one call a
+   sample and by device time alone, with a live bound over the kept edges
+   or positions; and D/E
    with dropout 0.1 at P = 24,608 (the same seed must give the same
    mask); F and H (ViSNet's vector aggregation and vector-rejection dot
    products) and their backwards G and I on the batch's k = 17
@@ -79,7 +84,10 @@ kernels L and M), with random weights from a seed:
    `ckpt_best.pt` serves through `predict.run --device cuda`;
 7. step: one train step at batch 768 (forward + backward + Adam): its
    launches, median device time, peak memory and a `torch.profiler` table
-   of its top device kernels.
+   of its top device kernels; for egnn and faformer, in one more step, the
+   share of kernel C's dm and kernel E's dout rows that are exactly 0,
+   beside the rows the model masks (egnn's dm must be 0 on every masked
+   edge).
 
 FAFormer's frames are the eigenvectors of 3x3 covariances. Where a
 covariance is rank-deficient or has repeated eigenvalues (small, planar or
@@ -376,18 +384,11 @@ def read_launches() -> dict[str, int]:
 
 
 def phase_kernels(batch) -> list[dict]:
-    from equihgnn_tpu_torch.ops.kernels.edge_mlp import (
-        fused_edge_messages,
-        fused_edge_messages_bwd,
-        fused_edge_messages_bwd_plain,
-        fused_edge_messages_plain,
-    )
     from equihgnn_tpu_torch.ops.kernels.segment_sum import (
         _launch,
         sorted_segment_sum,
         sorted_segment_sum_plain,
     )
-    from equihgnn_tpu_torch.ops.knn import knn_dense
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(1)
@@ -434,68 +435,8 @@ def phase_kernels(batch) -> list[dict]:
         **bound(nbytes(data, ids, zeros), m * HIDDEN),
     ))
 
-    # kernel B on the real neighbourhoods of the batch's slot view
-    sm = batch.slot_mask.to(dev)
-    pd = batch.pos.to(dev)[batch.slot_index.to(dev)] * sm[..., None]
-    nbr_idx, _, _ = knn_dense(pd, sm, 16, slot_gid=batch.slot_gid.to(dev))
-    r = torch.arange(pd.shape[0], device=dev)[:, None, None]
-    rel = pd[:, :, None, :] - pd[r, nbr_idx]
-    dist = torch.sum(rel * rel, dim=-1)
-    g, a, k = nbr_idx.shape
-    f, mo = 2 * (2 * HIDDEN + 1), 16
-    ui = torch.randn(g, a, f, generator=gen).to(dev)
-    ujn = torch.randn(g, a, f, generator=gen).to(dev)
-    wd, b0 = (0.1 * torch.randn(f, generator=gen)).to(dev), (0.1 * torch.randn(f, generator=gen)).to(dev)
-    w1, b1 = (0.1 * torch.randn(f, mo, generator=gen)).to(dev), (0.1 * torch.randn(mo, generator=gen)).to(dev)
-    args = (ui, ujn, dist, nbr_idx, wd, b0, w1, b1)
-    got = fused_edge_messages(*args)
-    ref = fused_edge_messages_plain(*args)
-    torch.cuda.synchronize()
-    diff = (got - ref).abs()
-    err = float(diff.max())
-    rel_err = float((diff / ref.abs().clamp(min=1e-30)).max())
-    ok = bool((diff <= 1e-5 + 1e-4 * ref.abs()).all())
-    print(f"kernel B fused_edge_messages [G={g}, A={a}, k={k}, F={f}, m={mo}]: "
-          f"max|d| {err:.3e}, max rel {rel_err:.3e} (atol 1e-5, rtol 1e-4): "
-          f"{'ok' if ok else 'FAIL'}")
-    check(ok, "kernel B disagrees with its plain version")
-    ms, plain_ms = median_ms(lambda: fused_edge_messages(*args),
-                             lambda: fused_edge_messages_plain(*args))
-    # operations per edge and column f: the pre-activation (4), its SiLU
-    # (4) and the product with W1 (2m)
-    e_edges = g * a * k
-    rows.append(dict(
-        name="fused_edge_messages", route="cuda",
-        source="equihgnn_tpu_torch/csrc/edge_mlp.cu",
-        replaces="equihgnn_tpu/ops/pallas/edge_mlp.py:179",
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
-        **bound(nbytes(*args, ref), e_edges * f * (2 * mo + 8)),
-    ))
-
-    # kernel C on the same inputs, for an output gradient at O(1)
-    dm = torch.randn(g, a, k, mo, generator=gen).to(dev)
-    got = fused_edge_messages_bwd(*args, dm)
-    ref = fused_edge_messages_bwd_plain(*args, dm)
-    torch.cuda.synchronize()
-    err = 0.0
-    for gname, x, y in zip(("dui", "dujn", "ddist", "dwd", "db0", "dw1", "db1"), got, ref):
-        d, scale = float((x - y).abs().max()), float(y.abs().max())
-        err = max(err, d)
-        ok = d <= 1e-4 * scale
-        print(f"kernel C fused_edge_messages_bwd {gname} {tuple(x.shape)}: max|d| {d:.3e}, "
-              f"max|ref| {scale:.3e}, rel {d / scale:.3e} (limit 1e-4 * max|ref|): "
-              f"{'ok' if ok else 'FAIL'}")
-        check(ok, f"kernel C's {gname} disagrees with the plain backward")
-    ms, plain_ms = median_ms(lambda: fused_edge_messages_bwd(*args, dm),
-                             lambda: fused_edge_messages_bwd_plain(*args, dm))
-    # the forward again (2m + 8), dz·W1ᵀ and dW1 (4m), SiLU' (8)
-    rows.append(dict(
-        name="fused_edge_messages_bwd", route="cuda",
-        source="equihgnn_tpu_torch/csrc/edge_mlp.cu",
-        replaces="equihgnn_tpu/ops/pallas/edge_mlp.py:222",
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
-        **bound(nbytes(*args, dm, *ref), e_edges * f * (6 * mo + 16)),
-    ))
+    args, pair_mask, pd, sm = edge_mlp_inputs(batch, gen)
+    rows += edge_mlp_rows(args, pair_mask, gen)
     rows += frame_swiglu_rows(pd, sm, gen)
     rows += vis_mix_rows(batch, gen)
     rows += pooled_conv_rows(batch, gen)
@@ -505,6 +446,132 @@ def phase_kernels(batch) -> list[dict]:
               f"bound {row['bound_ms']:.4f} ms by {row['bound_by']} (median, the two "
               f"alternating, CUDA events; D and E at the EdgeModule site, J and K at C = 1, "
               f"L and M at X = 64, over 10 calls back to back)")
+    return rows
+
+
+def edge_mlp_inputs(batch, gen):
+    """Kernels B's and C's inputs on the card at the EGNN layer's shapes of
+    the batch: its slot view's k = 16 neighbourhoods (within each molecule)
+    and their squared distances, random u and weights at the width 256
+    (F = 1026, m = 16). Returns (args, pair_mask, pd, sm): pair_mask the
+    neighbours the model keeps, pd and sm the slot view's positions and
+    mask."""
+    from equihgnn_tpu_torch.ops.knn import knn_dense
+
+    dev = torch.device("cuda")
+    sm = batch.slot_mask.to(dev)
+    pd = batch.pos.to(dev)[batch.slot_index.to(dev)] * sm[..., None]
+    nbr_idx, pair_mask, _ = knn_dense(pd, sm, 16, slot_gid=batch.slot_gid.to(dev))
+    r = torch.arange(pd.shape[0], device=dev)[:, None, None]
+    rel = pd[:, :, None, :] - pd[r, nbr_idx]
+    dist = torch.sum(rel * rel, dim=-1)
+    g, a, k = nbr_idx.shape
+    f, mo = 2 * (2 * HIDDEN + 1), 16
+    ui = torch.randn(g, a, f, generator=gen).to(dev)
+    ujn = torch.randn(g, a, f, generator=gen).to(dev)
+    wd, b0 = (0.1 * torch.randn(f, generator=gen)).to(dev), (0.1 * torch.randn(f, generator=gen)).to(dev)
+    w1, b1 = (0.1 * torch.randn(f, mo, generator=gen)).to(dev), (0.1 * torch.randn(mo, generator=gen)).to(dev)
+    return (ui, ujn, dist, nbr_idx, wd, b0, w1, b1), pair_mask, pd, sm
+
+
+def edge_mlp_rows(args, pair_mask, gen) -> list[dict]:
+    """Kernel B (serving: no z; training: z written too, the same output
+    bits) and kernel C with B's saved z, in case (a), an output gradient at
+    O(1) on every edge, and case (b), the same gradient 0 where the model
+    masks the edge (pair_mask), as the model passes it: C within
+    1e-4·max|ref| of the plain backward, the same bits twice, 0 in ddist at
+    the masked edges; each case timed one call a sample and by its device
+    time alone."""
+    from equihgnn_tpu_torch.ops.kernels.edge_mlp import (
+        _launch_fwd,
+        fused_edge_messages,
+        fused_edge_messages_bwd,
+        fused_edge_messages_bwd_plain,
+        fused_edge_messages_plain,
+    )
+
+    ui, _, _, nbr_idx, *_ = args
+    g, a, f = ui.shape
+    k, mo = nbr_idx.shape[-1], 16
+    got = fused_edge_messages(*args)
+    ref = fused_edge_messages_plain(*args)
+    got_z, z = _launch_fwd(*args, want_z=True)
+    torch.cuda.synchronize()
+    diff = (got - ref).abs()
+    err = float(diff.max())
+    rel_err = float((diff / ref.abs().clamp(min=1e-30)).max())
+    ok = bool((diff <= 1e-5 + 1e-4 * ref.abs()).all())
+    print(f"kernel B fused_edge_messages [G={g}, A={a}, k={k}, F={f}, m={mo}]: "
+          f"max|d| {err:.3e}, max rel {rel_err:.3e} (atol 1e-5, rtol 1e-4): "
+          f"{'ok' if ok else 'FAIL'}; with z written: "
+          f"{'the same bits' if torch.equal(got, got_z) else 'OTHER BITS'}")
+    check(ok, "kernel B disagrees with its plain version")
+    check(torch.equal(got, got_z), "kernel B's output moved when it also wrote z")
+    ms, z_ms, plain_ms = median_ms(lambda: fused_edge_messages(*args),
+                                   lambda: _launch_fwd(*args, want_z=True),
+                                   lambda: fused_edge_messages_plain(*args))
+    print(f"kernel B: {ms:.4f} ms serving (out only), {z_ms:.4f} ms with z written as "
+          f"training does (+{nbytes(z) / 2**20:.1f} MiB), plain {plain_ms:.4f} ms "
+          f"(median of 20, one call a sample, CUDA events)")
+    # operations per edge and column f: the pre-activation (4), its SiLU
+    # (4) and the product with W1 (2m)
+    e_edges = g * a * k
+    rows = [dict(
+        name="fused_edge_messages", route="cuda",
+        source="equihgnn_tpu_torch/csrc/edge_mlp.cu",
+        replaces="equihgnn_tpu/ops/pallas/edge_mlp.py:179",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+        **bound(nbytes(*args, ref), e_edges * f * (2 * mo + 8)),
+    )]
+
+    # kernel C, for an output gradient at O(1), on every edge (a) and on the
+    # edges the model keeps (b)
+    dm = torch.randn(g, a, k, mo, generator=gen).to(pair_mask.device)
+    cases = {"a": dm, "b": dm * pair_mask[..., None]}
+    err, times = 0.0, {}
+    for case, d in cases.items():
+        got = fused_edge_messages_bwd(*args, d, z)
+        again = fused_edge_messages_bwd(*args, d, z)
+        ref = fused_edge_messages_bwd_plain(*args, d)
+        torch.cuda.synchronize()
+        for gname, x, y in zip(("dui", "dujn", "ddist", "dwd", "db0", "dw1", "db1"), got, ref):
+            dd, scale = float((x - y).abs().max()), float(y.abs().max())
+            err = max(err, dd)
+            ok = dd <= 1e-4 * scale
+            print(f"kernel C fused_edge_messages_bwd case ({case}) {gname} {tuple(x.shape)}: "
+                  f"max|d| {dd:.3e}, max|ref| {scale:.3e}, rel {dd / scale:.3e} (limit 1e-4 * "
+                  f"max|ref|): {'ok' if ok else 'FAIL'}")
+            check(ok, f"kernel C's {gname} disagrees with the plain backward in case ({case})")
+        check(all(torch.equal(x, y) for x, y in zip(got, again)),
+              f"kernel C gave other bits on a second call in case ({case})")
+        if case == "b":
+            check(bool((got[2][~pair_mask] == 0).all()), "kernel C's ddist is not 0 at a masked edge")
+        times[case] = (*median_ms(lambda: fused_edge_messages_bwd(*args, d, z),
+                                  lambda: fused_edge_messages_bwd_plain(*args, d)),
+                       profiled_device_ms(lambda: fused_edge_messages_bwd(*args, d, z)))
+    print("kernel C: the same bits twice in both cases; 0 in ddist at every masked edge in "
+          "case (b)")
+    # operations per edge and column f, with z given (kernel B saved it):
+    # the pre-activation, its SiLU and SiLU' (16), dz·W1ᵀ and dW1 (4m); the
+    # bound over every edge, and over the edges with a gradient in case (b).
+    # PRs 2-9 counted the forward's a1·W1 (2m) too, which C no longer does
+    # (B's training forward carries it): that bound is printed for comparison
+    e_live = int(pair_mask.sum())
+    c_bytes = nbytes(*args, dm, z, *ref)
+    bc, bl = (bound(c_bytes, n * f * (4 * mo + 16)) for n in (e_edges, e_live))
+    b_old = bound(nbytes(*args, dm, *ref), e_edges * f * (6 * mo + 16))
+    for case, (c_ms, p_ms, dev_ms) in times.items():
+        print(f"kernel C case ({case}): {c_ms:.4f} ms one call a sample, {dev_ms:.4f} ms device "
+              f"alone (torch.profiler, 20 calls), plain {p_ms:.4f} ms; bound "
+              f"{bc['bound_ms']:.4f} ms over all {e_edges} edges, live bound "
+              f"{bl['bound_ms']:.4f} ms over the {e_live} kept ({bl['bound_by']}; PRs 2-9's "
+              f"count with the forward's a1·W1: {b_old['bound_ms']:.4f} ms)")
+    rows.append(dict(
+        name="fused_edge_messages_bwd", route="cuda",
+        source="equihgnn_tpu_torch/csrc/edge_mlp.cu",
+        replaces="equihgnn_tpu/ops/pallas/edge_mlp.py:222",
+        max_abs_err=err, ms=times["a"][0], plain_ms=times["a"][1], library_ms=None, **bc,
+    ))
     return rows
 
 
@@ -585,22 +652,14 @@ def mask_probe(p: int, gen, dev) -> float:
     return d
 
 
-def frame_swiglu_rows(pd, sm, gen) -> list[dict]:
-    """Kernels D and E at FAFormer's two sites of the batch: the EdgeModule's
-    coordinate MLP on [vbar ‖ |r|²] of each atom's k = 16 neighbourhood
-    (P = G·A·k, C = 4) and the FAFFN's on the molecule frames (P = G·A,
-    C = 3), with the batch's real projections; weights at the width 256."""
+def frame_swiglu_sites(pd, sm) -> tuple[dict, dict]:
+    """(x, kept) of FAFormer's two frame sites for the slot view's positions
+    pd and mask sm: x [P, C] the kernels' input, kept [P] the positions the
+    model gives a gradient (the unmasked neighbours, the real slots)."""
     from equihgnn_tpu_torch.nn.faformer import create_frame_basis
     from equihgnn_tpu_torch.ops.gather import nbr_gather
-    from equihgnn_tpu_torch.ops.kernels.frame_swiglu import (
-        frame_swiglu_bwd_plain,
-        frame_swiglu_plain,
-        fused_frame_swiglu,
-        fused_frame_swiglu_bwd,
-    )
     from equihgnn_tpu_torch.ops.knn import knn_dense
 
-    dev = pd.device
     idx, nmask, _ = knn_dense(pd, sm, 16, valid_radius=5.0, exclude_self=True)
     radial = pd[:, :, None, :] - nbr_gather(pd, idx, nmask)
     vbar, _ = create_frame_basis(radial, nmask)
@@ -609,6 +668,27 @@ def frame_swiglu_rows(pd, sm, gen) -> list[dict]:
                                 -1).reshape(-1, 4).contiguous(),
         "FAFFN": create_frame_basis(pd, sm)[0].reshape(-1, 3).contiguous(),
     }
+    return sites, {"EdgeModule": nmask.reshape(-1), "FAFFN": sm.reshape(-1)}
+
+
+def frame_swiglu_rows(pd, sm, gen) -> list[dict]:
+    """Kernels D and E at FAFormer's two sites of the batch: the EdgeModule's
+    coordinate MLP on [vbar ‖ |r|²] of each atom's k = 16 neighbourhood
+    (P = G·A·k, C = 4) and the FAFFN's on the molecule frames (P = G·A,
+    C = 3), with the batch's real projections; weights at the width 256.
+    Kernel E in case (a), an output gradient at O(1) at every position, and
+    case (b), the same gradient 0 at the positions the model gives none (the
+    masked neighbours at the EdgeModule site, the padding slots at the
+    FAFFN's)."""
+    from equihgnn_tpu_torch.ops.kernels.frame_swiglu import (
+        frame_swiglu_bwd_plain,
+        frame_swiglu_plain,
+        fused_frame_swiglu,
+        fused_frame_swiglu_bwd,
+    )
+
+    dev = pd.device
+    sites, kept = frame_swiglu_sites(pd, sm)
     err_d = err_e = 0.0
     times = {}
     for site, x in sites.items():
@@ -618,10 +698,10 @@ def frame_swiglu_rows(pd, sm, gen) -> list[dict]:
                   (1.0 + 0.2 * torch.randn(HIDDEN // 2, generator=gen)).to(dev),
                   (0.1 * torch.randn(HIDDEN // 2, generator=gen)).to(dev)]
         dout = torch.randn(p, HIDDEN // 2, generator=gen).to(dev)
+        douts = {"a": dout, "b": dout * kept[site][:, None]}
         for rate in (0.0, 0.1):
             # dropout: at the FAFFN's P (the plain mask is [P, 8, H/2] int64)
             xs = x if rate == 0.0 else x[:sites["FAFFN"].shape[0]]
-            ds = dout[:xs.shape[0]]
             got = fused_frame_swiglu(xs, *params, drop_rate=rate, seed=7)
             ref = frame_swiglu_plain(xs, *params, drop_rate=rate, seed=7)
             torch.cuda.synchronize()
@@ -635,17 +715,26 @@ def frame_swiglu_rows(pd, sm, gen) -> list[dict]:
             if rate > 0.0:  # a mask that differs moves its row far beyond the tolerance
                 other = frame_swiglu_plain(xs, *params, drop_rate=rate, seed=8)
                 check(float((other - got).abs().max()) > 1e-2, "another seed gave the same output")
-            got = fused_frame_swiglu_bwd(xs, *params, ds, rate, 7)
-            ref = frame_swiglu_bwd_plain(xs, *params, ds, rate, 7)
-            torch.cuda.synchronize()
-            for gname, a, b in zip(("dx", "dw1", "db1", "dls", "dlb"), got, ref):
-                d, scale = float((a - b).abs().max()), float(b.abs().max())
-                err_e = max(err_e, d)
-                ok = d <= 1e-4 * scale + 1e-6
-                print(f"kernel E fused_frame_swiglu_bwd {site} drop {rate} {gname} {tuple(a.shape)}: "
-                      f"max|d| {d:.3e}, max|ref| {scale:.3e} (limit 1e-4 * max|ref|): "
-                      f"{'ok' if ok else 'FAIL'}")
-                check(ok, f"kernel E's {gname} at {site}, drop {rate}, disagrees")
+            for case, dcase in douts.items():
+                ds = dcase[:xs.shape[0]]
+                got = fused_frame_swiglu_bwd(xs, *params, ds, rate, 7)
+                again = fused_frame_swiglu_bwd(xs, *params, ds, rate, 7)
+                ref = frame_swiglu_bwd_plain(xs, *params, ds, rate, 7)
+                torch.cuda.synchronize()
+                for gname, a, b in zip(("dx", "dw1", "db1", "dls", "dlb"), got, ref):
+                    d, scale = float((a - b).abs().max()), float(b.abs().max())
+                    err_e = max(err_e, d)
+                    ok = d <= 1e-4 * scale + 1e-6
+                    print(f"kernel E fused_frame_swiglu_bwd {site} drop {rate} case ({case}) "
+                          f"{gname} {tuple(a.shape)}: max|d| {d:.3e}, max|ref| {scale:.3e} "
+                          f"(limit 1e-4 * max|ref| + 1e-6): {'ok' if ok else 'FAIL'}")
+                    check(ok, f"kernel E's {gname} at {site}, drop {rate}, case ({case}), disagrees")
+                check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                      f"kernel E gave other bits on a second call ({site}, drop {rate}, {case})")
+                if case == "b":
+                    zero = (ds == 0).all(-1)
+                    check(bool((got[0][zero] == 0).all()),
+                          "kernel E's dx is not 0 at a position of zero gradient")
         # the [P, 8, H] frames never reach device memory: a call allocates
         # its output (D) or its gradients and workspace (E), nothing more
         frames_mb = p * 8 * HIDDEN * 4 / 2**20
@@ -655,18 +744,26 @@ def frame_swiglu_rows(pd, sm, gen) -> list[dict]:
             print(f"kernel {kname} at {site}: {extra_mb:.1f} MiB allocated at peak "
                   f"(the [P, 8, {HIDDEN}] frames would be {frames_mb:.1f} MiB)")
             check(extra_mb < frames_mb / 4, f"kernel {kname} allocated frame-sized memory")
+        db = douts["b"]
         times[site] = (median_ms(lambda: fused_frame_swiglu(x, *params),
                                  lambda: frame_swiglu_plain(x, *params)),
                        median_ms(lambda: fused_frame_swiglu_bwd(x, *params, dout),
-                                 lambda: frame_swiglu_bwd_plain(x, *params, dout)))
-        (dk, dp), (ek, ep) = times[site]
+                                 lambda: frame_swiglu_bwd_plain(x, *params, dout),
+                                 lambda: fused_frame_swiglu_bwd(x, *params, db)),
+                       [profiled_device_ms(lambda dd=dd: fused_frame_swiglu_bwd(x, *params, dd))
+                        for dd in (dout, db)])
+        (dk, dp), (ek, ep, ekb), (edev, edevb) = times[site]
         bd, be = frame_swiglu_bounds(x)
+        n_live = int((db != 0).any(-1).sum())
+        _, bel = frame_swiglu_bounds(x[:n_live])  # the same formula over the live positions
         print(f"kernels D/E at {site} [P={p}, C={c}]: D {dk:.4f} ms vs plain {dp:.4f} ms "
-              f"(bound {bd['bound_ms']:.4f} ms by {bd['bound_by']}); E {ek:.4f} ms vs plain "
-              f"backward {ep:.4f} ms (bound {be['bound_ms']:.4f} ms by {be['bound_by']}) "
-              f"(median of 20, CUDA events)")
+              f"(bound {bd['bound_ms']:.4f} ms by {bd['bound_by']}); E case (a) {ek:.4f} ms, "
+              f"case (b) {ekb:.4f} ms one call a sample (device alone {edev:.4f} / {edevb:.4f} "
+              f"ms, torch.profiler, 20 calls) vs plain backward {ep:.4f} ms (bound "
+              f"{be['bound_ms']:.4f} ms by {be['bound_by']}; live bound {bel['bound_ms']:.4f} "
+              f"ms over the {n_live} of {p} positions of case (b)) (median of 20, CUDA events)")
     err_d = max(err_d, mask_probe(sites["FAFFN"].shape[0], gen, dev))
-    (dk, dp), (ek, ep) = times["EdgeModule"]
+    (dk, dp), (ek, ep, _), _ = times["EdgeModule"]
     src = "equihgnn_tpu_torch/csrc/frame_swiglu.cu"
     bd, be = frame_swiglu_bounds(sites["EdgeModule"])  # the site whose times the row carries
     return [
@@ -1592,6 +1689,57 @@ def phase_step(path: str, samples, smi: str) -> None:
           f"per step:" if kernels else "torch.profiler: no device kernel events recorded")
     for t, n, key in kernels[:12]:
         print(f"  {t:8.3f} ms  {n:3d}x  {key[:110]}")
+    gradient_zero_shares(path, trainer, batch)
+
+
+def gradient_zero_shares(path: str, trainer, batch) -> None:
+    """In one more train step, the rows of the output gradient that reach
+    kernel C (egnn: dm, a row an edge) or E (faformer: dout, a row a
+    position, at each EdgeModule and FAFFN site) that are exactly 0, beside
+    the rows the model masks (egnn: pair_mask; the EdgeModule: the kNN mask;
+    the FAFFN: the padding slots). Kernels C and E skip such rows. egnn's
+    dm must be 0 on every masked edge (both consumers of the messages mask
+    them)."""
+    from equihgnn_tpu_torch.nn import egnn, faformer
+
+    mod, kname = {"egnn_equihnns": (egnn, "fused_edge_messages"),
+                  "faformer_equihnns": (faformer, "fused_frame_swiglu")}.get(path, (None, None))
+    if mod is None:
+        return
+    kernel, knn = getattr(mod, kname), mod.knn_dense
+    masks, grads = [], []
+
+    def knn_hooked(*args, **kw):
+        out = knn(*args, **kw)
+        masks.append(out[1].reshape(-1))
+        return out
+
+    def kernel_hooked(x, *args, **kw):
+        out = kernel(x, *args, **kw)
+        site = "edge" if kname == "fused_edge_messages" else (
+            "EdgeModule" if x.shape[-1] == 4 else "FAFFN")
+        out.register_hook(lambda g, site=site: grads.append(
+            (site, (g.reshape(-1, g.shape[-1]) == 0).all(-1))))
+        return out
+
+    setattr(mod, kname, kernel_hooked)
+    mod.knn_dense = knn_hooked
+    try:
+        trainer.train_step(batch)
+        torch.cuda.synchronize()
+    finally:
+        setattr(mod, kname, kernel)
+        mod.knn_dense = knn
+    kept = {"edge": masks[0], "EdgeModule": masks[0], "FAFFN": batch.slot_mask.reshape(-1)}
+    for site, zero in grads:
+        live = kept[site]
+        n, n_zero = zero.numel(), int(zero.sum())
+        dead_nz, live_zero = int((~live & ~zero).sum()), int((live & zero).sum())
+        print(f"{path} step: {'C' if site == 'edge' else 'E'} at {site}: output-gradient rows "
+              f"exactly 0 {n_zero} of {n} ({n_zero / n:.4f}); masked {int((~live).sum())}, of "
+              f"them not 0 {dead_nz}; kept but 0 {live_zero}")
+        if site == "edge":
+            check(dead_nz == 0, "egnn's dm is not 0 on a masked edge")
 
 
 def timed(label: str, fn, *args):

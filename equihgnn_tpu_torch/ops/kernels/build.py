@@ -32,10 +32,10 @@ _P, _I64, _I, _U32, _F = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.
 # C entry points: name -> argument types (each returns a cudaError_t as int)
 SIGNATURES = {
     "sorted_segment_sum_f32": (_P, _P, _P, _P, _I64, _I64, _I64, _I64, _P),
-    "edge_mlp_fwd_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
+    "edge_mlp_fwd_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _P),
     "edge_mlp_bwd_workspace_f32": (_I, _I, _I, _I, _I, ctypes.POINTER(_I64)),
-    "edge_mlp_bwd_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+    "edge_mlp_bwd_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _P),
     "frame_swiglu_fwd_f32": (_P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _U32, _F, _U32, _P),
     "frame_swiglu_bwd_workspace_f32": (_I64, _I, _I, ctypes.POINTER(_I64)),

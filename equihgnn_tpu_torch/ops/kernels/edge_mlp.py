@@ -5,20 +5,25 @@ Replaces `equihgnn_tpu/ops/pallas/edge_mlp.py` `fused_edge_messages`: its
 forward `_fwd_impl`/`_fwd_kernel` (kernel B) and its custom VJP
 `_vjp_bwd`/`_bwd_kernel` (kernel C):
 
-    out[g, a, kk] = silu(silu(ui[g, a] + ujn[g, idx[g, a, kk]]
-                              + dist[g, a, kk]·wd + b0) @ w1 + b1)
+    out[g, a, kk] = silu(z),  z = silu(ui[g, a] + ujn[g, idx[g, a, kk]]
+                                       + dist[g, a, kk]·wd + b0) @ w1 + b1
 
 `fused_edge_messages` is the wrapper, with the JAX function's argument
 layout: ui/ujn [G, A, F], dist [G, A, k], nbr_idx [G, A, k] slot indices
 into the A axis, wd/b0 [F], w1 [F, m], b1 [m] → [G, A, k, m]. A CPU tensor
 goes to `fused_edge_messages_plain`, which autograd traces. A CUDA tensor
 goes through `_FusedEdgeMessages`, an `autograd.Function` whose forward is
-kernel B and whose backward is kernel C (`fused_edge_messages_bwd`). Like
-JAX's `_vjp_fwd` it saves only its inputs, never a [G, A, k, F] tensor, and
-kernel C recomputes the pre-activation; `nbr_idx` gets no gradient. The
-kernels take float32 and m = 16, or the wrapper raises. Contract: every
-index lies in [0, A), as `knn_dense` gives them; the kernels do not check
-it (that would need a device-to-host sync per call).
+kernel B and whose backward is kernel C (`fused_edge_messages_bwd`). When
+an input needs a gradient, kernel B also writes z [G, A, k, m] (25 MB at
+batch 768), which the Function saves beside its inputs, so that kernel C
+does not compute the forward again; JAX's `_vjp_fwd` saved only its inputs
+and recomputed z, because its kernel had only VMEM to keep it in. Serving
+(no gradient) writes nothing more than `out`. Kernel C skips, exactly, the
+edges whose row of dm is all 0 (the model's padded neighbours: both
+consumers of `out` mask them), and writes 0 there. `nbr_idx` gets no
+gradient. The kernels take float32 and m = 16, or the wrapper raises.
+Contract: every index lies in [0, A), as `knn_dense` gives them; the
+kernels do not check it (that would need a device-to-host sync per call).
 `fused_edge_messages.launches` and `fused_edge_messages_bwd.launches` count
 kernel launches.
 """
@@ -34,7 +39,7 @@ from equihgnn_tpu_torch.ops.kernels import build
 
 KERNEL_M = 16  # the kernels' message width (csrc/edge_mlp.cu M_OUT)
 SMEM_LIMIT = 232_448  # bytes of shared memory a Hopper block can use
-BW_COLS, BW_WARPS = 128, 4  # kernel C's f columns and warps per block (csrc)
+GROUP = 8  # kernel C's live edges a warp walks at once (csrc)
 
 
 def fused_edge_messages_plain(ui, ujn, dist, nbr_idx, wd, b0, w1, b1):
@@ -54,10 +59,12 @@ def fused_edge_messages_bwd_plain(ui, ujn, dist, nbr_idx, wd, b0, w1, b1, dm):
         return torch.autograd.grad(out, leaves, dm)
 
 
-def _check(ui, ujn, dist, nbr_idx, wd, b0, w1, b1, dm=None):
+def _check(ui, ujn, dist, nbr_idx, wd, b0, w1, b1, dm=None, z=None):
     named = dict(ui=ui, ujn=ujn, dist=dist, wd=wd, b0=b0, w1=w1, b1=b1)
     if dm is not None:
         named["dm"] = dm
+    if z is not None:
+        named["z"] = z
     for name, t in named.items():
         if t.dtype != torch.float32:
             raise TypeError(f"edge_mlp kernel takes float32 {name}, got {t.dtype}")
@@ -85,41 +92,56 @@ def _check(ui, ujn, dist, nbr_idx, wd, b0, w1, b1, dm=None):
         )
     if (KERNEL_M + 2) * f * 4 > SMEM_LIMIT:
         raise ValueError(f"F = {f} needs more shared memory than a block has")
-    if dm is not None:
-        if dm.shape != (g, a, k, KERNEL_M):
-            raise ValueError(f"dm must be [{g}, {a}, {k}, {KERNEL_M}], got {tuple(dm.shape)}")
-        if (a * BW_COLS + k * (KERNEL_M + 2 + BW_WARPS)) * 4 > SMEM_LIMIT:
-            raise ValueError(f"A = {a}, k = {k} need more shared memory than a block has")
+    for name, t in (("dm", dm), ("z", z)):
+        if t is not None and t.shape != (g, a, k, KERNEL_M):
+            raise ValueError(f"{name} must be [{g}, {a}, {k}, {KERNEL_M}], got {tuple(t.shape)}")
+    if dm is not None and _bwd_smem(a, k, 32) > SMEM_LIMIT:
+        raise ValueError(f"A = {a}, k = {k} need more shared memory than a block has")
+
+
+def _bwd_smem(a: int, k: int, cols: int) -> int:
+    """Kernel C's shared memory in bytes at `cols` columns a block (csrc
+    `bwd_smem`): the dujn and ujn chunks [A][cols], two slot buffers, each
+    warp's live list. The launch takes the widest of 128, 64 and 32 columns
+    that fits (`bwd_cols`)."""
+    warps = cols // 32
+    slot = ((k + 1) * (KERNEL_M + 2 + warps) + k + 3) // 4 * 4
+    return (2 * a * cols + 2 * slot + warps * (-(-k // GROUP) * GROUP)) * 4
 
 
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _launch_fwd(ui, ujn, dist, nbr_idx, wd, b0, w1, b1):
+def _launch_fwd(ui, ujn, dist, nbr_idx, wd, b0, w1, b1, want_z: bool = False):
+    """(out, z): kernel B's output, and z where `want_z` (else None)."""
     g, a, f = ui.shape
     k = nbr_idx.shape[-1]
     out = torch.empty((g, a, k, KERNEL_M), dtype=torch.float32, device=ui.device)
+    z = torch.empty_like(out) if want_z else None
     lib = build.library()
     with torch.cuda.device(ui.device):
         code = lib.edge_mlp_fwd_f32(
             ui.data_ptr(), ujn.data_ptr(), dist.data_ptr(), nbr_idx.data_ptr(),
             wd.data_ptr(), b0.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-            out.data_ptr(), g, a, k, f, KERNEL_M, _stream(ui),
+            out.data_ptr(), z.data_ptr() if want_z else None, g, a, k, f, KERNEL_M,
+            _stream(ui),
         )
     build.check(lib, "edge_mlp_fwd_f32", code)
     fused_edge_messages.launches += 1
-    return out
+    return out, z
 
 
-def fused_edge_messages_bwd(ui, ujn, dist, nbr_idx, wd, b0, w1, b1, dm):
+def fused_edge_messages_bwd(ui, ujn, dist, nbr_idx, wd, b0, w1, b1, dm, z):
     """Kernel C: (dui, dujn, ddist, dwd, db0, dw1, db1) for the output
     gradient `dm` [G, A, k, m], on CUDA tensors only: on the CPU autograd
     differentiates `fused_edge_messages_plain` itself, and
-    `fused_edge_messages_bwd_plain` is the same backward for other callers."""
+    `fused_edge_messages_bwd_plain` is the same backward for other callers.
+    `z` [G, A, k, m] is the forward's pre-activation of the last SiLU, as
+    kernel B writes it (`_launch_fwd(..., want_z=True)`)."""
     if ui.device.type != "cuda":
         raise ValueError(f"fused_edge_messages_bwd: unsupported device {ui.device}")
-    _check(ui, ujn, dist, nbr_idx, wd, b0, w1, b1, dm)
+    _check(ui, ujn, dist, nbr_idx, wd, b0, w1, b1, dm, z)
     g, a, f = ui.shape
     k = nbr_idx.shape[-1]
     lib = build.library()
@@ -135,8 +157,9 @@ def fused_edge_messages_bwd(ui, ujn, dist, nbr_idx, wd, b0, w1, b1, dm):
         code = lib.edge_mlp_bwd_f32(
             ui.data_ptr(), ujn.data_ptr(), dist.data_ptr(), nbr_idx.data_ptr(),
             wd.data_ptr(), b0.data_ptr(), w1.data_ptr(), b1.data_ptr(), dm.data_ptr(),
-            dui.data_ptr(), dujn.data_ptr(), ddist.data_ptr(), dparams.data_ptr(),
-            ws.data_ptr(), g, a, k, f, KERNEL_M, _stream(ui),
+            z.data_ptr(), dui.data_ptr(), dujn.data_ptr(),
+            ddist.data_ptr(), dparams.data_ptr(), ws.data_ptr(), g, a, k, f, KERNEL_M,
+            _stream(ui),
         )
     build.check(lib, "edge_mlp_bwd_f32", code)
     fused_edge_messages_bwd.launches += 1
@@ -144,19 +167,29 @@ def fused_edge_messages_bwd(ui, ujn, dist, nbr_idx, wd, b0, w1, b1, dm):
     return dui, dujn, ddist, dwd, db0, dw1.view(f, KERNEL_M), db1
 
 
+def _recorded(*tensors) -> bool:
+    """Whether autograd records a call on these tensors (grad mode on and
+    one of them requires a gradient); `ctx.needs_input_grad` alone does not
+    tell, since it is set under no_grad too."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 class _FusedEdgeMessages(torch.autograd.Function):
-    """Kernel B forward, kernel C backward (JAX `_fused`'s custom VJP)."""
+    """Kernel B forward, kernel C backward (JAX `_fused`'s custom VJP); z
+    saved where `want_z` (autograd records the call)."""
 
     @staticmethod
-    def forward(ctx, ui, ujn, dist, nbr_idx, wd, b0, w1, b1):
-        ctx.save_for_backward(ui, ujn, dist, nbr_idx, wd, b0, w1, b1)
-        return _launch_fwd(ui, ujn, dist, nbr_idx, wd, b0, w1, b1)
+    def forward(ctx, ui, ujn, dist, nbr_idx, wd, b0, w1, b1, want_z):
+        out, z = _launch_fwd(ui, ujn, dist, nbr_idx, wd, b0, w1, b1, want_z=want_z)
+        ctx.save_for_backward(ui, ujn, dist, nbr_idx, wd, b0, w1, b1, z)
+        return out
 
     @staticmethod
     def backward(ctx, dm):
+        *inputs, z = ctx.saved_tensors
         dui, dujn, ddist, dwd, db0, dw1, db1 = fused_edge_messages_bwd(
-            *ctx.saved_tensors, dm.contiguous())
-        return dui, dujn, ddist, None, dwd, db0, dw1, db1
+            *inputs, dm.contiguous(), z)
+        return dui, dujn, ddist, None, dwd, db0, dw1, db1, None
 
 
 def fused_edge_messages(ui, ujn, dist, nbr_idx, wd, b0, w1, b1):
@@ -166,7 +199,9 @@ def fused_edge_messages(ui, ujn, dist, nbr_idx, wd, b0, w1, b1):
     if ui.device.type != "cuda":
         raise ValueError(f"fused_edge_messages: unsupported device {ui.device}")
     _check(ui, ujn, dist, nbr_idx, wd, b0, w1, b1)
-    return _FusedEdgeMessages.apply(ui, ujn, dist, nbr_idx, wd, b0, w1, b1)
+    # z only where autograd records the call: serving writes `out` alone
+    return _FusedEdgeMessages.apply(ui, ujn, dist, nbr_idx, wd, b0, w1, b1,
+                                    _recorded(ui, ujn, dist, wd, b0, w1, b1))
 
 
 fused_edge_messages.launches = 0

@@ -18,7 +18,9 @@ table (as JAX's non-fused branch, `nn/faformer.py:273-283`) and which
 autograd traces. A CUDA tensor goes through `_FusedFrameSwiGLU`, an
 `autograd.Function` whose forward is kernel D and whose backward is kernel E
 (`fused_frame_swiglu_bwd`); like JAX's `_vjp_fwd` it saves only its inputs,
-and kernel E recomputes the chain. Any other device raises, and so does a
+and kernel E recomputes the chain. Kernel E skips, exactly, every position
+whose row of dout is all 0 (FAFormer passes 0 at its masked neighbours and
+padding slots) and writes dx = 0 there. Any other device raises, and so does a
 shape the kernels do not take (float32, C ∈ {3, 4}, H/2 ∈ {32, 64, 128,
 256}): there is no fallback to the materialized frames on the card.
 `fused_frame_swiglu.launches` and `fused_frame_swiglu_bwd.launches` count

@@ -105,7 +105,7 @@ def test_wrapper_rejects_other_devices():
     for dev in ("meta", "cpu"):
         inputs = [torch.from_numpy(x).to(dev) for x in _inputs(seed=2)]
         with pytest.raises(ValueError, match="unsupported device"):
-            fused_edge_messages_bwd(*inputs, dm.to(dev))
+            fused_edge_messages_bwd(*inputs, dm.to(dev), dm.to(dev))
 
 
 def _bad(case):
@@ -137,3 +137,53 @@ def test_kernel_argument_checks(case, exc):
 
 def _inputs_as_torch():
     return tuple(map(torch.from_numpy, _inputs(seed=3)))
+
+
+def test_autograd_function_saves_z_for_kernel_c(monkeypatch):
+    """`_FusedEdgeMessages`, the card's autograd path, run on the CPU with
+    its two launches stood in for by plain PyTorch: when an input needs a
+    gradient the forward asks kernel B for z as well, saves it and hands it
+    to kernel C, and the gradients equal `jax.vjp` of JAX's fused edge MLP
+    (interpret mode; atol = rtol = 1e-4, as `test_bwd_matches_jax_vjp`);
+    under no_grad (serving), with inputs that require a gradient as the
+    model's weights do, it asks for no z."""
+    import torch.nn.functional as F
+
+    from equihgnn_tpu_torch.ops.kernels import edge_mlp as em
+
+    calls = []
+
+    def fwd(ui, ujn, dist, nbr_idx, wd, b0, w1, b1, want_z=False):
+        g = torch.arange(ui.shape[0])[:, None, None]
+        z = torch.matmul(F.silu(ui[:, :, None, :] + ujn[g, nbr_idx] + dist[..., None] * wd + b0),
+                         w1) + b1
+        calls.append(("fwd", want_z))
+        return F.silu(z), (z if want_z else None)
+
+    def bwd(ui, ujn, dist, nbr_idx, wd, b0, w1, b1, dm, z):
+        calls.append(("bwd", z))
+        return fused_edge_messages_bwd_plain(ui, ujn, dist, nbr_idx, wd, b0, w1, b1, dm)
+
+    monkeypatch.setattr(em, "_launch_fwd", fwd)
+    monkeypatch.setattr(em, "fused_edge_messages_bwd", bwd)
+    shape = dict(g=3, a=8, k=5, f=34, m=16)
+    args = _inputs(**shape, seed=6)
+    dm = np.random.default_rng(7).standard_normal((3, 8, 5, 16)).astype(np.float32)
+    leaves = [torch.from_numpy(x) for x in args]
+    for i in (0, 1, 2, 4, 5, 6, 7):
+        leaves[i].requires_grad_()
+    out = em._FusedEdgeMessages.apply(*leaves, em._recorded(*leaves))
+    out.backward(torch.from_numpy(dm))
+    (_, want_z), (_, z) = calls
+    assert want_z and z is not None and z.shape == (3, 8, 5, 16)
+    jargs = [jnp.asarray(x) for x in args]
+    idx = jargs[3].astype(jnp.int32)
+    _, vjp = jax.vjp(lambda ui, ujn, dist, wd, b0, w1, b1: jax_fused_edge_messages(
+        ui, ujn, dist, idx, wd, b0, w1, b1), *jargs[:3], *jargs[4:])
+    for i, want in zip((0, 1, 2, 4, 5, 6, 7), vjp(jnp.asarray(dm))):
+        np.testing.assert_allclose(leaves[i].grad.numpy(), np.asarray(want), atol=1e-4,
+                                   rtol=1e-4, err_msg=f"input {i}")
+    calls.clear()
+    with torch.no_grad():  # serving: parameters that require grad, no graph
+        em._FusedEdgeMessages.apply(*leaves, em._recorded(*leaves))
+    assert calls == [("fwd", False)]

@@ -557,3 +557,88 @@ def test_model_grads_match_jax(matched):
     assert {n for n in want if float(want[n].abs().max()) == 0} == {
         n for n in want if n.startswith(unread)}
     assert reached == len(want) - len([n for n in want if n.startswith(unread)])
+
+
+# ------------------------- kernel E: positions whose output gradient is 0
+
+
+def test_frame_swiglu_bwd_on_zeroed_positions_is_the_live_positions_backward():
+    """Kernel E skips every position whose row of dout is 0. The function it
+    must keep: the plain backward for dout zeroed on a mask equals the
+    backward over the kept positions alone (each gradient within
+    1e-5·max + 1e-7: the same terms summed in another order), with exactly
+    0 in dx at every dropped position; and both agree with `jax.vjp` of
+    JAX's fused frame SwiGLU (its Pallas backward in interpret mode) on the
+    same zeroed dout, per tensor within 1e-4·max|JAX| + 1e-6."""
+    from equihgnn_tpu_torch.ops.kernels.frame_swiglu import frame_swiglu_bwd_plain
+
+    p, c, h = 41, 4, 64
+    args = _fs_inputs(p, c, h, seed=8)
+    rng = np.random.default_rng(9)
+    keep = rng.random(p) < 0.5
+    keep[:2] = (True, False)
+    dout = rng.standard_normal((p, h // 2)).astype(np.float32) * keep[:, None]
+    targs = [_t(a) for a in args]
+    got = frame_swiglu_bwd_plain(*targs, _t(dout))
+    kept = torch.from_numpy(keep)
+    want = frame_swiglu_bwd_plain(targs[0][kept], *targs[1:], _t(dout)[kept])
+    names = ("dx", "dw1", "db1", "dls", "dlb")
+    for name, x, y in zip(names, (got[0][kept], *got[1:]), want):
+        err, scale = float((x - y).abs().max()), float(y.abs().max())
+        assert err <= 1e-5 * scale + 1e-7, f"{name}: {err:.3e} of {scale:.3e}"
+    assert torch.all(got[0][~kept] == 0)
+    jvjp = jax.jit(lambda *a: jax.vjp(jax_fused, *a[:5])[1](a[5]))
+    for name, x, y in zip(names, got, jvjp(*map(jnp.asarray, args), jnp.asarray(dout))):
+        _assert_grad_close(_np(x), y, name)
+
+
+def test_frame_swiglu_dout_zeros_in_a_train_step(monkeypatch):
+    """Where kernel E's skip applies, in one `faformer_equihnns` train step
+    on the CPU (dropout on): the gradient that reaches the frame SwiGLU
+    (dout, a row a position) is exactly 0 at every FAFFN padding slot and
+    at every EdgeModule neighbour the kNN mask drops, but for the dropped
+    neighbours of a real atom with no neighbour within the radius: its
+    all-masked attention row softmaxes to 1/k over those edges, whose edge
+    features then reach the loss (through v_e). One atom is moved 100 Å
+    away so that the batch has such a row. No kept position has a zero
+    row. (At batch 768 a CPU step of the recipe gave 64 such edges of
+    221,911 dropped; PERF.md §6.)"""
+    from equihgnn_tpu_torch.data.batching import iter_batches
+    from equihgnn_tpu_torch.train.trainer import masked_mse
+
+    seen, rows = {}, []
+    kernel, knn = tfa.fused_frame_swiglu, tfa.knn_dense
+
+    def knn_seen(*a, **kw):
+        seen["knn"] = knn(*a, **kw)
+        return seen["knn"]
+
+    def kernel_seen(x, *a, **kw):
+        out = kernel(x, *a, **kw)
+        site = "EdgeModule" if x.shape[-1] == 4 else "FAFFN"
+        out.register_hook(lambda g: rows.append((site, (g == 0).all(-1))))
+        return out
+
+    monkeypatch.setattr(tfa, "knn_dense", knn_seen)
+    monkeypatch.setattr(tfa, "fused_frame_swiglu", kernel_seen)
+    samples = make_synthetic_dataset(6, seed=31, num_targets=1)
+    samples[0].pos[0] += 100.0  # a real atom with no neighbour within 5 Å
+    batch = next(iter_batches(samples, spec_for_samples(samples, batch_size=8), with_pos=True,
+                              target=0))
+    model = create_model("faformer_equihnns", num_target=1, cfg=ModelConfig(**CFG),
+                         generator=torch.Generator().manual_seed(3)).train()
+    sq, cnt = masked_mse(model(batch), batch.y, batch.graph_mask)
+    (sq / cnt.clamp(min=1.0)).backward()
+    nbr_mask = seen["knn"][1]
+    alone = batch.slot_mask & ~nbr_mask.any(-1)  # real slots with no kept neighbour
+    assert int(alone.sum()) == 1
+    leaks = (~nbr_mask & alone[..., None]).reshape(-1)
+    kept = {"EdgeModule": nbr_mask.reshape(-1), "FAFFN": batch.slot_mask.reshape(-1)}
+    assert sorted(site for site, _ in rows) == ["EdgeModule"] * 2 + ["FAFFN"] * 2
+    for site, zero in rows:
+        live = kept[site]
+        assert not (live & zero).any(), site
+        if site == "FAFFN":
+            assert torch.equal(zero, ~live)
+        else:  # every dropped neighbour is 0 but the lone atom's
+            assert torch.equal(zero, ~live & ~leaks) and leaks.any()

@@ -8,7 +8,13 @@ machine with an H100 (which has no JAX, hence `--noconftest`):
 
 The shapes here are the edge cases that the batch-768 shapes do not
 reach: ragged F, k not a multiple of 4, a single slot, empty and trailing
-segments, D not a multiple of 128, no rows at all; for kernel A at D = 256
+segments, D not a multiple of 128, no rows at all, and k = 40 (kernel C:
+two words of live-edge bits); kernel C with kernel B's saved z and without
+it (computed again: the same bits), and kernels C and E with the output
+gradient at every edge or position, 0 on a mask as the models pass it, 0
+on a whole slot or one position, and 0 everywhere (a zero-gradient edge or
+position is skipped: 0 in its ddist or dx), each the same bits twice; for
+kernel A at D = 256
 also no segments, empty segments at the start, in the middle and at the
 end, one segment of 5,000 rows (across ~160 row tiles), ids ≥ S (in no
 row) and every id equal, each the same bits twice; for kernels D and E an
@@ -50,6 +56,7 @@ import pytest
 import torch
 
 from equihgnn_tpu_torch.ops.kernels.edge_mlp import (
+    _launch_fwd,
     fused_edge_messages,
     fused_edge_messages_bwd,
     fused_edge_messages_bwd_plain,
@@ -210,11 +217,34 @@ def test_sorted_segment_sum_autograd(dev):
     _assert_grad_close(x.grad, x_ref.grad, "data")
 
 
-def test_edge_mlp_autograd(dev):
+def _zero_grad_case(dm, kind, seed):
+    """The output gradient of kernel C or E as `kind` leaves it: "rand" (or
+    any other kind) as drawn; "mask" 0 on about half of its rows (edges or positions), as the
+    models pass it; "slot" (kernel C: [G, A, k, m]) 0 on a whole slot's k
+    rows and on every other row of another slot, or (kernel E: [P, H/2])
+    one row 0; "zero" 0 everywhere."""
+    gen = torch.Generator().manual_seed(seed)
+    dm = dm.clone()
+    if kind == "mask":
+        dm *= (torch.rand(dm.shape[:-1], generator=gen) < 0.5).unsqueeze(-1)
+    elif kind == "slot" and dm.ndim == 4:
+        dm[0, 0] = 0.0
+        dm[-1, -1, ::2] = 0.0
+    elif kind == "slot":
+        dm[dm.shape[0] // 2] = 0.0
+    elif kind == "zero":
+        dm.zero_()
+    return dm
+
+
+@pytest.mark.parametrize("kind", ["rand", "mask"])
+def test_edge_mlp_autograd(dev, kind):
     """Kernel B inside its autograd.Function: the CUDA output carries a
-    grad_fn, and kernel C's gradients equal the plain version's."""
+    grad_fn, B saves z, and kernel C's gradients equal the plain version's
+    and, bit for bit, kernel C's with z computed again by kernel B; with the gradient 0
+    on half of the edges, as the model masks them, too."""
     args, dm = _edge_args(3, 8, 5, 34, seed=9)
-    args, dm = [t.to(dev) for t in args], dm.to(dev)
+    args, dm = [t.to(dev) for t in args], _zero_grad_case(dm, kind, 3).to(dev)
     diff = [0, 1, 2, 4, 5, 6, 7]  # every input but nbr_idx
     leaves = [t.clone().requires_grad_() if i in diff else t for i, t in enumerate(args)]
     before = fused_edge_messages_bwd.launches
@@ -226,36 +256,60 @@ def test_edge_mlp_autograd(dev):
     fused_edge_messages_plain(*ref).backward(dm)
     for i in diff:
         _assert_grad_close(leaves[i].grad, ref[i].grad, f"input {i}")
+    recomputed = fused_edge_messages_bwd(*args, dm, _launch_fwd(*args, want_z=True)[1])
+    for i, g in zip(diff, recomputed):
+        assert torch.equal(leaves[i].grad, g), f"input {i}: z saved and computed again differ"
 
 
+@pytest.mark.parametrize("kind", ["rand", "mask", "slot", "zero"])
 @pytest.mark.parametrize(
     "g,a,k,f",
-    [(3, 8, 5, 34), (5, 29, 16, 1026), (4, 32, 16, 130), (2, 1, 1, 3)],
+    [(3, 8, 5, 34), (5, 29, 16, 1026), (4, 32, 16, 130), (2, 1, 1, 3), (2, 6, 40, 20),
+     (1, 223, 16, 130), (1, 224, 16, 130), (1, 448, 16, 130), (1, 449, 16, 130),
+     (1, 897, 16, 130)],
 )
-def test_edge_mlp_bwd_kernel(dev, g, a, k, f):
+def test_edge_mlp_bwd_kernel(dev, g, a, k, f, kind):
     """Kernel C at a ragged F (34, 130: a partial 128-column chunk), k not a
-    multiple of the forward's 4-neighbour tile, one slot, and the EGNN
-    width F = 1026 at k = 16."""
+    multiple of the forward's 4-neighbour tile, one slot, the EGNN width
+    F = 1026 at k = 16, k = 40 (two words of live-edge bits), and both sides
+    of each switch of its column chunk at k = 16 (128 columns a block up to
+    A = 223 slots, 64 up to 448, 32 up to 897); with the gradient at every
+    edge, 0 on a mask, on a whole slot, or everywhere. A zero-gradient edge
+    is skipped: 0 in its ddist. The same bits twice, and with z from a
+    second launch of kernel B."""
     args, dm = _edge_args(g, a, k, f, seed=g * a + k + f)
-    cuda_args, dm = [t.to(dev) for t in args], dm.to(dev)
+    cuda_args = [t.to(dev) for t in args]
+    dm = _zero_grad_case(dm, kind, seed=g + k).to(dev)
+    _, z = _launch_fwd(*cuda_args, want_z=True)
     before = fused_edge_messages_bwd.launches
-    got = fused_edge_messages_bwd(*cuda_args, dm)
+    got = fused_edge_messages_bwd(*cuda_args, dm, z)
     assert fused_edge_messages_bwd.launches == before + 1
     want = fused_edge_messages_bwd_plain(*cuda_args, dm)
     names = ("dui", "dujn", "ddist", "dwd", "db0", "dw1", "db1")
     for name, x, y in zip(names, got, want):
         assert x.shape == y.shape, name
         _assert_grad_close(x, y, name)
+    assert torch.all(got[2][(dm == 0).all(-1)] == 0)
+    if kind == "zero":
+        assert all(torch.all(x == 0) for x in got)
+    for name, x, y, w in zip(names, got, fused_edge_messages_bwd(*cuda_args, dm, z),
+                             fused_edge_messages_bwd(*cuda_args, dm,
+                                                     _launch_fwd(*cuda_args, want_z=True)[1])):
+        assert torch.equal(x, y), f"{name}: other bits on a second call"
+        assert torch.equal(x, w), f"{name}: z saved and computed again differ"
 
 
 def test_edge_mlp_bwd_rejects_unsupported_shapes(dev):
     args, dm = _edge_args(2, 4, 3, 10, seed=1)
     cuda_args = [t.to(dev) for t in args]
     with pytest.raises(ValueError):  # dm of another shape
-        fused_edge_messages_bwd(*cuda_args, dm[..., :8].contiguous().to(dev))
-    big, big_dm = _edge_args(1, 512, 2, 4, seed=2)  # A·128 floats > shared memory
-    with pytest.raises(ValueError):
-        fused_edge_messages_bwd(*[t.to(dev) for t in big], big_dm.to(dev))
+        fused_edge_messages_bwd(*cuda_args, dm[..., :8].contiguous().to(dev), dm.to(dev))
+    big, big_dm = _edge_args(1, 1024, 2, 4, seed=2)  # A·32 floats twice > shared memory
+    with pytest.raises(ValueError, match="A = 1024, k = 2"):
+        fused_edge_messages_bwd(*[t.to(dev) for t in big], big_dm.to(dev), big_dm.to(dev))
+    big, big_dm = _edge_args(1, 898, 16, 4, seed=3)  # one slot past the 32-column limit
+    with pytest.raises(ValueError, match="A = 898, k = 16"):
+        fused_edge_messages_bwd(*[t.to(dev) for t in big], big_dm.to(dev), big_dm.to(dev))
 
 
 def test_edge_mlp_kernel_rejects_other_widths(dev):
@@ -353,10 +407,19 @@ def test_frame_swiglu_kernel(dev, p, c, h, rate):
         assert float((other - got).abs().max()) > 1e-2
 
 
+@pytest.mark.parametrize("kind", ["rand", "mask", "slot", "zero", "offset"])
 @pytest.mark.parametrize("p,c,h,rate", FS_CASES)
-def test_frame_swiglu_bwd_kernel(dev, p, c, h, rate):
+def test_frame_swiglu_bwd_kernel(dev, p, c, h, rate, kind):
+    """Kernel E with the gradient at every position, 0 on a mask (as the
+    model passes it), 0 on one position, or 0 everywhere: a zero-gradient
+    position is skipped, 0 in its dx; the same bits twice. "offset": b1 + 10,
+    so that each frame's LayerNorm mean is large against its spread, where
+    statistics from unshifted sums (E[y²] − μ²) would cancel."""
     args, dout = _fs_args(p, c, h, seed=p * c + h)
-    cuda_args, dout = [t.to(dev) for t in args], dout.to(dev)
+    if kind == "offset":
+        args = (*args[:2], args[2] + 10.0, *args[3:])
+    cuda_args = [t.to(dev) for t in args]
+    dout = _zero_grad_case(dout, kind, seed=p + c).to(dev)
     before = fused_frame_swiglu_bwd.launches
     got = fused_frame_swiglu_bwd(*cuda_args, dout, rate, 11)
     assert fused_frame_swiglu_bwd.launches == before + 1
@@ -364,6 +427,11 @@ def test_frame_swiglu_bwd_kernel(dev, p, c, h, rate):
     for name, x, y in zip(("dx", "dw1", "db1", "dls", "dlb"), got, want):
         assert x.shape == y.shape, name
         _assert_grad_close(x, y, name)
+    assert torch.all(got[0][(dout == 0).all(-1)] == 0)
+    if kind == "zero":
+        assert all(torch.all(x == 0) for x in got)
+    for x, y in zip(got, fused_frame_swiglu_bwd(*cuda_args, dout, rate, 11)):
+        assert torch.equal(x, y)
 
 
 def test_frame_swiglu_dropout_mask_is_the_plain_versions(dev):
@@ -384,21 +452,24 @@ def test_frame_swiglu_dropout_mask_is_the_plain_versions(dev):
     assert float((frame_swiglu_plain(*args, drop_rate=0.1, seed=14) - got).abs().max()) > 1e-2
 
 
-def test_frame_swiglu_bwd_is_deterministic(dev):
+@pytest.mark.parametrize("kind", ["rand", "mask"])
+def test_frame_swiglu_bwd_is_deterministic(dev, kind):
     args, dout = _fs_args(5000, 4, 256, seed=3)
-    cuda_args, dout = [t.to(dev) for t in args], dout.to(dev)
+    cuda_args, dout = [t.to(dev) for t in args], _zero_grad_case(dout, kind, 4).to(dev)
     a = fused_frame_swiglu_bwd(*cuda_args, dout, 0.1, 5)
     b = fused_frame_swiglu_bwd(*cuda_args, dout, 0.1, 5)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
 
 
+@pytest.mark.parametrize("kind", ["rand", "mask"])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
-def test_frame_swiglu_autograd(dev, rate):
+def test_frame_swiglu_autograd(dev, rate, kind):
     """Kernel D inside its autograd.Function: the CUDA output carries a
-    grad_fn, and kernel E's gradients equal the plain version's."""
+    grad_fn, and kernel E's gradients equal the plain version's, also with
+    the gradient 0 on half of the positions."""
     args, dout = _fs_args(700, 4, 256, seed=9)
-    args, dout = [t.to(dev) for t in args], dout.to(dev)
+    args, dout = [t.to(dev) for t in args], _zero_grad_case(dout, kind, 5).to(dev)
     leaves = [t.clone().requires_grad_() for t in args]
     before = fused_frame_swiglu_bwd.launches
     out = fused_frame_swiglu(*leaves, drop_rate=rate, seed=4)
