@@ -1,11 +1,38 @@
-"""Where kernels A, C, E, G, I, J, K and L spend their time, on the card:
+"""Where kernels A-E, G, I, J, K and L spend their time, on the card:
 each is rebuilt with one part of its work switched off (A: with other tile
 shapes) and timed beside the whole kernel, the PyTorch call that computes
 its function (where there is one) and itself again, at the batch-768 shapes
 of `chip_smoke.py` (its batch, kNN mask and timer).
 
-    python3 ablate_kernels.py [--kernels A,C,E,GI,J,K,L] [--vis-mix-before FILE]
+    python3 ablate_kernels.py [--kernels A,B,C,D,E,GI,J,K,L] [--vis-mix-before FILE]
         [--edge-mlp-before FILE] [--frame-swiglu-before FILE]
+
+B (`csrc/edge_mlp.cu`, the EGNN edge MLP's forward at `edge_mlp_inputs`),
+  serving, in case (a), no mask (every edge), and case (b), the model's
+  pair_mask: full; without the slot skip (every tile computed, the output
+  still masked); ujn read from L2, not staged; stages of 32 columns, not 64;
+  2 tiles a warp, not 4 (16 a pass, not 32); 4 warps of up to 8 tiles (2
+  blocks an SM, or 3 at 32 columns); the sums carried on the tensor
+  cores over a chunk's 8 k-steps, not each group's 2; the A fragments split by
+  cvt.rna.tf32 (not by integer operations), or by floating-point operations
+  (Veltkamp's split, of both parts or of the big part alone); no products
+  (a1 formed and split, no mma); a1 without its SiLU; and, with
+  --edge-mlp-before
+  (e.g. `git show <commit>:equihgnn_tpu_torch/csrc/edge_mlp.cu` of the
+  kernel before it), that kernel, and the CUDA-core alternative made from
+  it: its layout (a warp per slot and 4 neighbours, lanes over f, 64
+  partial sums a lane) given the mask (its 4-edge items skipped where all
+  dead), `__fdividef`, and its 64 full butterflies or one reduce-scatter.
+D (`csrc/frame_swiglu.cu`, FAFormer's frame-SwiGLU forward at its two
+  sites), at dropout 0 and 0.1: full; the statistics a frame at a time (two
+  dependent butterflies a frame); E's one-pass pivot-shifted statistics (one
+  butterfly of 16 sums); the frames in Gray-code order (each moving the
+  coordinate terms by ±2·x_i·w1[i]), not each frame's terms anew; the exact sigmoid (`expf`, IEEE division); tanh.approx in the
+  sigmoid (also held to D's gate); the dropout hash's first finalizer again
+  for every value; x not loaded a position ahead; 3 blocks an SM, not 2;
+  and, with --frame-swiglu-before, the kernel of another `frame_swiglu.cu`.
+B and D: one call a sample, and device time alone (torch.profiler), and
+  ptxas's registers of the forward kernels (full and before).
 
 C (`csrc/edge_mlp.cu`, the EGNN edge MLP's backward at `chip_smoke`'s
   `edge_mlp_inputs`: G = 769, A = 32, k = 16, F = 1026, m = 16), in case
@@ -16,10 +43,9 @@ C (`csrc/edge_mlp.cu`, the EGNN edge MLP's backward at `chip_smoke`'s
   with one butterfly an edge for ddist (not one per 8 edges); a quarter
   of the W1 products (dz·W1ᵀ and dW1: 4 of 16 columns); blocks of 4 rows,
   not 2; registers for 4 or 6 blocks an SM, not 5; a warp's live edges
-  walked 4 or 16 at a time, not 8; and, with --edge-mlp-before, the kernel of another `edge_mlp.cu`
-  that takes no z (e.g. an earlier commit's, from `git show
-  <commit>:equihgnn_tpu_torch/csrc/edge_mlp.cu`). Kernel B is timed with
-  and without z written.
+  walked 4 or 16 at a time, not 8; and, with --edge-mlp-before, the kernel C
+  of another `edge_mlp.cu` (with or without z, as its source says). Kernel B
+  is timed with and without z written.
 E (`csrc/frame_swiglu.cu`, FAFormer's frame-SwiGLU backward at its
   EdgeModule site, P = 393,728, C = 4, and its FAFFN site, P = 24,608,
   C = 3, H = 256), in case (a), dout at O(1) everywhere, and case (b), dout
@@ -92,6 +118,7 @@ from chip_smoke import (
     vis_mix_inputs,
 )
 from equihgnn_tpu_torch.ops.kernels import build
+from equihgnn_tpu_torch.ops.kernels.edge_mlp import fwd_workspace_floats
 
 A_SRC, J_SRC, K_SRC, L_SRC, GI_SRC, C_SRC, E_SRC = (build.CSRC_DIR / n for n in (
     "segment_sum.cu", "pooled_conv_fwd.cu", "pooled_conv.cu", "pooled_m.cu", "vis_mix.cu",
@@ -266,6 +293,318 @@ E_PATCHES = {
         ("constexpr int BWD_MIN_BLOCKS = 2;", "constexpr int BWD_MIN_BLOCKS = 1;")],
     "3 blocks an SM": [("constexpr int BWD_MIN_BLOCKS = 2;", "constexpr int BWD_MIN_BLOCKS = 3;")],
 }
+# kernel B (csrc/edge_mlp.cu, the forward): this tree's kernel with one part
+# switched off or done otherwise
+_B_SPLIT = """            split_tf32_alu(v[0][2 * s], ah[0], al[0]);
+            split_tf32_alu(v[1][2 * s], ah[1], al[1]);
+            split_tf32_alu(v[0][2 * s + 1], ah[2], al[2]);
+            split_tf32_alu(v[1][2 * s + 1], ah[3], al[3]);"""
+# the split by floating-point operations (Veltkamp: big = c − (c − x), c =
+# 8193·x, rounds to 11 significant bits), of both parts, or of big alone with
+# small's low bits left to the tensor cores
+_B_SPLIT_FP = """__device__ __forceinline__ float veltkamp(float x) {
+  const float c = __fmul_rn(x, 8193.f);
+  return __fsub_rn(c, __fsub_rn(c, x));
+}
+__device__ __forceinline__ void split_fp(float x, uint32_t& big, uint32_t& small) {
+  const float b = veltkamp(x);
+  big = __float_as_uint(b);
+  small = __float_as_uint(veltkamp(__fsub_rn(x, b)));
+}
+__device__ __forceinline__ void split_fp_big(float x, uint32_t& big, uint32_t& small) {
+  const float b = veltkamp(x);
+  big = __float_as_uint(b);
+  small = __float_as_uint(__fsub_rn(x, b));
+}
+
+// Kernel B's W1 as mma.sync B fragments"""
+_B_UJN_READ = "            const float4 j4 = *reinterpret_cast<const float4*>(ujn_st + jo[i][h] + c);"
+B_PATCHES = {
+    "no slot skip": [("      bool on = tile < n_tiles && !emask;", "      bool on = tile < n_tiles;")],
+    "ujn from L2": [
+        ("        jo[i][h] = ex ? static_cast<int>(idx[at]) * CWP : 0;",
+         "        jo[i][h] = ex ? static_cast<int>(idx[at]) * f_dim : 0;"),
+        ("      for (int i = tid; i < a_slots * CW; i += THREADS) {\n"
+         "        const int a = i / CW, c = i - a * CW, f = c0 + c;",
+         "      for (int i = a_slots * CW; i < a_slots * CW; i += THREADS) {\n"
+         "        const int a = i / CW, c = i - a * CW, f = c0 + c;"),
+        (_B_UJN_READ,
+         "            const float* jp = ujn + row0 * f_dim + jo[i][h] + ch * CW + c;\n"
+         "            const int fl = f_dim - ch * CW - c;\n"
+         "            const float4 j4 = make_float4(fl > 0 ? jp[0] : 0.f, fl > 1 ? jp[1] : 0.f,\n"
+         "                                          fl > 2 ? jp[2] : 0.f, fl > 3 ? jp[3] : 0.f);")],
+    "stages of 32 columns": [("  for (int cw = 64; cw >= 16; cw /= 2)", "  for (int cw = 32; cw >= 16; cw /= 2)")],
+    "2 tiles a warp": [("constexpr int FW_TPW = 4;", "constexpr int FW_TPW = 2;")],
+    # 4 warps of up to 8 tiles (a row's 17 live tiles are then 5 a warp at
+    # most, not 3 of 8 warps' 2.1): 2 blocks an SM, or 3 at 32 columns
+    "4 warps of 8 tiles": [("constexpr int FW_WARPS = 8;", "constexpr int FW_WARPS = 4;"),
+                           ("constexpr int FW_TPW = 4;", "constexpr int FW_TPW = 8;")],
+    "4 warps of 8 tiles, 3 blocks an SM, 32 columns": [
+        ("constexpr int FW_WARPS = 8;", "constexpr int FW_WARPS = 4;"),
+        ("constexpr int FW_TPW = 4;", "constexpr int FW_TPW = 8;"),
+        ("constexpr int FW_MIN_BLOCKS = 2;", "constexpr int FW_MIN_BLOCKS = 3;"),
+        ("  for (int cw = 64; cw >= 16; cw /= 2)", "  for (int cw = 32; cw >= 16; cw /= 2)")],
+    "split by cvt.rna": [(_B_SPLIT, _B_SPLIT.replace("split_tf32_alu(", "split_tf32("))],
+    # the chunk's sums carried on the tensor cores over its 8 k-steps, not
+    # each 16-column group's from 0
+    "sums over the chunk on the tensor cores": [
+        ("          float grp[2][4] = {};", ""),
+        ("              mma_3xtf32(grp[j], ah, al,", "              mma_3xtf32(acc[i][j], ah, al,"),
+        ("            for (int r = 0; r < 4; ++r) acc[i][j][r] += grp[j][r];", "            {}")],
+    # what the products and the SiLUs cost: a1 formed and split, no mma
+    # (a dependence on every split value keeps them); a1 without its SiLU
+    "no products": [("              mma_3xtf32(grp[j], ah, al, __float_as_uint(hb[2 * s]),\n"
+                     "                         __float_as_uint(hb[2 * s + 1]), __float_as_uint(lb[2 * s]),\n"
+                     "                         __float_as_uint(lb[2 * s + 1]));",
+                     "              grp[j][0] += as_float(ah[0] ^ ah[1] ^ ah[2] ^ ah[3] ^ al[0] ^ al[1] ^\n"
+                     "                                       al[2] ^ al[3] ^ __float_as_uint(hb[2 * s] + lb[2 * s]));")],
+    "no SiLU in a1": [("              v[h][u] = silu(base[u] + jv[u] + dd[i][h] * w4[u]);",
+                       "              v[h][u] = base[u] + jv[u] + dd[i][h] * w4[u];")],
+    # the split by floating-point operations (Veltkamp: big = c − (c − x), c =
+    # 8193·x, rounds to 11 significant bits), of both parts, or of big alone
+    # with small's low bits left to the tensor cores
+    "split by FP ops": [("// Kernel B's W1 as mma.sync B fragments", _B_SPLIT_FP),
+                        (_B_SPLIT, _B_SPLIT.replace("split_tf32_alu(", "split_fp("))],
+    "split by FP ops, small unrounded": [("// Kernel B's W1 as mma.sync B fragments", _B_SPLIT_FP),
+                                         (_B_SPLIT, _B_SPLIT.replace("split_tf32_alu(", "split_fp_big("))],
+}
+# the CUDA-core alternative: the kernel before it (one warp per slot and 4
+# neighbours, lanes over f, W1 read from shared memory, ujn from L2) given
+# this tree's interface and function (the edge mask, its 4-edge items skipped
+# where all dead, 0 at the dead edges) and `__fdividef`, with its 64 full
+# butterflies or one reduce-scatter of the 4·16 partial sums
+_CC_COMMON = [
+    ("__device__ __forceinline__ float silu(float x) { return x / (1.f + __expf(-x)); }",
+     "__device__ __forceinline__ float silu(float x) { return __fdividef(x, 1.f + __expf(-x)); }"),
+    ("                    const float* __restrict__ dist, const int64_t* __restrict__ idx,\n"
+     "                    const float* __restrict__ wd, const float* __restrict__ b0,\n"
+     "                    const float* __restrict__ w1, const float* __restrict__ b1,\n"
+     "                    float* __restrict__ out, float* __restrict__ zout,",
+     "                    const float* __restrict__ dist, const int64_t* __restrict__ idx,\n"
+     "                    const uint8_t* __restrict__ emask,\n"
+     "                    const float* __restrict__ wd, const float* __restrict__ b0,\n"
+     "                    const float* __restrict__ w1, const float* __restrict__ b1,\n"
+     "                    float* __restrict__ out, float* __restrict__ zout,"),
+    ("    float acc[NE][M_OUT];\n#pragma unroll\n    for (int e = 0; e < NE; ++e)\n#pragma unroll\n"
+     "      for (int j = 0; j < M_OUT; ++j) acc[e][j] = 0.f;",
+     "    bool any = !emask;\n"
+     "    for (int e = 0; e < NE; ++e)\n"
+     "      if (emask && k0 + e < k_nbrs) any |= emask[row * k_nbrs + k0 + e] != 0;\n"
+     "    if (!any) {  // the item's edges are all dead: 0\n"
+     "      for (int i = lane; i < NE * M_OUT; i += 32)\n"
+     "        if (k0 + i / M_OUT < k_nbrs) out[(row * k_nbrs + k0) * M_OUT + i] = 0.f;\n"
+     "      continue;\n"
+     "    }\n"
+     "    float acc[NE][M_OUT];\n#pragma unroll\n    for (int e = 0; e < NE; ++e)\n#pragma unroll\n"
+     "      for (int j = 0; j < M_OUT; ++j) acc[e][j] = 0.f;"),
+    ("extern \"C\" int edge_mlp_fwd_f32(const float* ui, const float* ujn, const float* dist,\n"
+     "                                const int64_t* idx, const float* wd, const float* b0,\n"
+     "                                const float* w1, const float* b1, float* out, float* zout,\n"
+     "                                int g_rows,",
+     "extern \"C\" int edge_mlp_fwd_f32(const float* ui, const float* ujn, const float* dist,\n"
+     "                                const int64_t* idx, const uint8_t* emask, const float* wd,\n"
+     "                                const float* b0, const float* w1, const float* b1, float* out,\n"
+     "                                float* zout, float* ws, int g_rows,"),
+    ("      ui, ujn, dist, idx, wd, b0, w1, b1, out, zout, a_slots, k_nbrs, f_dim);",
+     "      ui, ujn, dist, idx, emask, wd, b0, w1, b1, out, zout, a_slots, k_nbrs, f_dim);"),
+]
+_CC_WRITE = ("          out[o] = silu(z);",
+             "          out[o] = !emask || emask[row * k_nbrs + k0 + e] ? silu(z) : 0.f;")
+_CC_BUTTERFLIES = """#pragma unroll
+    for (int e = 0; e < NE; ++e)
+#pragma unroll
+      for (int j = 0; j < M_OUT; ++j)
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          acc[e][j] += __shfl_xor_sync(FULL, acc[e][j], off);
+
+    // every lane now holds all NE·M sums; lane t % 32 writes output t
+#pragma unroll
+    for (int e = 0; e < NE; ++e) {
+#pragma unroll
+      for (int j = 0; j < M_OUT; ++j) {
+        if (((e * M_OUT + j) & 31) == lane && k0 + e < k_nbrs) {
+          const size_t o = (row * k_nbrs + k0 + e) * M_OUT + j;
+          const float z = acc[e][j] + b1[j];
+          out[o] = silu(z);
+          if (zout) zout[o] = z;
+        }
+      }
+    }"""
+_CC_REDUCE_SCATTER = """    // one reduce-scatter of the NE·M = 64 sums: lane l ends with 2l, 2l + 1
+#define ACC(i) acc[(i) >> 4][(i) & 15]
+#pragma unroll
+    for (int s = 0; s < 5; ++s) {
+      const int half = 32 >> s, bit = 16 >> s;
+      const bool up = lane & bit;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        if (i < half) {
+          const float send = up ? ACC(i) : ACC(i + half);
+          const float keep = up ? ACC(i + half) : ACC(i);
+          ACC(i) = keep + __shfl_xor_sync(FULL, send, bit);
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int oi = 2 * lane + u, e = oi / M_OUT, j = oi % M_OUT;
+      if (k0 + e < k_nbrs) {
+        const size_t o = (row * k_nbrs + k0 + e) * M_OUT + j;
+        const float z = ACC(u) + b1[j];
+        out[o] = !emask || emask[row * k_nbrs + k0 + e] ? silu(z) : 0.f;
+        if (zout) zout[o] = z;
+      }
+    }
+#undef ACC"""
+B_BEFORE_PATCHES = {
+    "CUDA cores, 64 butterflies": _CC_COMMON + [_CC_WRITE],
+    "CUDA cores, one reduce-scatter": _CC_COMMON + [(_CC_BUTTERFLIES, _CC_REDUCE_SCATTER)],
+}
+# kernel D (csrc/frame_swiglu.cu, the forward): this tree's kernel with one
+# part switched off or done otherwise
+_D_STATS = """    float mu[8], inv[8], ss[8];
+    const float r1 = warp_reduce_scatter<8>(s, lane);
+#pragma unroll
+    for (int o = 0; o < 8; ++o) mu[o] = __shfl_sync(FULL, r1, 4 * o) * INV_HH;
+#pragma unroll
+    for (int o = 0; o < 8; ++o) {
+      ss[o] = 0.f;
+#pragma unroll
+      for (int q = 0; q < CPL; ++q) {
+        y[o][q] -= mu[o];
+        ss[o] = fmaf(y[o][q], y[o][q], ss[o]);
+      }
+    }
+    const float r2 = warp_reduce_scatter<8>(ss, lane);
+#pragma unroll
+    for (int o = 0; o < 8; ++o) inv[o] = rsqrtf(__shfl_sync(FULL, r2, 4 * o) * INV_HH + LN_EPS);"""
+# a frame at a time: the mean's butterfly, then the variance's (the kernel
+# before it: two dependent chains a frame)
+_D_CHAINS = """    float mu[8], inv[8];
+#pragma unroll
+    for (int o = 0; o < 8; ++o) {
+      mu[o] = warp_sum(s[o]) * INV_HH;
+      float ss = 0.f;
+#pragma unroll
+      for (int q = 0; q < CPL; ++q) {
+        y[o][q] -= mu[o];
+        ss = fmaf(y[o][q], y[o][q], ss);
+      }
+      inv[o] = rsqrtf(warp_sum(ss) * INV_HH + LN_EPS);
+    }"""
+# E's one-pass statistics: Σ(y − c) and Σ(y − c)² of all 8 frames, shifted by
+# a pivot c_o (lane 0's first value of frame o), in one butterfly of 16
+_D_PIVOT = """    float mu[8], inv[8], st[16];
+#pragma unroll
+    for (int o = 0; o < 8; ++o) {
+      const float piv = __shfl_sync(FULL, y[o][0], 0);
+      st[o] = 0.f;
+      st[8 + o] = 0.f;
+#pragma unroll
+      for (int q = 0; q < CPL; ++q) {
+        y[o][q] -= piv;
+        st[o] += y[o][q];
+        st[8 + o] = fmaf(y[o][q], y[o][q], st[8 + o]);
+      }
+    }
+    const float r = warp_reduce_scatter<16>(st, lane);
+#pragma unroll
+    for (int o = 0; o < 8; ++o) {
+      const float dmu = __shfl_sync(FULL, r, 2 * o) * INV_HH;  // μ − c
+      const float var = fmaxf(__shfl_sync(FULL, r, 16 + 2 * o) * INV_HH - dmu * dmu, 0.f);
+      inv[o] = rsqrtf(var + LN_EPS);
+#pragma unroll
+      for (int q = 0; q < CPL; ++q) y[o][q] -= dmu;
+      mu[o] = dmu;
+    }"""
+# the frames in Gray-code order (each next frame flips one sign: its coordinate
+# terms move by ±2·x_i·w1[i], one FMA a column), not each frame's terms anew
+_D_DIRECT = """    // pre_o = base + u_o: base = b1 + Σ_{c≥3} x_c·w1[c] the same in every
+    // frame, u_o = Σ_{i<3} s_o,i·x_i·w1[i] (3 FMAs a column) kept apart from
+    // it, so that u's roundings fall at the size of the coordinate terms,
+    // not at that of base (b1 + 10 would carry them at 10)
+    float base[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      float v = b[k];
+#pragma unroll
+      for (int c = 3; c < C; ++c) v = fmaf(xv[c], w[c][k], v);
+      base[k] = v;
+    }
+    // y[o] = drop(silu(h1)·h2) of frame o, and the lane's part of its sum
+    float y[8][CPL], s[8];
+#pragma unroll
+    for (int o = 0; o < 8; ++o) {
+      s[o] = 0.f;
+#pragma unroll
+      for (int q = 0; q < CPL; ++q) {
+        float u1 = 0.f, u2 = 0.f;
+#pragma unroll
+        for (int i = 0; i < 3; ++i) {
+          u1 = fmaf(sgn(o, i) * xv[i], w[i][q], u1);
+          u2 = fmaf(sgn(o, i) * xv[i], w[i][CPL + q], u2);
+        }
+        const float h1 = base[q] + u1, h2 = base[CPL + q] + u2;
+        float v = h1 * sigmoid_fast(h1) * h2;
+"""
+_D_GRAY = """    // pre = base + u: base = b1 + Σ_{c≥3} x_c·w1[c] the same in every frame,
+    // u = Σ_{i<3} s_o,i·x_i·w1[i] frame 0's (every coordinate sign −1); the
+    // frames are visited in Gray-code order, so that each next one flips one
+    // sign and u moves by ±2·x_i·w1[i]. u is kept apart from base: its
+    // roundings then fall at the size of the coordinate terms, not at that
+    // of base (b1 + 10 would carry 7 roundings at 10 into the last frame)
+    float base[K], u[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      float v = b[k];
+#pragma unroll
+      for (int c = 3; c < C; ++c) v = fmaf(xv[c], w[c][k], v);
+      base[k] = v;
+      v = 0.f;
+#pragma unroll
+      for (int i = 0; i < 3; ++i) v = fmaf(-xv[i], w[i][k], v);
+      u[k] = v;
+    }
+    // y[o] = drop(silu(h1)·h2) of frame o, and the lane's part of its sum
+    float y[8][CPL], s[8];
+#pragma unroll
+    for (int step = 0; step < 8; ++step) {
+      const int o = step ^ (step >> 1);
+      if (step > 0) {  // the one coordinate whose sign flips: u ± 2·x_i·w1[i]
+        const int flip = o ^ ((step - 1) ^ ((step - 1) >> 1));
+        const int i = flip == 4 ? 0 : flip == 2 ? 1 : 2;
+        const float t = 2.f * sgn(o, i) * xv[i];
+#pragma unroll
+        for (int k = 0; k < K; ++k) u[k] = fmaf(t, w[i][k], u[k]);
+      }
+      s[o] = 0.f;
+#pragma unroll
+      for (int q = 0; q < CPL; ++q) {
+        const float h1 = base[q] + u[q], h2 = base[CPL + q] + u[CPL + q];
+        float v = h1 * sigmoid_fast(h1) * h2;
+"""
+_D_SIG = "        float v = h1 * sigmoid_fast(h1) * h2;"
+_D_KEEP = "          v = keep_bit_h(ph, drop.smix, o * HH + lane + 32 * q, drop.thresh) ? v * drop.inv_keep"
+_D_TANH = """__device__ __forceinline__ float sigmoid_tanh(float x) {
+  float t;
+  asm("tanh.approx.f32 %0, %1;" : "=f"(t) : "f"(0.5f * x));
+  return fmaf(0.5f, t, 0.5f);
+}
+
+// Kernel D's blocks an SM"""
+D_PATCHES = {
+    "statistics a frame at a time": [(_D_STATS, _D_CHAINS)],
+    "one-pass pivot statistics": [(_D_STATS, _D_PIVOT)],
+    "Gray code": [(_D_DIRECT, _D_GRAY)],
+    "exact sigmoid": [(_D_SIG, "        float v = h1 * (1.f / (1.f + expf(-h1))) * h2;")],
+    "tanh.approx sigmoid": [("// Kernel D's blocks an SM", _D_TANH),
+                            (_D_SIG, "        float v = h1 * sigmoid_tanh(h1) * h2;")],
+    "hash per value": [(_D_KEEP, _D_KEEP.replace("keep_bit_h(ph,", "keep_bit_h(fmix32(static_cast<uint32_t>(p) ^ drop.smix),"))],
+    "x not loaded ahead": [("    for (int c = 0; c < C; ++c) xv[c] = xn[c];",
+                            "    for (int c = 0; c < C; ++c) xv[c] = x[p * C + c];")],
+    "3 blocks an SM": [("constexpr int FWD_MIN_BLOCKS = 2;", "constexpr int FWD_MIN_BLOCKS = 3;")],
+}
 L_PATCHES = {
     "no zero-site skip": [("for (int k = 0; nonzero && k < d.k; ++k)", "for (int k = 0; k < d.k; ++k)")],
     "no products": [("for (int k = 0; nonzero && k < d.k; ++k)", "for (int k = 0; false; ++k)")],
@@ -274,7 +613,9 @@ L_PATCHES = {
 
 def _patched(src: Path, patches, out: Path) -> Path:
     """`src` with each (text, replacement) applied: every occurrence, of
-    which there must be one, or two for G's and I's common lines."""
+    which there must be one, or two for G's and I's common lines (a line
+    that is not there, e.g. in a --*-before source of another layout, stops
+    the script)."""
     text = src.read_text()
     for old, new in patches:
         if text.count(old) not in ((1, 2) if src == GI_SRC else (1,)):
@@ -287,14 +628,28 @@ def _patched(src: Path, patches, out: Path) -> Path:
 def _build_all(tmp: Path, srcs: dict[str, Path]) -> dict[str, ctypes.CDLL]:
     nvcc = build._nvcc()
     libs = {name: tmp / f"lib{i}.so" for i, name in enumerate(srcs)}
-    procs = [subprocess.Popen([nvcc, *build.NVCC_FLAGS, "-I", str(build.CSRC_DIR), "-shared",
-                               "-o", str(libs[n]), str(s)],
+    procs = [subprocess.Popen([nvcc, *build.NVCC_FLAGS, "-Xptxas", "-v", "-I", str(build.CSRC_DIR),
+                               "-shared", "-o", str(libs[n]), str(s)],
                               stderr=subprocess.PIPE, text=True) for n, s in srcs.items()]
     for proc, name in zip(procs, srcs):
         err = proc.communicate()[1]
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {name}:\n{err}")
+        if name in ("B full", "D full", "B before", "D before"):
+            _print_registers(name, err)
     return {name: ctypes.CDLL(str(path)) for name, path in libs.items()}
+
+
+def _print_registers(name: str, ptxas: str) -> None:
+    """ptxas's registers and spills of each forward kernel (B's, D's) in a
+    build's report."""
+    lines = ptxas.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and ("fwd_kernel" in line or "w1_frags" in line):
+            fn = line.split("'")[1] if "'" in line else line
+            info = " ".join(x.split("ptxas info    :")[-1].strip() for x in lines[i + 1:i + 4]
+                            if "registers" in x or "spill" in x)
+            print(f"{name} ptxas: {fn[:80]}: {info}")
 
 
 def _time_a(libs, batch, dev) -> None:
@@ -428,7 +783,7 @@ def _time_gi(libs, batch) -> None:
             + f", full again {times[-1]:.4f} ms")
 
 
-def _time_c(libs, batch) -> None:
+def _time_c(libs, batch, c_before_takes_z: bool = False) -> None:
     """B with and without z, then C of each variant in cases (a) and (b):
     one call a sample (the variants in turns), then device time alone."""
     gen = torch.Generator().manual_seed(1)
@@ -445,7 +800,9 @@ def _time_c(libs, batch) -> None:
     stream = torch.cuda.current_stream().cuda_stream
     fwd = libs["C full"].edge_mlp_fwd_f32
     fwd.argtypes = build.SIGNATURES["edge_mlp_fwd_f32"]
-    b_fns = [lambda zp=zp: fwd(*inp, out.data_ptr(), zp, g, a, k, f, 16, stream)
+    ws = torch.empty(fwd_workspace_floats(f), device=dev)
+    b_fns = [lambda zp=zp: fwd(*inp[:4], None, *inp[4:], out.data_ptr(), zp, ws.data_ptr(), g, a,
+                               k, f, 16, stream)
              for zp in (None, z.data_ptr())]
     b_fns[1]()  # z for the variants
     times = median_ms(*b_fns)
@@ -461,7 +818,7 @@ def _time_c(libs, batch) -> None:
         ws = torch.empty(floats.value, device=dev)
         fn = lib.edge_mlp_bwd_f32
         # an edge_mlp.cu whose kernel C computes z again itself takes no z
-        zs = () if name == "C before" else (z.data_ptr(),)
+        zs = () if name == "C before" and not c_before_takes_z else (z.data_ptr(),)
         fn.argtypes = (P,) * (14 + len(zs)) + (I,) * 5 + (P,)
         for case, d in cases.items():
             fns[case].append(lambda fn=fn, d=d, zs=zs, ws=ws: fn(
@@ -476,6 +833,104 @@ def _time_c(libs, batch) -> None:
         print(f"C case ({case}) (one call a sample; device alone): " + ", ".join(
             f"{n[2:]} {t:.4f} / {dv:.4f} ms" for n, t, dv in zip(names, times, dev_ms))
             + f", full again {times[-1]:.4f} ms")
+
+
+def _time_b(libs, batch, b_before_masks: set) -> None:
+    """B of each variant in case (a), no mask (every edge), and case (b), the
+    model's pair_mask, serving (no z): one call a sample (the variants in
+    turns), then device time alone; first each variant's error in case (b)
+    against the plain version. A kernel of the earlier interface (no mask,
+    no workspace) computes every edge in both cases, as the model called it
+    (its dead edges then differ from the plain version's 0)."""
+    from equihgnn_tpu_torch.ops.kernels.edge_mlp import fused_edge_messages_plain
+
+    gen = torch.Generator().manual_seed(1)
+    args, pair_mask, _, _ = edge_mlp_inputs(batch, gen)
+    g, a, f = args[0].shape
+    k, dev = args[3].shape[-1], args[0].device
+    inp = [t.data_ptr() for t in args]
+    out = torch.empty(g, a, k, 16, device=dev)
+    ws = torch.empty(fwd_workspace_floats(f), device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    P, I = ctypes.c_void_p, ctypes.c_int
+    names = [n for n in libs if n.startswith("B")]
+    fns = {"a": [], "b": []}
+    for name in names:
+        fn = libs[name].edge_mlp_fwd_f32
+        if name in b_before_masks:
+            fn.argtypes = build.SIGNATURES["edge_mlp_fwd_f32"]
+            for case, m in (("a", None), ("b", pair_mask.data_ptr())):
+                fns[case].append(lambda fn=fn, m=m: fn(*inp[:4], m, *inp[4:], out.data_ptr(), None,
+                                                       ws.data_ptr(), g, a, k, f, 16, stream))
+        else:  # the earlier interface
+            fn.argtypes = (P,) * 10 + (I,) * 5 + (P,)
+            for case in fns:
+                fns[case].append(lambda fn=fn: fn(*inp, out.data_ptr(), None, g, a, k, f, 16,
+                                                  stream))
+    ref = fused_edge_messages_plain(*args, pair_mask)
+    errs = []
+    for fn in fns["b"]:  # each variant's error in case (b); some are wrong by design
+        out.zero_()
+        fn()
+        errs.append(float(((out - ref).abs() - 1e-4 * ref.abs()).max()))
+    print("B case (b), max(|d| − 1e-4·|ref|) against the plain version (B's gate: 1e-5): "
+          + ", ".join(f"{n[2:]} {e:.2e}" for n, e in zip(names, errs)))
+    del ref
+    for case, cfns in fns.items():
+        times = median_ms(*cfns, cfns[0])
+        dev_ms = [profiled_device_ms(fn) for fn in cfns]
+        print(f"B case ({case}) (one call a sample; device alone): " + ", ".join(
+            f"{n[2:]} {t:.4f} / {dv:.4f} ms" for n, t, dv in zip(names, times, dev_ms))
+            + f", full again {times[-1]:.4f} ms")
+
+
+def _time_d(libs, batch) -> None:
+    """D of each variant at both FAFormer sites, at dropout 0 and at the
+    train step's 0.1: one call a sample, then device time alone. The
+    tanh.approx variant is also held to D's gate (atol 1e-5 + rtol 1e-4
+    against the plain version at dropout 0)."""
+    from equihgnn_tpu_torch.ops.kernels.frame_swiglu import frame_swiglu_plain
+
+    dev = torch.device("cuda")
+    sm = batch.slot_mask.to(dev)
+    pd = batch.pos.to(dev)[batch.slot_index.to(dev)] * sm[..., None]
+    sites, _ = frame_swiglu_sites(pd, sm)
+    gen = torch.Generator().manual_seed(2)
+    stream = torch.cuda.current_stream().cuda_stream
+    names = [n for n in libs if n.startswith("D")]
+    thresh = int(round(0.1 * 2.0 ** 32))
+    for site, x in sites.items():
+        p, c = x.shape
+        h = HIDDEN
+        params = [((torch.rand(c, h, generator=gen) * 2 - 1) / c ** 0.5).to(dev),
+                  ((torch.rand(h, generator=gen) * 2 - 1) / c ** 0.5).to(dev),
+                  (1.0 + 0.2 * torch.randn(h // 2, generator=gen)).to(dev),
+                  (0.1 * torch.randn(h // 2, generator=gen)).to(dev)]
+        out = torch.empty(p, h // 2, device=dev)
+        fns = {0: [], 1: []}
+        for name in names:
+            fn = libs[name].frame_swiglu_fwd_f32
+            fn.argtypes = build.SIGNATURES["frame_swiglu_fwd_f32"]
+            for drop in fns:
+                fns[drop].append(lambda fn=fn, drop=drop: fn(
+                    x.data_ptr(), *[t.data_ptr() for t in params], out.data_ptr(), p, c, h, drop,
+                    thresh if drop else 0, 1.0 / 0.9 if drop else 1.0, 7, stream))
+        if "D tanh.approx sigmoid" in names:
+            fns[0][names.index("D tanh.approx sigmoid")]()
+            ref = frame_swiglu_plain(x, *params)
+            diff = (out - ref).abs()
+            ok = bool((diff <= 1e-5 + 1e-4 * ref.abs()).all())
+            print(f"D {site} tanh.approx sigmoid against the plain version: max|d| "
+                  f"{float(diff.max()):.3e}, D's gate (atol 1e-5, rtol 1e-4) "
+                  f"{'met' if ok else 'MISSED'}")
+            del ref, diff
+        for drop, dfns in fns.items():
+            times = median_ms(*dfns, dfns[0])
+            dev_ms = [profiled_device_ms(fn) for fn in dfns]
+            print(f"D {site} [P={p}, C={c}] dropout {0.1 if drop else 0} (one call a sample; "
+                  f"device alone): " + ", ".join(f"{n[2:]} {t:.4f} / {dv:.4f} ms"
+                                                 for n, t, dv in zip(names, times, dev_ms))
+                  + f", full again {times[-1]:.4f} ms")
 
 
 def _time_e(libs, batch) -> None:
@@ -525,14 +980,14 @@ def _time_e(libs, batch) -> None:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--kernels", default="A,C,E,GI,J,K,L",
-                        help="the kernels to ablate, of A, C, E, GI, J, K and L")
+    parser.add_argument("--kernels", default="A,B,C,D,E,GI,J,K,L",
+                        help="the kernels to ablate, of A, B, C, D, E, GI, J, K and L")
     parser.add_argument("--vis-mix-before", type=Path,
                         help="another vis_mix.cu whose G and I to time beside this one's")
     parser.add_argument("--edge-mlp-before", type=Path,
-                        help="another edge_mlp.cu (kernel C without z) to time beside this one's")
+                        help="another edge_mlp.cu whose B (and C) to time beside this one's")
     parser.add_argument("--frame-swiglu-before", type=Path,
-                        help="another frame_swiglu.cu whose E to time beside this one's")
+                        help="another frame_swiglu.cu whose D and E to time beside this one's")
     args = parser.parse_args()
     kinds = args.kernels.split(",")
     if not torch.cuda.is_available():
@@ -551,24 +1006,38 @@ def main() -> int:
         for kind, src, table in (("A", A_SRC, {n: p for n, (p, _) in A_PATCHES.items()}),
                                  ("GI", GI_SRC, GI_PATCHES), ("J", J_SRC, J_PATCHES),
                                  ("K", K_SRC, K_PATCHES), ("L", L_SRC, L_PATCHES),
-                                 ("C", C_SRC, C_PATCHES), ("E", E_SRC, E_PATCHES)):
+                                 ("C", C_SRC, C_PATCHES), ("E", E_SRC, E_PATCHES),
+                                 ("B", C_SRC, B_PATCHES), ("D", E_SRC, D_PATCHES)):
             if kind not in kinds:
                 continue
             srcs[f"{kind} full"] = src
             for name, patches in table.items():
                 srcs[f"{kind} {name}"] = _patched(src, patches, tmp / f"v{len(srcs)}.cu")
+        b_masks = {n for n in srcs if n.startswith("B")}  # B variants that take a mask
         if "GI" in kinds and args.vis_mix_before:
             srcs["GI before"] = args.vis_mix_before
+        if "B" in kinds and args.edge_mlp_before:
+            srcs["B before"] = args.edge_mlp_before
+            for name, patches in B_BEFORE_PATCHES.items():
+                srcs[f"B {name}"] = _patched(args.edge_mlp_before, patches, tmp / f"v{len(srcs)}.cu")
+                b_masks.add(f"B {name}")
         if "C" in kinds and args.edge_mlp_before:
             srcs["C before"] = args.edge_mlp_before
+        if "D" in kinds and args.frame_swiglu_before:
+            srcs["D before"] = args.frame_swiglu_before
         if "E" in kinds and args.frame_swiglu_before:
             srcs["E before"] = args.frame_swiglu_before
         libs = _build_all(tmp, srcs)
         batch = bench_batch()[1]
         if "A" in kinds:
             _time_a(libs, batch, dev)
+        if "B" in kinds:
+            _time_b(libs, batch, b_masks)
         if "C" in kinds:
-            _time_c(libs, batch)
+            before = args.edge_mlp_before.read_text() if args.edge_mlp_before else ""
+            _time_c(libs, batch, "const float* z, float* dui" in before)
+        if "D" in kinds:
+            _time_d(libs, batch)
         if "E" in kinds:
             _time_e(libs, batch)
         if "GI" in kinds:

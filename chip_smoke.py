@@ -17,12 +17,19 @@ result line), each printing its seconds:
    segment sum; also at six edge cases at D = 256, each the same bits
    twice, and timed against `index_add_` one call a sample, 10 calls a
    sample and device time alone, with its host time a call), B (EGNN
-   edge MLP forward; serving, and writing z as training does: the same
-   output bits), C (its backward from B's z, seven gradients against
+   edge MLP forward) in three modes, serving with the model's pair_mask,
+   training with it (z written) and no mask (every edge), each timed one
+   call a sample and by device time alone (the same output bits with z as
+   without, and at the live edges with the mask as without; 0 at every
+   dead edge; its bounds over every edge and over the kept ones, its
+   W1 products at the TF32 peak as its route runs them, and at the f32
+   peak), C (its backward from B's z, seven gradients against
    autograd through the plain forward), D (FAFormer's frame-averaged
-   SwiGLU forward) and E (its backward, five gradients) at both FAFormer
-   sites (EdgeModule P = 393,728, C = 4; FAFFN P = 24,608, C = 3; each
-   site's times with its bounds); C and E in case (a), an output gradient
+   SwiGLU forward, timed at dropout 0 and 0.1) and E (its backward, five
+   gradients) at both FAFormer sites (EdgeModule P = 393,728, C = 4; FAFFN
+   P = 24,608, C = 3; each site's times with its bounds); B and D with
+   the special-function floor of their SiLUs and sigmoids (two operations
+   each, 16 a clock an SM); C and E in case (a), an output gradient
    at every edge or position, and case (b), 0 where the model masks (the
    skip must give 0 there, the same bits twice), each timed one call a
    sample and by device time alone, with a live bound over the kept edges
@@ -83,7 +90,8 @@ kernels L and M), with random weights from a seed:
    eval forward;
    `ckpt_best.pt` serves through `predict.run --device cuda`;
 7. step: one train step at batch 768 (forward + backward + Adam): its
-   launches, median device time, peak memory and a `torch.profiler` table
+   launches, median device time (and the eval forward's), peak memory and a
+   `torch.profiler` table
    of its top device kernels; for egnn and faformer, in one more step, the
    share of kernel C's dm and kernel E's dout rows that are exactly 0,
    beside the rows the model masks (egnn's dm must be 0 on every masked
@@ -111,6 +119,7 @@ from __future__ import annotations
 import contextlib
 import csv
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -160,6 +169,7 @@ BWD_LAUNCHES = {
 LR = {"visnet_equihnns": "1e-4"}  # the others train at 1e-3
 # the H100 SXM's published peaks: HBM3 bandwidth, dense f32, TF32 and bf16 rates
 PEAK_BYTES_S, PEAK_F32_S, PEAK_TF32_S, PEAK_BF16_S = 3.35e12, 67e12, 495e12, 989e12
+SFU_OPS_CLK = 16  # special-function operations (ex2, rcp) an H100 SM issues a clock
 # kernels J's and K's route: their products on the tensor cores in 3xTF32
 # (three TF32 products for each f32 one), `csrc/tf32_mma.cuh`
 TF32_ROUTE = "3xTF32 (mma.sync.m16n8k8 tensor cores)"
@@ -273,13 +283,31 @@ def profiled_device_ms(fn, calls: int = 20) -> float:
     return sum(t for t, _, _ in device_kernels(prof, calls))
 
 
-def bound(nbytes: float, flops: float, peak: float = PEAK_F32_S) -> dict:
+def bound(nbytes: float, flops: float, peak: float = PEAK_F32_S, f32_flops: float = 0) -> dict:
     """The least time the card could take: bytes over the memory rate or
-    operations over the peak rate of their type (f32 by default),
+    operations over the peak rate of their type (f32 by default; with
+    `f32_flops`, those at the f32 peak added to `flops` at `peak`),
     whichever is larger."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, flops / peak * 1e3
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = (flops / peak + f32_flops / PEAK_F32_S) * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+@functools.cache
+def sm_clock_hz() -> float:
+    """The card's highest SM clock (nvidia-smi clocks.max.sm), in Hz."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True).stdout
+    return float(out.strip().splitlines()[0]) * 1e6
+
+
+def sfu_floor_ms(values: int, ops_each: int = 2) -> float:
+    """The least time the special-function pipe takes for `values` SiLUs or
+    sigmoids of `ops_each` operations each (ex2 and a reciprocal): an SM
+    issues SFU_OPS_CLK of them a clock, at the card's highest SM clock."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return values * ops_each / (SFU_OPS_CLK * sms * sm_clock_hz()) * 1e3
 
 
 def nbytes(*tensors) -> int:
@@ -475,12 +503,18 @@ def edge_mlp_inputs(batch, gen):
 
 
 def edge_mlp_rows(args, pair_mask, gen) -> list[dict]:
-    """Kernel B (serving: no z; training: z written too, the same output
-    bits) and kernel C with B's saved z, in case (a), an output gradient at
-    O(1) on every edge, and case (b), the same gradient 0 where the model
-    masks the edge (pair_mask), as the model passes it: C within
-    1e-4·max|ref| of the plain backward, the same bits twice, 0 in ddist at
-    the masked edges; each case timed one call a sample and by its device
+    """Kernel B in three modes: serving with the model's pair_mask (out
+    only), training with it (z written too) and with no mask (every edge):
+    each within atol 1e-5 + rtol 1e-4 of the plain version, the same bits
+    twice; with the mask exactly 0 at every dead edge, and the same output
+    bits at the live edges as without it, and with z written as without;
+    each timed one call a sample and by its device time alone. Then kernel
+    C with B's saved z, in case (a), an output gradient at O(1) on every
+    edge, and case (b), the same gradient 0 where the model masks the edge
+    (pair_mask), as the model passes it: C within 1e-4·max|ref| of the
+    plain backward, the same bits twice, 0 in ddist at the masked edges,
+    and in case (b) the same bits from the masked call's z (written at the
+    live edges only); each case timed one call a sample and by its device
     time alone."""
     from equihgnn_tpu_torch.ops.kernels.edge_mlp import (
         _launch_fwd,
@@ -493,35 +527,69 @@ def edge_mlp_rows(args, pair_mask, gen) -> list[dict]:
     ui, _, _, nbr_idx, *_ = args
     g, a, f = ui.shape
     k, mo = nbr_idx.shape[-1], 16
-    got = fused_edge_messages(*args)
-    ref = fused_edge_messages_plain(*args)
-    got_z, z = _launch_fwd(*args, want_z=True)
-    torch.cuda.synchronize()
-    diff = (got - ref).abs()
-    err = float(diff.max())
-    rel_err = float((diff / ref.abs().clamp(min=1e-30)).max())
-    ok = bool((diff <= 1e-5 + 1e-4 * ref.abs()).all())
-    print(f"kernel B fused_edge_messages [G={g}, A={a}, k={k}, F={f}, m={mo}]: "
-          f"max|d| {err:.3e}, max rel {rel_err:.3e} (atol 1e-5, rtol 1e-4): "
-          f"{'ok' if ok else 'FAIL'}; with z written: "
-          f"{'the same bits' if torch.equal(got, got_z) else 'OTHER BITS'}")
-    check(ok, "kernel B disagrees with its plain version")
-    check(torch.equal(got, got_z), "kernel B's output moved when it also wrote z")
-    ms, z_ms, plain_ms = median_ms(lambda: fused_edge_messages(*args),
-                                   lambda: _launch_fwd(*args, want_z=True),
-                                   lambda: fused_edge_messages_plain(*args))
-    print(f"kernel B: {ms:.4f} ms serving (out only), {z_ms:.4f} ms with z written as "
-          f"training does (+{nbytes(z) / 2**20:.1f} MiB), plain {plain_ms:.4f} ms "
-          f"(median of 20, one call a sample, CUDA events)")
-    # operations per edge and column f: the pre-activation (4), its SiLU
-    # (4) and the product with W1 (2m)
-    e_edges = g * a * k
-    rows = [dict(
+    modes = {  # mode -> (the mask, the call)
+        "serving, pair_mask": (pair_mask, lambda: fused_edge_messages(*args, edge_mask=pair_mask)),
+        "training, pair_mask, z written":
+            (pair_mask, lambda: _launch_fwd(*args, edge_mask=pair_mask, want_z=True)[0]),
+        "no mask, every edge": (None, lambda: fused_edge_messages(*args)),
+    }
+    calls = [call for _, call in modes.values()]
+    outs, err = {}, 0.0
+    for mode, (mask, call) in modes.items():
+        got, again = call(), call()
+        ref = fused_edge_messages_plain(*args, mask)
+        torch.cuda.synchronize()
+        diff = (got - ref).abs()
+        err = max(err, float(diff.max()))
+        rel_err = float((diff / ref.abs().clamp(min=1e-30)).max())
+        ok = bool((diff <= 1e-5 + 1e-4 * ref.abs()).all())
+        same = torch.equal(got, again)
+        dead_zero = mask is None or bool((got[~mask] == 0).all())
+        print(f"kernel B fused_edge_messages [G={g}, A={a}, k={k}, F={f}, m={mo}] {mode}: "
+              f"max|d| {float(diff.max()):.3e}, max rel {rel_err:.3e} (atol 1e-5, rtol 1e-4): "
+              f"{'ok' if ok else 'FAIL'}; {'the same bits twice' if same else 'OTHER BITS'}"
+              + ("" if mask is None else f"; 0 at every dead edge: {dead_zero}"))
+        check(ok, f"kernel B ({mode}) disagrees with its plain version")
+        check(same, f"kernel B ({mode}) gave other bits on a second call")
+        check(dead_zero, f"kernel B ({mode}) is not 0 at a dead edge")
+        outs[mode] = got
+    served, trained, every = outs.values()
+    check(torch.equal(served, trained), "kernel B's output moved when it also wrote z")
+    check(torch.equal(served[pair_mask], every[pair_mask]),
+          "kernel B's output at the live edges moved with the mask")
+    print("kernel B: the same output bits with z written as without, and at the live edges "
+          "with the mask as without it")
+    *b_ms, plain_ms = median_ms(*calls, lambda: fused_edge_messages_plain(*args))
+    b_dev = [profiled_device_ms(call) for call in calls]
+    _, z = _launch_fwd(*args, want_z=True)  # every edge's z, for kernel C's case (a)
+    _, z_live = _launch_fwd(*args, edge_mask=pair_mask, want_z=True)
+    # operations per edge and column f: the pre-activation (4) and its SiLU
+    # (4) at the f32 peak, and the product with W1 (2m) at the TF32 peak,
+    # three TF32 products each (B's route, as J's and K's); over every edge
+    # (the row: the no-mask call) and over the kept ones (the masked calls).
+    # Beside them the f32-peak bounds of PRs 1-10 (every product on the CUDA
+    # cores) and the special-function floor of the SiLUs (two operations each)
+    e_edges, e_live = g * a * k, int(pair_mask.sum())
+    b_all, b_live = (bound(nbytes(*args, *mask_t, ref), 3 * n * f * 2 * mo, PEAK_TF32_S,
+                           f32_flops=n * f * 8)
+                     for n, mask_t in ((e_edges, ()), (e_live, (pair_mask,))))
+    f32_all, f32_live = (bound(nbytes(*args, ref), n * f * (2 * mo + 8))["bound_ms"]
+                         for n in (e_edges, e_live))
+    for mode, ms, dev_ms in zip(modes, b_ms, b_dev):
+        print(f"kernel B {mode}: {ms:.4f} ms one call a sample, {dev_ms:.4f} ms device alone "
+              f"(torch.profiler, 20 calls)")
+    print(f"kernel B: plain (no mask) {plain_ms:.4f} ms; bound {b_all['bound_ms']:.4f} ms over "
+          f"all {e_edges} edges ({b_all['bound_by']}; the W1 products at the TF32 peak, 3 "
+          f"products each), live bound {b_live['bound_ms']:.4f} ms over the {e_live} kept; at the "
+          f"f32 peak {f32_all:.4f} / {f32_live:.4f} ms; special-function floor of the SiLUs "
+          f"{sfu_floor_ms(e_edges * f):.4f} ms at every edge, {sfu_floor_ms(e_live * f):.4f} ms "
+          f"at the kept ones ({SFU_OPS_CLK} a clock an SM at {sm_clock_hz() / 1e6:.0f} MHz) "
+          f"(median of 20, CUDA events)")
+    rows = [dict(  # the no-mask call, every edge, against the bound over every edge
         name="fused_edge_messages", route="cuda",
         source="equihgnn_tpu_torch/csrc/edge_mlp.cu",
         replaces="equihgnn_tpu/ops/pallas/edge_mlp.py:179",
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
-        **bound(nbytes(*args, ref), e_edges * f * (2 * mo + 8)),
+        max_abs_err=err, ms=b_ms[2], plain_ms=plain_ms, library_ms=None, **b_all,
     )]
 
     # kernel C, for an output gradient at O(1), on every edge (a) and on the
@@ -546,17 +614,18 @@ def edge_mlp_rows(args, pair_mask, gen) -> list[dict]:
               f"kernel C gave other bits on a second call in case ({case})")
         if case == "b":
             check(bool((got[2][~pair_mask] == 0).all()), "kernel C's ddist is not 0 at a masked edge")
+            check(all(torch.equal(x, y) for x, y in zip(got, fused_edge_messages_bwd(*args, d, z_live))),
+                  "kernel C gave other bits from the masked forward's z in case (b)")
         times[case] = (*median_ms(lambda: fused_edge_messages_bwd(*args, d, z),
                                   lambda: fused_edge_messages_bwd_plain(*args, d)),
                        profiled_device_ms(lambda: fused_edge_messages_bwd(*args, d, z)))
     print("kernel C: the same bits twice in both cases; 0 in ddist at every masked edge in "
-          "case (b)")
+          "case (b), and the same bits there from the masked forward's z")
     # operations per edge and column f, with z given (kernel B saved it):
     # the pre-activation, its SiLU and SiLU' (16), dz·W1ᵀ and dW1 (4m); the
     # bound over every edge, and over the edges with a gradient in case (b).
     # PRs 2-9 counted the forward's a1·W1 (2m) too, which C no longer does
     # (B's training forward carries it): that bound is printed for comparison
-    e_live = int(pair_mask.sum())
     c_bytes = nbytes(*args, dm, z, *ref)
     bc, bl = (bound(c_bytes, n * f * (4 * mo + 16)) for n in (e_edges, e_live))
     b_old = bound(nbytes(*args, dm, *ref), e_edges * f * (6 * mo + 16))
@@ -745,17 +814,26 @@ def frame_swiglu_rows(pd, sm, gen) -> list[dict]:
                   f"(the [P, 8, {HIDDEN}] frames would be {frames_mb:.1f} MiB)")
             check(extra_mb < frames_mb / 4, f"kernel {kname} allocated frame-sized memory")
         db = douts["b"]
-        times[site] = (median_ms(lambda: fused_frame_swiglu(x, *params),
-                                 lambda: frame_swiglu_plain(x, *params)),
+        # D at dropout 0 and at the train step's 0.1 (the EdgeModule's plain
+        # version at 0.1 would hold a [P, 8, H/2] int64 mask: 3.2 GB)
+        d_calls = [lambda: fused_frame_swiglu(x, *params),
+                   lambda: fused_frame_swiglu(x, *params, drop_rate=0.1, seed=7)]
+        times[site] = (median_ms(*d_calls, lambda: frame_swiglu_plain(x, *params)),
                        median_ms(lambda: fused_frame_swiglu_bwd(x, *params, dout),
                                  lambda: frame_swiglu_bwd_plain(x, *params, dout),
                                  lambda: fused_frame_swiglu_bwd(x, *params, db)),
                        [profiled_device_ms(lambda dd=dd: fused_frame_swiglu_bwd(x, *params, dd))
-                        for dd in (dout, db)])
-        (dk, dp), (ek, ep, ekb), (edev, edevb) = times[site]
+                        for dd in (dout, db)],
+                       [profiled_device_ms(call) for call in d_calls])
+        (dk, dk1, dp), (ek, ep, ekb), (edev, edevb), (ddev, ddev1) = times[site]
         bd, be = frame_swiglu_bounds(x)
         n_live = int((db != 0).any(-1).sum())
         _, bel = frame_swiglu_bounds(x[:n_live])  # the same formula over the live positions
+        print(f"kernel D at {site} [P={p}, C={c}]: dropout 0 {dk:.4f} ms one call a sample, "
+              f"{ddev:.4f} ms device alone; dropout 0.1 {dk1:.4f} / {ddev1:.4f} ms; plain "
+              f"{dp:.4f} ms; bound {bd['bound_ms']:.4f} ms by {bd['bound_by']}; special-function "
+              f"floor of its {p * 8 * HIDDEN // 2} sigmoids {sfu_floor_ms(p * 8 * HIDDEN // 2):.4f} ms "
+              f"({SFU_OPS_CLK} a clock an SM at {sm_clock_hz() / 1e6:.0f} MHz)")
         print(f"kernels D/E at {site} [P={p}, C={c}]: D {dk:.4f} ms vs plain {dp:.4f} ms "
               f"(bound {bd['bound_ms']:.4f} ms by {bd['bound_by']}); E case (a) {ek:.4f} ms, "
               f"case (b) {ekb:.4f} ms one call a sample (device alone {edev:.4f} / {edevb:.4f} "
@@ -763,7 +841,7 @@ def frame_swiglu_rows(pd, sm, gen) -> list[dict]:
               f"{be['bound_ms']:.4f} ms by {be['bound_by']}; live bound {bel['bound_ms']:.4f} "
               f"ms over the {n_live} of {p} positions of case (b)) (median of 20, CUDA events)")
     err_d = max(err_d, mask_probe(sites["FAFFN"].shape[0], gen, dev))
-    (dk, dp), (ek, ep, _), _ = times["EdgeModule"]
+    (dk, _, dp), (ek, ep, _), _, _ = times["EdgeModule"]
     src = "equihgnn_tpu_torch/csrc/frame_swiglu.cu"
     bd, be = frame_swiglu_bounds(sites["EdgeModule"])  # the site whose times the row carries
     return [
@@ -1637,7 +1715,8 @@ def phase_train(path: str, smi: str) -> dict[str, int]:
 
 
 def phase_step(path: str, samples, smi: str) -> None:
-    """One train step at batch 768: launches, device time, memory, profile."""
+    """One train step at batch 768: launches, device time (and the eval
+    forward's), memory, profile."""
     from torch.profiler import ProfilerActivity, profile
 
     from equihgnn_tpu_torch import create_model
@@ -1659,8 +1738,12 @@ def phase_step(path: str, samples, smi: str) -> None:
         reset_launches()
         model(batch)
         eval_launches = read_launches()
+        fwd_ms, = median_ms(lambda: model(batch), iters=10)
+    model.train()
     print(f"{path} launches of one train step: {step_launches}; of one eval forward: "
           f"{eval_launches}")
+    print(f"{path} eval forward at batch {BATCH}: median {fwd_ms:.3f} ms device time (CUDA "
+          f"events, 10 forwards); card: {smi}")
     check(step_launches == expected_launches(path, 1, 1), "train step launches")
     check(eval_launches == expected_launches(path, 1, 0), "eval forward launches")
 

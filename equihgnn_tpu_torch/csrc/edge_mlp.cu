@@ -12,33 +12,59 @@
 // writes 25 MB. The TPU kernels select neighbour rows with a one-hot [A, A]
 // matmul, a Mosaic workaround; here the neighbour row is read directly.
 //
-// Bound on the H100: the 16-wide products with W1 (2·E·F·M = 12.9 GFLOP
-// per pass at those shapes, E = G·A·K edges) and the E·F sigmoids run on
-// the CUDA cores, and each f term needs W1[f, 0..M) from shared memory or
-// registers. Device memory traffic is small; the forward re-reads the
-// neighbour rows of ujn from L2. Kernel C keeps the 16-wide products on the
-// CUDA cores: they take ~0.6 ms of its ~2.1 with every edge live and ~0.3
-// of ~1.4 with the model's zeros (`ablate_kernels.py`, PERF.md §6), of
-// which 3xTF32 `mma.sync` (three tensor-core products for each f32 one, as
-// kernels J and K) could win back a part only.
+// With an edge mask (the model's pair_mask), B computes
+//   out = where(mask, silu(z), 0),
+// and its backward is kernel C on dm·mask: a dead edge reaches no output.
 //
-// Forward design: one block per molecule row g. The block stages W1
-// transposed ([M][F], so that lanes reading consecutive f hit consecutive
-// banks), wd and b0 in dynamic shared memory: 18·F·4 bytes, 73.9 KB at
-// F = 1026, above the 48 KB static limit, hence
-// cudaFuncAttributeMaxDynamicSharedMemorySize. Each warp takes a slot a and
-// NE = 4 of its neighbours at a time; its lanes stride over f (the tail of
-// F = 1026 is masked by the loop bound), and each lane keeps NE·M partial
-// dot products in registers, so one W1 value read from shared memory serves
-// NE edges. A butterfly of warp shuffles then sums the partials, and the
-// lanes write the NE·M outputs. Every edge is computed, padded neighbours
-// included; the caller masks them afterwards. When the caller trains, the
-// forward also writes z (25 MB), which kernel C then reads instead of
-// computing the forward again; serving passes no z pointer and writes
-// nothing more. M must be 16 (the EGNN message width); any F, A and K are
-// taken.
+// Bound on the H100: per edge and column f, the pre-activation and its SiLU
+// (E·F = 404 M SiLU values at every edge, each two special-function
+// operations, ex2 and a reciprocal, of which an SM issues 16 a clock:
+// ~0.2 ms on that pipe alone) and the 16-wide product with W1 (2·E·F·M =
+// 12.9 GFLOP). Device memory traffic is small: the forward reads ui and ujn
+// (101 MB each) and writes 25 MB (50 MB with z).
 //
-// Backward design (kernel C), for dm = dL/dout. Per edge e and column f:
+// Forward design (kernel B): one block per molecule row g, 8 warps.
+//  - Only live slots: the block lists the row's live edge tiles (16 edges
+//    of a slot; a slot at k = 16 is one tile), a tile being live where one
+//    of its edges is, writes 0 at every edge of the other tiles (52 % of
+//    the slots hold no live edge at batch 768) and deals the live ones to
+//    its warps, up to 4 each, 32 a pass over the columns.
+//  - Neighbour rows in shared memory: the columns are staged CW at a time
+//    (64, 32 or 16 columns, the widest that fits at A: A ≤ 300 / 617 /
+//    1,138 slots at k = 16), with cp.async into two buffers, the next
+//    chunk's copies in flight while this one computes: the row's ujn
+//    [A][CW], ui of the pass's tiles, wd, b0 and W1's fragments. A
+//    neighbour's row is a shared-memory read (it was 1.6 GB of L2 traffic
+//    a call).
+//  - The a1·W1 product on the tensor cores: a tile's 16 edges are the 16
+//    rows of an m16n8k8 `mma.sync` (two n-tiles for the 16 outputs), in
+//    3xTF32 (three TF32 products for each f32 one, `tf32_mma.cuh`; a1 split
+//    by integer operations, cvt.rna's bits, 8 % faster than cvt.rna). Lane
+//    4g + t forms a1 of edges g and g + 8 at columns c + 4t .. c + 3 of a
+//    16-column group (float4 reads; k-step s takes c + 4t + 2s and + 1 as
+//    k-indices t and t + 4, in A and B alike), in registers, as the A
+//    fragment; W1's B fragments are split once a launch by a small kernel
+//    into a workspace (`edge_mlp_w1_frags_kernel`) and staged with the
+//    chunk, shared by the warp's tiles. Each 16-column group's sums start
+//    from 0 in the C fragments and are added on the CUDA cores to the
+//    chunk's, and those to the running sums (shared memory, in the
+//    fragment layout): the tensor cores' adds truncate, and a sum carried
+//    over the 8 k-steps of a chunk took B to 0.87 of its gate (kernel J's
+//    finding).
+//  - `__expf` and `__fdividef` in the SiLU.
+// The warps write out = silu(z + b1) from the running sums, 0 at a dead
+// edge of a live tile. When the caller trains, they also write z (25 MB) at
+// the live edges, which kernel C then reads instead of computing the
+// forward again (C never reads z where dm is 0, and dm·mask is 0 at every
+// dead edge); serving passes no z pointer and writes nothing more. A tile's
+// sums are taken in one fixed order whatever else is live, so out is the
+// same bits at the live edges with the mask and without it, and the same
+// bits with z written or not. M must be 16 (the EGNN message width); any
+// F and K are taken, and A up to 1,138 at k = 16 (above it raises).
+//
+// Backward design (kernel C), for dm = dL/dout. C keeps its 16-wide
+// products (dz·W1ᵀ, dW1) on the CUDA cores: they take ~0.6 ms of its ~2.1
+// with every edge live (`ablate_kernels.py`, PERF.md §6). Per edge e and column f:
 //   dz = dm ⊙ silu'(z), pre = ui + ujn[idx] + dist·wd + b0, a1 = silu(pre),
 //   dpre = (dz @ W1ᵀ) ⊙ silu'(pre);
 //   dui[a] = Σ_kk dpre, dujn[idx] += dpre (within the row), ddist = dpre·wd,
@@ -85,21 +111,17 @@
 #include <cuda_runtime.h>
 
 #include "column_sum.cuh"
+#include "tf32_mma.cuh"
 
 namespace {
 
 constexpr int M_OUT = 16;  // message width m
-constexpr int NE = 4;      // neighbours a warp carries at once (forward)
-constexpr int WARPS = 8;   // warps per block (forward)
 constexpr unsigned FULL = 0xffffffffu;
 
 // backward (kernel C); `ablate_kernels.py` rebuilds it with other values
 constexpr int BW_ROWS = 2;        // molecule rows per block
 constexpr int BW_MIN_BLOCKS = 5;  // blocks of 128 threads an SM its registers allow
 constexpr int GROUP = 8;          // live edges a warp walks at once (a power of 2)
-constexpr size_t SMEM_MAX = 232448;  // bytes of shared memory a Hopper block can opt in to
-
-__device__ __forceinline__ float silu(float x) { return x / (1.f + __expf(-x)); }
 
 __device__ __forceinline__ float sigmoid(float x) { return __fdividef(1.f, 1.f + __expf(-x)); }
 
@@ -108,89 +130,283 @@ __device__ __forceinline__ float dsilu(float x) {
   return s * (1.f + x * (1.f - s));
 }
 
-// out = silu(z), and z itself where zout is given.
-__global__ void __launch_bounds__(WARPS * 32)
+// Kernel B's shape: FW_WARPS warps a block, each holding up to FW_TPW edge
+// tiles (16 edges of a slot) at once, so that a pass over the columns
+// covers FW_PASS tiles; `ablate_kernels.py` rebuilds it with other values.
+constexpr int FW_WARPS = 8;
+constexpr int FW_TPW = 4;
+constexpr int FW_PASS = FW_WARPS * FW_TPW;
+constexpr int FW_MIN_BLOCKS = 2;  // blocks an SM its registers allow
+
+__device__ __forceinline__ float silu(float x) { return __fdividef(x, 1.f + __expf(-x)); }
+
+// Kernel B's W1 as mma.sync B fragments, split for 3xTF32: for each group
+// of 16 columns f (zero past F), n-tile j (outputs 8j..8j+7), part (0: big,
+// 1: small) and lane 4g + t, the float4 of W1[16·grp + 4t + u][8j + g],
+// u < 4, as TF32 bit patterns. Layout [grp][j][part][lane][4].
+__global__ void edge_mlp_w1_frags_kernel(const float* __restrict__ w1, float* __restrict__ wfr,
+                                         int f_dim, int n_grp) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;  // (grp, j, lane)
+  if (i >= n_grp * 64) return;
+  const int lane = i & 31, j = (i >> 5) & 1, grp = i >> 6;
+  const int g = lane >> 2, t = lane & 3;
+  float4 big, small;
+  float* b = &big.x;
+  float* s = &small.x;
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const int f = 16 * grp + 4 * t + u;
+    uint32_t hi, lo;
+    split_tf32(f < f_dim ? w1[static_cast<size_t>(f) * M_OUT + 8 * j + g] : 0.f, hi, lo);
+    b[u] = as_float(hi);
+    s[u] = as_float(lo);
+  }
+  float4* out = reinterpret_cast<float4*>(wfr) + ((grp * 2 + j) * 2) * 32 + lane;
+  out[0] = big;
+  out[32] = small;
+}
+
+// Floats of kernel B's shared memory: the running sums [FW_PASS][2][32][4],
+// two stages of stage_floats, and the row's live-tile list and flags.
+__host__ __device__ constexpr int fwd_pitch(int cw) { return cw + 4; }
+__host__ __device__ inline size_t fwd_stage_floats(int a_slots, int cw) {
+  // ujn [A][CW + 4] | ui [FW_PASS][CW] | wd [CW] | b0 [CW] | W1 fragments [CW / 16][512]
+  return static_cast<size_t>(a_slots) * fwd_pitch(cw) + FW_PASS * cw + 2 * cw + 32 * cw;
+}
+
+// Kernel B: see the file comment. Block = molecule row; CW columns a stage.
+template <int CW>
+__global__ void __launch_bounds__(FW_WARPS * 32, FW_MIN_BLOCKS)
 edge_mlp_fwd_kernel(const float* __restrict__ ui, const float* __restrict__ ujn,
                     const float* __restrict__ dist, const int64_t* __restrict__ idx,
-                    const float* __restrict__ wd, const float* __restrict__ b0,
-                    const float* __restrict__ w1, const float* __restrict__ b1,
-                    float* __restrict__ out, float* __restrict__ zout,
-                    int a_slots, int k_nbrs, int f_dim) {
-  extern __shared__ float smem[];
-  float* w1t = smem;                    // [M_OUT][F]
-  float* wd_s = w1t + M_OUT * f_dim;    // [F]
-  float* b0_s = wd_s + f_dim;           // [F]
+                    const uint8_t* __restrict__ emask, const float* __restrict__ wd,
+                    const float* __restrict__ b0, const float* __restrict__ wfr,
+                    const float* __restrict__ b1, float* __restrict__ out,
+                    float* __restrict__ zout, int a_slots, int k_nbrs, int f_dim) {
+  constexpr int CWP = fwd_pitch(CW), THREADS = FW_WARPS * 32;
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int tps = (k_nbrs + 15) / 16;  // edge tiles a slot
+  const int n_tiles = a_slots * tps;
+  const int f16 = (f_dim + 15) / 16 * 16;
+  const int n_chunks = (f16 + CW - 1) / CW;
+  const size_t sf = fwd_stage_floats(a_slots, CW);
+  const size_t row0 = static_cast<size_t>(blockIdx.x) * a_slots;  // the row's first slot
+  float* run_s = smem;                         // [FW_PASS][2][32][4]
+  float* stage_s = run_s + FW_PASS * 256;      // [2][sf]
+  int* list_s = reinterpret_cast<int*>(stage_s + 2 * sf);  // [n_tiles]: the live tiles
+  int* flag_s = list_s + n_tiles;                          // [n_tiles]: 1 where live
+  int* count_s = flag_s + n_tiles;
 
-  for (int i = threadIdx.x; i < f_dim * M_OUT; i += blockDim.x) {
-    const int f = i / M_OUT, j = i - f * M_OUT;
-    w1t[j * f_dim + f] = w1[i];
-  }
-  for (int f = threadIdx.x; f < f_dim; f += blockDim.x) {
-    wd_s[f] = wd[f];
-    b0_s[f] = b0[f];
+  // the row's live tiles in order (with no mask: every tile); a tile is
+  // live where one of its edges is
+  if (warp == 0) {
+    int n = 0;
+    for (int b = 0; b < n_tiles; b += 32) {
+      const int tile = b + lane;
+      bool on = tile < n_tiles && !emask;
+      if (tile < n_tiles && emask) {
+        const int a = tile / tps, e0 = (tile - a * tps) * 16;
+        const uint8_t* m = emask + (row0 + a) * k_nbrs;
+        for (int e = e0; e < min(e0 + 16, k_nbrs); ++e) on |= m[e] != 0;
+      }
+      const unsigned bits = __ballot_sync(FULL, on);
+      if (on) list_s[n + __popc(bits & ((1u << lane) - 1u))] = tile;
+      if (tile < n_tiles) flag_s[tile] = on;
+      n += __popc(bits);
+    }
+    if (lane == 0) *count_s = n;
   }
   __syncthreads();
-
-  const int g = blockIdx.x;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int groups = (k_nbrs + NE - 1) / NE;
-  const float* ujn_g = ujn + static_cast<size_t>(g) * a_slots * f_dim;
-
-  for (int item = warp; item < a_slots * groups; item += WARPS) {
-    const int a = item / groups;
-    const int k0 = (item - a * groups) * NE;
-    const size_t row = static_cast<size_t>(g) * a_slots + a;
-    const float* ui_r = ui + row * f_dim;
-
-    const float* uj[NE];
-    float dd[NE];
-#pragma unroll
-    for (int e = 0; e < NE; ++e) {
-      const int kk = k0 + e;
-      const bool valid = kk < k_nbrs;
-      const int64_t j = valid ? idx[row * k_nbrs + kk] : 0;
-      uj[e] = ujn_g + static_cast<size_t>(j) * f_dim;
-      dd[e] = valid ? dist[row * k_nbrs + kk] : 0.f;
+  const int n_live = *count_s;
+  // out = 0 at every edge of a dead tile (z is not written there)
+  if (n_live < n_tiles) {
+    const size_t o0 = row0 * k_nbrs * M_OUT;
+    for (int i = tid; i < a_slots * k_nbrs * (M_OUT / 4); i += THREADS) {
+      const int edge = i / (M_OUT / 4), a = edge / k_nbrs;
+      if (!flag_s[a * tps + (edge - a * k_nbrs) / 16])
+        reinterpret_cast<float4*>(out + o0)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
     }
+  }
+  float b1v[2][2];  // b1 at the lane's output columns 8j + 2t, + 1
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    b1v[j][0] = b1[8 * j + 2 * t];
+    b1v[j][1] = b1[8 * j + 2 * t + 1];
+  }
 
-    float acc[NE][M_OUT];
+  for (int p0 = 0; p0 < n_live; p0 += FW_PASS) {
+    const int n_pass = min(FW_PASS, n_live - p0);
+    // this warp's tiles: pass places warp + FW_WARPS·i, i < mine
+    const int mine = n_pass > warp ? (n_pass - warp + FW_WARPS - 1) / FW_WARPS : 0;
+    // rows g and g + 8 of each (edges e0 + g, e0 + g + 8): the neighbour's
+    // offset in the ujn stage and the distance. A row past k (a tile of a
+    // slot with k < 16 neighbours) reads slot 0 at distance 0: its values
+    // reach only its own row of the product, which is not written
+    int jo[FW_TPW][2];
+    float dd[FW_TPW][2];
 #pragma unroll
-    for (int e = 0; e < NE; ++e)
+    for (int i = 0; i < FW_TPW; ++i) {
+      const int tile = i < mine ? list_s[p0 + warp + FW_WARPS * i] : 0;
+      const int a = tile / tps, e0 = (tile - a * tps) * 16;
 #pragma unroll
-      for (int j = 0; j < M_OUT; ++j) acc[e][j] = 0.f;
-
-    for (int f = lane; f < f_dim; f += 32) {
-      const float base = ui_r[f] + b0_s[f];
-      const float w = wd_s[f];
-      float s[NE];
+      for (int h = 0; h < 2; ++h) {
+        const int e = e0 + g + 8 * h;
+        const bool ex = i < mine && e < k_nbrs;
+        const size_t at = (row0 + a) * k_nbrs + e;
+        jo[i][h] = ex ? static_cast<int>(idx[at]) * CWP : 0;
+        dd[i][h] = ex ? dist[at] : 0.f;
+      }
+      if (i < mine) {
 #pragma unroll
-      for (int e = 0; e < NE; ++e) s[e] = silu(base + uj[e][f] + dd[e] * w);
-#pragma unroll
-      for (int j = 0; j < M_OUT; ++j) {
-        const float wj = w1t[j * f_dim + f];
-#pragma unroll
-        for (int e = 0; e < NE; ++e) acc[e][j] = fmaf(s[e], wj, acc[e][j]);
+        for (int j = 0; j < 2; ++j)
+          reinterpret_cast<float4*>(run_s)[((warp + FW_WARPS * i) * 2 + j) * 32 + lane] =
+              make_float4(0.f, 0.f, 0.f, 0.f);
       }
     }
 
-#pragma unroll
-    for (int e = 0; e < NE; ++e)
-#pragma unroll
-      for (int j = 0; j < M_OUT; ++j)
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
-          acc[e][j] += __shfl_xor_sync(FULL, acc[e][j], off);
+    // stage `chunk` (columns c0 .. c0 + CW, zero past F) into buffer `buf`
+    auto stage = [&](int buf, int chunk) {
+      float* ujn_st = stage_s + buf * sf;
+      float* ui_st = ujn_st + a_slots * CWP;
+      float* wd_st = ui_st + FW_PASS * CW;
+      float* b0_st = wd_st + CW;
+      float* wfr_st = b0_st + CW;
+      const int c0 = chunk * CW;
+      for (int i = tid; i < a_slots * CW; i += THREADS) {
+        const int a = i / CW, c = i - a * CW, f = c0 + c;
+        cp_async<4>(ujn_st + a * CWP + c, ujn + (row0 + a) * f_dim + min(f, f_dim - 1), f < f_dim);
+      }
+      for (int pt = warp; pt < n_pass; pt += FW_WARPS) {  // a warp a tile's ui row
+        const float* src = ui + (row0 + list_s[p0 + pt] / tps) * f_dim;
+        for (int c = lane; c < CW; c += 32)
+          cp_async<4>(ui_st + pt * CW + c, src + min(c0 + c, f_dim - 1), c0 + c < f_dim);
+      }
+      for (int c = tid; c < CW; c += THREADS) {
+        const int f = min(c0 + c, f_dim - 1);
+        cp_async<4>(wd_st + c, wd + f, c0 + c < f_dim);
+        cp_async<4>(b0_st + c, b0 + f, c0 + c < f_dim);
+      }
+      const int n_grp = min(CW, f16 - c0) / 16;
+      for (int i = tid; i < n_grp * 128; i += THREADS)
+        cp_async<16>(wfr_st + 4 * i, wfr + static_cast<size_t>(c0 / 16) * 512 + 4 * i, true);
+      cp_async_commit();
+    };
 
-    // every lane now holds all NE·M sums; lane t % 32 writes output t
+    if (n_chunks > 0) stage(0, 0);
+    for (int ch = 0; ch < n_chunks; ++ch) {
+      if (ch + 1 < n_chunks) {
+        stage((ch + 1) & 1, ch + 1);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();  // the chunk's stage is complete
+
+      const float* ujn_st = stage_s + (ch & 1) * sf;
+      const float* ui_st = ujn_st + a_slots * CWP;
+      const float* wd_st = ui_st + FW_PASS * CW;
+      const float* b0_st = wd_st + CW;
+      const float* wfr_st = b0_st + CW;
+      const int n_grp = min(CW, f16 - ch * CW) / 16;
+      // the chunk's sums from 0, in the mma's C fragments (n-tiles j = 0, 1)
+      float acc[FW_TPW][2][4];
 #pragma unroll
-    for (int e = 0; e < NE; ++e) {
+      for (int i = 0; i < FW_TPW; ++i)
 #pragma unroll
-      for (int j = 0; j < M_OUT; ++j) {
-        if (((e * M_OUT + j) & 31) == lane && k0 + e < k_nbrs) {
-          const size_t o = (row * k_nbrs + k0 + e) * M_OUT + j;
-          const float z = acc[e][j] + b1[j];
-          out[o] = silu(z);
-          if (zout) zout[o] = z;
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
+      for (int gi = 0; gi < n_grp; ++gi) {
+        // columns c .. c + 3 of the lane: k-step s takes c + 2s (as k-index
+        // t) and c + 2s + 1 (as t + 4), in A and B alike
+        const int c = gi * 16 + 4 * t;
+        const float4 wd4 = *reinterpret_cast<const float4*>(wd_st + c);
+        const float4 b04 = *reinterpret_cast<const float4*>(b0_st + c);
+        const float4* wf = reinterpret_cast<const float4*>(wfr_st + gi * 512) + lane;
+        const float4 wh[2] = {wf[0], wf[64]}, wl[2] = {wf[32], wf[96]};
+#pragma unroll
+        for (int i = 0; i < FW_TPW; ++i) {
+          if (i >= mine) break;  // warp-uniform
+          const float4 u4 = *reinterpret_cast<const float4*>(ui_st + (warp + FW_WARPS * i) * CW + c);
+          const float base[4] = {u4.x + b04.x, u4.y + b04.y, u4.z + b04.z, u4.w + b04.w};
+          const float w4[4] = {wd4.x, wd4.y, wd4.z, wd4.w};
+          float v[2][4];  // a1 of edges g, g + 8 at the lane's 4 columns
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float4 j4 = *reinterpret_cast<const float4*>(ujn_st + jo[i][h] + c);
+            const float jv[4] = {j4.x, j4.y, j4.z, j4.w};
+#pragma unroll
+            for (int u = 0; u < 4; ++u)
+              v[h][u] = silu(base[u] + jv[u] + dd[i][h] * w4[u]);
+          }
+          // the group's sums from 0 on the tensor cores (their adds truncate,
+          // so a sum carried over many k-steps drifts), then added to the
+          // chunk's on the CUDA cores
+          float grp[2][4] = {};
+#pragma unroll
+          for (int s = 0; s < 2; ++s) {
+            uint32_t ah[4], al[4];
+            split_tf32_alu(v[0][2 * s], ah[0], al[0]);
+            split_tf32_alu(v[1][2 * s], ah[1], al[1]);
+            split_tf32_alu(v[0][2 * s + 1], ah[2], al[2]);
+            split_tf32_alu(v[1][2 * s + 1], ah[3], al[3]);
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              const float* hb = &wh[j].x;
+              const float* lb = &wl[j].x;
+              mma_3xtf32(grp[j], ah, al, __float_as_uint(hb[2 * s]),
+                         __float_as_uint(hb[2 * s + 1]), __float_as_uint(lb[2 * s]),
+                         __float_as_uint(lb[2 * s + 1]));
+            }
+          }
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int r = 0; r < 4; ++r) acc[i][j][r] += grp[j][r];
+        }
+      }
+      // the chunk's sums added to the running sums on the CUDA cores
+#pragma unroll
+      for (int i = 0; i < FW_TPW; ++i) {
+        if (i >= mine) break;
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          float4* r = reinterpret_cast<float4*>(run_s) + ((warp + FW_WARPS * i) * 2 + j) * 32 + lane;
+          float4 v = *r;
+          v.x += acc[i][j][0];
+          v.y += acc[i][j][1];
+          v.z += acc[i][j][2];
+          v.w += acc[i][j][3];
+          *r = v;
+        }
+      }
+      __syncthreads();  // every warp is done with the buffer the next stage fills
+    }
+
+    // z = the sums + b1; out = silu(z), 0 at a dead edge of a live tile; z
+    // where the caller asks for it, at the live edges
+#pragma unroll
+    for (int i = 0; i < FW_TPW; ++i) {
+      if (i >= mine) break;
+      const int tile = list_s[p0 + warp + FW_WARPS * i];
+      const int a = tile / tps, e0 = (tile - a * tps) * 16;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int e = e0 + g + 8 * h;
+        if (e >= k_nbrs) continue;
+        const size_t at = (row0 + a) * k_nbrs + e;
+        const bool live = !emask || emask[at];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const float4 r =
+              reinterpret_cast<const float4*>(run_s)[((warp + FW_WARPS * i) * 2 + j) * 32 + lane];
+          const float z0 = (h ? r.z : r.x) + b1v[j][0], z1 = (h ? r.w : r.y) + b1v[j][1];
+          const size_t o = at * M_OUT + 8 * j + 2 * t;
+          *reinterpret_cast<float2*>(out + o) =
+              live ? make_float2(silu(z0), silu(z1)) : make_float2(0.f, 0.f);
+          if (zout && live) *reinterpret_cast<float2*>(zout + o) = make_float2(z0, z1);
         }
       }
     }
@@ -443,7 +659,21 @@ edge_mlp_bwd_kernel(const float* __restrict__ ui, const float* __restrict__ ujn,
   if (chunk == 0 && tid < M_OUT) part[static_cast<size_t>(f_dim) * (M_OUT + 2) + tid] = db1;
 }
 
-size_t fwd_smem(int f_dim) { return static_cast<size_t>(M_OUT + 2) * f_dim * sizeof(float); }
+// Kernel B's shared memory in bytes at `cw` columns a stage.
+size_t fwd_smem(int a_slots, int k_nbrs, int cw) {
+  const size_t tiles = static_cast<size_t>(a_slots) * ((k_nbrs + 15) / 16);
+  return (FW_PASS * 256 + 2 * fwd_stage_floats(a_slots, cw)) * sizeof(float) +
+         (2 * tiles + 1) * sizeof(int);
+}
+
+// Kernel B's columns a stage: the widest of 64, 32 and 16 whose shared
+// memory fits a block (A ≤ 300, 617 and 1,138 slots at k = 16); 0 if none
+// does.
+int fwd_cols(int a_slots, int k_nbrs) {
+  for (int cw = 64; cw >= 16; cw /= 2)
+    if (fwd_smem(a_slots, k_nbrs, cw) <= MAX_SMEM) return cw;
+  return 0;
+}
 
 size_t bwd_smem(int a_slots, int k_nbrs, int cols) {
   return (static_cast<size_t>(a_slots) * 2 * cols + 2 * SlotBufs::floats(k_nbrs, cols / 32) +
@@ -454,7 +684,7 @@ size_t bwd_smem(int a_slots, int k_nbrs, int cols) {
 // memory fits a block; 0 if none does.
 int bwd_cols(int a_slots, int k_nbrs) {
   for (int cols = 128; cols >= 32; cols /= 2)
-    if (bwd_smem(a_slots, k_nbrs, cols) <= SMEM_MAX) return cols;
+    if (bwd_smem(a_slots, k_nbrs, cols) <= MAX_SMEM) return cols;
   return 0;
 }
 
@@ -467,20 +697,36 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 }  // namespace
 
 // out = silu(z) [G, A, K, M] (kernel B); where zout is not null, z itself
-// too, for kernel C.
+// too, for kernel C. With emask [G, A, K] (bytes, 1 = live), out is 0 at
+// every dead edge and zout is written at the live edges only; with no
+// emask every edge is live. `ws` holds W1's split fragments: 32 floats a
+// column of F rounded up to 16, ceil(F / 16) · 512.
 extern "C" int edge_mlp_fwd_f32(const float* ui, const float* ujn, const float* dist,
-                                const int64_t* idx, const float* wd, const float* b0,
-                                const float* w1, const float* b1, float* out, float* zout,
-                                int g_rows, int a_slots, int k_nbrs, int f_dim,
-                                int m_out, cudaStream_t stream) {
-  if (m_out != M_OUT) return static_cast<int>(cudaErrorInvalidValue);
+                                const int64_t* idx, const uint8_t* emask, const float* wd,
+                                const float* b0, const float* w1, const float* b1, float* out,
+                                float* zout, float* ws, int g_rows, int a_slots, int k_nbrs,
+                                int f_dim, int m_out, cudaStream_t stream) {
+  if (m_out != M_OUT || f_dim < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (g_rows <= 0 || a_slots <= 0 || k_nbrs <= 0) return 0;  // nothing to launch
-  const size_t smem = fwd_smem(f_dim);
-  cudaError_t err = allow_smem(edge_mlp_fwd_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  edge_mlp_fwd_kernel<<<g_rows, WARPS * 32, smem, stream>>>(
-      ui, ujn, dist, idx, wd, b0, w1, b1, out, zout, a_slots, k_nbrs, f_dim);
-  return static_cast<int>(cudaGetLastError());
+  const int cw = fwd_cols(a_slots, k_nbrs);
+  if (cw == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int n_grp = (f_dim + 15) / 16;
+  if (n_grp > 0) {
+    edge_mlp_w1_frags_kernel<<<(n_grp * 64 + 255) / 256, 256, 0, stream>>>(w1, ws, f_dim, n_grp);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const size_t smem = fwd_smem(a_slots, k_nbrs, cw);
+  auto launch = [&](auto kernel) {
+    cudaError_t e = allow_smem(kernel, smem);
+    if (e != cudaSuccess) return e;
+    kernel<<<g_rows, FW_WARPS * 32, smem, stream>>>(ui, ujn, dist, idx, emask, wd, b0, ws, b1,
+                                                    out, zout, a_slots, k_nbrs, f_dim);
+    return cudaGetLastError();
+  };
+  return static_cast<int>(cw == 64   ? launch(edge_mlp_fwd_kernel<64>)
+                          : cw == 32 ? launch(edge_mlp_fwd_kernel<32>)
+                                     : launch(edge_mlp_fwd_kernel<16>));
 }
 
 // Floats of scratch that `edge_mlp_bwd_f32` needs: the parameter partials

@@ -16,20 +16,35 @@
 // [P, H/2] (202 MB).
 //
 // Bound on the H100: per position and frame, H pre-activations (rank-1
-// terms: pre = base ± t0 ± t1 ± t2), H/2 sigmoids and a LayerNorm over H/2
-// columns, all on the CUDA cores: 8·P·H/2 = 403 M SwiGLU values per launch
-// at the EdgeModule site. The LayerNorm statistics are warp reductions
-// (shuffles). Device-memory traffic is the [P, H/2] output (forward) or
-// output gradient (backward).
+// terms in x), H/2 sigmoids and a LayerNorm over H/2 columns, all on the
+// CUDA cores: 8·P·H/2 = 403 M SwiGLU values per launch at the EdgeModule
+// site. Each sigmoid takes two special-function operations (ex2 and a
+// reciprocal), of which an SM issues 16 a clock: ~0.2 ms a launch at that
+// site on that pipe alone, about the operations bound. The LayerNorm
+// statistics are warp reductions (shuffles). Device-memory traffic is the
+// [P, H/2] output (forward) or output gradient (backward).
 //
 // Forward design (kernel D): a warp owns one position at a time
-// (grid-stride over P); lane l holds columns l + 32·q, q < H/64, of both
-// halves, so each LayerNorm sum is a per-lane sum of H/64 values and one
-// 32-lane butterfly. The lane keeps its columns of w1, b1, γ and β in
-// registers for the whole launch (the grid is at most the blocks that fit
-// on the card at once), and the 8 sign patterns are unrolled, so the signs
-// are compile-time constants. C ∈ {3, 4} and H/2 ∈ {32, 64, 128, 256} are
-// template arguments.
+// (grid-stride over P, the next position's x loaded one position ahead);
+// lane l holds columns l + 32·q, q < H/64, of both halves, and keeps its
+// columns of w1, b1, γ and β in registers for the whole launch (the grid is
+// at most the blocks that fit on the card at once). Per position:
+//  - each frame's pre-activations as the frame-invariant part (once a
+//    position) plus its 3 coordinate terms, summed apart from it (so that
+//    their roundings stay at their own size where b1 is large). Frames in
+//    Gray-code order, each moving the terms by ±2·x_i·w1[i] (one FMA a
+//    column), were 4 % slower on the card: the frames then form one chain
+//    of dependent updates (`ablate_kernels.py`);
+//  - all 8 frames' SwiGLU values y[8][H/64] first, with the fast exponential
+//    and division (`__expf`, `__fdividef`) in the sigmoid and the dropout
+//    hash's first finalizer once a position (`keep_bit_h`);
+//  - then the 8 frames' LayerNorm statistics together: their sums in one
+//    reduce-scatter butterfly and one broadcast each (17 shuffles), then
+//    the centred sums of squares the same way: the exact two-pass variance
+//    in 2 butterflies a position, where a chain of 2 dependent butterflies
+//    a frame took 16 (80 shuffles);
+//  - out = γ·mean_o((y_o − μ_o)/σ_o) + β.
+// C ∈ {3, 4} and H/2 ∈ {32, 64, 128, 256} are template arguments.
 //
 // Backward (kernel E), with dz = (dout/8)·γ, dy = (dz − mean dz −
 // ẑ·mean(dz·ẑ))/σ, dropout's mask again, dpre = [dy·h2·silu'(h1) ‖
@@ -87,7 +102,9 @@ constexpr int WARPS = 8;  // warps per block
 constexpr unsigned FULL = 0xffffffffu;
 constexpr float LN_EPS = 1e-5f;
 
-__device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)); }
+__device__ __forceinline__ float sigmoid_fast(float x) {
+  return __fdividef(1.f, 1.f + __expf(-x));
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -105,10 +122,11 @@ __host__ __device__ __forceinline__ uint32_t fmix32(uint32_t h) {
   return h;
 }
 
-// keep bit of (position p, counter c = o·H/2 + j); s = fmix32(seed)
-__device__ __forceinline__ bool keep_bit(uint32_t s, uint32_t p, uint32_t c, uint32_t thresh) {
-  const uint32_t h = fmix32(fmix32(p ^ s) ^ (c * 0x9E3779B9u + s));
-  return h >= thresh;
+// keep bit of (position p, counter c = o·H/2 + j) for s = fmix32(seed),
+// fmix32(fmix32(p ^ s) ^ (c·0x9E3779B9 + s)) ≥ thresh, from ph = fmix32(p ^ s),
+// which the kernels compute once a position
+__device__ __forceinline__ bool keep_bit_h(uint32_t ph, uint32_t s, uint32_t c, uint32_t thresh) {
+  return fmix32(ph ^ (c * 0x9E3779B9u + s)) >= thresh;
 }
 
 // sign of column i in frame o: ±1 for the coordinates i < 3, +1 for the
@@ -128,111 +146,6 @@ struct Dropout {
 template <int CPL>
 __device__ __forceinline__ int col(int k, int lane) {
   return (k < CPL) ? lane + 32 * k : CPL * 32 + lane + 32 * (k - CPL);
-}
-
-template <int C, int CPL>
-struct Params {
-  static constexpr int HH = 32 * CPL, H = 2 * HH, K = 2 * CPL;
-  float w[C][K], b[K], g[CPL];
-
-  __device__ __forceinline__ void load(const float* w1, const float* b1, const float* ls,
-                                       int lane) {
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      b[k] = b1[col<CPL>(k, lane)];
-#pragma unroll
-      for (int c = 0; c < C; ++c) w[c][k] = w1[c * H + col<CPL>(k, lane)];
-    }
-#pragma unroll
-    for (int q = 0; q < CPL; ++q) g[q] = ls[lane + 32 * q];
-  }
-
-  // base = b1 + Σ_{c≥3} x_c·w1[c] and the rank-1 terms t_i = x_i·w1[i]
-  __device__ __forceinline__ void terms(const float (&xv)[C], float (&base)[K],
-                                        float (&t)[3][K]) const {
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      float v = b[k];
-#pragma unroll
-      for (int c = 3; c < C; ++c) v += xv[c] * w[c][k];
-      base[k] = v;
-#pragma unroll
-      for (int i = 0; i < 3; ++i) t[i][k] = xv[i] * w[i][k];
-    }
-  }
-};
-
-template <int C, int CPL>
-__global__ void __launch_bounds__(WARPS * 32)
-frame_swiglu_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w1,
-                        const float* __restrict__ b1, const float* __restrict__ ls,
-                        const float* __restrict__ lb, float* __restrict__ out, int64_t n_pos,
-                        Dropout drop) {
-  using P = Params<C, CPL>;
-  constexpr int HH = P::HH, K = P::K;
-  const int lane = threadIdx.x & 31;
-  P prm;
-  prm.load(w1, b1, ls, lane);
-  float be[CPL];
-#pragma unroll
-  for (int q = 0; q < CPL; ++q) be[q] = lb[lane + 32 * q];
-
-  const int64_t nwarps = static_cast<int64_t>(gridDim.x) * WARPS;
-  for (int64_t p = static_cast<int64_t>(blockIdx.x) * WARPS + (threadIdx.x >> 5); p < n_pos;
-       p += nwarps) {
-    float xv[C];
-#pragma unroll
-    for (int c = 0; c < C; ++c) xv[c] = x[p * C + c];
-    float base[K], t[3][K];
-    prm.terms(xv, base, t);
-
-    float acc[CPL];
-#pragma unroll
-    for (int q = 0; q < CPL; ++q) acc[q] = 0.f;
-#pragma unroll
-    for (int o = 0; o < 8; ++o) {
-      float y[CPL], s = 0.f;
-#pragma unroll
-      for (int q = 0; q < CPL; ++q) {
-        const float h1 = base[q] + sgn(o, 0) * t[0][q] + sgn(o, 1) * t[1][q] + sgn(o, 2) * t[2][q];
-        const int k2 = CPL + q;
-        const float h2 =
-            base[k2] + sgn(o, 0) * t[0][k2] + sgn(o, 1) * t[1][k2] + sgn(o, 2) * t[2][k2];
-        float v = h1 * sigmoid(h1) * h2;
-        if (drop.on)
-          v = keep_bit(drop.smix, static_cast<uint32_t>(p), o * HH + lane + 32 * q, drop.thresh)
-                  ? v * drop.inv_keep
-                  : 0.f;
-        y[q] = v;
-        s += v;
-      }
-      const float mu = warp_sum(s) / HH;
-      float ss = 0.f;
-#pragma unroll
-      for (int q = 0; q < CPL; ++q) {
-        y[q] -= mu;
-        ss += y[q] * y[q];
-      }
-      const float inv = rsqrtf(warp_sum(ss) / HH + LN_EPS);
-#pragma unroll
-      for (int q = 0; q < CPL; ++q) acc[q] += y[q] * inv * prm.g[q] + be[q];
-    }
-#pragma unroll
-    for (int q = 0; q < CPL; ++q) out[p * HH + lane + 32 * q] = acc[q] * 0.125f;
-  }
-}
-
-// Kernel E's blocks an SM (its registers allow; `ablate_kernels.py`
-// rebuilds it with others).
-constexpr int BWD_MIN_BLOCKS = 2;
-
-__device__ __forceinline__ float sigmoid_fast(float x) {
-  return __fdividef(1.f, 1.f + __expf(-x));
-}
-
-// keep_bit(s, p, c, thresh) from ph = fmix32(p ^ s), computed once a position
-__device__ __forceinline__ bool keep_bit_h(uint32_t ph, uint32_t s, uint32_t c, uint32_t thresh) {
-  return fmix32(ph ^ (c * 0x9E3779B9u + s)) >= thresh;
 }
 
 // The warp's sums of v[0..N) (N = 2^n ≤ 32) in one reduce-scatter
@@ -256,6 +169,117 @@ __device__ __forceinline__ float warp_reduce_scatter(float (&v)[N], int lane) {
   for (int s = LOG_N; s < 5; ++s) v[0] += __shfl_xor_sync(FULL, v[0], 16 >> s);
   return v[0];
 }
+
+// Kernel D's blocks an SM (its registers allow, at H/2 ≤ 128;
+// `ablate_kernels.py` rebuilds it with others).
+constexpr int FWD_MIN_BLOCKS = 2;
+
+// Kernel D: see the file comment. A warp owns a position at a time.
+template <int C, int CPL>
+__global__ void __launch_bounds__(WARPS * 32, CPL >= 8 ? 1 : FWD_MIN_BLOCKS)
+frame_swiglu_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w1,
+                        const float* __restrict__ b1, const float* __restrict__ ls,
+                        const float* __restrict__ lb, float* __restrict__ out, int64_t n_pos,
+                        Dropout drop) {
+  constexpr int HH = 32 * CPL, H = 2 * HH, K = 2 * CPL;
+  constexpr float INV_HH = 1.f / HH;  // exact: HH is a power of 2
+  const int lane = threadIdx.x & 31;
+  // the lane's columns of w1 and b1, and its γ and β, for the whole launch
+  float w[C][K], b[K], g[CPL], be[CPL];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    b[k] = b1[col<CPL>(k, lane)];
+#pragma unroll
+    for (int c = 0; c < C; ++c) w[c][k] = w1[c * H + col<CPL>(k, lane)];
+  }
+#pragma unroll
+  for (int q = 0; q < CPL; ++q) {
+    g[q] = ls[lane + 32 * q];
+    be[q] = lb[lane + 32 * q];
+  }
+
+  const int64_t nwarps = static_cast<int64_t>(gridDim.x) * WARPS;
+  int64_t p = static_cast<int64_t>(blockIdx.x) * WARPS + (threadIdx.x >> 5);
+  float xn[C];  // x of the warp's next position, loaded one position ahead
+#pragma unroll
+  for (int c = 0; c < C; ++c) xn[c] = p < n_pos ? x[p * C + c] : 0.f;
+  for (; p < n_pos; p += nwarps) {
+    float xv[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) xv[c] = xn[c];
+    if (p + nwarps < n_pos) {
+#pragma unroll
+      for (int c = 0; c < C; ++c) xn[c] = x[(p + nwarps) * C + c];
+    }
+    const uint32_t ph = drop.on ? fmix32(static_cast<uint32_t>(p) ^ drop.smix) : 0u;
+
+    // pre_o = base + u_o: base = b1 + Σ_{c≥3} x_c·w1[c] the same in every
+    // frame, u_o = Σ_{i<3} s_o,i·x_i·w1[i] (3 FMAs a column) kept apart from
+    // it, so that u's roundings fall at the size of the coordinate terms,
+    // not at that of base (b1 + 10 would carry them at 10)
+    float base[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      float v = b[k];
+#pragma unroll
+      for (int c = 3; c < C; ++c) v = fmaf(xv[c], w[c][k], v);
+      base[k] = v;
+    }
+    // y[o] = drop(silu(h1)·h2) of frame o, and the lane's part of its sum
+    float y[8][CPL], s[8];
+#pragma unroll
+    for (int o = 0; o < 8; ++o) {
+      s[o] = 0.f;
+#pragma unroll
+      for (int q = 0; q < CPL; ++q) {
+        float u1 = 0.f, u2 = 0.f;
+#pragma unroll
+        for (int i = 0; i < 3; ++i) {
+          u1 = fmaf(sgn(o, i) * xv[i], w[i][q], u1);
+          u2 = fmaf(sgn(o, i) * xv[i], w[i][CPL + q], u2);
+        }
+        const float h1 = base[q] + u1, h2 = base[CPL + q] + u2;
+        float v = h1 * sigmoid_fast(h1) * h2;
+        if (drop.on)
+          v = keep_bit_h(ph, drop.smix, o * HH + lane + 32 * q, drop.thresh) ? v * drop.inv_keep
+                                                                              : 0.f;
+        y[o][q] = v;
+        s[o] += v;
+      }
+    }
+    // the 8 frames' means: their sums in one reduce-scatter butterfly (lane
+    // 4o holds frame o's), one broadcast each; then the centred sums of
+    // squares the same way (the two-pass variance)
+    float mu[8], inv[8], ss[8];
+    const float r1 = warp_reduce_scatter<8>(s, lane);
+#pragma unroll
+    for (int o = 0; o < 8; ++o) mu[o] = __shfl_sync(FULL, r1, 4 * o) * INV_HH;
+#pragma unroll
+    for (int o = 0; o < 8; ++o) {
+      ss[o] = 0.f;
+#pragma unroll
+      for (int q = 0; q < CPL; ++q) {
+        y[o][q] -= mu[o];
+        ss[o] = fmaf(y[o][q], y[o][q], ss[o]);
+      }
+    }
+    const float r2 = warp_reduce_scatter<8>(ss, lane);
+#pragma unroll
+    for (int o = 0; o < 8; ++o) inv[o] = rsqrtf(__shfl_sync(FULL, r2, 4 * o) * INV_HH + LN_EPS);
+    // out = γ·mean_o((y_o − μ_o)/σ_o) + β
+#pragma unroll
+    for (int q = 0; q < CPL; ++q) {
+      float acc = 0.f;
+#pragma unroll
+      for (int o = 0; o < 8; ++o) acc = fmaf(y[o][q], inv[o], acc);
+      out[p * HH + lane + 32 * q] = fmaf(acc * 0.125f, g[q], be[q]);
+    }
+  }
+}
+
+// Kernel E's blocks an SM (its registers allow; `ablate_kernels.py`
+// rebuilds it with others).
+constexpr int BWD_MIN_BLOCKS = 2;
 
 template <int C, int CPL>
 struct BwdShape {

@@ -1,7 +1,8 @@
 // Device helpers shared by kernels J (`pooled_conv_fwd.cu`) and K
 // (`pooled_conv.cu`): cp.async copies into shared memory, the 3xTF32 split,
 // one m16n8k8 TF32 tensor-core product and named barriers; kernels G and I
-// (`vis_mix.cu`) take the copies and `set_smem`. Off the card (a host
+// (`vis_mix.cu`) take the copies and `set_smem`, kernel B (`edge_mlp.cu`)
+// the copies, the split (by integer operations) and the products. Off the card (a host
 // compiler parsing the sources) the copies are plain copies and the rest
 // does nothing.
 
@@ -64,6 +65,18 @@ __device__ __forceinline__ float as_float(uint32_t u) { return __uint_as_float(u
 __device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
   big = tf32(x);
   small = tf32(x - as_float(big));
+}
+
+// tf32(x) by two integer operations: the magnitude rounded at bit 13, ties
+// away from zero, which are the bits cvt.rna.tf32.f32 gives for a finite x;
+// they run on the integer pipe, not the conversion unit.
+__device__ __forceinline__ uint32_t tf32_alu(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+__device__ __forceinline__ void split_tf32_alu(float x, uint32_t& big, uint32_t& small) {
+  big = tf32_alu(x);
+  small = tf32_alu(x - as_float(big));
 }
 
 // d += a · b for one m16n8k8 TF32 tile of the warp (row.col); the

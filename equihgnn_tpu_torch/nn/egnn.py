@@ -18,8 +18,13 @@ itself the reference's single EGNN layer
 
 The edge MLP runs as one fused kernel (`ops/kernels/edge_mlp.py`), so the
 [R, A, k, 2(2d+1)] pre-activation is never stored; `ui = x·Wiᵀ` and
-`ujn = x·Wjᵀ` are plain matmuls at the node sites. Dropout is 0 in every
-model that uses this layer, so it has none. The flat cross-molecule path
+`ujn = x·Wjᵀ` are plain matmuls at the node sites. The kernel takes
+`pair_mask` and gives 0 at the masked edges (it skips the slots with no
+kept edge): both consumers of the messages mask them anyway, and the
+coordinate MLP between works row by row, so a masked edge's message reaches
+no output and no gradient, and the layer's outputs and gradients are the
+same bits with the mask as without it (`tests/test_torch_egnn.py`).
+Dropout is 0 in every model that uses this layer, so it has none. The flat cross-molecule path
 (`cross_molecule=True`) is not ported yet.
 """
 
@@ -124,7 +129,8 @@ class EGNN(nn.Module):
             torch.matmul(xd, e0.weight_j.t()),
             rel_dist, nbr_idx, e0.weight_d[:, 0], e0.bias,
             self.edge_mlp_1.weight.t().contiguous(), self.edge_mlp_1.bias,
-        )  # [R, A, k, m]
+            edge_mask=pair_mask,
+        )  # [R, A, k, m], 0 at the masked edges
 
         w = self.coors_mlp_1(F.silu(self.coors_mlp_0(m_ij)))[..., 0]  # [R, A, k]
         w = torch.where(pair_mask, w, 0.0)

@@ -10,7 +10,15 @@ forward `_fwd_impl`/`_fwd_kernel` (kernel B) and its custom VJP
 
 `fused_edge_messages` is the wrapper, with the JAX function's argument
 layout: ui/ujn [G, A, F], dist [G, A, k], nbr_idx [G, A, k] slot indices
-into the A axis, wd/b0 [F], w1 [F, m], b1 [m] → [G, A, k, m]. A CPU tensor
+into the A axis, wd/b0 [F], w1 [F, m], b1 [m] → [G, A, k, m]. An optional
+`edge_mask` [G, A, k] (bool, the model's pair_mask) makes it
+
+    where(edge_mask[..., None], silu(z), 0),
+
+whose backward is the unmasked one's on dm·mask (the `live` mask of kernels
+J and K, `pooled_conv.py`, does the same): kernel B then skips every slot
+whose edges are all dead, and writes 0 at the dead edges. With no mask every
+edge is computed, exactly the JAX function. A CPU tensor
 goes to `fused_edge_messages_plain`, which autograd traces. A CUDA tensor
 goes through `_FusedEdgeMessages`, an `autograd.Function` whose forward is
 kernel B and whose backward is kernel C (`fused_edge_messages_bwd`). When
@@ -18,10 +26,14 @@ an input needs a gradient, kernel B also writes z [G, A, k, m] (25 MB at
 batch 768), which the Function saves beside its inputs, so that kernel C
 does not compute the forward again; JAX's `_vjp_fwd` saved only its inputs
 and recomputed z, because its kernel had only VMEM to keep it in. Serving
-(no gradient) writes nothing more than `out`. Kernel C skips, exactly, the
-edges whose row of dm is all 0 (the model's padded neighbours: both
-consumers of `out` mask them), and writes 0 there. `nbr_idx` gets no
-gradient. The kernels take float32 and m = 16, or the wrapper raises.
+(no gradient) writes nothing more than `out`; with a mask, z is written at
+the live edges only, and the backward hands kernel C dm·mask, so that C,
+which reads z only where dm is not 0, never reads it at a dead edge.
+Kernel C skips, exactly, the edges whose row of dm is all 0 (the model's
+padded neighbours: both consumers of `out` mask them), and writes 0 there. `nbr_idx` gets no
+gradient. The kernels take float32, m = 16 and rows of A ≤ 1,138 slots at
+k = 16 (kernel B's shared memory; C's limit is lower, A ≤ 897), or the
+wrapper raises.
 Contract: every index lies in [0, A), as `knn_dense` gives them; the
 kernels do not check it (that would need a device-to-host sync per call).
 `fused_edge_messages.launches` and `fused_edge_messages_bwd.launches` count
@@ -40,26 +52,31 @@ from equihgnn_tpu_torch.ops.kernels import build
 KERNEL_M = 16  # the kernels' message width (csrc/edge_mlp.cu M_OUT)
 SMEM_LIMIT = 232_448  # bytes of shared memory a Hopper block can use
 GROUP = 8  # kernel C's live edges a warp walks at once (csrc)
+FW_PASS = 32  # kernel B's edge tiles a pass over the columns (csrc)
 
 
-def fused_edge_messages_plain(ui, ujn, dist, nbr_idx, wd, b0, w1, b1):
-    """The same function in plain PyTorch: materializes [G, A, k, F]."""
+def fused_edge_messages_plain(ui, ujn, dist, nbr_idx, wd, b0, w1, b1, edge_mask=None):
+    """The same function in plain PyTorch: materializes [G, A, k, F]; 0 at
+    the edges `edge_mask` drops."""
     g = torch.arange(ujn.shape[0], device=ujn.device)[:, None, None]
     uj = ujn[g, nbr_idx]  # [G, A, k, F]
     pre = ui[:, :, None, :] + uj + dist[..., None] * wd + b0
-    return F.silu(torch.matmul(F.silu(pre), w1) + b1)
+    out = F.silu(torch.matmul(F.silu(pre), w1) + b1)
+    if edge_mask is None:
+        return out
+    return torch.where(edge_mask[..., None], out, torch.zeros((), dtype=out.dtype, device=out.device))
 
 
-def fused_edge_messages_bwd_plain(ui, ujn, dist, nbr_idx, wd, b0, w1, b1, dm):
+def fused_edge_messages_bwd_plain(ui, ujn, dist, nbr_idx, wd, b0, w1, b1, dm, edge_mask=None):
     """(dui, dujn, ddist, dwd, db0, dw1, db1): autograd through
     `fused_edge_messages_plain` for the output gradient `dm`."""
     with torch.enable_grad():
         leaves = [t.detach().requires_grad_() for t in (ui, ujn, dist, wd, b0, w1, b1)]
-        out = fused_edge_messages_plain(*leaves[:3], nbr_idx, *leaves[3:])
+        out = fused_edge_messages_plain(*leaves[:3], nbr_idx, *leaves[3:], edge_mask)
         return torch.autograd.grad(out, leaves, dm)
 
 
-def _check(ui, ujn, dist, nbr_idx, wd, b0, w1, b1, dm=None, z=None):
+def _check(ui, ujn, dist, nbr_idx, wd, b0, w1, b1, dm=None, z=None, edge_mask=None):
     named = dict(ui=ui, ujn=ujn, dist=dist, wd=wd, b0=b0, w1=w1, b1=b1)
     if dm is not None:
         named["dm"] = dm
@@ -70,7 +87,12 @@ def _check(ui, ujn, dist, nbr_idx, wd, b0, w1, b1, dm=None, z=None):
             raise TypeError(f"edge_mlp kernel takes float32 {name}, got {t.dtype}")
     if nbr_idx.dtype != torch.int64:
         raise TypeError(f"edge_mlp kernel takes int64 nbr_idx, got {nbr_idx.dtype}")
-    for name, t in dict(named, nbr_idx=nbr_idx).items():
+    if edge_mask is not None and edge_mask.dtype != torch.bool:
+        raise TypeError(f"edge_mlp kernel takes a bool edge_mask, got {edge_mask.dtype}")
+    tensors = dict(named, nbr_idx=nbr_idx)
+    if edge_mask is not None:
+        tensors["edge_mask"] = edge_mask
+    for name, t in tensors.items():
         if t.device != ui.device:
             raise ValueError(f"{name} lies on {t.device}, ui on {ui.device}")
         if not t.is_contiguous():
@@ -84,19 +106,38 @@ def _check(ui, ujn, dist, nbr_idx, wd, b0, w1, b1, dm=None, z=None):
             f"nbr_idx and dist must be [G, A, k] = [{g}, {a}, k], got "
             f"{tuple(nbr_idx.shape)}, {tuple(dist.shape)}"
         )
+    if edge_mask is not None and edge_mask.shape != (g, a, k):
+        raise ValueError(f"edge_mask must be [{g}, {a}, {k}], got {tuple(edge_mask.shape)}")
     if wd.shape != (f,) or b0.shape != (f,) or w1.shape != (f, KERNEL_M) or b1.shape != (KERNEL_M,):
         raise ValueError(
             f"edge_mlp kernel takes wd, b0 [{f}], w1 [{f}, {KERNEL_M}], b1 "
             f"[{KERNEL_M}]; got {tuple(wd.shape)}, {tuple(b0.shape)}, "
             f"{tuple(w1.shape)}, {tuple(b1.shape)}"
         )
-    if (KERNEL_M + 2) * f * 4 > SMEM_LIMIT:
-        raise ValueError(f"F = {f} needs more shared memory than a block has")
+    if _fwd_smem(a, k, 16) > SMEM_LIMIT:
+        raise ValueError(f"A = {a}, k = {k} need more shared memory than a block has (kernel B)")
     for name, t in (("dm", dm), ("z", z)):
         if t is not None and t.shape != (g, a, k, KERNEL_M):
             raise ValueError(f"{name} must be [{g}, {a}, {k}, {KERNEL_M}], got {tuple(t.shape)}")
     if dm is not None and _bwd_smem(a, k, 32) > SMEM_LIMIT:
         raise ValueError(f"A = {a}, k = {k} need more shared memory than a block has")
+
+
+def _fwd_smem(a: int, k: int, cw: int) -> int:
+    """Kernel B's shared memory in bytes at `cw` columns a stage (csrc
+    `fwd_smem`): the running sums of a pass's tiles, two stages of the row's
+    ujn [A][cw + 4], the pass's ui, wd, b0 and W1's fragments, and the row's
+    live-tile list. The launch takes the widest of 64, 32 and 16 columns
+    that fits (`fwd_cols`)."""
+    tiles = a * -(-k // 16)
+    stage = a * (cw + 4) + FW_PASS * cw + 2 * cw + 32 * cw
+    return (FW_PASS * 256 + 2 * stage) * 4 + (2 * tiles + 1) * 4
+
+
+def fwd_workspace_floats(f: int) -> int:
+    """Floats of kernel B's workspace: W1's split fragments, 32 floats a
+    column of F rounded up to 16 (csrc `edge_mlp_fwd_f32`)."""
+    return -(-f // 16) * 512
 
 
 def _bwd_smem(a: int, k: int, cols: int) -> int:
@@ -113,19 +154,22 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _launch_fwd(ui, ujn, dist, nbr_idx, wd, b0, w1, b1, want_z: bool = False):
-    """(out, z): kernel B's output, and z where `want_z` (else None)."""
+def _launch_fwd(ui, ujn, dist, nbr_idx, wd, b0, w1, b1, edge_mask=None, want_z: bool = False):
+    """(out, z): kernel B's output, and z where `want_z` (else None; with
+    `edge_mask`, z is written at the live edges only)."""
     g, a, f = ui.shape
     k = nbr_idx.shape[-1]
     out = torch.empty((g, a, k, KERNEL_M), dtype=torch.float32, device=ui.device)
     z = torch.empty_like(out) if want_z else None
     lib = build.library()
+    ws = torch.empty(fwd_workspace_floats(f), dtype=torch.float32, device=ui.device)
     with torch.cuda.device(ui.device):
         code = lib.edge_mlp_fwd_f32(
             ui.data_ptr(), ujn.data_ptr(), dist.data_ptr(), nbr_idx.data_ptr(),
+            None if edge_mask is None else edge_mask.data_ptr(),
             wd.data_ptr(), b0.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-            out.data_ptr(), z.data_ptr() if want_z else None, g, a, k, f, KERNEL_M,
-            _stream(ui),
+            out.data_ptr(), z.data_ptr() if want_z else None, ws.data_ptr(), g, a, k, f,
+            KERNEL_M, _stream(ui),
         )
     build.check(lib, "edge_mlp_fwd_f32", code)
     fused_edge_messages.launches += 1
@@ -176,31 +220,37 @@ def _recorded(*tensors) -> bool:
 
 class _FusedEdgeMessages(torch.autograd.Function):
     """Kernel B forward, kernel C backward (JAX `_fused`'s custom VJP); z
-    saved where `want_z` (autograd records the call)."""
+    saved where `want_z` (autograd records the call); with `edge_mask`, C
+    gets dm·mask."""
 
     @staticmethod
-    def forward(ctx, ui, ujn, dist, nbr_idx, wd, b0, w1, b1, want_z):
-        out, z = _launch_fwd(ui, ujn, dist, nbr_idx, wd, b0, w1, b1, want_z=want_z)
-        ctx.save_for_backward(ui, ujn, dist, nbr_idx, wd, b0, w1, b1, z)
+    def forward(ctx, ui, ujn, dist, nbr_idx, wd, b0, w1, b1, edge_mask, want_z):
+        out, z = _launch_fwd(ui, ujn, dist, nbr_idx, wd, b0, w1, b1, edge_mask=edge_mask,
+                             want_z=want_z)
+        ctx.save_for_backward(ui, ujn, dist, nbr_idx, wd, b0, w1, b1, z, edge_mask)
         return out
 
     @staticmethod
     def backward(ctx, dm):
-        *inputs, z = ctx.saved_tensors
-        dui, dujn, ddist, dwd, db0, dw1, db1 = fused_edge_messages_bwd(
-            *inputs, dm.contiguous(), z)
-        return dui, dujn, ddist, None, dwd, db0, dw1, db1, None
+        *inputs, z, edge_mask = ctx.saved_tensors
+        dm = dm.contiguous()
+        if edge_mask is not None:
+            dm = torch.where(edge_mask[..., None], dm, torch.zeros((), dtype=dm.dtype,
+                                                                   device=dm.device))
+        dui, dujn, ddist, dwd, db0, dw1, db1 = fused_edge_messages_bwd(*inputs, dm, z)
+        return dui, dujn, ddist, None, dwd, db0, dw1, db1, None, None
 
 
-def fused_edge_messages(ui, ujn, dist, nbr_idx, wd, b0, w1, b1):
-    """silu(silu(ui ⊕ gather(ujn) + dist·wd + b0) @ w1 + b1) → [G, A, k, m]."""
+def fused_edge_messages(ui, ujn, dist, nbr_idx, wd, b0, w1, b1, *, edge_mask=None):
+    """silu(silu(ui ⊕ gather(ujn) + dist·wd + b0) @ w1 + b1) → [G, A, k, m],
+    0 at the edges `edge_mask` drops."""
     if ui.device.type == "cpu":
-        return fused_edge_messages_plain(ui, ujn, dist, nbr_idx, wd, b0, w1, b1)
+        return fused_edge_messages_plain(ui, ujn, dist, nbr_idx, wd, b0, w1, b1, edge_mask)
     if ui.device.type != "cuda":
         raise ValueError(f"fused_edge_messages: unsupported device {ui.device}")
-    _check(ui, ujn, dist, nbr_idx, wd, b0, w1, b1)
+    _check(ui, ujn, dist, nbr_idx, wd, b0, w1, b1, edge_mask=edge_mask)
     # z only where autograd records the call: serving writes `out` alone
-    return _FusedEdgeMessages.apply(ui, ujn, dist, nbr_idx, wd, b0, w1, b1,
+    return _FusedEdgeMessages.apply(ui, ujn, dist, nbr_idx, wd, b0, w1, b1, edge_mask,
                                     _recorded(ui, ujn, dist, wd, b0, w1, b1))
 
 

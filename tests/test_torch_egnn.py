@@ -217,8 +217,8 @@ def test_dm_is_zero_on_every_masked_edge_of_a_train_step(monkeypatch):
         seen["knn"] = knn(*a, **kw)
         return seen["knn"]
 
-    def kernel_seen(*a):
-        out = kernel(*a)
+    def kernel_seen(*a, **kw):
+        out = kernel(*a, **kw)
         out.register_hook(lambda g: seen.__setitem__("dm", g.detach().clone()))
         return out
 
@@ -235,3 +235,55 @@ def test_dm_is_zero_on_every_masked_edge_of_a_train_step(monkeypatch):
     assert (~pair_mask).any() and pair_mask.any()
     assert torch.all(dm[~pair_mask] == 0)
     assert not (dm[pair_mask] == 0).all(-1).any()
+
+
+@pytest.mark.parametrize("radius_mask", [False, True])
+def test_egnn_layer_is_the_same_bits_with_the_edge_mask(radius_mask, monkeypatch):
+    """The layer hands `pair_mask` to the fused edge MLP, which then gives 0
+    at the masked edges (on the card it skips the slots with no kept edge).
+    Both consumers of the messages mask them, and the coordinate MLP between
+    works row by row, so nothing the model computes may move: the layer's
+    outputs, and its gradients with respect to every parameter and both
+    inputs, are the same bits (`torch.equal`) with `edge_mask=pair_mask` as
+    with `edge_mask=None`. Weights at O(0.1), so that the edge MLP moves
+    both outputs."""
+    from equihgnn_tpu_torch.nn import egnn as egnn_mod
+
+    dim = 16
+    _, tb = _batches()
+    gen = torch.Generator().manual_seed(3)
+    layer = EGNN(dim=dim, apply_radius_mask=radius_mask, generator=gen)
+    with torch.no_grad():
+        for name, p in layer.named_parameters():
+            p.copy_(0.1 * torch.randn(p.shape, generator=gen) + (1.0 if "node_norm.weight" in name else 0.0))
+    feats0 = torch.randn(tb.num_atoms, dim, generator=gen)
+    rf = torch.randn(tb.num_atoms, dim, generator=gen)
+    rc = torch.randn(tb.num_atoms, 3, generator=gen)
+    kernel = egnn_mod.fused_edge_messages
+    masks = []
+
+    def run(drop_mask: bool):
+        def edge_messages(*args, edge_mask=None):
+            masks.append(edge_mask)
+            return kernel(*args, edge_mask=None if drop_mask else edge_mask)
+
+        monkeypatch.setattr(egnn_mod, "fused_edge_messages", edge_messages)
+        layer.zero_grad()
+        feats = feats0.clone().requires_grad_()
+        coors = tb.pos.clone().requires_grad_()
+        f, c = layer(feats, coors, tb.slot_index, tb.slot_mask, tb.atom_slot, tb.atom_row,
+                     tb.slot_gid)
+        ((f * rf).sum() + (c * rc).sum()).backward()
+        grads = {n: p.grad.clone() for n, p in layer.named_parameters()}
+        return f.detach(), c.detach(), feats.grad, coors.grad, grads
+
+    with_mask, without = run(False), run(True)
+    assert masks[0] is not None and (~masks[0]).any() and masks[0].any()
+    for name, x, y in zip(("feats", "coors", "dfeats", "dcoors"), with_mask[:4], without[:4]):
+        assert torch.equal(x, y), name
+    assert with_mask[4].keys() == without[4].keys()
+    for name in with_mask[4]:
+        assert torch.equal(with_mask[4][name], without[4][name]), name
+    # the messages moved the outputs and reached every parameter
+    assert float((with_mask[0] - feats0).abs().max()) > 1e-2
+    assert all(float(g.abs().max()) > 0 for g in with_mask[4].values())

@@ -9,7 +9,11 @@ machine with an H100 (which has no JAX, hence `--noconftest`):
 The shapes here are the edge cases that the batch-768 shapes do not
 reach: ragged F, k not a multiple of 4, a single slot, empty and trailing
 segments, D not a multiple of 128, no rows at all, and k = 40 (kernel C:
-two words of live-edge bits); kernel C with kernel B's saved z and without
+two words of live-edge bits); kernel B with edge masks (random, all dead,
+all live, whole slots dead: 0 at the dead edges, the live edges' bits as
+without the mask, kernel C's gradients the same with z NaN at the dead
+edges) and at rows on each side of its stage-width switches up to its
+limit (A = 1,138 at k = 16; 1,139 raises); kernel C with kernel B's saved z and without
 it (computed again: the same bits), and kernels C and E with the output
 gradient at every edge or position, 0 on a mask as the models pass it, 0
 on a whole slot or one position, and 0 everywhere (a zero-gradient edge or
@@ -19,7 +23,9 @@ also no segments, empty segments at the start, in the middle and at the
 end, one segment of 5,000 rows (across ~160 row tiles), ids ≥ S (in no
 row) and every id equal, each the same bits twice; for kernels D and E an
 odd P, C = 3 and 4, every H/2 the kernels take, and dropout on and off
-(the same seed gives the same mask in the kernels and the plain version);
+(the same seed gives the same mask in the kernels and the plain version),
+kernel D also on the "offset" inputs at every (C, H/2) and over ~12
+grid-stride rounds a warp;
 for kernels F-I masked edges, an all-empty padding row, A < k (the
 neighbour axis padded with masked edges, as `knn_dense` pads it), L = 3
 and 8, h not a multiple of 32 and a strided s1, G and I also over
@@ -312,6 +318,78 @@ def test_edge_mlp_bwd_rejects_unsupported_shapes(dev):
         fused_edge_messages_bwd(*[t.to(dev) for t in big], big_dm.to(dev), big_dm.to(dev))
 
 
+def _b_mask(kind, g, a, k, seed):
+    """Kernel B's edge mask: "random" (about half live), "dead" (none),
+    "live" (all), "slots" (random, every third slot and slot (0, 1) wholly
+    dead, as the model's padding slots are)."""
+    gen = torch.Generator().manual_seed(seed)
+    if kind == "dead":
+        return torch.zeros(g, a, k, dtype=torch.bool)
+    if kind == "live":
+        return torch.ones(g, a, k, dtype=torch.bool)
+    mask = torch.rand(g, a, k, generator=gen) < 0.5
+    if kind == "slots":
+        mask[:, ::3] = False
+        mask[0, min(1, a - 1)] = False
+    return mask
+
+
+@pytest.mark.parametrize("kind", ["random", "dead", "live", "slots"])
+@pytest.mark.parametrize("g,a,k,f", [(3, 8, 5, 34), (5, 29, 16, 1026), (2, 6, 40, 20),
+                                     (4, 32, 16, 130)])
+def test_edge_mlp_kernel_with_edge_mask(dev, g, a, k, f, kind):
+    """Kernel B with an edge mask: within atol 1e-5 + rtol 1e-4 of the plain
+    version (which zeroes the dead edges), exactly 0 at every dead edge, the
+    same bits as without the mask at the live edges, the same bits twice
+    and with z written; z at the live edges the unmasked call's z. Kernel C
+    never reads z at a dead edge: with z NaN there, its gradients on dm·mask
+    are the same bits, and they match the plain masked backward."""
+    args, dm = _edge_args(g, a, k, f, seed=g * a + k + f + 7)
+    cuda_args = [t.to(dev) for t in args]
+    mask = _b_mask(kind, g, a, k, seed=g + k).to(dev)
+    got = fused_edge_messages(*cuda_args, edge_mask=mask)
+    want = fused_edge_messages_plain(*cuda_args, mask)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-4)
+    assert torch.all(got[~mask] == 0)
+    unmasked, z_all = _launch_fwd(*cuda_args, want_z=True)
+    assert torch.equal(got[mask], unmasked[mask])
+    assert torch.equal(got, fused_edge_messages(*cuda_args, edge_mask=mask))
+    got_z, z = _launch_fwd(*cuda_args, edge_mask=mask, want_z=True)
+    assert torch.equal(got, got_z)
+    assert torch.equal(z[mask], z_all[mask])
+    dm = dm.to(dev) * mask[..., None]
+    z_nan = z.clone()
+    z_nan[~mask] = float("nan")
+    grads = fused_edge_messages_bwd(*cuda_args, dm, z)
+    for name, x, y, w in zip(("dui", "dujn", "ddist", "dwd", "db0", "dw1", "db1"), grads,
+                             fused_edge_messages_bwd(*cuda_args, dm, z_nan),
+                             fused_edge_messages_bwd_plain(*cuda_args, dm, mask)):
+        assert torch.equal(x, y), f"{name}: kernel C read z at a dead edge"
+        _assert_grad_close(x, w, name)
+
+
+@pytest.mark.parametrize("a", [223, 224, 300, 301, 448, 449, 617, 618, 897, 1138])
+def test_edge_mlp_kernel_row_sizes(dev, a):
+    """Kernel B on both sides of each switch of its stage width (64 columns
+    up to A = 300 slots at k = 16, 32 up to 617, 16 up to 1,138) and at
+    kernel C's switches and limit (223, 448, 897), with the model's kind of
+    mask (whole dead slots): within atol 1e-5 + rtol 1e-4 of the plain
+    version, and the same bits at the live edges as without the mask."""
+    args, _ = _edge_args(1, a, 16, 130, seed=a)
+    cuda_args = [t.to(dev) for t in args]
+    mask = _b_mask("slots", 1, a, 16, seed=a).to(dev)
+    got = fused_edge_messages(*cuda_args, edge_mask=mask)
+    torch.testing.assert_close(got, fused_edge_messages_plain(*cuda_args, mask), atol=1e-5,
+                               rtol=1e-4)
+    assert torch.equal(got[mask], fused_edge_messages(*cuda_args)[mask])
+
+
+def test_edge_mlp_kernel_rejects_rows_past_its_limit(dev):
+    args, _ = _edge_args(1, 1139, 16, 4, seed=4)  # one slot past the 16-column stage
+    with pytest.raises(ValueError, match="A = 1139, k = 16"):
+        fused_edge_messages(*[t.to(dev) for t in args])
+
+
 def test_edge_mlp_kernel_rejects_other_widths(dev):
     g, a, k, f = 2, 4, 3, 10
     args = [torch.randn(g, a, f), torch.randn(g, a, f), torch.rand(g, a, k),
@@ -405,6 +483,34 @@ def test_frame_swiglu_kernel(dev, p, c, h, rate):
     if rate > 0.0 and p > 100:
         other = frame_swiglu_plain(*cuda_args, drop_rate=rate, seed=12)
         assert float((other - got).abs().max()) > 1e-2
+
+
+@pytest.mark.parametrize("c", [3, 4])
+@pytest.mark.parametrize("hh", [32, 64, 128, 256])
+def test_frame_swiglu_kernel_offset_statistics(dev, c, hh):
+    """Kernel D's frame statistics (all 8 frames' sums, then their centred
+    sums of squares, each in one butterfly) at every instance (C, H/2), on
+    the "offset" inputs of kernel E's test (b1 + 10: each frame's mean is
+    large against its spread, where a one-pass variance would cancel), with
+    dropout off and on."""
+    args, _ = _fs_args(777, c, 2 * hh, seed=c * hh)
+    args = (*args[:2], args[2] + 10.0, *args[3:])
+    cuda_args = [t.to(dev) for t in args]
+    for rate in (0.0, 0.1):
+        got = fused_frame_swiglu(*cuda_args, drop_rate=rate, seed=3)
+        want = frame_swiglu_plain(*cuda_args, drop_rate=rate, seed=3)
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-4)
+
+
+def test_frame_swiglu_kernel_over_grid_stride_rounds(dev):
+    """Kernel D at a P that is no multiple of the warps and takes every warp
+    of its resident grid through ~12 positions (each warp loads the next
+    position's x ahead): within atol 1e-5 + rtol 1e-4, the same bits twice."""
+    args, _ = _fs_args(24_611, 3, 256, seed=5)
+    cuda_args = [t.to(dev) for t in args]
+    got = fused_frame_swiglu(*cuda_args)
+    torch.testing.assert_close(got, frame_swiglu_plain(*cuda_args), atol=1e-5, rtol=1e-4)
+    assert torch.equal(got, fused_frame_swiglu(*cuda_args))
 
 
 @pytest.mark.parametrize("kind", ["rand", "mask", "slot", "zero", "offset"])
