@@ -1,11 +1,11 @@
-"""Where kernels A-E, G, I, J, K and L spend their time, on the card:
+"""Where kernels A-E, G-M spend their time, on the card:
 each is rebuilt with one part of its work switched off (A: with other tile
 shapes) and timed beside the whole kernel, the PyTorch call that computes
 its function (where there is one) and itself again, at the batch-768 shapes
 of `chip_smoke.py` (its batch, kNN mask and timer).
 
-    python3 ablate_kernels.py [--kernels A,B,C,D,E,GI,J,K,L] [--vis-mix-before FILE]
-        [--edge-mlp-before FILE] [--frame-swiglu-before FILE]
+    python3 ablate_kernels.py [--kernels A,B,C,D,E,GI,H,J,K,L,M] [--vis-mix-before FILE]
+        [--edge-mlp-before FILE] [--frame-swiglu-before FILE] [--pooled-m-before FILE]
 
 B (`csrc/edge_mlp.cu`, the EGNN edge MLP's forward at `edge_mlp_inputs`),
   serving, in case (a), no mask (every edge), and case (b), the model's
@@ -88,6 +88,25 @@ K (`csrc/pooled_conv.cu`, with the model's live sites, C = 1 and 3): full;
   kernels are also timed apart (torch.profiler, device time).
 L (`csrc/pooled_m.cu`, bf16, X = 64 and 192): full; without the zero-site
   skip; without the products (the ring and the stores); `torch.bmm`.
+M (`csrc/pooled_m.cu`, bf16, X = 64 and 192, h and tc 0 on the neighbours
+  the 5 Å radius masks): full; without the dead-site skip (every site's dM
+  read and its products run); without the ring (each unit's copies waited
+  for before its products); 4 h/tc slots, not 3 (the next two sites' h and
+  tc in flight, not the next one); registers for 4 blocks an SM, not 3 (128
+  a thread); dh and dtc tiles
+  of 4 × 2, not 4 × 8 and 4 × 4 (fed by 4-byte loads); scalar stores, not
+  16-byte ones; without the products (the copies, the OR and the stores);
+  and, with --pooled-m-before, the kernel M of another `pooled_m.cu` (with
+  whether the full kernel gives its bits); the two `torch.bmm` calls that
+  compute dh and dtc. 10 calls a sample, and device time alone
+  (torch.profiler).
+H (`csrc/vis_mix.cu`, at `vis_mix_inputs`): full; the grid's row index
+  fastest, not the chunk (a row's 8 chunk blocks ~G blocks apart); plain
+  stores, not streaming ones; synchronous staging (plain loads, not
+  cp.async); masked edges computed; and, with --vis-mix-before, the kernel
+  H of another `vis_mix.cu`; beside it F of the full and the before build
+  (F's code unchanged). One call a sample, and device time alone.
+B, D, H and M: ptxas's registers of their kernels (full and before).
 A variant is the source with exact lines removed or replaced; a line that is
 not in the source once stops the script. A variant's output is wrong by
 design and is not checked. Times: `chip_smoke.median_ms`, 10 samples (L: of
@@ -610,6 +629,41 @@ L_PATCHES = {
     "no products": [("for (int k = 0; nonzero && k < d.k; ++k)", "for (int k = 0; false; ++k)")],
 }
 
+H_PATCHES = {
+    "old grid order": [("  const int g = blockIdx.x / n_chunks, c0 = blockIdx.x % n_chunks * HC;",
+                        "  const int g = blockIdx.x % g_rows, c0 = blockIdx.x / g_rows * HC;")],
+    "plain stores": [("      if (live) __stcs(o + static_cast<size_t>(k) * h, w);",
+                      "      if (live) o[static_cast<size_t>(k) * h] = w;")],
+    "synchronous staging": [
+        ("  stage_chunk_async(vv, g, a_slots, L, h, c0, vec4, vv_s);\n"
+         "  stage_row_async(d_row, ak * L, d4, d_s);\n  cp_async_commit();\n",
+         "  stage_chunk(vv, g, a_slots, L, h, c0, vv_s);\n"
+         "  for (int t = threadIdx.x; t < ak * L; t += THREADS) d_s[t] = d_row[t];\n")],
+    "masked edges computed": [("      if (j >= 0) {  // the same for the whole warp", "      {")],
+}
+M_PATCHES = {
+    "no dead-site skip": [("  return (bits & 0x7fff7fffu) != 0;  // the signs aside: a site of ±0 "
+                           "alone has no neighbour", "  return true;")],
+    "no ring": [("    cp_async_commit();\n    if (live) {", "    cp_async_commit();\n"
+                 "    cp_async_wait<0>();\n    __syncthreads();\n    if (live) {")],
+    "4 h/tc slots": [("constexpr int HT_SLOTS = 3;", "constexpr int HT_SLOTS = 4;")],
+    "4 blocks an SM": [("__global__ void __launch_bounds__(BWD_THREADS, 3)",
+                        "__global__ void __launch_bounds__(BWD_THREADS, 4)")],
+    "4 x 2 tiles": [("constexpr int DH_W = 8;", "constexpr int DH_W = 2;"),
+                    ("constexpr int DT_W = 4;", "constexpr int DT_W = 2;")],
+    "scalar stores": [("put<DH_W, VEC>(", "put<DH_W, false>("),
+                      ("if constexpr (VEC && DT_W == 4) {", "if constexpr (false) {"),
+                      ("zero_site<VEC>(d, dh, dtc, s);", "zero_site<false>(d, dh, dtc, s);")],
+    "no products": [("      for (int x0 = 0; x0 < xcc; x0 += 8) {",
+                     "      for (int x0 = 0; x0 < 0; x0 += 8) {"),
+                    ("      for (int f0 = 0; on && f0 < d.fs; f0 += 8) {",
+                     "      for (int f0 = 0; on && f0 < 0; f0 += 8) {")],
+}
+# builds whose ptxas report to print, and the kernels in it to print
+REGISTERS = {"B full": ("fwd_kernel", "w1_frags"), "B before": ("fwd_kernel", "w1_frags"),
+             "D full": ("fwd_kernel",), "D before": ("fwd_kernel",),
+             "H full": ("wdot_fwd_kernel",), "H before": ("wdot_fwd_kernel",),
+             "M full": ("pooled_m_bwd",), "M before": ("pooled_m_bwd",)}
 
 def _patched(src: Path, patches, out: Path) -> Path:
     """`src` with each (text, replacement) applied: every occurrence, of
@@ -635,17 +689,17 @@ def _build_all(tmp: Path, srcs: dict[str, Path]) -> dict[str, ctypes.CDLL]:
         err = proc.communicate()[1]
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {name}:\n{err}")
-        if name in ("B full", "D full", "B before", "D before"):
-            _print_registers(name, err)
+        if name in REGISTERS:
+            _print_registers(name, err, REGISTERS[name])
     return {name: ctypes.CDLL(str(path)) for name, path in libs.items()}
 
 
-def _print_registers(name: str, ptxas: str) -> None:
-    """ptxas's registers and spills of each forward kernel (B's, D's) in a
-    build's report."""
+def _print_registers(name: str, ptxas: str, kernels) -> None:
+    """ptxas's registers and spills of each kernel of a build's report whose
+    name holds one of `kernels`."""
     lines = ptxas.splitlines()
     for i, line in enumerate(lines):
-        if "Compiling entry function" in line and ("fwd_kernel" in line or "w1_frags" in line):
+        if "Compiling entry function" in line and any(k in line for k in kernels):
             fn = line.split("'")[1] if "'" in line else line
             info = " ".join(x.split("ptxas info    :")[-1].strip() for x in lines[i + 1:i + 4]
                             if "registers" in x or "spill" in x)
@@ -782,6 +836,82 @@ def _time_gi(libs, batch) -> None:
             f"{n[3:]} {t:.4f} / {dv:.4f} ms" for n, t, dv in zip(names, times, dev_ms))
             + f", full again {times[-1]:.4f} ms")
 
+
+def _time_h(libs, batch) -> None:
+    """H of each variant at `vis_mix_inputs`, and F of the full and before
+    builds (F's code is unchanged): one call a sample (the variants in
+    turns), then device time alone."""
+    x = vis_mix_inputs(batch, torch.Generator().manual_seed(0))
+    g, a, k = x["idx"].shape
+    L, h = x["d"].shape[-1], x["vec"].shape[-1]
+    out, agg = torch.empty_like(x["s2m"]), torch.empty_like(x["vec"])
+    p = {n: t.data_ptr() for n, t in x.items()}
+    stream = torch.cuda.current_stream().cuda_stream
+    names = [n for n in libs if n.startswith("H")]
+    fns = []
+    for name in names:
+        fn = libs[name].vis_wdot_fwd_f32
+        fn.argtypes = build.SIGNATURES["vis_wdot_fwd_f32"]
+        fns.append(lambda fn=fn: fn(p["d"], p["u"], p["vv"], p["idx"], p["mask"], out.data_ptr(),
+                                    g, a, k, L, h, stream))
+    times = median_ms(*fns, fns[0])
+    dev_ms = [profiled_device_ms(fn) for fn in fns]
+    print("H (one call a sample; device alone): " + ", ".join(
+        f"{n[2:]} {t:.4f} / {dv:.4f} ms" for n, t, dv in zip(names, times, dev_ms))
+        + f", full again {times[-1]:.4f} ms")
+    fnames = [n for n in ("H full", "H before") if n in libs]
+    ffns = []
+    for name in fnames:
+        fn = libs[name].vis_vec_agg_fwd_f32
+        fn.argtypes = build.SIGNATURES["vis_vec_agg_fwd_f32"]
+        ffns.append(lambda fn=fn: fn(p["vec"], p["s1"], x["s1"].stride(2), p["s2m"], p["d"],
+                                     p["idx"], p["mask"], agg.data_ptr(), g, a, k, L, h, stream))
+    times = median_ms(*ffns)
+    print("F (one call a sample; device alone): " + ", ".join(
+        f"{n[2:]} build {t:.4f} / {profiled_device_ms(fn):.4f} ms"
+        for n, t, fn in zip(fnames, times, ffns)))
+
+
+def _time_m(libs, batch, dev) -> None:
+    """M of each variant in bf16 at X = 64 and 192 (`pooled_m_rows`' inputs:
+    h and tc 0 on the neighbours the 5 Å radius masks, dM random): 10 calls
+    a sample (the variants in turns) and device time alone, beside the two
+    `torch.bmm` calls that compute dh and dtc; whether the full kernel gives
+    the bits of the one before."""
+    mask = pooled_mask(batch)
+    g, a, k = mask.shape
+    s, f = g * a, 128
+    gen = torch.Generator().manual_seed(1)
+    stream = torch.cuda.current_stream().cuda_stream
+    P, I, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    names = [n for n in libs if n.startswith("M")]
+    for x in (64, 192):
+        h = (torch.randn(g, a, k, f, generator=gen).to(dev) * mask[..., None]).bfloat16()
+        tc = (torch.randn(g, a, k, x, generator=gen).to(dev) * mask[..., None]).bfloat16()
+        dm = torch.randn(g, a, x, f, generator=gen).to(dev).bfloat16()
+        outs = {n: (torch.empty_like(h), torch.empty_like(tc)) for n in names}
+        fns = []
+        for name in names:
+            fn = libs[name].pooled_m_bwd_bf16
+            fn.argtypes = (P, P, P, P, P, I64, I, I, I, P)
+            dh, dtc = outs[name]
+            fns.append(lambda fn=fn, dh=dh, dtc=dtc: fn(
+                h.data_ptr(), tc.data_ptr(), dm.data_ptr(), dh.data_ptr(), dtc.data_ptr(), s, k,
+                f, x, stream))
+        dms = dm.view(s, x, f)
+        fns.append(lambda: (torch.bmm(tc.view(s, k, x), dms),
+                            torch.bmm(h.view(s, k, f), dms.transpose(1, 2))))
+        times = median_ms(*fns, fns[0], iters=10, reps=10)
+        dev_ms = [profiled_device_ms(fn) for fn in fns]
+        print(f"M X={x} (10 calls a sample; device alone): " + ", ".join(
+            f"{n} {t:.4f} / {dv:.4f} ms" for n, t, dv in
+            zip(names + ["two torch.bmm"], times, dev_ms)) + f", M full again {times[-1]:.4f} ms")
+        if "M before" in outs:
+            fns[0](), fns[names.index("M before")]()
+            same = all(torch.equal(u_, v_) for u_, v_ in zip(outs["M full"], outs["M before"]))
+            print(f"M X={x}: the full kernel's dh and dtc are the bits of the one before: {same}")
+        del h, tc, dm, outs, fns
+        torch.cuda.empty_cache()
 
 def _time_c(libs, batch, c_before_takes_z: bool = False) -> None:
     """B with and without z, then C of each variant in cases (a) and (b):
@@ -980,10 +1110,12 @@ def _time_e(libs, batch) -> None:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--kernels", default="A,B,C,D,E,GI,J,K,L",
-                        help="the kernels to ablate, of A, B, C, D, E, GI, J, K and L")
+    parser.add_argument("--kernels", default="A,B,C,D,E,GI,H,J,K,L,M",
+                        help="the kernels to ablate, of A, B, C, D, E, GI, H, J, K, L and M")
     parser.add_argument("--vis-mix-before", type=Path,
-                        help="another vis_mix.cu whose G and I to time beside this one's")
+                        help="another vis_mix.cu whose G and I (and H) to time beside this one's")
+    parser.add_argument("--pooled-m-before", type=Path,
+                        help="another pooled_m.cu whose M to time beside this one's")
     parser.add_argument("--edge-mlp-before", type=Path,
                         help="another edge_mlp.cu whose B (and C) to time beside this one's")
     parser.add_argument("--frame-swiglu-before", type=Path,
@@ -1007,7 +1139,8 @@ def main() -> int:
                                  ("GI", GI_SRC, GI_PATCHES), ("J", J_SRC, J_PATCHES),
                                  ("K", K_SRC, K_PATCHES), ("L", L_SRC, L_PATCHES),
                                  ("C", C_SRC, C_PATCHES), ("E", E_SRC, E_PATCHES),
-                                 ("B", C_SRC, B_PATCHES), ("D", E_SRC, D_PATCHES)):
+                                 ("B", C_SRC, B_PATCHES), ("D", E_SRC, D_PATCHES),
+                                 ("H", GI_SRC, H_PATCHES), ("M", L_SRC, M_PATCHES)):
             if kind not in kinds:
                 continue
             srcs[f"{kind} full"] = src
@@ -1016,6 +1149,10 @@ def main() -> int:
         b_masks = {n for n in srcs if n.startswith("B")}  # B variants that take a mask
         if "GI" in kinds and args.vis_mix_before:
             srcs["GI before"] = args.vis_mix_before
+        if "H" in kinds and args.vis_mix_before:
+            srcs["H before"] = args.vis_mix_before
+        if "M" in kinds and args.pooled_m_before:
+            srcs["M before"] = args.pooled_m_before
         if "B" in kinds and args.edge_mlp_before:
             srcs["B before"] = args.edge_mlp_before
             for name, patches in B_BEFORE_PATCHES.items():
@@ -1042,6 +1179,10 @@ def main() -> int:
             _time_e(libs, batch)
         if "GI" in kinds:
             _time_gi(libs, batch)
+        if "H" in kinds:
+            _time_h(libs, batch)
+        if "M" in kinds:
+            _time_m(libs, batch, dev)
         _time_jkl(libs, batch, dev)
     return 0
 

@@ -38,8 +38,8 @@ result line), each printing its seconds:
    mask); F and H (ViSNet's vector aggregation and vector-rejection dot
    products) and their backwards G and I on the batch's k = 17
    neighbourhoods (self included, 5 Å) at L = 8, h = 256, with s1 a
-   strided view as in ViS_MP (G and I, one cluster of blocks a row, also
-   by their device time alone); J and K (the SE(3)-Transformer's fused
+   strided view as in ViS_MP (G and I one cluster of blocks a row; each of
+   F-I also by its device time alone); J and K (the SE(3)-Transformer's fused
    pooled ConvSE3 unit, forward and backward) at its pooled sites (k =
    16, F = 128, I = O = 256; C = 1 at three of the four, C = 3 at
    conv_in's 0 → 1), J and K with the sites that have a neighbour as
@@ -50,7 +50,10 @@ result line), each printing its seconds:
    kernel; L and M (the pooled-M build of the bf16 path's per-J pooled
    units, forward and backward) in bf16 at k = 16, F = 128, X = 64
    (three of the four units) and 192 (conv_in's 0 → 1), against the
-   plain versions and, for L, one `torch.bmm` over the sites; then L in
+   plain versions (M also +0 in every bit at the sites with no neighbour,
+   where dM is random), each also by its device time alone, and, for L,
+   one `torch.bmm` over the sites, for M two (dh = tc·dM, dtc = h·dMᵀ, a
+   reference time only); then L in
    f32 at the recipe's C = 1 unit with its projection against J
    (recorded only); error, median time, allocation and the card's least
    time (`bound_ms`) of each;
@@ -954,11 +957,11 @@ def vis_mix_rows(batch, gen) -> list[dict]:
         row = dict(name=name, route="cuda", source="equihgnn_tpu_torch/csrc/vis_mix.cu",
                    replaces=f"equihgnn_tpu/ops/pallas/vis_mix.py{line}", max_abs_err=err,
                    ms=ms, plain_ms=plain_ms, library_ms=None, **bound(in_b + out_b, ops))
-        # G and I launch a cluster a row, which adds host work: their device time alone too
-        alone = (f"; device alone {profiled_device_ms(call):.4f} ms (torch.profiler)"
-                 if letter in "GI" else "")
+        # one call a sample includes the wrapper's host work: the device time alone too
+        alone = profiled_device_ms(call)
         print(f"kernel {letter} {name}: {ms:.4f} ms vs plain {plain_ms:.4f} ms (median of 20, "
-              f"CUDA events){alone}; bound {row['bound_ms']:.4f} ms by {row['bound_by']} "
+              f"CUDA events); device alone {alone:.4f} ms (torch.profiler); bound "
+              f"{row['bound_ms']:.4f} ms by {row['bound_by']} "
               f"({(in_b + out_b) / 1e9:.3f} GB, {ops / 1e9:.2f} GFLOP); a call allocates "
               f"{mib:.1f} MiB at peak, the plain version {plain_mib:.1f} MiB; deterministic")
         rows.append(row)
@@ -1113,6 +1116,7 @@ def pooled_m_rows(batch, gen) -> list[dict]:
     g, a, k = mask.shape
     f, s = 128, g * a
     e_live, s_live = int(mask.sum()), int(mask.any(-1).sum())
+    dead = ~mask.any(-1)  # the sites with no neighbour: h = tc = 0 there
     masked = lambda *shape: (torch.randn(*shape, generator=gen).to(dev)  # noqa: E731
                              * mask[..., None])
     rows = []
@@ -1123,17 +1127,22 @@ def pooled_m_rows(batch, gen) -> list[dict]:
         # in full (L); those, dM at the sites with a neighbour, dh and dtc in
         # full (M); the products over the masked-in neighbours
         live_b = e_live * (f + x) * 2
+        dms = dm.view(s, x, f)
         cases = {
-            # name: (letter, kernel call, plain call, library call, bytes, operations, line)
+            # name: (letter, kernel call, plain call, library call, reference call (timed,
+            # not the library yardstick), bytes, operations, line)
             "pooled_m": ("L", lambda: pooled_m(h, tc), lambda: pooled_m_plain(h, tc),
                          lambda: torch.bmm(tc.view(s, k, x).transpose(1, 2), h.view(s, k, f)),
-                         live_b + s * x * f * 2, 2 * e_live * x * f, ":109"),
+                         None, live_b + s * x * f * 2, 2 * e_live * x * f, ":109"),
+            # M's two outputs as two torch.bmm calls: dh = tc·dM, dtc = h·dMᵀ
             "pooled_m_bwd": ("M", lambda: pooled_m_bwd(h, tc, dm),
                              lambda: pooled_m_bwd_plain(h, tc, dm), None,
+                             lambda: (torch.bmm(tc.view(s, k, x), dms),
+                                      torch.bmm(h.view(s, k, f), dms.transpose(1, 2))),
                              live_b + s_live * x * f * 2 + s * k * (f + x) * 2,
                              4 * e_live * x * f, ":130"),
         }
-        for name, (letter, call, plain, library, nb, ops, line) in cases.items():
+        for name, (letter, call, plain, library, reference, nb, ops, line) in cases.items():
             with torch.no_grad():
                 got, ref = call(), plain()
             torch.cuda.synchronize()
@@ -1148,28 +1157,40 @@ def pooled_m_rows(batch, gen) -> list[dict]:
                       f"elements equal to the plain version's, {ulps} bf16 ulps at most (limits "
                       f"0.99, 1: both round an f32 sum once): {'ok' if ok else 'FAIL'}")
                 check(ok, f"kernel {letter} ({name}) at X = {x} disagrees with its plain version")
+                if letter == "M":
+                    # M reads no dM at a site with no neighbour and writes +0 there, the
+                    # plain version's value for a finite dM (random and non-zero here)
+                    zero = not t[dead].view(torch.int16).any()
+                    print(f"kernel M {name} X={x}: {int(dead.sum())} sites with no neighbour, "
+                          f"dM there non-zero; their gradient +0 in every bit: "
+                          f"{'ok' if zero else 'FAIL'}")
+                    check(zero, f"kernel M at X = {x} wrote other than +0 at a dead site")
             with torch.no_grad():
                 again = call()
             again = again if isinstance(again, tuple) else (again,)
             check(all(torch.equal(t, y) for t, y in zip(got, again)),
                   f"kernel {letter} at X = {x} gave other bits on a second run")
             del got, ref, again
-            fns = [fn for fn in (call, plain, library) if fn]
+            fns = [fn for fn in (call, plain, library, reference) if fn]
             with torch.no_grad():
                 times = median_ms(*fns, reps=10)
                 # and one call a sample, host launch work included (the older method)
                 one = median_ms(*fns)
+                # and the device time alone (torch.profiler), of the kernel and of the
+                # library or reference calls
+                alone = [profiled_device_ms(fn) for fn in (call, *fns[2:])]
             ms, plain_ms = times[:2]
             library_ms = times[2] if library else None
             row = dict(name=name, route="cuda", source="equihgnn_tpu_torch/csrc/pooled_m.cu",
                        replaces=f"equihgnn_tpu/ops/pallas/pooled_m.py{line}", max_abs_err=err,
                        ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                        **bound(nb, ops, PEAK_BF16_S))
-            lib_txt = f", torch.bmm {library_ms:.4f} ms" if library else ""
+            bmm = "torch.bmm" if library else "two torch.bmm (dh, dtc)"
             one_txt = ", ".join(f"{t:.4f}" for t in one)
             print(f"kernel {letter} {name} [G={g}, A={a}, k={k}, F={f}, X={x}] bf16: {ms:.4f} ms vs "
-                  f"plain {plain_ms:.4f} ms{lib_txt} (median of 20 samples of 10 calls back to "
-                  f"back, CUDA events; one call a sample: {one_txt} ms); bound "
+                  f"plain {plain_ms:.4f} ms, {bmm} {times[2]:.4f} ms (median of 20 samples of 10 "
+                  f"calls back to back, CUDA events; one call a sample: {one_txt} ms; device "
+                  f"alone (torch.profiler): {alone[0]:.4f} ms, {bmm} {alone[1]:.4f} ms); bound "
                   f"{row['bound_ms']:.4f} ms by {row['bound_by']} ({nb / 1e9:.3f} GB, "
                   f"{ops / 1e9:.2f} GFLOP at the bf16 peak); {nb / ms / 1e6:.1f} GB/s achieved; "
                   f"deterministic")

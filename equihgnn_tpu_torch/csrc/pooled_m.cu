@@ -47,7 +47,43 @@
 // L in f32 (an entry no model path reaches) keeps the design of the first
 // port: one block of 256 threads per site, operands staged as f32, each
 // thread a 4 (x) × 8 (f) register tile summed over k in order.
-// M: one block of 256 threads per site (a grid-stride loop over the
+// Design of M in bf16 (the model's path): the ring, as L's.
+//  - Persistent blocks of 4 warps (as many as fit the card at once) walk the
+//    sites with the grid's stride. A site's h [K, F] and tc [K, X] are
+//    copied first (6 KB at X = 64) into a ring of 3 slots; an OR over the
+//    staged copies decides whether the site is live. Only a live site's dM
+//    is copied, in stages of 64 rows (16 KB; X = 192 takes 3): a dead site
+//    (no neighbour within the radius: 48 % at batch 768, where their dM is
+//    194 of the 403 MB at X = 64) writes +0 to dh and dtc in 16-byte
+//    streaming stores and reads no dM. While a unit (a dM stage, or a dead
+//    site) is computed, the next unit's copies (the next stage, or the next
+//    site's first one if that site is live, and the h and tc of the site
+//    after it) are in flight.
+//  - Two warps sum dh, two dtc: the same K·F·X FMAs each. A dh thread owns
+//    4 (k) × 8 (f) tiles, fed per x by one 16-byte load of 8 dM values and,
+//    per 8 x, one of 8 tc values a row; a dtc thread owns 4 (k) × 4 (x)
+//    tiles, fed per 8 f by one 16-byte load a row of h and of dM. bf16 is
+//    unpacked to f32 by a shift or a mask (exact), each sum taken in order
+//    (x for dh, carried in f32 between stages; f for dtc) and rounded once.
+//    Outputs leave from registers in 16-byte streaming stores: a dh row's 8
+//    f, and a dtc row's 8 x once two neighbouring lanes have swapped half
+//    their tiles (8 shuffles a lane). dM's 16-byte pieces are swizzled by
+//    row so that a dtc quarter-warp's rows (4 apart) hit 8 bank groups.
+//  - On the card M's copies and stores alone (no products) take about half
+//    its time at X = 64, the products the other half: the two overlap
+//    little (`ablate_kernels.py --kernels M`).
+//  - Not the tensor cores, for L's reason: its sums over x (64, 192) and f
+//    (128) cancel as L's do.
+//  - Contract: each element is computed by one thread in a fixed order: no
+//    atomics, the same bits twice (and those of the f32 design below run
+//    on bf16 operands, which sums in the same order). The dead-site skip
+//    is exact wherever dM is finite: at a site whose h and tc are all ±0
+//    every product is ±0 and every sum from +0 is +0, which it writes; the
+//    plain version gives 0 · Inf = NaN where dM is not finite there. A shape whose rows are not whole 16-byte
+//    pieces (F or X not a multiple of 8, or an operand not aligned) takes
+//    the same kernel with plain copies and stores, its pads zeroed.
+// M in f32 (an entry no model path reaches) keeps the design of the first
+// port: one block of 256 threads per site (a grid-stride loop over the
 // sites). dM [X, F] is staged in T with an odd number of 4-byte words a
 // row, so that 32 threads reading one column of 32 rows hit 32 banks; h
 // and tc are staged transposed ([F][K'], [X][K'], K' = K rounded up to 4)
@@ -433,6 +469,357 @@ __global__ void __launch_bounds__(RING_THREADS, 5)  // 5 blocks an SM: at most 1
   cp_async_wait<0>();
 }
 
+// ------------------------------------------- kernel M in bf16: the ring
+
+constexpr int BWD_THREADS = 128;  // 4 warps: the first two sum dh, the last two dtc
+constexpr int BWD_HALF = BWD_THREADS / 2;
+constexpr int XC = 64;            // rows of dM a stage holds: a site's X goes in chunks of 64
+// sites whose h and tc the ring holds: this one, the next (its liveness read
+// at this one's last unit) and HT_SLOTS - 2 more in flight (4 slots were as
+// fast at X = 64 on the card and 12 % slower at X = 192, with a block an SM
+// fewer)
+constexpr int HT_SLOTS = 3;
+constexpr int DH_W = 8;  // dh thread tiles: 4 k × DH_W f
+constexpr int DT_W = 4;  // dtc thread tiles: 4 k × DT_W x
+
+// The staged shapes (in bf16 elements): K rounded up to 4 (kp), F and X to 8
+// (fs, xs); a dM stage of xc = min(xs, XC) rows fs apart, whose 16-byte
+// pieces are swizzled (piece q of row r at q ^ (r / DT_W mod 8) where a row
+// has a multiple of 8 pieces: swz 7, else 0), so that the 8 threads of a
+// quarter-warp of dtc, reading one piece of rows DT_W apart, hit 8 bank
+// groups; nc stages a live site; fsh = log2(F / 8) where F / 8 is a power
+// of 2, else -1 (a copy's row by a shift, not a division).
+struct BwdDims {
+  int64_t s;
+  int k, f, x, kp, fs, xs, xc, swz, nc, fsh;
+  __host__ __device__ int ht() const { return kp * (fs + xs); }  // h [kp][fs], then tc [kp][xs]
+  __host__ __device__ int dmb() const { return xc * fs; }
+};
+
+BwdDims bwd_dims(int64_t s, int k, int f, int x) {
+  BwdDims d{s, k, f, x, round_up(k, 4), round_up(f, 8), round_up(x, 8), 0, 0, 0, -1};
+  d.xc = d.xs < XC ? d.xs : XC;
+  d.swz = d.fs / 8 % 8 == 0 ? 7 : 0;
+  d.nc = (d.xs + XC - 1) / XC;
+  for (int b = 0; b < 16; ++b)
+    if (f / 8 == 1 << b) d.fsh = b;
+  return d;
+}
+
+// The ring's h/tc slots and dM stages and, for a site of more than one
+// stage, dh's running f32 sums [kp][fs].
+size_t bwd_ring_smem(const BwdDims& d) {
+  return sizeof(__nv_bfloat16) * (static_cast<size_t>(HT_SLOTS) * d.ht() + 2 * d.dmb()) +
+         (d.nc > 1 ? sizeof(float) * d.kp * d.fs : 0);
+}
+
+// Element (r, c) of a staged dM stage.
+__device__ __forceinline__ int dm_at(const BwdDims& d, int r, int c) {
+  return r * d.fs + (((c >> 3) ^ ((r / DT_W) & d.swz)) << 3) + (c & 7);
+}
+
+// W consecutive bf16 of shared memory (2W-byte aligned) as f32, exactly.
+template <int W>
+__device__ __forceinline__ void unpack(const __nv_bfloat16* p, float (&out)[W]) {
+  if constexpr (W == 8) {
+    unpack8(p, out);
+  } else {
+    uint32_t w[W / 2];
+    if constexpr (W == 4) {
+      const uint2 v = *reinterpret_cast<const uint2*>(p);
+      w[0] = v.x, w[1] = v.y;
+    } else {
+      w[0] = *reinterpret_cast<const uint32_t*>(p);
+    }
+#pragma unroll
+    for (int j = 0; j < W / 2; ++j) {
+      out[2 * j] = __uint_as_float(w[j] << 16);
+      out[2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);
+    }
+  }
+}
+
+// The first n of v rounded to bf16 into dst: with VEC (all W there, dst
+// 2W-byte aligned) one streaming store of 2W bytes, else one element each.
+template <int W, bool VEC>
+__device__ __forceinline__ void put(__nv_bfloat16* dst, const float (&v)[W], int n) {
+  if (VEC) {
+    uint32_t w[W / 2];
+#pragma unroll
+    for (int j = 0; j < W / 2; ++j) {
+      const __nv_bfloat162 q = __floats2bfloat162_rn(v[2 * j], v[2 * j + 1]);
+      w[j] = *reinterpret_cast<const uint32_t*>(&q);
+    }
+    if constexpr (W == 8) __stcs(reinterpret_cast<uint4*>(dst), make_uint4(w[0], w[1], w[2], w[3]));
+    else if constexpr (W == 4) __stcs(reinterpret_cast<uint2*>(dst), make_uint2(w[0], w[1]));
+    else __stcs(reinterpret_cast<unsigned*>(dst), w[0]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < W; ++j)
+      if (j < n) dst[j] = __float2bfloat16_rn(v[j]);
+  }
+}
+
+// Site s's h and tc into an h/tc slot. VEC: 16-byte copies in flight (F and
+// X multiples of 8, operands aligned: the slot's rows are the operands'
+// rows, so each is one flat copy); else plain loads, the columns past F and
+// X zeroed (they join the sums as +0 products, after the real ones).
+template <bool VEC>
+__device__ void ht_load(const __nv_bfloat16* __restrict__ h, const __nv_bfloat16* __restrict__ tc,
+                        const BwdDims& d, int64_t s, __nv_bfloat16* hs) {
+  __nv_bfloat16* ts = hs + d.kp * d.fs;
+  const __nv_bfloat16* hsrc = h + s * d.k * d.f;
+  const __nv_bfloat16* tsrc = tc + s * d.k * d.x;
+  if (VEC) {
+    for (int e = threadIdx.x; e < d.k * d.f / 8; e += BWD_THREADS) cp_async16(hs + e * 8, hsrc + e * 8);
+    for (int e = threadIdx.x; e < d.k * d.x / 8; e += BWD_THREADS) cp_async16(ts + e * 8, tsrc + e * 8);
+  } else {
+    const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
+    for (int e = threadIdx.x; e < d.k * d.fs; e += BWD_THREADS) {
+      const int r = e / d.fs, c = e % d.fs;
+      hs[e] = c < d.f ? hsrc[r * d.f + c] : zero;
+    }
+    for (int e = threadIdx.x; e < d.k * d.xs; e += BWD_THREADS) {
+      const int r = e / d.xs, c = e % d.xs;
+      ts[e] = c < d.x ? tsrc[r * d.x + c] : zero;
+    }
+  }
+}
+
+// Whether any of the h and tc values this thread copied into a slot (after
+// its wait: they are visible to it) is other than ±0.
+template <bool VEC>
+__device__ bool ht_nonzero(const BwdDims& d, const __nv_bfloat16* hs) {
+  const __nv_bfloat16* ts = hs + d.kp * d.fs;
+  uint32_t bits = 0;
+  if (VEC) {
+    for (int e = threadIdx.x; e < d.k * d.f / 8; e += BWD_THREADS) {
+      const uint4 v = reinterpret_cast<const uint4*>(hs)[e];
+      bits |= v.x | v.y | v.z | v.w;
+    }
+    for (int e = threadIdx.x; e < d.k * d.x / 8; e += BWD_THREADS) {
+      const uint4 v = reinterpret_cast<const uint4*>(ts)[e];
+      bits |= v.x | v.y | v.z | v.w;
+    }
+  } else {
+    const uint16_t* hb = reinterpret_cast<const uint16_t*>(hs);
+    const uint16_t* tb = reinterpret_cast<const uint16_t*>(ts);
+    for (int e = threadIdx.x; e < d.k * d.fs; e += BWD_THREADS) bits |= hb[e];
+    for (int e = threadIdx.x; e < d.k * d.xs; e += BWD_THREADS) bits |= tb[e];
+  }
+  return (bits & 0x7fff7fffu) != 0;  // the signs aside: a site of ±0 alone has no neighbour
+}
+
+// Stage c (rows c·XC ..) of site s's dM into a dM stage; without VEC the
+// rows past X and the columns past F zeroed.
+template <bool VEC>
+__device__ void dm_load(const __nv_bfloat16* __restrict__ dm, const BwdDims& d, int64_t s, int c,
+                        __nv_bfloat16* st) {
+  const int x0 = c * XC;
+  const __nv_bfloat16* src = dm + s * d.x * d.f + static_cast<int64_t>(x0) * d.f;
+  if (VEC) {
+    const int rows = d.x - x0 < XC ? d.x - x0 : XC, fc = d.f / 8;
+    for (int e = threadIdx.x; e < rows * fc; e += BWD_THREADS) {
+      const int r = d.fsh >= 0 ? e >> d.fsh : e / fc;
+      cp_async16(st + dm_at(d, r, (e - r * fc) * 8), src + e * 8);
+    }
+  } else {
+    const int rows = d.xs - x0 < XC ? d.xs - x0 : XC;
+    const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
+    for (int e = threadIdx.x; e < rows * d.fs; e += BWD_THREADS) {
+      const int r = e / d.fs, c2 = e % d.fs;
+      st[dm_at(d, r, c2)] = x0 + r < d.x && c2 < d.f ? src[r * d.f + c2] : zero;
+    }
+  }
+}
+
+// Stage c of live site s: dh's threads add the stage's x to their tiles'
+// sums (kept in f32 between stages) and store them after the last; dtc's
+// threads sum the stage's columns of dtc over all of f and store them. Both
+// sum in order and round once.
+template <bool VEC>
+__device__ void bwd_stage(const BwdDims& d, const __nv_bfloat16* hs, const __nv_bfloat16* dms,
+                          float* part, int c, __nv_bfloat16* __restrict__ dh,
+                          __nv_bfloat16* __restrict__ dtc, int64_t s) {
+  const __nv_bfloat16* ts = hs + d.kp * d.fs;
+  const int cx = c * XC, xcc = d.xs - cx < XC ? d.xs - cx : XC;
+  const bool first = c == 0, last = c == d.nc - 1;
+  if (threadIdx.x < BWD_HALF) {  // dh[k0 + r][f0 + j] += Σ_x tc[k0 + r][x] · dM[x][f0 + j]
+    const int nfg = d.fs / DH_W, n = d.kp / 4 * nfg;
+    for (int it = threadIdx.x; it < n; it += BWD_HALF) {
+      const int k0 = it / nfg * 4, f0 = it % nfg * DH_W;
+      float acc[4][DH_W];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int j = 0; j < DH_W; ++j) acc[r][j] = first ? 0.f : part[(k0 + r) * d.fs + f0 + j];
+      for (int x0 = 0; x0 < xcc; x0 += 8) {
+        float tv[4][8];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) unpack8(ts + (k0 + r) * d.xs + cx + x0, tv[r]);
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          float mv[DH_W];
+          unpack<DH_W>(dms + dm_at(d, x0 + q, f0), mv);
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+#pragma unroll
+            for (int j = 0; j < DH_W; ++j) acc[r][j] = fmaf(tv[r][q], mv[j], acc[r][j]);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        if (!last) {
+#pragma unroll
+          for (int j = 0; j < DH_W; ++j) part[(k0 + r) * d.fs + f0 + j] = acc[r][j];
+        } else if (k0 + r < d.k && f0 < d.f) {
+          put<DH_W, VEC>(dh + (s * d.k + k0 + r) * d.f + f0, acc[r], d.f - f0);
+        }
+      }
+    }
+  } else {  // dtc[k0 + r][x0 + j] = Σ_f h[k0 + r][f] · dM[x0 + j][f]
+    // every lane takes each round (the pairs' exchange below), xcc / DT_W even
+    const int nxg = xcc / DT_W, n = d.kp / 4 * nxg;
+    const int lane = threadIdx.x & 31;
+    for (int base = 0; base < n; base += BWD_HALF) {
+      const int it = base + threadIdx.x - BWD_HALF;
+      const bool on = it < n;
+      const int k0 = on ? it / nxg * 4 : 0, x0 = on ? it % nxg * DT_W : 0;
+      float acc[4][DT_W] = {};
+      for (int f0 = 0; on && f0 < d.fs; f0 += 8) {
+        float hv[4][8];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) unpack8(hs + (k0 + r) * d.fs + f0, hv[r]);
+#pragma unroll
+        for (int j = 0; j < DT_W; ++j) {
+          float mv[8];
+          unpack8(dms + dm_at(d, x0 + j, f0), mv);
+#pragma unroll
+          for (int q = 0; q < 8; ++q)
+#pragma unroll
+            for (int r = 0; r < 4; ++r) acc[r][j] = fmaf(hv[r][q], mv[q], acc[r][j]);
+        }
+      }
+      const int xg = cx + x0;
+      if constexpr (VEC && DT_W == 4) {
+        // lanes 2m and 2m + 1 hold x0 .. x0 + 3 and x0 + 4 .. x0 + 7 of rows k0 .. k0 + 3:
+        // the even lane takes rows k0, k0 + 1 and the odd one k0 + 2, k0 + 3, 8 x each
+        const bool odd = lane & 1;
+        float sent[8], got[8], row[2][8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) sent[i] = odd ? acc[i / 4][i % 4] : acc[2 + i / 4][i % 4];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) got[i] = __shfl_xor_sync(0xffffffffu, sent[i], 1);
+#pragma unroll
+        for (int m = 0; m < 2; ++m)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            row[m][j] = odd ? got[4 * m + j] : acc[m][j];
+            row[m][4 + j] = odd ? acc[2 + m][j] : got[4 * m + j];
+          }
+        const int kr = k0 + (odd ? 2 : 0), xr = xg - (odd ? DT_W : 0);
+#pragma unroll
+        for (int m = 0; m < 2; ++m)
+          if (on && kr + m < d.k) put<8, true>(dtc + (s * d.k + kr + m) * d.x + xr, row[m], 8);
+      } else {
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          if (on && k0 + r < d.k && xg < d.x)
+            put<DT_W, false>(dtc + (s * d.k + k0 + r) * d.x + xg, acc[r], d.x - xg);
+      }
+    }
+  }
+}
+
+// A dead site's dh and dtc: +0, the value of every sum of its ±0 products
+// from +0 (for a finite dM), which the site's dM is not read for.
+template <bool VEC>
+__device__ void zero_site(const BwdDims& d, __nv_bfloat16* __restrict__ dh,
+                          __nv_bfloat16* __restrict__ dtc, int64_t s) {
+  __nv_bfloat16* dhs = dh + s * d.k * d.f;
+  __nv_bfloat16* dts = dtc + s * d.k * d.x;
+  if (VEC) {
+    const uint4 z = make_uint4(0, 0, 0, 0);
+    for (int e = threadIdx.x; e < d.k * d.f / 8; e += BWD_THREADS)
+      __stcs(reinterpret_cast<uint4*>(dhs) + e, z);
+    for (int e = threadIdx.x; e < d.k * d.x / 8; e += BWD_THREADS)
+      __stcs(reinterpret_cast<uint4*>(dts) + e, z);
+  } else {
+    const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
+    for (int e = threadIdx.x; e < d.k * d.f; e += BWD_THREADS) dhs[e] = zero;
+    for (int e = threadIdx.x; e < d.k * d.x; e += BWD_THREADS) dts[e] = zero;
+  }
+}
+
+// Persistent blocks walk the sites with the grid's stride, a live site in
+// nc units (its dM stages), a dead one in one. At the top of each unit the
+// block waits for its copies and, at a site's last unit, ORs the next
+// site's staged h and tc. Then it issues the next unit's dM stage (the next
+// one of this site, or the next site's first if that site is live) and, at
+// a site's last unit, the h and tc of the site HT_SLOTS - 1 on, in two copy
+// groups: they fly while this unit's products run, and a top waits for all
+// but the newest group (the h and tc, needed only HT_SLOTS - 2 units on).
+template <bool VEC>
+__global__ void __launch_bounds__(BWD_THREADS, 3)
+    pooled_m_bwd_ring_kernel(const __nv_bfloat16* __restrict__ h,
+                             const __nv_bfloat16* __restrict__ tc,
+                             const __nv_bfloat16* __restrict__ dm, __nv_bfloat16* __restrict__ dh,
+                             __nv_bfloat16* __restrict__ dtc, BwdDims d) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* ht = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [HT_SLOTS] slots
+  __nv_bfloat16* dmb = ht + HT_SLOTS * d.ht();                       // [2] dM stages
+  float* part = reinterpret_cast<float*>(dmb + 2 * d.dmb());         // dh's sums (nc > 1)
+  const int64_t step = gridDim.x;
+  int64_t s = blockIdx.x;
+  if (s >= d.s) return;
+#pragma unroll
+  for (int j = 0; j < HT_SLOTS - 1; ++j) {
+    if (s + j * step < d.s) ht_load<VEC>(h, tc, d, s + j * step, ht + j * d.ht());
+    cp_async_commit();
+  }
+  cp_async_wait<HT_SLOTS - 2>();
+  bool live = __syncthreads_or(ht_nonzero<VEC>(d, ht));
+  if (live) dm_load<VEC>(dm, d, s, 0, dmb);
+  cp_async_commit();
+  cp_async_commit();
+  int slot = 0, c = 0, rbuf = 0, wbuf = live ? 1 : 0;
+  while (true) {
+    const bool last = !live || c == d.nc - 1;
+    const int64_t next = s + step;
+    const int nslot = slot + 1 < HT_SLOTS ? slot + 1 : 0;
+    cp_async_wait<HT_SLOTS - 3>();
+    // this unit's dM stage landed (and, at a site's last unit, the next
+    // site's h and tc); every thread is done with the buffers refilled below
+    const bool live_next =
+        __syncthreads_or(last && next < d.s && ht_nonzero<VEC>(d, ht + nslot * d.ht()));
+    if (!last) {
+      dm_load<VEC>(dm, d, s, c + 1, dmb + wbuf * d.dmb());
+      wbuf ^= 1;
+    } else if (live_next) {
+      dm_load<VEC>(dm, d, next, 0, dmb + wbuf * d.dmb());
+      wbuf ^= 1;
+    }
+    cp_async_commit();  // in flight while this unit's products run
+    if (last && next + (HT_SLOTS - 2) * step < d.s)
+      ht_load<VEC>(h, tc, d, next + (HT_SLOTS - 2) * step,
+                   ht + (slot + HT_SLOTS - 1) % HT_SLOTS * d.ht());
+    cp_async_commit();
+    if (live) {
+      bwd_stage<VEC>(d, ht + slot * d.ht(), dmb + rbuf * d.dmb(), part, c, dh, dtc, s);
+      rbuf ^= 1;
+    } else {
+      zero_site<VEC>(d, dh, dtc, s);
+    }
+    if (!last) {
+      ++c;
+      continue;
+    }
+    if (next >= d.s) break;
+    s = next, slot = nslot, live = live_next, c = 0;
+  }
+  cp_async_wait<0>();
+}
+
 template <typename Kernel>
 cudaError_t set_smem(Kernel kernel, size_t smem) {
   if (smem > MAX_SMEM) return cudaErrorInvalidValue;
@@ -507,6 +894,39 @@ int bwd(const T* h, const T* tc, const T* dm, T* dh, T* dtc, int64_t s, int k, i
   return static_cast<int>(cudaGetLastError());
 }
 
+// M in bf16: persistent blocks, as many as fit the card at once.
+int bwd_ring(const __nv_bfloat16* h, const __nv_bfloat16* tc, const __nv_bfloat16* dm,
+             __nv_bfloat16* dh, __nv_bfloat16* dtc, int64_t s, int k, int f, int x,
+             cudaStream_t stream) {
+  if (s < 0 || k < 0 || f < 0 || x < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (s == 0 || k == 0) return 0;  // empty gradients
+  if (f == 0 || x == 0) {  // one gradient is empty, the other sums nothing
+    const size_t n = static_cast<size_t>(s) * k * (f + x) * sizeof(__nv_bfloat16);
+    return static_cast<int>(cudaMemsetAsync(f ? static_cast<void*>(dh) : static_cast<void*>(dtc),
+                                            0, n, stream));
+  }
+  const BwdDims d = bwd_dims(s, k, f, x);
+  const size_t smem = bwd_ring_smem(d);
+  const bool vec = f % 8 == 0 && x % 8 == 0 && vec_ok<__nv_bfloat16>(h, 0) &&
+                   vec_ok<__nv_bfloat16>(tc, 0) && vec_ok<__nv_bfloat16>(dm, 0) &&
+                   vec_ok<__nv_bfloat16>(dh, 0) && vec_ok<__nv_bfloat16>(dtc, 0);
+  void (*kernel)(const __nv_bfloat16*, const __nv_bfloat16*, const __nv_bfloat16*,
+                 __nv_bfloat16*, __nv_bfloat16*, BwdDims) =
+      vec ? pooled_m_bwd_ring_kernel<true> : pooled_m_bwd_ring_kernel<false>;
+  cudaError_t err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, BWD_THREADS, smem)) !=
+          cudaSuccess)
+    return static_cast<int>(err);
+  const int64_t slots = static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1);
+  kernel<<<static_cast<int>(s < slots ? s : slots), BWD_THREADS, smem, stream>>>(h, tc, dm, dh,
+                                                                                 dtc, d);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Writes M [S, X, F] = L(h [S, K, F], tc [S, K, X]); K = 0 gives zeros.
@@ -525,7 +945,7 @@ extern "C" int pooled_m_fwd_f32(const float* h, const float* tc, float* m, int64
 extern "C" int pooled_m_bwd_bf16(const __nv_bfloat16* h, const __nv_bfloat16* tc,
                                  const __nv_bfloat16* dm, __nv_bfloat16* dh, __nv_bfloat16* dtc,
                                  int64_t s, int k, int f, int x, cudaStream_t stream) {
-  return bwd(h, tc, dm, dh, dtc, s, k, f, x, stream);
+  return bwd_ring(h, tc, dm, dh, dtc, s, k, f, x, stream);
 }
 
 extern "C" int pooled_m_bwd_f32(const float* h, const float* tc, const float* dm, float* dh,

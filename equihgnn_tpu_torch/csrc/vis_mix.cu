@@ -31,9 +31,18 @@
 // staged in shared memory where it fits: the TPU kernels' one-hot matmuls
 // (`_block_onehot`) and their edge-k-major transposes are not carried over.
 //
-// F and H run a grid of (G, h / 32) blocks, each staging the neighbour side
-// of its chunk, vec or vv [A][L][HC] (32 KB at A = 32), and the row's d and
-// indices; at L = 8, k = 17 that takes A ≤ 142 (227 KB a block).
+// F and H run a block a row and chunk, each staging the neighbour side of
+// its chunk, vec or vv [A][L][HC] (32 KB at A = 32), and the row's d and
+// indices; at L = 8, k = 17 that takes A ≤ 142 (227 KB a block). F's grid
+// is (G, h / 32).
+// H (redesigned for Hopper) runs G · h / 32 blocks with the chunk the
+// fastest index, so that a row's 8 chunk blocks run together: its d and
+// indices (22 KB at A = 32) come from device memory once and from L2 seven
+// times, where 8 blocks ~G apart read them 8 times from device memory. The
+// vv chunk and the row's d are copied by cp.async while the indices load
+// and each warp loads its first slot's u. A masked edge (56 % at batch
+// 768) writes +0 and reads neither d nor vv. w_dot (428 MB, half of H's
+// bytes) leaves in streaming stores.
 //
 // G and I (redesigned for Hopper) need two things the TPU grid got from
 // running in order.
@@ -324,47 +333,65 @@ vec_agg_fwd_kernel(const float* __restrict__ vec, const float* __restrict__ s1, 
   }
 }
 
-// Kernel H. Grid (G, ceil(h / HC)).
+// Kernel H. Grid G · ceil(h / HC) blocks, the chunk the fastest index. A
+// masked edge writes +0: the value of uv − ud·vd·(2 − |d|²) with vv_j = 0,
+// for finite u and d (the plain version's and JAX's).
 template <int L>
 __global__ void __launch_bounds__(THREADS)
 wdot_fwd_kernel(const float* __restrict__ d, const float* __restrict__ u,
                 const float* __restrict__ vv, const int64_t* __restrict__ idx,
-                const bool* __restrict__ mask, float* __restrict__ out, int a_slots, int k_nbrs,
-                int h) {
-  extern __shared__ float smem[];
+                const bool* __restrict__ mask, float* __restrict__ out, int g_rows, int a_slots,
+                int k_nbrs, int h, bool vec4, bool d4) {
+  extern __shared__ __align__(16) float smem[];
   const int ak = a_slots * k_nbrs;
   float* vv_s = smem;                                   // [A][L][HC]
   float* d_s = vv_s + a_slots * L * HC;                 // [A·K][L]
   int* idx_s = reinterpret_cast<int*>(d_s + ak * L);    // [A·K]
-  const int g = blockIdx.x, c0 = blockIdx.y * HC;
+  const int n_chunks = (h + HC - 1) / HC;
+  const int g = blockIdx.x / n_chunks, c0 = blockIdx.x % n_chunks * HC;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int c = c0 + lane;
   const bool live = c < h;
   const size_t row_e = static_cast<size_t>(g) * ak;
-  stage_edges(idx, mask, d, row_e, ak, a_slots, L, idx_s, d_s);
-  stage_chunk(vv, g, a_slots, L, h, c0, vv_s);
+  const float* d_row = d + row_e * L;
+  stage_chunk_async(vv, g, a_slots, L, h, c0, vec4, vv_s);
+  stage_row_async(d_row, ak * L, d4, d_s);
+  cp_async_commit();
+  load_idx(idx, mask, row_e, ak, a_slots, idx_s);
+  const float* u_row = u + static_cast<size_t>(g) * a_slots * L * h + c;
+  float ui[L];
+#pragma unroll
+  for (int l = 0; l < L; ++l) ui[l] = live && warp < a_slots ? u_row[(warp * L + l) * h] : 0.f;
+  cp_async_wait_all();
   __syncthreads();
 
   for (int i = warp; i < a_slots; i += WARPS) {
-    float ui[L];
-    const float* u_i = u + (static_cast<size_t>(g) * a_slots + i) * L * h + c;
+    if (i != warp) {
 #pragma unroll
-    for (int l = 0; l < L; ++l) ui[l] = live ? u_i[static_cast<size_t>(l) * h] : 0.f;
+      for (int l = 0; l < L; ++l) ui[l] = live ? u_row[(static_cast<size_t>(i) * L + l) * h] : 0.f;
+    }
+    float* o = out + (row_e + i * k_nbrs) * h + c;
     for (int k = 0; k < k_nbrs; ++k) {
       const int e = i * k_nbrs + k;
       const int j = idx_s[e];
-      const float* vj = vv_s + (j >= 0 ? j : 0) * L * HC + lane;
-      float uv = 0.f, vd = 0.f, ud = 0.f, dd = 0.f;
+      float w = 0.f;
+      if (j >= 0) {  // the same for the whole warp
+        float dl[L];
+        load_d<L>(d_s + e * L, dl);
+        // (the selects on j, free here, keep the loop right without the branch)
+        const float* vj = vv_s + (j >= 0 ? j : 0) * L * HC + lane;
+        float uv = 0.f, vd = 0.f, ud = 0.f, dd = 0.f;
 #pragma unroll
-      for (int l = 0; l < L; ++l) {
-        const float dl = d_s[e * L + l];
-        const float v = j >= 0 ? vj[l * HC] : 0.f;
-        uv = fmaf(ui[l], v, uv);
-        vd = fmaf(dl, v, vd);
-        ud = fmaf(ui[l], dl, ud);
-        dd = fmaf(dl, dl, dd);
+        for (int l = 0; l < L; ++l) {
+          const float v = j >= 0 ? vj[l * HC] : 0.f;
+          uv = fmaf(ui[l], v, uv);
+          vd = fmaf(dl[l], v, vd);
+          ud = fmaf(ui[l], dl[l], ud);
+          dd = fmaf(dl[l], dl[l], dd);
+        }
+        w = uv - ud * vd * (2.f - dd);
       }
-      if (live) out[(row_e + e) * h + c] = uv - ud * vd * (2.f - dd);
+      if (live) __stcs(o + static_cast<size_t>(k) * h, w);
     }
   }
 }
@@ -780,23 +807,24 @@ extern "C" int vis_vec_agg_fwd_f32(const float* vec, const float* s1, int64_t s1
   return static_cast<int>(cudaGetLastError());
 }
 
+// Whether every row's d [A·K][L] starts 16-byte aligned.
+bool rows16(const float* d, int a_slots, int k_nbrs, int L) {
+  return aligned16(d) && static_cast<size_t>(a_slots) * k_nbrs * L % 4 == 0;
+}
+
 extern "C" int vis_wdot_fwd_f32(const float* d, const float* u, const float* vv,
                                 const int64_t* idx, const bool* mask, float* out, int g_rows,
                                 int a_slots, int k_nbrs, int L, int h, cudaStream_t stream) {
   if (bad_l(L)) return static_cast<int>(cudaErrorInvalidValue);
   if (g_rows <= 0 || a_slots <= 0 || k_nbrs <= 0 || h <= 0) return 0;
-  const dim3 grid(g_rows, (h + HC - 1) / HC);
   const size_t smem = fwd_smem(a_slots, k_nbrs, L);
   auto kernel = L == 8 ? wdot_fwd_kernel<8> : wdot_fwd_kernel<3>;
   const cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<grid, THREADS, smem, stream>>>(d, u, vv, idx, mask, out, a_slots, k_nbrs, h);
+  const bool vec4 = h % 4 == 0 && aligned16(vv);
+  kernel<<<g_rows * ((h + HC - 1) / HC), THREADS, smem, stream>>>(
+      d, u, vv, idx, mask, out, g_rows, a_slots, k_nbrs, h, vec4, rows16(d, a_slots, k_nbrs, L));
   return static_cast<int>(cudaGetLastError());
-}
-
-// Whether every row's d [A·K][L] starts 16-byte aligned.
-bool rows16(const float* d, int a_slots, int k_nbrs, int L) {
-  return aligned16(d) && static_cast<size_t>(a_slots) * k_nbrs * L % 4 == 0;
 }
 
 // The backward kernels' refusals and empty cases: 0 to launch, else the

@@ -10,11 +10,13 @@ Replaces `equihgnn_tpu/ops/pallas/pooled_m.py` `pooled_m`: the forward
 
 h [G, A, K, F] and tc [G, A, K, X] are bf16 or f32, both of one type; M and
 the gradients come out in that type, summed in f32 and rounded once, as
-JAX's dots with `preferred_element_type=f32` and their `astype`. L in bf16
-(the model's path) runs in persistent blocks that stream the sites through
-a cp.async ring and sum the exact f32 products k in order, as the plain
-version does (the tensor cores' truncated sums missed its gate: see
-`csrc/pooled_m.cu`). JAX's
+JAX's dots with `preferred_element_type=f32` and their `astype`. L and M
+in bf16 (the model's path) run in persistent blocks that stream the sites
+through a cp.async ring and sum the exact f32 products in order, as the
+plain version does (the tensor cores' truncated sums missed L's gate: see
+`csrc/pooled_m.cu`); M reads dM only at the sites whose h or tc is not all
+±0, and writes +0 at the others (the plain version's value for a finite
+dM). JAX's
 VMEM gate (`pooled_m_supported`) is not ported: the kernels take any A and
 any K ≥ 0 (K = 0 gives zeros), and the C entry refuses a shape whose site
 does not fit a block's shared memory, on which the wrapper raises.

@@ -31,7 +31,9 @@ their inputs. `d` gets a gradient from both (autograd adds them);
 nbr_idx and nbr_mask get none. Any other device, type, shape or stride
 raises, and so does a slot axis A whose row does not fit a block of F or H
 (its shared memory; at L = 8, k = 17: A ≤ 142): the C entries refuse it,
-G's and I's too, and the wrapper raises RuntimeError. G and I run a row's
+G's and I's too, and the wrapper raises RuntimeError. H writes +0 at a
+masked edge without reading d or vv (the plain version's value for finite
+u and d). G and I run a row's
 h / 32 chunks as a thread-block cluster and sum dd over its shared memory;
 up to A = 70 (G) and 97 (I) at L = 8, k = 17 they stage the gathered
 chunks in shared memory, above that they gather from device memory.

@@ -26,7 +26,8 @@ odd P, C = 3 and 4, every H/2 the kernels take, and dropout on and off
 (the same seed gives the same mask in the kernels and the plain version),
 kernel D also on the "offset" inputs at every (C, H/2) and over ~12
 grid-stride rounds a warp;
-for kernels F-I masked edges, an all-empty padding row, A < k (the
+for kernels F-I masked edges (H also every edge masked, where it writes
++0, and none), an all-empty padding row, A < k (the
 neighbour axis padded with masked edges, as `knn_dense` pads it), L = 3
 and 8, h not a multiple of 32 and a strided s1, G and I also over
 clusters of 1, 2 and 8 blocks a row and two turns of one (h = 288), with
@@ -42,7 +43,8 @@ the dead sites, the same bits twice) and refusing a K (23) or C (64 at K =
 kernels L and M the batch-768 shapes (G = 769, A = 32, K = 16, F = 128,
 X = 64 and 192) in bfloat16 and float32, K = 0, 5 and 20, ragged F and X,
 12,000 sites, many more than L's persistent grid has blocks, and sites
-whose operands are all ±0 (L skips their products). The autograd tests show
+whose operands are all ±0 (L skips their products; M reads no dM there and
+writes +0 while dM is random, also in a live site's ±0 neighbour rows). The autograd tests show
 that a CUDA call of each wrapper is differentiable (its output has a
 `grad_fn`) and gives the gradients of the plain version on the card.
 Gradient tolerance: max |Δ| ≤ 1e-4·max |plain| + 1e-6 per tensor (f32 sums
@@ -778,6 +780,24 @@ def test_vis_mix_rejects_unsupported_inputs(dev):
     assert vis_vec_agg(vec, s1, s2m, d, idx, mask).shape == vec.shape
 
 
+@pytest.mark.parametrize("kind", ["all", "none"])
+def test_vis_wdot_kernel_all_or_no_edges_masked(dev, kind):
+    """Kernel H with every edge masked (it writes +0 in every bit and reads
+    no d and no vv: u and d are non-zero) and with none masked, against the
+    plain version, the same bits twice."""
+    _, _, _, d, idx, mask, u, vv = (t.to(dev) for t in _mix_args(6, 32, 17, 8, 256, 11))
+    mask[:] = kind == "none"
+    with torch.no_grad():
+        got, want = vis_wdot(d, u, vv, idx, mask), wdot_plain(d, u, vv, idx, mask)
+    err, limit = float((got - want).abs().max()), 1e-5 * float(want.abs().max()) + 1e-6
+    assert err <= limit, f"kernel H: max |d| {err:.3e} > {limit:.3e}"
+    if kind == "all":
+        assert not got.view(torch.int32).any()
+    else:
+        assert bool((got != 0).any())
+    assert torch.equal(vis_wdot(d, u, vv, idx, mask), got)
+
+
 def _check_bwd(vec, s1, s2m, d, idx, mask, u, vv, seed):
     """Kernels G and I against their plain versions on these inputs."""
     gen = torch.Generator().manual_seed(seed)
@@ -1161,17 +1181,34 @@ def test_pooled_m_kernel_zero_sites(dev):
     """Sites whose h and tc are all ±0 (the SE(3)-Transformer's sites with no
     neighbour within the radius) skip kernel L's products: their M is +0
     in every bit, the plain version's value, and the other sites agree with
-    the plain version as everywhere."""
-    h, tc, _ = (t.to(dev) for t in _pm_args(40, 32, 16, 128, 64, torch.bfloat16, seed=4))
-    dead = (torch.rand(40, 32, generator=torch.Generator().manual_seed(5)) < 0.5).to(dev)
-    dead[0, :2] = True
-    h[dead], tc[dead] = 0.0, 0.0
-    h[0, 0], tc[0, 1] = -0.0, -0.0  # signed zeros count as zeros
-    with torch.no_grad():
-        got = pooled_m(h, tc)
-    _assert_pm_close(got, pooled_m_plain(h, tc), "L")
-    assert not got[dead].view(torch.int16).any()
-    assert got[~dead].float().abs().max() > 0
+    the plain version as everywhere. Kernel M reads no dM there and writes
+    +0 in every bit while dM is random and non-zero (signed zeros count as
+    zeros; X = 64 takes one dM stage a site, 192 three); a live site whose
+    last neighbour rows are ±0 gets +0 in those rows of dh and dtc; the
+    same bits on a second run."""
+    for x in (64, 192):
+        h, tc, dm = (t.to(dev) for t in _pm_args(40, 32, 16, 128, x, torch.bfloat16, seed=4 + x))
+        dead = (torch.rand(40, 32, generator=torch.Generator().manual_seed(5)) < 0.5).to(dev)
+        dead[0, :2] = True
+        dead[1, 0] = False
+        h[dead], tc[dead] = 0.0, 0.0
+        h[0, 0], tc[0, 1] = -0.0, -0.0  # signed zeros count as zeros
+        h[1, 0, 9:], tc[1, 0, 9:] = -0.0, 0.0  # a live site with dead neighbour rows
+        dm = torch.where(dm >= 0, dm + 0.5, dm - 0.5)  # non-zero everywhere
+        assert bool((dm[dead] != 0).all())
+        with torch.no_grad():
+            got = pooled_m(h, tc)
+        _assert_pm_close(got, pooled_m_plain(h, tc), "L")
+        assert not got[dead].view(torch.int16).any()
+        assert got[~dead].float().abs().max() > 0
+        grads = pooled_m_bwd(h, tc, dm)
+        for name, g_, want in zip(("dh", "dtc"), grads, pooled_m_bwd_plain(h, tc, dm)):
+            _assert_pm_close(g_, want, f"M {name} X={x}")
+            assert not g_[dead].view(torch.int16).any(), f"M {name} X={x}: not +0 at a dead site"
+            assert not g_[1, 0, 9:].view(torch.int16).any(), f"M {name} X={x}: a dead row"
+            assert g_[~dead].float().abs().max() > 0
+        for a_, b_ in zip(pooled_m_bwd(h, tc, dm), grads):
+            assert torch.equal(a_, b_)
 
 
 def test_pooled_m_autograd(dev):

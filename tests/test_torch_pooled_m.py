@@ -98,6 +98,29 @@ def test_plain_and_autograd_match_jax_pooled_m(jax_pm, x, dtype):
         _assert_match(leaf.grad, want, dtype, f"autograd {name}")
 
 
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_plain_vjp_is_zero_at_sites_with_no_neighbour(jax_pm, dtype):
+    """`pooled_m_bwd_plain` against `jax.vjp` of JAX's `pooled_m` (interpret
+    mode) where half the sites have h = tc = 0 (no neighbour within the
+    radius) and dM there is large and non-zero: dh and dtc are exactly 0 at
+    those sites in both, the value kernel M writes there without reading
+    dM; the other sites as in `test_plain_and_autograd_match_jax_pooled_m`."""
+    h, tc, dm = _inputs(64, dtype, seed=7)
+    dead = np.random.default_rng(8).random(h.shape[:2]) < 0.5
+    dead[0, 0], dead[0, 1] = True, False
+    h[dead], tc[dead] = 0.0, 0.0
+    dm = dm * 1e3 + np.sign(dm) * 1e3  # |dM| ≥ 1e3 everywhere
+    jdt = DTYPES[dtype][1]
+    _, (dh, dtc) = jax_pm(*(jnp.asarray(v).astype(jdt) for v in (h, tc, dm)))
+    got = pooled_m_bwd_plain(_t(h, dtype), _t(tc, dtype), _t(dm, dtype))
+    live = torch.from_numpy(~dead)
+    for name, g_, want in zip(("dh", "dtc"), got, (dh, dtc)):
+        _assert_match(g_, want, dtype, name)
+        want = np.asarray(jnp.asarray(want).astype(jnp.float32))
+        assert not np.any(want[dead]) and np.abs(want[~dead]).max() > 0, f"JAX {name}"
+        assert not g_[~live].float().any() and g_[live].float().abs().max() > 0, name
+
+
 def test_plain_takes_any_k():
     """K = 0 (no neighbour) gives zeros; a ragged K, F and X against float64."""
     rng = np.random.default_rng(3)

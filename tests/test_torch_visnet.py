@@ -34,7 +34,7 @@ from equihgnn_tpu.data.synthetic import make_synthetic_dataset
 from equihgnn_tpu.models.config import ModelConfig as JaxModelConfig
 from equihgnn_tpu.nn import visnet as jvis
 from equihgnn_tpu.ops.knn import knn_dense as jax_knn_dense
-from equihgnn_tpu.ops.pallas.vis_mix import _mix_edge, _mix_last, _xla_mix
+from equihgnn_tpu.ops.pallas.vis_mix import _mix_edge, _mix_last, _wdot, _xla_mix
 from equihgnn_tpu_torch import create_model
 from equihgnn_tpu_torch.convert import params_from_jax
 from equihgnn_tpu_torch.data.batching import pad_hypergraph_batch, spec_for_samples
@@ -263,6 +263,23 @@ def test_plain_mix_matches_pallas_kernels():
     torch.sum(vec_agg_plain(*last, _t(idx), _t(mask)) * _t(r1)).backward()
     for name, leaf, want in zip(("vec", "s1", "s2m", "d"), last, jg_last):
         normwise(_np(leaf.grad), want, f"last-layer grad {name}")
+
+
+def test_plain_and_pallas_wdot_are_plus_zero_at_masked_edges():
+    """`wdot_plain` (kernel H's function) and JAX's `_wdot` (its Pallas
+    kernel, interpret mode) give +0, sign bit clear, at every masked edge
+    while d, u and vv there are non-zero: the value kernel H writes at a
+    masked edge without reading d or vv. The other edges agree to 1e-5 of
+    max |JAX| (bf16-grid inputs: the kernel's one-hot products are exact)."""
+    _, _, _, d, idx, mask, u, vv = _mix_inputs(a=8, k=5, seed=12, bf16_grid=True)
+    assert np.all(d[~mask] != 0) and np.all(u != 0) and np.all(vv != 0)
+    want = np.asarray(jax.jit(_wdot)(jnp.asarray(d), jnp.asarray(u), jnp.asarray(vv),
+                                     jnp.asarray(idx, jnp.int32), jnp.asarray(mask)))
+    got = _np(wdot_plain(*map(_t, (d, u, vv, idx, mask))))
+    for name, w in (("JAX _wdot", want), ("wdot_plain", got)):
+        z = w[~mask]
+        assert z.size and not np.any(z) and not np.any(np.signbit(z)), name
+    _assert_rel(got, want, 1e-5, "w_dot")
 
 
 def test_mix_wrappers_raise_on_other_devices():
