@@ -58,9 +58,12 @@ result line), each printing its seconds:
    (recorded only); error, median time, allocation and the card's least
    time (`bound_ms`) of each;
 then, for each path, `egnn_equihnns`, `faformer_equihnns`,
-`visnet_equihnns` and `se3_transformer_equihnns` at the bench recipe
-(hidden 256, 3 MHNNS conv layers, output hidden 128 over 3 layers, mean
-aggregation, LayerNorm, f32; the FAFormer: 2 layers, 2 heads, k = 16;
+`visnet_equihnns` and `se3_transformer_equihnns`, the MHNN family `mhnn`,
+`mhnns` and `mhnnm`, and the encoders with the MHNN and MHNNM trunks
+(`egnn_equihnn{,m}`, `faformer_equihnn{,m}`, `visnet_equihnn{,m}`), at the
+bench recipe (hidden 256, 3 conv layers, output hidden 128 over 3 layers
+(TrunkFull's output MLP: 256 wide over a 512-wide input), mean
+aggregation, LayerNorm, relu, f32; the FAFormer: 2 layers, 2 heads, k = 16;
 ViSNet: 6 layers, 8 heads, lmax 2, k = 17, 32 RBFs, cutoff 5 Å; the
 SE(3)-Transformer: dim 256, 2 heads, depth 2, dim_head 32, degrees 0 and
 1, k = 16 within 5 Å), and `se3_transformer_equihnns bf16`, the
@@ -73,7 +76,8 @@ kernels L and M), with random weights from a seed:
    768 synthetic molecules through the same library path. The kernels'
    launch counters must show that both requests ran through the model's
    kernels (egnn: A 3x and B per forward; faformer: A 3x and D 5x;
-   visnet: A 3x, F 6x, H 5x; se3: A 3x, J 4x; se3 bf16: A 3x, L 4x); the
+   visnet: A 3x, F 6x, H 5x; se3: A 3x, J 4x; se3 bf16: A 3x, L 4x; the
+   MHNN family: A 3x; a hybrid: its encoder's, and A 3x); the
    bf16 path is held instead to its CPU run (BF16_SERVE_SHARE of the CPU's
    bf16-vs-f32 distance), its distance from the f32 model at the same
    weights on the card recorded;
@@ -82,15 +86,19 @@ kernels L and M), with random weights from a seed:
    CPU (plain versions) with the card's pattern of ReLU signs; every
    parameter the CPU reaches must be reached on the card (the bf16 path:
    against its CPU bf16 run, as relative L2 over all parameters, a step
-   and the encoder under a smooth loss, BF16_GRAD_SHARE);
-6. train: `equihgnn_tpu_torch.main.run` on `synthetic_hg_3d` at the
-   recipe, batch 768, 3 epochs of ~10 steps, a learnable target, into a
-   temporary log directory, at lr 1e-3 (visnet 1e-4: it diverges at 5e-4
-   in both frameworks). Every train loss finite and the last below the
-   first; the launch counters show the model's kernels on every train step
-   (egnn: A 3x, B, C; faformer: A 3x, D 5x, E 4x; visnet: A 3x, F 6x, H 5x,
-   G 6x, I 5x; se3: A 3x, J 4x, K 4x; se3 bf16: A 3x, L 8x, M 4x) and every
-   eval forward;
+   and the encoder under a smooth loss, BF16_GRAD_SHARE); a hybrid takes
+   16 molecules and checks the step only: its encoder alone is held on
+   its `*_equihnns` path;
+6. train: `equihgnn_tpu_torch.main.run` on `synthetic_hg_3d` (the MHNN
+   family: `synthetic_hg`, which has no coordinates) at the recipe, batch
+   768, 3 epochs of ~10 steps (the hybrids: ~5, on 4,800 molecules), a
+   learnable target, into a temporary log directory, at lr 1e-3 (visnet's
+   paths 1e-4: it diverges at 5e-4 in both frameworks). Every train loss
+   finite and the last below the first; the launch counters show the
+   model's kernels on every train step (egnn: A 3x, B, C; faformer: A 3x,
+   D 5x, E 4x; visnet: A 3x, F 6x, H 5x, G 6x, I 5x; se3: A 3x, J 4x, K 4x;
+   se3 bf16: A 3x, L 8x, M 4x; the MHNN family: A 3x; a hybrid: its
+   encoder's) and every eval forward;
    `ckpt_best.pt` serves through `predict.run --device cuda`;
 7. step: one train step at batch 768 (forward + backward + Adam): its
    launches, median device time (and the eval forward's), peak memory and a
@@ -138,7 +146,14 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SDF = os.path.join(ROOT, "datasets", "real_sample", "sample.sdf")
 BATCH = 768
 HIDDEN = 256
-METHODS = ("egnn_equihnns", "faformer_equihnns", "visnet_equihnns", "se3_transformer_equihnns")
+# the encoders with the MHNNS trunk; the MHNN family (the atom embedding, then
+# the TrunkFull, TrunkS or TrunkM trunk); the encoders with TrunkFull and TrunkM
+ENCODER_METHODS = ("egnn_equihnns", "faformer_equihnns", "visnet_equihnns",
+                   "se3_transformer_equihnns")
+MHNN_METHODS = ("mhnn", "mhnns", "mhnnm")
+HYBRID_METHODS = ("egnn_equihnn", "egnn_equihnnm", "faformer_equihnn", "faformer_equihnnm",
+                  "visnet_equihnn", "visnet_equihnnm")
+METHODS = ENCODER_METHODS + MHNN_METHODS + HYBRID_METHODS
 # se3_transformer_equihnns --compute_dtype bfloat16 at the CLI's default widths
 # (`equihgnn_tpu/main.py:62-64`), where JAX's fused pooled unit refuses O = 64
 BF16_PATH = "se3_transformer_equihnns bf16"
@@ -169,7 +184,21 @@ BWD_LAUNCHES = {
     # kernel M, and L again where the checkpointed step is recomputed
     BF16_PATH: {"pooled_m": 4, "pooled_m_bwd": 4},
 }
-LR = {"visnet_equihnns": "1e-4"}  # the others train at 1e-3
+# each hybrid's encoder, whose *_equihnns path it shares its encoder's kernels with
+ENCODER_OF = {m: m.removesuffix("m") + "s" for m in HYBRID_METHODS}
+# every MHNNConv and MHNNSConv trunk runs kernel A on its 3 V→E reductions; the
+# MHNN family runs no other kernel and has no kernel in its backward
+for _m in MHNN_METHODS:
+    FWD_LAUNCHES[_m], BWD_LAUNCHES[_m] = {"sorted_segment_sum": 3}, {}
+for _m, _enc in ENCODER_OF.items():
+    FWD_LAUNCHES[_m], BWD_LAUNCHES[_m] = dict(FWD_LAUNCHES[_enc]), dict(BWD_LAUNCHES[_enc])
+LR = {"visnet_equihnns": "1e-4", "visnet_equihnn": "1e-4",
+      "visnet_equihnnm": "1e-4"}  # the others train at 1e-3
+# the MHNN family trains on the coordinate-free set, as users of those models do
+TRAIN_DATA = dict.fromkeys(MHNN_METHODS, "synthetic_hg")  # the others: synthetic_hg_3d
+# the hybrids' encoders and kernels are held at full size by their *_equihnns
+# paths, so they train on 4,800 molecules (5 steps an epoch), not 9,600 (10)
+TRAIN_SIZE = dict.fromkeys(HYBRID_METHODS, "4800")  # the others: 9600
 # the H100 SXM's published peaks: HBM3 bandwidth, dense f32, TF32 and bf16 rates
 PEAK_BYTES_S, PEAK_F32_S, PEAK_TF32_S, PEAK_BF16_S = 3.35e12, 67e12, 495e12, 989e12
 SFU_OPS_CLK = 16  # special-function operations (ex2, rcp) an H100 SM issues a clock
@@ -1399,10 +1428,16 @@ def check_bf16_serve(model, method: str, cfg, vals, samples, preds) -> None:
 # references at full width are slow (~17 s a step on 16 molecules), so it
 # takes 16 molecules and one jitter draw (GRAD_CUT).
 STEP_LIMIT = {"egnn_equihnns": 1e-4, "faformer_equihnns": 1e-2, "visnet_equihnns": 1e-4,
-              "se3_transformer_equihnns": 1e-2}
+              "se3_transformer_equihnns": 1e-2, **dict.fromkeys(MHNN_METHODS, 1e-4)}
+STEP_LIMIT.update({m: STEP_LIMIT[enc] for m, enc in ENCODER_OF.items()})
 ENCODER_LIMIT = {"se3_transformer_equihnns": 1e-2}  # the others: 1e-4
-# (molecules, jitter draws); the others (32, 4)
-GRAD_CUT = {"se3_transformer_equihnns": (16, 1), BF16_PATH: (16, 0)}
+# (molecules, jitter draws); the others (32, 4). The hybrids' encoders are held
+# by their *_equihnns paths (the encoder-alone check runs there only), so their
+# CPU references take 16 molecules and one draw. The draws feed a printed
+# reading only (the CPU's own spread); ViSNet's CPU step at full width takes
+# ~10 s, so it takes one
+GRAD_CUT = {"se3_transformer_equihnns": (16, 1), BF16_PATH: (16, 0),
+            "visnet_equihnns": (32, 1), **dict.fromkeys(HYBRID_METHODS, (16, 1))}
 # A ReLU input on the other side of 0 on the card than on the CPU makes the
 # step's gradient jump (a ViSNet trunk input 1.7e-6 from 0 moved its step
 # gradients by 2.2e-2 of their max). So the phase records every ReLU input
@@ -1426,7 +1461,17 @@ REACHED = {
                         "visnet_layer.embedding.atom.embedding"),
     "se3_transformer_equihnns": ("se3_transformer_layer.conv_in.pair_0_1.radial_out_W",
                                  "atom_encoder.atom.embedding"),
+    **dict.fromkeys(MHNN_METHODS, ("atom_encoder.atom.embedding",)),
 }
+REACHED.update({m: REACHED[enc] for m, enc in ENCODER_OF.items()})
+
+
+def trunk_reached(method: str) -> tuple[str, ...]:
+    """The trunk's first weight, and the hyperedge table where it has one."""
+    if method.endswith("s"):
+        return ("trunk.conv.W1.lin_0.weight",)
+    first = "trunk.layers_0" if method.endswith("m") else "trunk.conv"
+    return (f"{first}.W1.lin_0.weight", "trunk.bond_encoder.embedding")
 
 
 @contextlib.contextmanager
@@ -1558,7 +1603,7 @@ def phase_grads(method: str, pool) -> None:
               f"max|d| / max|cpu| {own:.3e}")
     limit = STEP_LIMIT[method]
     worst, reached = compare(want, got, limit, "train step")
-    for name in (*REACHED[method], "trunk.conv.W1.lin_0.weight"):
+    for name in (*REACHED[method], *trunk_reached(method)):
         check(want[name] is not None and float(want[name].abs().max()) > 0, f"{name} unreached")
     print(f"{method} gradients, card vs cpu with the card's ReLU pattern, one train step at "
           f"full width on {len(samples)} molecules (CPU translation spread <= "
@@ -1566,6 +1611,8 @@ def phase_grads(method: str, pool) -> None:
           f"worst max|d| / max|cpu| {worst:.3e} (limit {limit:g} per tensor; the CPU's own "
           f"change under a 1e-6 relative jitter of the trunk's input, largest of {draws} "
           f"draws: {cpu_spread:.3e}); launches {launches}")
+    if method not in ENCODER_METHODS:
+        return  # the MHNN family has no encoder; a hybrid's is held on its *_equihnns path
     enc_limit = ENCODER_LIMIT.get(method, 1e-4)
     want = grads("cpu", encoder_loss)
     worst, reached = compare(want, grads("cuda", encoder_loss), enc_limit, "encoder, smooth loss")
@@ -1647,7 +1694,7 @@ def phase_grads_bf16(path: str, pool) -> None:
     for name in reached:
         check(got[name] is not None and float(got[name].abs().max()) > 0,
               f"{name} has a gradient on the CPU and none on the card")
-    for name in (*REACHED[method], "trunk.conv.W1.lin_0.weight"):
+    for name in (*REACHED[method], *trunk_reached(method)):
         check(name in reached, f"{name} unreached")
     results = [("train step, the card's ReLU pattern", _rel_l2(got, want), _rel_l2(want, runs[None]))]
     want = grads("cpu", encoder_loss)
@@ -1670,8 +1717,10 @@ def phase_train(path: str, smi: str) -> dict[str, int]:
     from equihgnn_tpu_torch.predict import run as predict_run
 
     method, cfg = PATHS[path][0], recipe(path)
-    argv = ["--data", "synthetic_hg_3d", "--method", method, "--device", "cuda",
-            "--batch_size", str(BATCH), "--synthetic_size", "9600", "--epochs", "3",
+    data = TRAIN_DATA.get(method, "synthetic_hg_3d")
+    argv = ["--data", data, "--method", method, "--device", "cuda",
+            "--batch_size", str(BATCH), "--synthetic_size", TRAIN_SIZE.get(method, "9600"),
+            "--epochs", "3",
             "--lr", LR.get(method, "1e-3"), "--MLP_hidden", str(cfg.mlp_hidden),
             "--output_hidden", str(cfg.output_hidden),
             "--All_num_layers", str(cfg.all_num_layers),
@@ -1682,13 +1731,14 @@ def phase_train(path: str, smi: str) -> dict[str, int]:
     args = build_parser().parse_args(argv)
     t0 = time.perf_counter()
     train_s, valid_s, test_s, _ = load_splits(args)
-    print(f"train data: {len(train_s)}/{len(valid_s)}/{len(test_s)} molecules generated "
-          f"in {time.perf_counter() - t0:.2f} s")
+    print(f"train data: {data}, {len(train_s)}/{len(valid_s)}/{len(test_s)} molecules "
+          f"generated in {time.perf_counter() - t0:.2f} s")
+    with_pos = train_s[0].pos is not None
     for s in train_s + valid_s + test_s:  # learnable target: normalized atom count
         s.y = np.float32((s.n_atoms - 16.0) / 8.0)
     spec = spec_for_samples(train_s + valid_s + test_s, batch_size=BATCH)
-    n_val = sum(1 for _ in iter_batches(valid_s, spec, with_pos=True))
-    n_test = sum(1 for _ in iter_batches(test_s, spec, with_pos=True))
+    n_val = sum(1 for _ in iter_batches(valid_s, spec, with_pos=with_pos))
+    n_test = sum(1 for _ in iter_batches(test_s, spec, with_pos=with_pos))
 
     cwd = os.getcwd()
     with tempfile.TemporaryDirectory() as tmp:

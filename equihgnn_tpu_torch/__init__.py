@@ -5,8 +5,11 @@ its kernels, on the CPU. It mirrors the module paths of the JAX package
 `equihgnn_tpu`, which stays the reference it is tested against, and
 imports nothing from it. Covered so far, in float32: serving
 (`python -m equihgnn_tpu_torch.predict`) and training
-(`python -m equihgnn_tpu_torch.main`) of `egnn_equihnns`,
-`faformer_equihnns`, `visnet_equihnns` and `se3_transformer_equihnns`;
+(`python -m equihgnn_tpu_torch.main`) of 13 of the JAX package's 18
+models: the MHNN family `mhnn`, `mhnns`, `mhnnm`, and the EGNN, FAFormer
+and ViSNet encoders each with the MHNN, MHNNS and MHNNM trunks
+(`egnn_equihnn{,s,m}`, `faformer_equihnn{,s,m}`, `visnet_equihnn{,s,m}`),
+and `se3_transformer_equihnns`;
 and `se3_transformer_equihnns` with `compute_dtype="bfloat16"` (its
 encoder in bf16, as in JAX) at widths whose pooled units JAX does not
 fuse, through kernels L and M. Every Pallas kernel of the JAX package has

@@ -6,11 +6,16 @@ path maps to a state-dict key by three rules:
   * `kernel` (flax [in, out]) → `weight` (torch.nn.Linear [out, in]),
     transposed; EGNN's split `kernel_i`/`kernel_j`/`kernel_d` →
     `weight_i`/`weight_j`/`weight_d`, transposed the same way;
-  * a LayerNorm's `scale` → `weight`; other `scale`s (CoorsNorm) keep
-    their name;
-  * the `LayerNorm_0` level that flax's `_Norm` wrapper adds is dropped.
+  * a LayerNorm's or BatchNorm's `scale` → `weight`; other `scale`s
+    (CoorsNorm) keep their name;
+  * the levels that flax wrappers add are dropped: `LayerNorm_0` and
+    `MaskedBatchNorm_0` (`_Norm`), `PReLU_0` (`Activation`).
 
-The JAX side flattens its `params` with
+A BatchNorm's running statistics live in flax's `batch_stats` collection
+as `.../mean` and `.../var`; passed as `batch_stats`, they map to the
+buffers `running_mean` and `running_var`.
+
+The JAX side flattens its collections with
 `flax.traverse_util.flatten_dict(params, sep="/")`; this module imports
 nothing of JAX.
 """
@@ -25,11 +30,13 @@ from torch import nn
 
 _KERNELS = {"kernel": "weight", "kernel_i": "weight_i", "kernel_j": "weight_j",
             "kernel_d": "weight_d"}
+_WRAPPERS = ("LayerNorm_0", "MaskedBatchNorm_0", "PReLU_0")
+_STATS = {"mean": "running_mean", "var": "running_var"}
 
 
 def _port_key(path: str, expected: Mapping[str, torch.Tensor]) -> tuple[str, bool]:
     """(state-dict key, transpose?) for one flax path."""
-    parts = [p for p in path.split("/") if p != "LayerNorm_0"]
+    parts = [p for p in path.split("/") if p not in _WRAPPERS]
     leaf, prefix = parts[-1], "".join(p + "." for p in parts[:-1])
     if leaf in _KERNELS:
         return f"{prefix}{_KERNELS[leaf]}", True
@@ -38,17 +45,28 @@ def _port_key(path: str, expected: Mapping[str, torch.Tensor]) -> tuple[str, boo
     return f"{prefix}{leaf}", False
 
 
-def params_from_jax(flat: Mapping[str, np.ndarray], model: nn.Module) -> dict[str, torch.Tensor]:
-    """Convert flattened flax params for `model` into its state dict.
+def _stats_key(path: str) -> tuple[str, bool]:
+    parts = [p for p in path.split("/") if p not in _WRAPPERS]
+    leaf = _STATS.get(parts[-1], parts[-1])  # an unknown leaf stays unused
+    return "".join(p + "." for p in parts[:-1]) + leaf, False
+
+
+def params_from_jax(flat: Mapping[str, np.ndarray], model: nn.Module,
+                    batch_stats: Mapping[str, np.ndarray] | None = None,
+                    ) -> dict[str, torch.Tensor]:
+    """Convert flattened flax params (and `batch_stats`, flattened the same
+    way) for `model` into its state dict, buffers included.
 
     Raises KeyError on a flax key with no place in `model` and on a
-    parameter of `model` that `flat` does not provide, and ValueError on a
-    shape mismatch. Load the result with `model.load_state_dict(...)`.
+    parameter or buffer of `model` that neither collection provides, and
+    ValueError on a shape mismatch. Load the result with
+    `model.load_state_dict(...)`.
     """
     expected = model.state_dict()
     out: dict[str, torch.Tensor] = {}
-    for path, value in flat.items():
-        key, transpose = _port_key(path, expected)
+    items = [(path, value, _port_key(path, expected)) for path, value in flat.items()]
+    items += [(path, value, _stats_key(path)) for path, value in (batch_stats or {}).items()]
+    for path, value, (key, transpose) in items:
         if key not in expected:
             raise KeyError(f"unused JAX parameter {path!r} (no port key {key!r})")
         arr = np.asarray(value, dtype=np.float32)

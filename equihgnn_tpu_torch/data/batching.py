@@ -101,7 +101,10 @@ def pad_hypergraph_batch(
     vertex_idx = np.full((Z,), N - 1, dtype=np.int64)
     hedge_idx = np.full((Z,), E - 1, dtype=np.int64)
     inc_mask = np.zeros((Z,), dtype=bool)
+    hedge_feat = np.zeros((E,), dtype=np.int64)
     hedge_mask = np.zeros((E,), dtype=bool)
+    hedge_graph_id = np.full((E,), pad_gid, dtype=np.int64)
+    e_order = np.zeros((E,), dtype=np.int64)
     y = np.zeros((G,), dtype=np.float32)
     graph_mask = np.zeros((G,), dtype=bool)
     pos = np.zeros((N, 3), dtype=np.float32) if with_pos else None
@@ -134,7 +137,10 @@ def pad_hypergraph_batch(
         vertex_idx[z0 : z0 + nz] = s.vertex_idx + a0
         hedge_idx[z0 : z0 + nz] = s.hedge_idx + e0
         inc_mask[z0 : z0 + nz] = True
+        hedge_feat[e0 : e0 + ne] = s.hedge_feat
         hedge_mask[e0 : e0 + ne] = True
+        hedge_graph_id[e0 : e0 + ne] = g
+        e_order[e0 : e0 + ne] = s.e_order()
         yv = s.y if target is None else np.asarray(s.y).reshape(-1)[target]
         y[g] = np.asarray(yv, dtype=np.float32).reshape(())
         graph_mask[g] = True
@@ -156,7 +162,10 @@ def pad_hypergraph_batch(
         vertex_idx=vertex_idx,
         hedge_idx=hedge_idx,
         inc_mask=inc_mask,
+        hedge_feat=hedge_feat,
         hedge_mask=hedge_mask,
+        hedge_graph_id=hedge_graph_id,
+        e_order=e_order,
         graph_mask=graph_mask,
         y=y,
         pos=pos,

@@ -1,10 +1,14 @@
-"""Registered synthetic dataset `synthetic_hg_3d` (RDKit-free, offline).
+"""Registered synthetic datasets `synthetic_hg` and `synthetic_hg_3d`
+(RDKit-free, offline).
 
-Copy of `SyntheticHGraph3D` from `equihgnn_tpu/data/datasets/synthetic_ds.py`:
-QM9-like hypergraphs with 3-D coordinates and 16 random regression
-targets, drawn by `data/synthetic.py` from `seed` (default 0), `size`
-molecules (default 4096). The same size and seed give the same molecules as
-the JAX package.
+Copy of `SyntheticHGraph` and `SyntheticHGraph3D` from
+`equihgnn_tpu/data/datasets/synthetic_ds.py`: QM9-like hypergraphs, without
+(`synthetic_hg`) or with (`synthetic_hg_3d`) 3-D coordinates, and 16 random
+regression targets, drawn by `data/synthetic.py` from `seed` (default 0),
+`size` molecules (default 4096). The same size and seed give the same
+molecules as the JAX package. Without coordinates no positions or atomic
+numbers are drawn, so `synthetic_hg` and `synthetic_hg_3d` differ from the
+first molecule on, in JAX as here.
 """
 
 from __future__ import annotations
@@ -14,11 +18,8 @@ from equihgnn_tpu_torch.data.datasets.base import MolDataset
 from equihgnn_tpu_torch.data.synthetic import make_synthetic_dataset
 
 
-@registry.register_data("synthetic_hg_3d")
-class SyntheticHGraph3D(MolDataset):
-    name = "synthetic_hg_3d"
+class _SyntheticBase(MolDataset):
     hyper = True
-    has_pos = True
     num_targets = 16
     default_size = 4096
 
@@ -29,3 +30,15 @@ class SyntheticHGraph3D(MolDataset):
             with_pos=self.has_pos,
             num_targets=self.num_targets,
         )
+
+
+@registry.register_data("synthetic_hg")
+class SyntheticHGraph(_SyntheticBase):
+    name = "synthetic_hg"
+    has_pos = False
+
+
+@registry.register_data("synthetic_hg_3d")
+class SyntheticHGraph3D(_SyntheticBase):
+    name = "synthetic_hg_3d"
+    has_pos = True

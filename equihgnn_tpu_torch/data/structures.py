@@ -3,9 +3,11 @@
 `HyperGraphSample` and the feature vocabularies are copied from
 `equihgnn_tpu/data/structures.py`. `HyperGraphBatch` is that module's batch
 as a plain dataclass of torch tensors, cut to the fields the serving and
-training paths read: the atoms, the incidence arrays, the hyperedge mask,
-the graph mask, the targets, the coordinates and the dense slot view of the
-EGNN encoder. The JAX
+training paths read: the atoms, the incidence arrays, the hyperedges'
+features, mask, graph ids and orders (`hedge_feat`, `hedge_mask`,
+`hedge_graph_id`, `e_order`: the MHNN trunk's hyperedge encoder and its
+conjugated readout), the graph mask, the targets, the coordinates and the
+dense slot view of the geometric encoders. The JAX
 batch's slot-incidence tables are a TPU layout and have no counterpart.
 
 Padding convention (as in the JAX package): a batch holds `num_graphs`
@@ -55,6 +57,10 @@ class HyperGraphSample:
     def nnz(self) -> int:
         return int(self.vertex_idx.shape[0])
 
+    def e_order(self) -> np.ndarray:
+        """Member count per hyperedge (`reference equihgnn/data/utils.py:57-61`)."""
+        return np.bincount(self.hedge_idx, minlength=self.n_hedges).astype(np.int32)
+
 
 @dataclass
 class HyperGraphBatch:
@@ -69,7 +75,10 @@ class HyperGraphBatch:
     vertex_idx: torch.Tensor  # [nnz_pad] int64 into atoms
     hedge_idx: torch.Tensor  # [nnz_pad] int64 into hyperedges, non-decreasing
     inc_mask: torch.Tensor  # [nnz_pad] bool
+    hedge_feat: torch.Tensor  # [E_pad] int64 (bond type, 5 = conjugated; 0 on padding)
     hedge_mask: torch.Tensor  # [E_pad] bool
+    hedge_graph_id: torch.Tensor  # [E_pad] int64 (padding → num_graphs - 1)
+    e_order: torch.Tensor  # [E_pad] int64 members per hyperedge (0 on padding)
     graph_mask: torch.Tensor  # [num_graphs] bool
     y: torch.Tensor  # [num_graphs] float32 targets (0 on padding graphs)
     pos: torch.Tensor | None = None  # [N_pad, 3] float32

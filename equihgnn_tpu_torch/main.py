@@ -4,9 +4,12 @@
 Usage:
     python -m equihgnn_tpu_torch.main --data synthetic_hg_3d \\
         --method egnn_equihnns --epochs 3 --device cuda
+    python -m equihgnn_tpu_torch.main --data synthetic_hg --method mhnn
 
-Ported methods: `egnn_equihnns`, `faformer_equihnns`, `visnet_equihnns`,
-`se3_transformer_equihnns`.
+Ported methods: `mhnn`, `mhnns`, `mhnnm`, `egnn_equihnn{,s,m}`,
+`faformer_equihnn{,s,m}`, `visnet_equihnn{,s,m}`,
+`se3_transformer_equihnns`. Ported datasets: `synthetic_hg` (no
+coordinates: the MHNN family) and `synthetic_hg_3d`.
 
 Differences from the JAX CLI:
   * `--device` is a torch device string (default `cuda`, as in

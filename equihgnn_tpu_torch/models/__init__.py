@@ -1,9 +1,12 @@
 """Model registry of the port — importing this package registers every
-ported model name (today: `egnn_equihnns`, `faformer_equihnns`,
-`visnet_equihnns`, `se3_transformer_equihnns`)."""
+ported model name: `mhnn`, `mhnns`, `mhnnm`, and `egnn_equihnn{,s,m}`,
+`faformer_equihnn{,s,m}`, `visnet_equihnn{,s,m}`, `se3_transformer_equihnns`."""
 
+from equihgnn_tpu_torch.models import (  # noqa: F401
+    equihnn_egnn,
+    equihnn_fa_former,
+    equihnn_se3_transformer,
+    equihnn_visnet,
+    mhnn,
+)
 from equihgnn_tpu_torch.models.config import ModelConfig  # noqa: F401
-from equihgnn_tpu_torch.models.equihnn_egnn import EGNNEquiHNNS  # noqa: F401
-from equihgnn_tpu_torch.models.equihnn_fa_former import FAFormerEquiHNNS  # noqa: F401
-from equihgnn_tpu_torch.models.equihnn_se3_transformer import SE3TransformerEquiHNNS  # noqa: F401
-from equihgnn_tpu_torch.models.equihnn_visnet import VisNetEquiHNNS  # noqa: F401

@@ -1,6 +1,6 @@
 """Shared model helpers (port of `equihgnn_tpu/models/common.py`): what a
 configuration may ask of the port, the compute-dtype cast, activation,
-graph pooling, readout."""
+graph pooling, the conjugated-hyperedge readout, the prediction's shape."""
 
 from __future__ import annotations
 
@@ -8,6 +8,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from equihgnn_tpu_torch.nn.mlp import prelu
 from equihgnn_tpu_torch.ops.segment import segment_sum
 
 
@@ -30,9 +31,9 @@ def check_compute(cfg, method: str) -> None:
 
 def cast_compute(cfg, *tensors):
     """Cast activations to the configured compute dtype, a no-op by default
-    (`equihgnn_tpu/models/common.py:68-74`); None passes through. JAX's
-    `TrunkFull` and `TrunkM` call it (ROADMAP item 2); the SE(3)-Transformer
-    casts its own inputs, as in JAX."""
+    (`equihgnn_tpu/models/common.py:68-74`); None passes through. `TrunkFull`
+    and `TrunkM` call it on the hyperedge embedding, as in JAX; the
+    SE(3)-Transformer casts its own inputs."""
     if cfg.compute_dtype is None:
         return tensors if len(tensors) > 1 else tensors[0]
     dt = getattr(torch, cfg.compute_dtype)
@@ -41,17 +42,23 @@ def cast_compute(cfg, *tensors):
 
 
 class Activation(nn.Module):
-    """{Id, relu} (`reference equihgnn/models/mhnn.py:23-24`); PReLU is not
-    ported yet."""
+    """{Id, relu, prelu} (`reference equihgnn/models/mhnn.py:23-24`). For
+    "prelu" the module holds the one learnable slope `alpha` (init 0.25),
+    which a trunk shares between its atom and hyperedge branches, as JAX's
+    one `act` module does (`equihgnn_tpu/models/trunks.py:45,77-78`)."""
 
     def __init__(self, kind: str = "relu"):
         super().__init__()
-        if kind not in ("Id", "relu"):
-            raise ValueError(f"activation {kind!r} is not supported by the PyTorch port yet")
+        if kind not in ("Id", "relu", "prelu"):
+            raise ValueError(f"unknown activation {kind!r}")
         self.kind = kind
+        if kind == "prelu":
+            self.alpha = nn.Parameter(torch.tensor(0.25))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.relu(x) if self.kind == "relu" else x
+        if self.kind == "relu":
+            return F.relu(x)
+        return prelu(x, self.alpha) if self.kind == "prelu" else x
 
 
 def global_add_pool(x, graph_id, num_graphs: int, mask=None):
@@ -59,6 +66,46 @@ def global_add_pool(x, graph_id, num_graphs: int, mask=None):
     return segment_sum(x, graph_id, num_graphs, mask=mask)
 
 
+def conjugated_hedge_pool(e: torch.Tensor, batch) -> torch.Tensor:
+    """Per-graph sum of the embeddings of conjugated hyperedges (more than
+    two members), the reference's `global_add_pool(e[data.e_order > 2],
+    he_batch)` (`reference equihgnn/models/mhnn.py:79`); a graph with no
+    such hyperedge gets zeros, as in JAX."""
+    conj = (batch.e_order > 2) & batch.hedge_mask
+    return segment_sum(e, batch.hedge_graph_id, batch.num_graphs, mask=conj)
+
+
 def flat_pred(x: torch.Tensor) -> torch.Tensor:
     """`.view(-1)` of a [G, 1] head output; predictions always float32."""
     return x.reshape(-1).to(torch.float32)
+
+
+class HybridModel(nn.Module):
+    """An encoder, then a hypergraph trunk (`models/trunks.py`). A subclass
+    names its registered `METHOD` and its `TRUNK` class, builds its encoder
+    in `build_encoder` and runs it in `encode`. Weights are drawn on the CPU
+    from `generator` (seed 0 when None), encoder first, so one seed gives
+    the same model on every device, then moved to `device`."""
+
+    METHOD: str
+    TRUNK: type
+
+    def __init__(self, num_target: int, cfg, device="cpu",
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        check_compute(cfg, self.METHOD)
+        gen = torch.Generator().manual_seed(0) if generator is None else generator
+        self.num_target, self.cfg = num_target, cfg
+        self.build_encoder(cfg, gen)
+        self.trunk = self.TRUNK(num_target, cfg, generator=gen)
+        self.to(device)
+
+    def build_encoder(self, cfg, generator: torch.Generator) -> None:
+        raise NotImplementedError
+
+    def encode(self, batch) -> torch.Tensor:
+        raise NotImplementedError
+
+    def forward(self, batch) -> torch.Tensor:
+        """[num_graphs] float32 predictions (padding graph included)."""
+        return self.trunk(self.encode(batch), batch)

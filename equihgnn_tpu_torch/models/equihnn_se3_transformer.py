@@ -19,39 +19,26 @@ Configurations the port does not support yet raise here: `remat`, another
 
 from __future__ import annotations
 
-import torch
-from torch import nn
-
 from equihgnn_tpu_torch.common.registry import registry
 from equihgnn_tpu_torch.data.structures import HyperGraphBatch
-from equihgnn_tpu_torch.models.common import check_compute
-from equihgnn_tpu_torch.models.config import ModelConfig
+from equihgnn_tpu_torch.models.common import HybridModel
 from equihgnn_tpu_torch.models.trunks import TrunkS
 from equihgnn_tpu_torch.nn.encoders import AtomEncoder
 from equihgnn_tpu_torch.nn.se3_transformer import SE3Transformer
 
 
 @registry.register_model("se3_transformer_equihnns")
-class SE3TransformerEquiHNNS(nn.Module):
-    """Weights are drawn on the CPU from `generator` (seed 0 when None),
-    so one seed gives the same model on every device, then moved to
-    `device`."""
+class SE3TransformerEquiHNNS(HybridModel):
+    METHOD, TRUNK = "se3_transformer_equihnns", TrunkS
 
-    def __init__(self, num_target: int, cfg: ModelConfig, device="cpu",
-                 generator: torch.Generator | None = None):
-        super().__init__()
-        check_compute(cfg, "se3_transformer_equihnns")
-        gen = torch.Generator().manual_seed(0) if generator is None else generator
-        self.num_target, self.cfg = num_target, cfg
+    def build_encoder(self, cfg, generator):
         h = cfg.mlp_hidden
-        self.atom_encoder = AtomEncoder(h, generator=gen)
+        self.atom_encoder = AtomEncoder(h, generator=generator)
         self.se3_transformer_layer = SE3Transformer(
             dim=h, heads=2, depth=2, dim_head=32, num_degrees=2, valid_radius=5.0,
-            num_neighbors=16, dtype=cfg.compute_dtype, generator=gen)
-        self.trunk = TrunkS(num_target, cfg, generator=gen)
-        self.to(device)
+            num_neighbors=16, dtype=cfg.compute_dtype, generator=generator)
 
-    def encode(self, batch: HyperGraphBatch) -> torch.Tensor:
+    def encode(self, batch: HyperGraphBatch):
         if batch.pos is None or batch.slot_index is None:
             raise ValueError(
                 "se3_transformer_equihnns needs 3-D coordinates and the slot view: "
@@ -61,7 +48,3 @@ class SE3TransformerEquiHNNS(nn.Module):
         return self.se3_transformer_layer(x, batch.pos, batch.atom_row, batch.slot_index,
                                           batch.slot_mask, batch.atom_slot,
                                           slot_gid=batch.slot_gid)
-
-    def forward(self, batch: HyperGraphBatch) -> torch.Tensor:
-        """[num_graphs] float32 predictions (padding graph included)."""
-        return self.trunk(self.encode(batch), batch)

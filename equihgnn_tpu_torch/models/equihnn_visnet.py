@@ -1,52 +1,36 @@
-"""ViSNet-encoded hypergraph model `visnet_equihnns`.
+"""ViSNet-encoded hypergraph models: `visnet_equihnn`, `visnet_equihnns`,
+`visnet_equihnnm`.
 
 Port of `equihgnn_tpu/models/equihnn_visnet.py` (`_ViSNetBase.encode`
-`:20-46`, `VisNetEquiHNNS` `:59-66`), itself the reference's
+`:20-46`, the models `:49-76`), itself the reference's
 `equihnn_visnet.py:11-243`: a ViSNet block (hidden_channels = MLP_hidden,
 lmax 2, 6 layers, 8 heads, 32 RBFs, cutoff 5 Å, max_num_neighbors 16)
 embeds the OGB atom features itself and encodes the 3-D structure into
-per-atom scalars; then the MHNNS trunk.
+per-atom scalars; then the MHNN, MHNNS or MHNNM trunk.
 
 The port runs in float32, for serving (`model.eval()`) and training
 (`model.train()`: ViSNet has no dropout; `--dropout` reaches the trunk).
 ViSNet keeps JAX's `remat_layers=None`: each layer is recomputed in the
 backward pass on the CPU, never on the card, where kernels F-I run.
-`visnet_equihnn` (TrunkFull) and `visnet_equihnnm` (TrunkM) wait for
-ROADMAP item 2. Configurations the port does not support yet raise here:
-`compute_dtype` other than float32, `remat`.
+Configurations the port does not support yet raise here: `compute_dtype`
+other than float32, `remat`.
 """
 
 from __future__ import annotations
 
-import torch
-from torch import nn
-
 from equihgnn_tpu_torch.common.registry import registry
 from equihgnn_tpu_torch.data.structures import HyperGraphBatch
-from equihgnn_tpu_torch.models.common import check_compute
-from equihgnn_tpu_torch.models.config import ModelConfig
-from equihgnn_tpu_torch.models.trunks import TrunkS
+from equihgnn_tpu_torch.models.common import HybridModel
+from equihgnn_tpu_torch.models.trunks import TrunkFull, TrunkM, TrunkS
 from equihgnn_tpu_torch.nn.visnet import ViSNet
 
 
-@registry.register_model("visnet_equihnns")
-class VisNetEquiHNNS(nn.Module):
-    """Weights are drawn on the CPU from `generator` (seed 0 when None),
-    so one seed gives the same model on every device, then moved to
-    `device`."""
-
-    def __init__(self, num_target: int, cfg: ModelConfig, device="cpu",
-                 generator: torch.Generator | None = None):
-        super().__init__()
-        check_compute(cfg, "visnet_equihnns")
-        gen = torch.Generator().manual_seed(0) if generator is None else generator
-        self.num_target, self.cfg = num_target, cfg
+class _ViSNetBase(HybridModel):
+    def build_encoder(self, cfg, generator):
         self.visnet_layer = ViSNet(hidden_channels=cfg.mlp_hidden, lmax=2, max_num_neighbors=16,
-                                   generator=gen)
-        self.trunk = TrunkS(num_target, cfg, generator=gen)
-        self.to(device)
+                                   generator=generator)
 
-    def encode(self, batch: HyperGraphBatch) -> torch.Tensor:
+    def encode(self, batch: HyperGraphBatch):
         if batch.pos is None or batch.slot_index is None:
             raise ValueError(
                 "visnet_equihnn* models need 3-D coordinates and the slot view: "
@@ -55,6 +39,17 @@ class VisNetEquiHNNS(nn.Module):
         return self.visnet_layer(batch.atom_feat, batch.pos, batch.atom_row, batch.slot_index,
                                  batch.slot_mask, batch.atom_slot, slot_gid=batch.slot_gid)
 
-    def forward(self, batch: HyperGraphBatch) -> torch.Tensor:
-        """[num_graphs] float32 predictions (padding graph included)."""
-        return self.trunk(self.encode(batch), batch)
+
+@registry.register_model("visnet_equihnn")
+class VisNetEquiHNN(_ViSNetBase):
+    METHOD, TRUNK = "visnet_equihnn", TrunkFull
+
+
+@registry.register_model("visnet_equihnns")
+class VisNetEquiHNNS(_ViSNetBase):
+    METHOD, TRUNK = "visnet_equihnns", TrunkS
+
+
+@registry.register_model("visnet_equihnnm")
+class VisNetEquiHNNM(_ViSNetBase):
+    METHOD, TRUNK = "visnet_equihnnm", TrunkM

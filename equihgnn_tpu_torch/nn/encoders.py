@@ -1,7 +1,9 @@
 """OGB-compatible atom embedding (port of `AtomEncoder`,
 `equihgnn_tpu/nn/encoders.py:50`): one table per categorical feature,
 summed, stored as one flat table with per-feature offsets. Tables are
-initialized xavier-uniform, as OGB does."""
+initialized xavier-uniform, as OGB does. `HedgeEncoder`
+(`equihgnn_tpu/nn/encoders.py:80-94`) embeds a hyperedge's type for the
+MHNN trunks."""
 
 from __future__ import annotations
 
@@ -11,8 +13,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from equihgnn_tpu_torch.data.structures import ATOM_FEATURE_DIMS
-from equihgnn_tpu_torch.nn.mlp import uniform_
+from equihgnn_tpu_torch.data.structures import ATOM_FEATURE_DIMS, NUM_HEDGE_TYPES
+from equihgnn_tpu_torch.nn.mlp import normal_, uniform_
 
 
 class _MultiEmbeddingSum(nn.Module):
@@ -43,3 +45,19 @@ class AtomEncoder(nn.Module):
 
     def forward(self, atom_feat: torch.Tensor) -> torch.Tensor:
         return self.atom(atom_feat)
+
+
+class HedgeEncoder(nn.Module):
+    """Hyperedge type (bond type 0-4, 5 = conjugated) → [..., emb_dim]: the
+    reference's `nn.Embedding(6, hidden)` (`reference equihgnn/models/mhnn.py:33`),
+    initialized N(0, 1) as torch's Embedding; looked up with `index_select`."""
+
+    def __init__(self, emb_dim: int, *, generator: torch.Generator):
+        super().__init__()
+        self.embedding = nn.Parameter(
+            normal_(torch.empty(NUM_HEDGE_TYPES, emb_dim), 1.0, generator)
+        )
+
+    def forward(self, hedge_feat: torch.Tensor) -> torch.Tensor:
+        return self.embedding.index_select(0, hedge_feat.reshape(-1)).reshape(
+            hedge_feat.shape + (-1,))

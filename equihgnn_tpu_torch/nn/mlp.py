@@ -2,10 +2,11 @@
 
 `TorchLinear` keeps torch.nn.Linear's default init law, U(±1/√fan_in) for
 weight and bias, drawn from an explicit `torch.Generator`. `MLP` follows
-the reference MLP: [Linear → ReLU → Norm → Dropout]×(L-1) → Linear.
-Normalization is "ln" (LayerNorm, f32 statistics) or "None"; the masked
-BatchNorm ("bn"), PReLU and the input norm are not ported yet (no ported
-model uses them).
+the reference MLP: an optional input norm, then [Linear → ReLU → Norm →
+Dropout]×(L-1) → Linear. Normalization is "ln" (LayerNorm), "bn"
+(`MaskedBatchNorm`: BatchNorm1d over the rows a mask keeps, so the padding
+rows of a batch take no part in its statistics) or "None". `prelu` is the
+reference's learnable-slope activation, one slope for all channels.
 """
 
 from __future__ import annotations
@@ -58,23 +59,74 @@ class TorchLinear(nn.Module):
         return F.linear(x, self.weight, self.bias)
 
 
+def prelu(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+    """The reference's PReLU with one learnable slope for all channels
+    (`equihgnn_tpu/nn/mlp.py:67-75`): x where x ≥ 0, else alpha·x (the
+    gradient at 0 is x's, as in JAX). `models/common.py` `Activation` holds
+    the slope."""
+    return torch.where(x >= 0, x, alpha.to(x.dtype) * x)
+
+
+class MaskedBatchNorm(nn.Module):
+    """BatchNorm1d over the rows of a padded array that `mask` keeps
+    (`equihgnn_tpu/nn/mlp.py:78-125`). In training mode the statistics are
+    taken in f32 over the kept rows only: the biased variance normalizes,
+    clamped at 0, and the running variance takes the unbiased one,
+    var·cnt / max(cnt − 1, 1); momentum 0.1 (new = 0.9·old + 0.1·batch),
+    eps 1e-5. In eval mode the running buffers normalize. Statistics are
+    per process: JAX's cross-replica `axis_name` waits for data
+    parallelism (ROADMAP item 10)."""
+
+    MOMENTUM, EPS = 0.1, 1e-5
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+        self.register_buffer("running_mean", torch.zeros(dim))
+        self.register_buffer("running_var", torch.ones(dim))
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
+        xf = x.float()
+        if self.training:
+            m = (torch.ones(x.shape[:-1], device=x.device) if mask is None
+                 else mask.to(torch.float32))
+            rows = tuple(range(x.ndim - 1))
+            cnt = torch.clamp(m.sum(), min=1.0)
+            mw = m[..., None]
+            mean = (xf * mw).sum(rows) / cnt
+            var = torch.clamp((xf * xf * mw).sum(rows) / cnt - mean * mean, min=0.0)
+            with torch.no_grad():
+                unbiased = var * cnt / torch.clamp(cnt - 1.0, min=1.0)
+                self.running_mean.mul_(1.0 - self.MOMENTUM).add_(self.MOMENTUM * mean)
+                self.running_var.mul_(1.0 - self.MOMENTUM).add_(self.MOMENTUM * unbiased)
+        else:
+            mean, var = self.running_mean, self.running_var
+        y = (xf - mean) * torch.rsqrt(var + self.EPS)
+        return (y * self.weight + self.bias).to(x.dtype)
+
+
 def make_norm(kind: str, dim: int) -> nn.Module:
-    """The reference's Normalization strings: "ln" or "None"."""
+    """The reference's Normalization strings: "bn", "ln" or "None"."""
+    if kind == "bn":
+        return MaskedBatchNorm(dim)
     if kind == "ln":
         return nn.LayerNorm(dim, eps=1e-5)
     if kind == "None":
         return nn.Identity()
-    raise ValueError(f"normalization {kind!r} is not supported by the PyTorch port yet")
+    raise ValueError(f"unknown normalization {kind!r}")
 
 
 class MLP(nn.Module):
     """Reference-equivalent MLP (`reference equihgnn/models/layers/mlp.py:6-118`)."""
 
     def __init__(self, in_channels: int, hidden_channels: int, out_channels: int,
-                 num_layers: int, dropout: float = 0.5, normalization: str = "ln", *,
-                 generator: torch.Generator):
+                 num_layers: int, dropout: float = 0.5, normalization: str = "ln",
+                 input_norm: bool = False, *, generator: torch.Generator):
         super().__init__()
         self.num_layers = num_layers
+        self.masked = normalization == "bn"  # only the BatchNorm takes the mask
+        self.norm_in = make_norm(normalization, in_channels) if input_norm else None
         dims = [in_channels] + [hidden_channels] * (num_layers - 1) + [out_channels]
         for i in range(num_layers):
             self.add_module(
@@ -84,9 +136,14 @@ class MLP(nn.Module):
             self.add_module(f"norm_{i}", make_norm(normalization, hidden_channels))
         self.dropout = nn.Dropout(dropout)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
+        """`mask` [rows] keeps the rows whose statistics a "bn" norm takes."""
+        # the norms are called in line: the MLP runs a few dozen times a
+        # forward, which the host launches one small kernel at a time
+        if self.norm_in is not None:
+            x = self.norm_in(x, mask) if self.masked else self.norm_in(x)
         for i in range(self.num_layers - 1):
-            x = getattr(self, f"lin_{i}")(x)
-            x = getattr(self, f"norm_{i}")(F.relu(x))
-            x = self.dropout(x)
+            x = F.relu(getattr(self, f"lin_{i}")(x))
+            norm = getattr(self, f"norm_{i}")
+            x = self.dropout(norm(x, mask) if self.masked else norm(x))
         return getattr(self, f"lin_{self.num_layers - 1}")(x)

@@ -12,9 +12,13 @@ SDF reader; a record that fails to parse gives a `nan` row, so the output
 stays aligned with the input. Predictions are de-normalized by `std`.
 
 `--device cuda` needs a card and raises without one; it never falls back
-to the CPU. Covered so far: hypergraph methods with 3-D coordinates
-(`egnn_equihnns`, `faformer_equihnns`, `visnet_equihnns`,
-`se3_transformer_equihnns`) from `--sdf`.
+to the CPU. Covered so far: every model the port registers, from `--sdf`:
+the MHNN family (`mhnn`, `mhnns`, `mhnnm`), which reads no coordinates,
+and the encoders with 3-D coordinates (`egnn_equihnn{,s,m}`,
+`faformer_equihnn{,s,m}`, `visnet_equihnn{,s,m}`,
+`se3_transformer_equihnns`). The model serves in `eval()` mode: dropout
+off, and a masked BatchNorm normalizes by its running statistics, which
+the checkpoint carries.
 """
 
 from __future__ import annotations

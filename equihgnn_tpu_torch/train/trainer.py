@@ -16,8 +16,10 @@ Port of `equihgnn_tpu/train/trainer.py` (`TrainConfig`, `Trainer`,
     `torch.optim.Adam` would skip it;
   * ReduceLROnPlateau + EarlyStopping on `val_mae_mean`; the learning rate
     is set per epoch in the optimizer's `param_groups`;
-  * `model.train()` for training steps, `model.eval()` +
-    `torch.inference_mode()` for evaluation;
+  * `model.train()` for training steps (dropout on; a masked BatchNorm
+    normalizes by the batch's statistics and updates its running ones),
+    `model.eval()` + `torch.inference_mode()` for evaluation (the running
+    statistics normalize);
   * no host sync per step: the loss stays a device tensor and is fetched
     once per epoch;
   * a bounded background-thread prefetcher pads the next batches, pins
@@ -25,7 +27,8 @@ Port of `equihgnn_tpu/train/trainer.py` (`TrainConfig`, `Trainer`,
     runs. The copies go to the thread's current stream, the default stream
     that the steps run on, so stream order keeps them ahead of their use;
   * best/last checkpoints, CSV log, `test_results.csv` and `resume`.
-    `ckpt_{tag}.pt` is the model's state dict alone, which
+    `ckpt_{tag}.pt` is the model's state dict alone (the BatchNorms'
+    running statistics included), which
     `equihgnn_tpu_torch.predict` serves; `ckpt_{tag}.opt.pt` the optimizer
     state; `ckpt_{tag}.pt.meta.json` the run meta plus `epoch` and `lr`.
 

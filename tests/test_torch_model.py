@@ -124,9 +124,25 @@ def test_params_from_jax_rejects_bad_trees(fault):
 
 
 @pytest.mark.parametrize(
-    "override", [dict(compute_dtype="bfloat16"), dict(cross_molecule_knn=True),
-                 dict(normalization="bn"), dict(activation="prelu")],
+    "method,override", [("egnn_equihnns", dict(compute_dtype="bfloat16")),
+                        ("egnn_equihnns", dict(cross_molecule_knn=True)),
+                        ("egnn_equihnns", dict(remat=True)),
+                        ("mhnn", dict(compute_dtype="bfloat16"))],
 )
-def test_unported_configs_raise(override):
+def test_unported_configs_raise(method, override):
     with pytest.raises((NotImplementedError, ValueError)):
-        create_model("egnn_equihnns", num_target=1, cfg=ModelConfig(**{**CFG, **override}))
+        create_model(method, num_target=1, cfg=ModelConfig(**{**CFG, **override}))
+
+
+def test_bn_prelu_model_matches_jax():
+    """`egnn_equihnns` with masked BatchNorm in its MLPs and PReLU: eval and
+    training forwards, gradients and running statistics against JAX."""
+    from test_torch_mhnn import CFG as SMALL
+    from test_torch_mhnn import check_against_jax
+
+    model, want, reached = check_against_jax(
+        "egnn_equihnns", dict(SMALL, normalization="bn", activation="prelu"), _samples(),
+        with_pos=True)
+    assert "trunk.act.alpha" in want and float(want["trunk.act.alpha"].abs()) > 0
+    assert "trunk.conv.W2.norm_0.running_var" in want
+    assert reached > 0.8 * len(list(model.parameters()))
