@@ -69,7 +69,11 @@ SE(3)-Transformer: dim 256, 2 heads, depth 2, dim_head 32, degrees 0 and
 1, k = 16 within 5 Å), and `se3_transformer_equihnns bf16`, the
 SE(3)-Transformer with `--compute_dtype bfloat16` at the CLI's default
 widths (hidden 64, output hidden 64 over 2 layers; its pooled units take
-kernels L and M), with random weights from a seed:
+kernels L and M), the 2-D baselines `gin`, `gcn`, `gat` and `gatv2` at
+ModelConfig's gnn_* widths (5 layers, 300 wide, JK "last", mean pooling,
+dropout 0; GAT: 4 heads averaged), and `egnn_equihnns cross-molecule`
+(the recipe with `cross_molecule_knn=True`: EGNN's flat path, a batch-wide
+kNN), with random weights from a seed:
 4. serve: saved as a port checkpoint, served through
    `equihgnn_tpu_torch.predict.run` on `datasets/real_sample/sample.sdf`
    and checked against the CPU molecule by molecule; then one request of
@@ -77,7 +81,12 @@ kernels L and M), with random weights from a seed:
    launch counters must show that both requests ran through the model's
    kernels (egnn: A 3x and B per forward; faformer: A 3x and D 5x;
    visnet: A 3x, F 6x, H 5x; se3: A 3x, J 4x; se3 bf16: A 3x, L 4x; the
-   MHNN family: A 3x; a hybrid: its encoder's, and A 3x); the
+   MHNN family: A 3x; a hybrid: its encoder's, and A 3x; the
+   cross-molecule path: A 3x and no B, JAX's flat EGNN being unfused); a
+   2-D baseline serves the SDF and a SMILES file the script writes from
+   `SMILES` (its last line does not parse: a nan row), each on the card
+   and the CPU within rtol 1e-4 / atol 1e-5, benzene's two rows equal,
+   and the batch-768 request of plain graphs, with no kernel launched; the
    bf16 path is held instead to its CPU run (BF16_SERVE_SHARE of the CPU's
    bf16-vs-f32 distance), its distance from the f32 model at the same
    weights on the card recorded;
@@ -88,18 +97,23 @@ kernels L and M), with random weights from a seed:
    against its CPU bf16 run, as relative L2 over all parameters, a step
    and the encoder under a smooth loss, BF16_GRAD_SHARE); a hybrid takes
    16 molecules and checks the step only: its encoder alone is held on
-   its `*_equihnns` path;
+   its `*_equihnns` path; a 2-D baseline takes 64 molecules, the CPU run
+   taking the card's ReLU and LeakyReLU signs, every parameter reached on
+   both, no kernel launched;
 6. train: `equihgnn_tpu_torch.main.run` on `synthetic_hg_3d` (the MHNN
-   family: `synthetic_hg`, which has no coordinates) at the recipe, batch
-   768, 3 epochs of ~10 steps (the hybrids: ~5, on 4,800 molecules), a
+   family: `synthetic_hg`, which has no coordinates; the 2-D baselines:
+   `synthetic_g`, plain graphs) at the recipe, batch
+   768, 3 epochs of ~10 steps (the hybrids, gcn, gat and gatv2: ~5, on
+   4,800 molecules), a
    learnable target, into a temporary log directory, at lr 1e-3 (visnet's
    paths 1e-4: it diverges at 5e-4 in both frameworks). Every train loss
    finite and the last below the first; the launch counters show the
    model's kernels on every train step (egnn: A 3x, B, C; faformer: A 3x,
    D 5x, E 4x; visnet: A 3x, F 6x, H 5x, G 6x, I 5x; se3: A 3x, J 4x, K 4x;
    se3 bf16: A 3x, L 8x, M 4x; the MHNN family: A 3x; a hybrid: its
-   encoder's) and every eval forward;
-   `ckpt_best.pt` serves through `predict.run --device cuda`;
+   encoder's; the 2-D baselines: none) and every eval forward;
+   `ckpt_best.pt` serves through `predict.run --device cuda`; the
+   cross-molecule path has no train phase (neither CLI sets the flag);
 7. step: one train step at batch 768 (forward + backward + Adam): its
    launches, median device time (and the eval forward's), peak memory and a
    `torch.profiler` table
@@ -154,14 +168,27 @@ MHNN_METHODS = ("mhnn", "mhnns", "mhnnm")
 HYBRID_METHODS = ("egnn_equihnn", "egnn_equihnnm", "faformer_equihnn", "faformer_equihnnm",
                   "visnet_equihnn", "visnet_equihnnm")
 METHODS = ENCODER_METHODS + MHNN_METHODS + HYBRID_METHODS
+# the 2-D baselines on plain graphs, at ModelConfig's gnn_* widths (5 layers, 300
+# wide, JK "last", mean pooling, dropout 0), which neither CLI can change
+GRAPH_METHODS = ("gin", "gcn", "gat", "gatv2")
 # se3_transformer_equihnns --compute_dtype bfloat16 at the CLI's default widths
 # (`equihgnn_tpu/main.py:62-64`), where JAX's fused pooled unit refuses O = 64
 BF16_PATH = "se3_transformer_equihnns bf16"
+# egnn_equihnns with the reference's batch-as-one-point-cloud kNN
+# (cross_molecule_knn=True): EGNN's flat path, JAX's unfused edge MLP (no kernel B)
+CROSS_PATH = "egnn_equihnns cross-molecule"
 # path → (method, its config's changes to the recipe)
 PATHS = {**{m: (m, {}) for m in METHODS},
          BF16_PATH: ("se3_transformer_equihnns", dict(mlp_hidden=64, output_hidden=64,
                                                       output_num_layers=2,
-                                                      compute_dtype="bfloat16"))}
+                                                      compute_dtype="bfloat16")),
+         **{m: (m, {}) for m in GRAPH_METHODS},
+         CROSS_PATH: ("egnn_equihnns", dict(cross_molecule_knn=True))}
+# SMILES served by the 2-D paths (one a line; the last does not parse: a nan row)
+SMILES = ("C", "CC", "C=C", "C#C", "c1ccccc1", "Cc1ccccc1", "C=Cc1ccccc1", "c1ccc(cc1)-c1ccccc1",
+          "c1ccc2ccccc2c1", "c1ccncc1", "c1ccoc1", "C=CC=C", "NC=O", "CC(=O)C", "CC(=O)O",
+          "C=CC#N", "Fc1ccccc1", "Nc1ccccc1", "Oc1ccccc1", "c1cc[nH]c1", "CC(=O)[O-].[Na+]",
+          "C1CCC")
 # kernel launches per forward and per backward of each path's train step
 FWD_LAUNCHES = {
     "egnn_equihnns": {"sorted_segment_sum": 3, "fused_edge_messages": 1},
@@ -192,13 +219,22 @@ for _m in MHNN_METHODS:
     FWD_LAUNCHES[_m], BWD_LAUNCHES[_m] = {"sorted_segment_sum": 3}, {}
 for _m, _enc in ENCODER_OF.items():
     FWD_LAUNCHES[_m], BWD_LAUNCHES[_m] = dict(FWD_LAUNCHES[_enc]), dict(BWD_LAUNCHES[_enc])
+# the 2-D baselines run no kernel (JAX reduces them with jax.ops.segment_*); the
+# flat EGNN path runs the trunk's kernel A only
+for _m in GRAPH_METHODS:
+    FWD_LAUNCHES[_m], BWD_LAUNCHES[_m] = {}, {}
+FWD_LAUNCHES[CROSS_PATH], BWD_LAUNCHES[CROSS_PATH] = {"sorted_segment_sum": 3}, {}
 LR = {"visnet_equihnns": "1e-4", "visnet_equihnn": "1e-4",
       "visnet_equihnnm": "1e-4"}  # the others train at 1e-3
 # the MHNN family trains on the coordinate-free set, as users of those models do
-TRAIN_DATA = dict.fromkeys(MHNN_METHODS, "synthetic_hg")  # the others: synthetic_hg_3d
+TRAIN_DATA = {**dict.fromkeys(MHNN_METHODS, "synthetic_hg"),
+              **dict.fromkeys(GRAPH_METHODS, "synthetic_g")}  # the others: synthetic_hg_3d
 # the hybrids' encoders and kernels are held at full size by their *_equihnns
 # paths, so they train on 4,800 molecules (5 steps an epoch), not 9,600 (10)
 TRAIN_SIZE = dict.fromkeys(HYBRID_METHODS, "4800")  # the others: 9600
+# gin, the slice's full-width path, trains on 9,600 molecules; gcn, gat and
+# gatv2 share its data path and CLI, and take 4,800
+TRAIN_SIZE.update(dict.fromkeys(GRAPH_METHODS[1:], "4800"))
 # the H100 SXM's published peaks: HBM3 bandwidth, dense f32, TF32 and bf16 rates
 PEAK_BYTES_S, PEAK_F32_S, PEAK_TF32_S, PEAK_BF16_S = 3.35e12, 67e12, 495e12, 989e12
 SFU_OPS_CLK = 16  # special-function operations (ex2, rcp) an H100 SM issues a clock
@@ -220,6 +256,14 @@ def bench_batch():
 
     samples = make_synthetic_dataset(BATCH, seed=0, num_targets=1)
     return samples, next(iter_batches(samples, spec_for_samples(samples, BATCH), with_pos=True))
+
+
+def graph_samples():
+    """The BATCH synthetic molecules of the 2-D paths, seed 0, as plain
+    graphs without coordinates (`synthetic_g`'s kind)."""
+    from equihgnn_tpu_torch.data.synthetic import make_synthetic_dataset
+
+    return make_synthetic_dataset(BATCH, seed=0, hyper=False, with_pos=False, num_targets=1)
 
 
 def pooled_mask(batch) -> torch.Tensor:
@@ -1315,7 +1359,27 @@ def phase_serve(path: str, samples, smi: str) -> dict[str, int]:
     print(f"batch-{BATCH} request: {preds.shape[0]} finite predictions, "
           f"mean {preds.mean():.5f}, std {preds.std():.5f}")
 
-    # throughput of the batch-768 request: host batching + copy + forward
+    serve_rates(path, model_gpu, samples, smi)
+    return launches
+
+
+def request_batch(path: str, samples, target: int | None = None):
+    """The one padded batch of `samples` (a BATCH spec) that `path`'s model
+    reads: plain graphs for the 2-D baselines, else hypergraphs with
+    positions."""
+    from equihgnn_tpu_torch.data.batching import iter_batches, spec_for_samples
+
+    hyper = PATHS[path][0] not in GRAPH_METHODS
+    return next(iter_batches(samples, spec_for_samples(samples, BATCH), hyper=hyper,
+                             with_pos=hyper, target=target))
+
+
+def serve_rates(path: str, model_gpu, samples, smi: str) -> None:
+    """The batch-768 request's throughput (host batching + copy + forward,
+    median of 5 after a warm-up), the forward alone and its peak memory."""
+    from equihgnn_tpu_torch.predict import predict_samples
+
+    dev = torch.device("cuda")
     times = []
     for i in range(6):
         torch.cuda.synchronize()
@@ -1325,9 +1389,7 @@ def phase_serve(path: str, samples, smi: str) -> dict[str, int]:
         if i:  # the first call is a warm-up
             times.append(time.perf_counter() - t0)
     t_req = float(np.median(times))
-    from equihgnn_tpu_torch.data.batching import iter_batches, spec_for_samples
-
-    batch_dev = next(iter_batches(samples, spec_for_samples(samples, BATCH), with_pos=True)).to(dev)
+    batch_dev = request_batch(path, samples).to(dev)
     torch.cuda.reset_peak_memory_stats()
     with torch.inference_mode():
         fwd_ms, = median_ms(lambda: model_gpu(batch_dev), iters=10)
@@ -1336,6 +1398,71 @@ def phase_serve(path: str, samples, smi: str) -> dict[str, int]:
           f"median request {t_req * 1e3:.2f} ms incl. host batching); forward alone "
           f"{fwd_ms:.3f} ms = {BATCH / fwd_ms * 1e3:.1f} molecules/s; peak memory "
           f"{peak / 2**20:.1f} MiB; card: {smi}")
+
+
+def phase_serve_2d(path: str, samples, smi: str) -> dict[str, int]:
+    """A 2-D baseline saved as a port checkpoint, served through
+    `predict.run` from the SDF and from a SMILES file (SMILES, one a line)
+    on the card and on the CPU, molecule by molecule within rtol 1e-4 /
+    atol 1e-5; then the batch-768 request of plain graphs. No kernel runs."""
+    from equihgnn_tpu_torch import create_model
+    from equihgnn_tpu_torch.predict import build_parser, predict_samples, run, save_checkpoint
+
+    method, cfg = PATHS[path][0], recipe(path)
+    dev = torch.device("cuda")
+    model = create_model(method, num_target=1, cfg=cfg, gnn_type=method,
+                         generator=torch.Generator().manual_seed(0))
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = save_checkpoint(os.path.join(tmp, "model.pt"), model, method, cfg, std=1.0)
+        smiles = os.path.join(tmp, "molecules.smi")
+        with open(smiles, "w") as f:
+            f.write("\n".join(SMILES) + "\n")
+        outs = {}
+
+        def serve(src: str, path_in: str, device: str) -> list[dict]:
+            out = os.path.join(tmp, f"{src}-{device}.csv")
+            run(build_parser().parse_args(["--ckpt", ckpt, f"--{src}", path_in, "--out", out,
+                                           "--device", device]))
+            return read_csv(out)
+
+        reset_launches()
+        t0 = time.perf_counter()
+        outs["sdf"] = serve("sdf", SDF, "cuda")
+        t_sdf = time.perf_counter() - t0
+        outs["smiles"] = serve("smiles", smiles, "cuda")
+        model_gpu = model.to(dev).eval()
+        preds = predict_samples(model_gpu, samples, BATCH, dev)
+        launches = read_launches()
+        print(f"{path} launches while serving (3 requests: SDF, SMILES, batch {BATCH}): "
+              f"{launches}")
+        check(launches == expected_launches(path, 3, 0),
+              f"the served requests of {path} launched a kernel")
+        for src, src_in, n in (("sdf", SDF, 20), ("smiles", smiles, len(SMILES))):
+            rows = outs[src]
+            vals = np.array([float(r["prediction"]) for r in rows])
+            cpu = np.array([float(r["prediction"]) for r in serve(src, src_in, "cpu")])
+            check(len(rows) == n, f"expected {n} prediction rows from the {src} request")
+            nan = np.isnan(vals)
+            check(bool((nan == np.isnan(cpu)).all()), f"{src}: card and CPU nan rows differ")
+            check(int(nan.sum()) == (1 if src == "smiles" else 0), f"{src}: nan rows {nan}")
+            d = np.abs(vals[~nan] - cpu[~nan])
+            bad = d > 1e-5 + 1e-4 * np.abs(cpu[~nan])
+            print(f"serve {src} on cuda: {len(rows)} rows ({int(nan.sum())} unparsed), "
+                  f"predictions [{vals[~nan].min():.5f}, {vals[~nan].max():.5f}]; cuda vs cpu "
+                  f"max|d| {d.max():.3e} (rtol 1e-4, atol 1e-5): {'FAIL' if bad.any() else 'ok'}")
+            check(not bad.any(), f"{src}: card and CPU predictions disagree")
+        check(outs["sdf"][4]["title"] == "benzene", "row 4 of the SDF is not benzene")
+        benzene = [float(r["prediction"]) for r in outs["smiles"] if r["title"] == "c1ccccc1"]
+        d = abs(benzene[0] - float(outs["sdf"][4]["prediction"]))
+        print(f"benzene from its SMILES vs from the SDF on the card: |d| {d:.3e}")
+        check(d <= 1e-5, "benzene's SMILES and SDF predictions differ")
+        print(f"{path} served {os.path.relpath(SDF, ROOT)} in {t_sdf:.2f} s")
+
+    check(preds.shape == (BATCH,), f"batch-{BATCH} request gave shape {preds.shape}")
+    check(bool(np.isfinite(preds).all()), f"non-finite prediction in the batch-{BATCH} request")
+    print(f"batch-{BATCH} request: {preds.shape[0]} finite predictions, "
+          f"mean {preds.mean():.5f}, std {preds.std():.5f}")
+    serve_rates(path, model_gpu, samples, smi)
     return launches
 
 
@@ -1430,6 +1557,7 @@ def check_bf16_serve(model, method: str, cfg, vals, samples, preds) -> None:
 STEP_LIMIT = {"egnn_equihnns": 1e-4, "faformer_equihnns": 1e-2, "visnet_equihnns": 1e-4,
               "se3_transformer_equihnns": 1e-2, **dict.fromkeys(MHNN_METHODS, 1e-4)}
 STEP_LIMIT.update({m: STEP_LIMIT[enc] for m, enc in ENCODER_OF.items()})
+STEP_LIMIT.update({CROSS_PATH: 1e-4, **dict.fromkeys(GRAPH_METHODS, 1e-4)})
 ENCODER_LIMIT = {"se3_transformer_equihnns": 1e-2}  # the others: 1e-4
 # (molecules, jitter draws); the others (32, 4). The hybrids' encoders are held
 # by their *_equihnns paths (the encoder-alone check runs there only), so their
@@ -1437,7 +1565,8 @@ ENCODER_LIMIT = {"se3_transformer_equihnns": 1e-2}  # the others: 1e-4
 # reading only (the CPU's own spread); ViSNet's CPU step at full width takes
 # ~10 s, so it takes one
 GRAD_CUT = {"se3_transformer_equihnns": (16, 1), BF16_PATH: (16, 0),
-            "visnet_equihnns": (32, 1), **dict.fromkeys(HYBRID_METHODS, (16, 1))}
+            "visnet_equihnns": (32, 1), **dict.fromkeys(HYBRID_METHODS, (16, 1)),
+            CROSS_PATH: (32, 1), **dict.fromkeys(GRAPH_METHODS, (64, 2))}
 # A ReLU input on the other side of 0 on the card than on the CPU makes the
 # step's gradient jump (a ViSNet trunk input 1.7e-6 from 0 moved its step
 # gradients by 2.2e-2 of their max). So the phase records every ReLU input
@@ -1477,31 +1606,71 @@ def trunk_reached(method: str) -> tuple[str, ...]:
 @contextlib.contextmanager
 def relu_sites(record: list | None = None, signs: list | None = None):
     """Within it, `torch.nn.functional.relu`, which every ReLU of the port
-    calls, appends each input to `record` (on the CPU), or, given the
-    inputs an earlier run recorded in `signs`, returns x · (its recorded
-    input > 0): that run's pattern, with the gradient through it."""
+    calls, and the 2-D baselines' `leaky_relu` append each input to `record`
+    (on the CPU), or, given the inputs an earlier run recorded in `signs`,
+    return x · (its recorded input > 0), or for a LeakyReLU x where its
+    recorded input ≥ 0 and slope · x elsewhere: that run's pattern, with the
+    gradient through it."""
     import torch.nn.functional as F
 
-    relu, replay = F.relu, (iter(signs) if signs is not None else None)
+    from equihgnn_tpu_torch.models import baseline_2d
 
-    def patched(x, inplace=False):
+    relu, leaky = F.relu, baseline_2d.leaky_relu
+    replay = iter(signs) if signs is not None else None
+
+    def recorded(x):
         if record is not None:
             record.append(x.detach().cpu())
         if replay is None:
-            return relu(x, inplace=inplace)
+            return None
         ref = next(replay, None)
         check(ref is not None and ref.shape == x.shape, "the recorded ReLU pattern does not fit")
-        return x * (ref > 0).to(device=x.device, dtype=x.dtype)
+        return ref.to(x.device)
 
-    F.relu = patched
+    def patched(x, inplace=False):
+        ref = recorded(x)
+        return relu(x, inplace=inplace) if ref is None else x * (ref > 0).to(x.dtype)
+
+    def patched_leaky(x, negative_slope):
+        ref = recorded(x)
+        return leaky(x, negative_slope) if ref is None else torch.where(
+            ref >= 0, x, x * negative_slope)
+
+    F.relu, baseline_2d.leaky_relu = patched, patched_leaky
     try:
         yield
     finally:
-        F.relu = relu
+        F.relu, baseline_2d.leaky_relu = relu, leaky
     check(replay is None or next(replay, None) is None, "the recorded ReLU pattern was not used up")
 
 
-def phase_grads(method: str, pool) -> None:
+def hold_relu_pattern(path: str, cpu_relu: list, card_relu: list, kink_limit: float) -> int:
+    """Print the (Leaky)ReLU inputs that lie on the other side of 0 on the
+    card than on the CPU, and fail if one lay farther from 0 than the card's
+    rounding (`kink_limit` of its call's max |input|). The number of them."""
+    check([a.shape for a in cpu_relu] == [b.shape for b in card_relu],
+          "the card's ReLU calls differ from the CPU's")
+    # per ReLU call: (its scale max|CPU input|, the inputs that changed sign)
+    calls = [(float(a.abs().max()), a[(a > 0) != (b > 0)].abs()) for a, b in zip(cpu_relu, card_relu)]
+    flipped = sum(x.numel() for _, x in calls)
+    worst_flip = worst_diff = 0.0
+    for n, ((scale, x), b) in enumerate(zip(calls, card_relu)):
+        diff = float((cpu_relu[n] - b).abs().max()) / max(scale, 1e-30)
+        worst_diff = max(worst_diff, diff)
+        if x.numel():
+            worst_flip = max(worst_flip, float(x.max()) / scale)
+            print(f"  ReLU call {n} {tuple(b.shape)}: {x.numel()} inputs changed sign, the "
+                  f"largest |CPU value| {float(x.max()):.3e} of the call's max|input| "
+                  f"{scale:.3e}; max|card - CPU| {diff * scale:.3e}")
+    print(f"{path} ReLU inputs on the other side of 0 on the card: {flipped} of "
+          f"{sum(a.numel() for a in cpu_relu)} ({len(cpu_relu)} calls), the largest |CPU value| "
+          f"among them {worst_flip:.3e} of its call's max|input| (limit {kink_limit:g}); the "
+          f"largest |card - CPU| of a call's inputs {worst_diff:.3e} of its max|input|")
+    check(worst_flip <= kink_limit, "a ReLU input away from 0 changed sign on the card")
+    return flipped
+
+
+def phase_grads(path: str, pool) -> None:
     """Gradients on the card (kernels) against the CPU (plain versions), full
     width, on the 32 (GRAD_CUT) molecules of `pool` whose CPU predictions are
     the least sensitive to rounding, in eval mode (dropout off, gradients
@@ -1511,11 +1680,13 @@ def phase_grads(method: str, pool) -> None:
     from equihgnn_tpu_torch.data.batching import iter_batches, spec_for_samples
     from equihgnn_tpu_torch.train.trainer import masked_mse
 
+    method, cfg = PATHS[path][0], recipe(path)
+
     def make(device):
-        return create_model(method, num_target=1, cfg=recipe(), device=device,
+        return create_model(method, num_target=1, cfg=cfg, device=device,
                             generator=torch.Generator().manual_seed(3)).eval()
 
-    n_mol, draws = GRAD_CUT.get(method, (32, 4))
+    n_mol, draws = GRAD_CUT.get(path, (32, 4))
     spread = translation_spread(make("cpu"), pool, len(pool))
     pick = np.sort(np.argsort(spread, kind="stable")[:n_mol])
     check(float(spread[pick].max()) <= 1e-5, f"fewer than {n_mol} well-conditioned molecules")
@@ -1573,39 +1744,20 @@ def phase_grads(method: str, pool) -> None:
     with relu_sites(record=card_relu):
         got = grads("cuda", step_loss)
     launches = read_launches()
-    check(launches == expected_launches(method, 1, 1),
-          f"the card's train step did not run through {method}'s kernels: {launches}")
-    check([a.shape for a in cpu_relu] == [b.shape for b in card_relu],
-          "the card's ReLU calls differ from the CPU's")
-    # per ReLU call: (its scale max|CPU input|, the inputs that changed sign)
-    calls = [(float(a.abs().max()), a[(a > 0) != (b > 0)].abs()) for a, b in zip(cpu_relu, card_relu)]
-    flipped = sum(x.numel() for _, x in calls)
-    kink_limit = KINK.get(method, 1e-5)
-    worst_flip = worst_diff = 0.0
-    for n, ((scale, x), b) in enumerate(zip(calls, card_relu)):
-        diff = float((cpu_relu[n] - b).abs().max()) / max(scale, 1e-30)
-        worst_diff = max(worst_diff, diff)
-        if x.numel():
-            worst_flip = max(worst_flip, float(x.max()) / scale)
-            print(f"  ReLU call {n} {tuple(b.shape)}: {x.numel()} inputs changed sign, the "
-                  f"largest |CPU value| {float(x.max()):.3e} of the call's max|input| "
-                  f"{scale:.3e}; max|card - CPU| {diff * scale:.3e}")
-    print(f"{method} ReLU inputs on the other side of 0 on the card: {flipped} of "
-          f"{sum(a.numel() for a in cpu_relu)} ({len(cpu_relu)} calls), the largest |CPU value| "
-          f"among them {worst_flip:.3e} of its call's max|input| (limit {kink_limit:g}); the "
-          f"largest |card - CPU| of a call's inputs {worst_diff:.3e} of its max|input|")
-    check(worst_flip <= kink_limit, "a ReLU input away from 0 changed sign on the card")
+    check(launches == expected_launches(path, 1, 1),
+          f"the card's train step did not run through {path}'s kernels: {launches}")
+    flipped = hold_relu_pattern(path, cpu_relu, card_relu, KINK.get(method, 1e-5))
     if flipped:
         own, _ = compare(want, got, math.inf, "train step, the CPU's own ReLU pattern")
         with relu_sites(signs=card_relu):
             want = grads("cpu", step_loss)
         print(f"{method} step gradients against the CPU's own ReLU pattern (not held): worst "
               f"max|d| / max|cpu| {own:.3e}")
-    limit = STEP_LIMIT[method]
+    limit = STEP_LIMIT[path]
     worst, reached = compare(want, got, limit, "train step")
     for name in (*REACHED[method], *trunk_reached(method)):
         check(want[name] is not None and float(want[name].abs().max()) > 0, f"{name} unreached")
-    print(f"{method} gradients, card vs cpu with the card's ReLU pattern, one train step at "
+    print(f"{path} gradients, card vs cpu with the card's ReLU pattern, one train step at "
           f"full width on {len(samples)} molecules (CPU translation spread <= "
           f"{spread[pick].max():.1e}): {reached} parameters reached on both (of {len(want)}), "
           f"worst max|d| / max|cpu| {worst:.3e} (limit {limit:g} per tensor; the CPU's own "
@@ -1624,6 +1776,73 @@ def phase_grads(method: str, pool) -> None:
     print(f"{method} encoder gradients under a smooth loss (sum of its output times a "
           f"fixed random matrix), card vs cpu: {reached} parameters reached on both, worst "
           f"max|d| / max|cpu| {worst:.3e} (limit {enc_limit:g} per tensor{own})")
+
+
+def phase_grads_2d(path: str, pool) -> None:
+    """A 2-D baseline's train-step gradients (masked MSE, eval mode: the
+    masked BatchNorms normalize by their running statistics) at full width
+    on GRAD_CUT molecules of `pool`, on the card against the CPU run that
+    takes the card's ReLU and LeakyReLU signs: within STEP_LIMIT of a
+    tensor's max |CPU| plus twice the CPU's own change under a 1e-6
+    relative jitter of the atom embedding (the same signs; GRAD_CUT draws),
+    every parameter reached on both; no kernel runs. The jitter term is for
+    the attention softmaxes' gradients, which f32 resolves to ~2e-4 of
+    their max in GATv2's last layer (an H100 read 1.95e-4 at
+    `convs_4.att`; the CPU's own change under the jitter 1.4e-4-1.9e-4)."""
+    from equihgnn_tpu_torch import create_model
+    from equihgnn_tpu_torch.data.batching import iter_batches, spec_for_samples
+    from equihgnn_tpu_torch.train.trainer import masked_mse
+
+    method, cfg = PATHS[path][0], recipe(path)
+    samples = pool[:GRAD_CUT[path][0]]
+    batch = next(iter_batches(samples, spec_for_samples(samples, len(samples)), hyper=False,
+                              target=0))
+
+    def grads(device, jitter=None):
+        model = create_model(method, num_target=1, cfg=cfg, device=device, gnn_type=method,
+                             generator=torch.Generator().manual_seed(3)).eval()
+        if jitter is not None:  # a relative jitter of the atom embedding
+            model.atom_encoder.register_forward_hook(lambda m, i, o: o * (1.0 + jitter))
+        b = batch.to(device)
+        sq, cnt = masked_mse(model(b), b.y, b.graph_mask)
+        (sq / torch.clamp(cnt, min=1.0)).backward()
+        return {n: p.grad.cpu() for n, p in model.named_parameters()}
+
+    cpu_relu, card_relu = [], []
+    with relu_sites(record=cpu_relu):
+        want = grads("cpu")
+    reset_launches()
+    with relu_sites(record=card_relu):
+        got = grads("cuda")
+    launches = read_launches()
+    check(launches == expected_launches(path, 1, 1), f"{path}'s train step launched a kernel")
+    if hold_relu_pattern(path, cpu_relu, card_relu, KINK.get(method, 1e-5)):
+        with relu_sites(signs=card_relu):
+            want = grads("cpu")
+    gen = torch.Generator().manual_seed(4)
+    own = dict.fromkeys(want, 0.0)  # the CPU's own change, relative to max|CPU|
+    for _ in range(GRAD_CUT[path][1]):
+        jitter = 1e-6 * torch.randn(batch.num_atoms, cfg.gnn_emb_dim, generator=gen)
+        with relu_sites(signs=card_relu):
+            other = grads("cpu", jitter)
+        for name, w in want.items():
+            own[name] = max(own[name], float((other[name] - w).abs().max() / w.abs().max()))
+    limit, worst, worst_own = STEP_LIMIT[path], (0.0, ""), 0.0
+    for name, w in want.items():
+        x = got[name]
+        check(float(w.abs().max()) > 0 and float(x.abs().max()) > 0,
+              f"{name} unreached on the CPU or on the card")
+        rel = float((x - w).abs().max()) / float(w.abs().max())
+        worst, worst_own = max(worst, (rel, name)), max(worst_own, own[name])
+        check(rel <= limit + 2 * own[name],
+              f"{name}: card and CPU gradients differ, rel {rel:.3e} > {limit:g} + 2 x the "
+              f"CPU's own change {own[name]:.3e}")
+    print(f"{path} gradients, card vs cpu with the card's ReLU pattern, one train step at "
+          f"full width on {len(samples)} molecules: all {len(want)} parameters reached on "
+          f"both, worst max|d| / max|cpu| {worst[0]:.3e} ({worst[1]}; limit {limit:g} per "
+          f"tensor + 2 x the CPU's own change under a 1e-6 relative jitter of the atom "
+          f"embedding with the card's signs, largest of {GRAD_CUT[path][1]} draws: at most "
+          f"{worst_own:.3e}); launches {launches}")
 
 
 # The bf16 path's gradients on the card against the CPU's bf16 model (plain
@@ -1717,6 +1936,7 @@ def phase_train(path: str, smi: str) -> dict[str, int]:
     from equihgnn_tpu_torch.predict import run as predict_run
 
     method, cfg = PATHS[path][0], recipe(path)
+    hyper = method not in GRAPH_METHODS
     data = TRAIN_DATA.get(method, "synthetic_hg_3d")
     argv = ["--data", data, "--method", method, "--device", "cuda",
             "--batch_size", str(BATCH), "--synthetic_size", TRAIN_SIZE.get(method, "9600"),
@@ -1737,8 +1957,8 @@ def phase_train(path: str, smi: str) -> dict[str, int]:
     for s in train_s + valid_s + test_s:  # learnable target: normalized atom count
         s.y = np.float32((s.n_atoms - 16.0) / 8.0)
     spec = spec_for_samples(train_s + valid_s + test_s, batch_size=BATCH)
-    n_val = sum(1 for _ in iter_batches(valid_s, spec, with_pos=with_pos))
-    n_test = sum(1 for _ in iter_batches(test_s, spec, with_pos=with_pos))
+    n_val = sum(1 for _ in iter_batches(valid_s, spec, hyper=hyper, with_pos=with_pos))
+    n_test = sum(1 for _ in iter_batches(test_s, spec, hyper=hyper, with_pos=with_pos))
 
     cwd = os.getcwd()
     with tempfile.TemporaryDirectory() as tmp:
@@ -1791,12 +2011,10 @@ def phase_step(path: str, samples, smi: str) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     from equihgnn_tpu_torch import create_model
-    from equihgnn_tpu_torch.data.batching import iter_batches, spec_for_samples
     from equihgnn_tpu_torch.train.trainer import TrainConfig, Trainer
 
     dev = torch.device("cuda")
-    batch = next(iter_batches(samples, spec_for_samples(samples, BATCH), with_pos=True,
-                              target=0)).to(dev)
+    batch = request_batch(path, samples, target=0).to(dev)
     model = create_model(PATHS[path][0], num_target=1, cfg=recipe(path), device=dev)
     trainer = Trainer(model, TrainConfig(lr=1e-4), std=1.0, device=dev)
     trainer.train_step(batch)  # warm-up: cuBLAS handles, Adam state
@@ -1844,6 +2062,22 @@ def phase_step(path: str, samples, smi: str) -> None:
     for t, n, key in kernels[:12]:
         print(f"  {t:8.3f} ms  {n:3d}x  {key[:110]}")
     gradient_zero_shares(path, trainer, batch)
+    if path == CROSS_PATH:
+        knn_graph_reading(batch, smi)
+
+
+def knn_graph_reading(batch, smi: str) -> None:
+    """The cross-molecule path's batch-wide kNN alone at batch 768: its
+    device time (CUDA events, median of 10) and its peak allocation."""
+    from equihgnn_tpu_torch.ops.knn import PAIRS_PER_CHUNK, knn_graph
+
+    n = batch.num_atoms
+    fn = functools.partial(knn_graph, batch.pos, 16, mask=batch.atom_mask, valid_radius=None,
+                           squared_radius=True)
+    ms, = median_ms(fn, iters=10)
+    print(f"knn_graph over the batch's {n} atoms (k = 16, {n * n:,} pairs, "
+          f"{max(1, PAIRS_PER_CHUNK // n)} rows a chunk): median {ms:.3f} ms device time, "
+          f"peak allocation {alloc_mib(fn):.1f} MiB above its inputs; card: {smi}")
 
 
 def gradient_zero_shares(path: str, trainer, batch) -> None:
@@ -1911,15 +2145,21 @@ def main() -> int:
     timed("build", phase_build)
 
     samples, batch = bench_batch()
+    graphs = graph_samples()
     kernels = timed("kernels", phase_kernels, batch)
     paths = {}
     for path in PATHS:
-        served = timed(f"{path} serve", phase_serve, path, samples, smi)
-        timed(f"{path} gradients", phase_grads_bf16 if path == BF16_PATH else phase_grads, path,
-              samples[:2 * GRAD_CUT.get(path, (32,))[0]])
-        trained = timed(f"{path} train", phase_train, path, smi)
-        timed(f"{path} step", phase_step, path, samples, smi)
-        paths[f"{path} serve"], paths[f"{path} train"] = served, trained
+        if path in GRAPH_METHODS:
+            paths[f"{path} serve"] = timed(f"{path} serve", phase_serve_2d, path, graphs, smi)
+            timed(f"{path} gradients", phase_grads_2d, path, graphs)
+        else:
+            paths[f"{path} serve"] = timed(f"{path} serve", phase_serve, path, samples, smi)
+            timed(f"{path} gradients", phase_grads_bf16 if path == BF16_PATH else phase_grads,
+                  path, samples[:2 * GRAD_CUT.get(path, (32,))[0]])
+        if path != CROSS_PATH:  # neither CLI sets cross_molecule_knn
+            paths[f"{path} train"] = timed(f"{path} train", phase_train, path, smi)
+        timed(f"{path} step", phase_step, path, graphs if path in GRAPH_METHODS else samples,
+              smi)
     for row in kernels:
         row["launches"] = sum(counts[row["name"]] for counts in paths.values())
     print(f"launches by path: {paths}")

@@ -11,6 +11,17 @@ path maps to a state-dict key by three rules:
   * the levels that flax wrappers add are dropped: `LayerNorm_0` and
     `MaskedBatchNorm_0` (`_Norm`), `PReLU_0` (`Activation`).
 
+Raw `self.param`s that no rule touches map untransposed under their own
+names (the SE(3)-Transformer's, and the 2-D baselines' `eps`, `root_emb`,
+`att_src`, `att_dst`, `att_edge`, `att`, `bias`, `lin_edge_kernel`).
+
+A flax `LSTMCell` (`.../lstm/{ii,if,ig,io}/kernel`, no bias, and
+`.../lstm/{hi,hf,hg,ho}/{kernel,bias}`) maps to the port's `LSTMCell`
+(`models/baseline_2d.py`) in `torch.nn.LSTMCell`'s layout: `weight_ih`
+the four input kernels transposed and stacked in the order i, f, g, o,
+`weight_hh` the same of the hidden kernels, `bias_hh` the hidden biases
+stacked; flax has no input bias, and the port no `bias_ih`.
+
 A BatchNorm's running statistics live in flax's `batch_stats` collection
 as `.../mean` and `.../var`; passed as `batch_stats`, they map to the
 buffers `running_mean` and `running_var`.
@@ -32,6 +43,33 @@ _KERNELS = {"kernel": "weight", "kernel_i": "weight_i", "kernel_j": "weight_j",
             "kernel_d": "weight_d"}
 _WRAPPERS = ("LayerNorm_0", "MaskedBatchNorm_0", "PReLU_0")
 _STATS = {"mean": "running_mean", "var": "running_var"}
+_GATES = "ifgo"  # torch.nn.LSTMCell's order of the stacked gates
+
+
+def _lstm_tensors(flat: Mapping[str, np.ndarray]):
+    """(the flat params without the LSTM cells' Denses, [(flax path,
+    stacked array, port key)] of their stacked weights and biases)."""
+    rest, cells = {}, {}
+    for path, value in flat.items():
+        parts = path.split("/")
+        if len(parts) >= 3 and parts[-3] == "lstm":
+            cells.setdefault("/".join(parts[:-2]), {})[(parts[-2], parts[-1])] = value
+        else:
+            rest[path] = value
+    stacked = []
+    for cell, leaves in cells.items():
+        prefix = cell.replace("/", ".") + "."
+        want = {(f"{side}{g}", "kernel") for side in "ih" for g in _GATES}
+        want |= {(f"h{g}", "bias") for g in _GATES}
+        if set(leaves) != want:
+            odd = sorted("/".join(k) for k in set(leaves) ^ want)
+            raise KeyError(f"LSTM cell {cell!r}: unused or missing Dense keys {odd}")
+        for side, name in (("i", "weight_ih"), ("h", "weight_hh")):
+            w = np.concatenate([np.asarray(leaves[(f"{side}{g}", "kernel")]).T for g in _GATES])
+            stacked.append((f"{cell}/{side}*/kernel", w, prefix + name))
+        b = np.concatenate([np.asarray(leaves[(f"h{g}", "bias")]) for g in _GATES])
+        stacked.append((f"{cell}/h*/bias", b, prefix + "bias_hh"))
+    return rest, stacked
 
 
 def _port_key(path: str, expected: Mapping[str, torch.Tensor]) -> tuple[str, bool]:
@@ -64,7 +102,9 @@ def params_from_jax(flat: Mapping[str, np.ndarray], model: nn.Module,
     """
     expected = model.state_dict()
     out: dict[str, torch.Tensor] = {}
+    flat, lstm = _lstm_tensors(flat)
     items = [(path, value, _port_key(path, expected)) for path, value in flat.items()]
+    items += [(path, value, (key, False)) for path, value, key in lstm]
     items += [(path, value, _stats_key(path)) for path, value in (batch_stats or {}).items()]
     for path, value, (key, transpose) in items:
         if key not in expected:

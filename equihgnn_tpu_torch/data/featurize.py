@@ -1,18 +1,22 @@
-"""Molecule → hypergraph featurization (host-side, numpy).
+"""Molecule → (hyper)graph featurization (host-side, numpy).
 
-Copy of `mol_to_hypergraph` and its helpers from
+Copy of `mol_to_hypergraph`, `mol_to_graph`, `mol_from_smiles`,
+`smiles_to_hypergraph` and their helpers from
 `equihgnn_tpu/data/featurize.py`, with import paths changed:
-OGB-compatible 9-dim atom features, one order-2 hyperedge per bond
-(feature = bond type) and one hyperedge per conjugated group (feature = 5).
-Molecules from the first-party SDF reader (`data/chem.py`) carry their own
-conjugation perception; RDKit is imported only for RDKit molecules.
+OGB-compatible 9-dim atom and 3-dim bond features; as a hypergraph, one
+order-2 hyperedge per bond (feature = bond type) and one hyperedge per
+conjugated group (feature = 5); as a plain graph (`mol2graph`), each bond
+in both directions with its 3 bond features.
+Molecules from the first-party SDF reader (`data/chem.py`) and SMILES
+parser (`data/smiles.py`) carry their own conjugation perception; RDKit
+is imported only for RDKit molecules, and parses SMILES where installed.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from equihgnn_tpu_torch.data.structures import CONJ_HEDGE_TYPE, HyperGraphSample
+from equihgnn_tpu_torch.data.structures import CONJ_HEDGE_TYPE, GraphSample, HyperGraphSample
 
 
 def _require_rdkit():
@@ -127,6 +131,55 @@ def mol_to_hypergraph(mol, y=None, pos=None, z=None) -> HyperGraphSample:
         vertex_idx=vertex_idx,
         hedge_idx=hedge_idx,
         hedge_feat=np.asarray(hedge_feat, dtype=np.int64),
+        y=np.asarray(y, dtype=np.float32) if y is not None else np.zeros(1, np.float32),
+        pos=None if pos is None else np.asarray(pos, dtype=np.float32),
+        z=None if z is None else np.asarray(z, dtype=np.int32),
+    )
+
+
+def mol_from_smiles(smiles: str):
+    """RDKit's MolFromSmiles when installed; else the first-party parser
+    (`data/smiles.py`). Returns None on unparsable input either way."""
+    try:
+        Chem = _require_rdkit()
+    except ImportError:
+        from equihgnn_tpu_torch.data.smiles import parse_smiles
+
+        return parse_smiles(smiles)
+    return Chem.MolFromSmiles(smiles)
+
+
+def smiles_to_hypergraph(smiles: str, y=None) -> HyperGraphSample | None:
+    """≡ `smi2hgraph` (`reference utils.py:64-105`); None if unparsable."""
+    mol = mol_from_smiles(smiles)
+    if mol is None:
+        return None
+    s = mol_to_hypergraph(mol, y=y)
+    s.smi = smiles
+    return s
+
+
+def mol_to_graph(mol, y=None, pos=None, z=None) -> GraphSample:
+    """≡ `mol2graph` (`reference utils.py:192-238`): directed both ways."""
+    atom_feat = np.array(
+        [atom_to_feature_vector(a) for a in mol.GetAtoms()], dtype=np.int32
+    )
+    src, dst, feats = [], [], []
+    for bond in mol.GetBonds():
+        i, j = bond.GetBeginAtomIdx(), bond.GetEndAtomIdx()
+        f = bond_to_feature_vector(bond)
+        src += [i, j]
+        dst += [j, i]
+        feats += [f, f]
+    return GraphSample(
+        atom_feat=atom_feat,
+        edge_src=np.asarray(src, dtype=np.int64),
+        edge_dst=np.asarray(dst, dtype=np.int64),
+        edge_feat=(
+            np.asarray(feats, dtype=np.int64)
+            if feats
+            else np.zeros((0, 3), dtype=np.int64)
+        ),
         y=np.asarray(y, dtype=np.float32) if y is not None else np.zeros(1, np.float32),
         pos=None if pos is None else np.asarray(pos, dtype=np.float32),
         z=None if z is None else np.asarray(z, dtype=np.int32),

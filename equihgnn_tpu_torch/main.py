@@ -5,11 +5,16 @@ Usage:
     python -m equihgnn_tpu_torch.main --data synthetic_hg_3d \\
         --method egnn_equihnns --epochs 3 --device cuda
     python -m equihgnn_tpu_torch.main --data synthetic_hg --method mhnn
+    python -m equihgnn_tpu_torch.main --data synthetic_g --method gin
 
 Ported methods: `mhnn`, `mhnns`, `mhnnm`, `egnn_equihnn{,s,m}`,
 `faformer_equihnn{,s,m}`, `visnet_equihnn{,s,m}`,
-`se3_transformer_equihnns`. Ported datasets: `synthetic_hg` (no
-coordinates: the MHNN family) and `synthetic_hg_3d`.
+`se3_transformer_equihnns`, and the 2-D baselines `gin`, `gcn`, `gat`,
+`gatv2` (`GRAPH_METHODS`, at `ModelConfig`'s `gnn_*` defaults: 5 layers,
+300 wide, JK "last", mean pooling; the CLI has no flags for them, as in
+JAX). Ported datasets: `synthetic_hg` (no coordinates: the MHNN family),
+`synthetic_hg_3d`, and the plain-graph sets `synthetic_g` and
+`synthetic_g_3d` (the 2-D baselines).
 
 Differences from the JAX CLI:
   * `--device` is a torch device string (default `cuda`, as in
@@ -30,6 +35,8 @@ Differences from the JAX CLI:
     not ported); each epoch's order is drawn from the same seed.
   * `run` returns the run's `log_dir` beside the metrics, and takes
     `splits=` (train, valid, test, std) in place of loading `--data`.
+  * The checkpoint's meta carries the whole `ModelConfig`, its `gnn_*`
+    fields included, as JAX's does.
 
 Kept: `--clip_gnorm` clips when set (the reference parses it and never
 applies it); `--min_lr` is used only with `--use_min_lr` (the reference's
@@ -55,6 +62,8 @@ from equihgnn_tpu_torch.data.splits import create_train_val_test_set_and_normali
 from equihgnn_tpu_torch.models.config import ModelConfig
 from equihgnn_tpu_torch.predict import resolve_device
 from equihgnn_tpu_torch.train.trainer import TrainConfig, Trainer
+
+GRAPH_METHODS = ("gin", "gcn", "gat", "gatv2")  # on plain graphs (`GraphBatch`)
 
 # flag → the ROADMAP item that ports its path
 UNPORTED_FLAGS = {
@@ -140,14 +149,14 @@ def run(args, splits=None) -> dict:
     if data_cls is None:
         raise ValueError(f"Unknown or unported dataset name: {args.data!r}")
     train_s, valid_s, test_s, std = load_splits(args) if splits is None else splits
-    with_pos = data_cls.has_pos
+    with_pos, hyper = data_cls.has_pos, data_cls.hyper
 
     spec = spec_for_samples(train_s + valid_s + test_s, batch_size=args.batch_size)
 
     def loader(samples, shuffle, epoch=0):
         rng = np.random.default_rng(args.seed * 100003 + epoch)
-        return iter_batches(samples, spec, target=args.target, with_pos=with_pos,
-                            shuffle=shuffle, rng=rng)
+        return iter_batches(samples, spec, hyper=hyper, target=args.target,
+                            with_pos=with_pos, shuffle=shuffle, rng=rng)
 
     results = []
     for run_idx in range(args.runs):
@@ -160,8 +169,9 @@ def run(args, splits=None) -> dict:
         log_dir = os.path.join("logs", exp, f"version_{version}")
 
         cfg = ModelConfig.from_args(args)
+        extra = {"gnn_type": args.method} if args.method in GRAPH_METHODS else {}
         model = create_model(args.method, num_target=1, cfg=cfg, device=device,
-                             generator=torch.Generator().manual_seed(seed))
+                             generator=torch.Generator().manual_seed(seed), **extra)
         tcfg = TrainConfig(
             epochs=args.epochs,
             lr=args.lr,

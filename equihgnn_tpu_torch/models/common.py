@@ -1,6 +1,7 @@
 """Shared model helpers (port of `equihgnn_tpu/models/common.py`): what a
 configuration may ask of the port, the compute-dtype cast, activation,
-graph pooling, the conjugated-hyperedge readout, the prediction's shape."""
+graph pooling (sum, mean, max), the conjugated-hyperedge readout, the
+prediction's shape."""
 
 from __future__ import annotations
 
@@ -9,7 +10,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from equihgnn_tpu_torch.nn.mlp import prelu
-from equihgnn_tpu_torch.ops.segment import segment_sum
+from equihgnn_tpu_torch.ops.segment import masked_segment_reduce, segment_sum
 
 
 # the models that run `compute_dtype="bfloat16"` (in their encoder only, as in JAX)
@@ -64,6 +65,11 @@ class Activation(nn.Module):
 def global_add_pool(x, graph_id, num_graphs: int, mask=None):
     """Masked per-graph sum (`torch_geometric.nn.global_add_pool` equivalent)."""
     return segment_sum(x, graph_id, num_graphs, mask=mask)
+
+
+def global_pool(x, graph_id, num_graphs: int, mask=None, reduce: str = "sum"):
+    """Masked per-graph "sum", "mean" or "max" (0 for a graph with no atom)."""
+    return masked_segment_reduce(x, graph_id, num_graphs, reduce, mask=mask)
 
 
 def conjugated_hedge_pool(e: torch.Tensor, batch) -> torch.Tensor:

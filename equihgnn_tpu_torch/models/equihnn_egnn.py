@@ -4,8 +4,10 @@
 Port of `equihgnn_tpu/models/equihnn_egnn.py` (`_EGNNBase.encode` `:24-60`,
 the models `:63-90`), itself the reference's `equihnn_egnn.py:12-261`:
 atom embeddings, one EGNN layer (k = 16, valid_radius 5.0 against the
-squared distance) on per-molecule neighbourhoods, then the MHNN, MHNNS or
-MHNNM trunk.
+squared distance), then the MHNN, MHNNS or MHNNM trunk. The EGNN runs on
+per-molecule neighbourhoods in the dense slot view; with
+`cross_molecule_knn=True` (the reference's batch-as-one-point-cloud kNN),
+or on a batch without the slot view, on JAX's flat path.
 
 The port runs in float32, for serving (`model.eval()`) and training
 (`model.train()`: dropout in the trunk and its MLPs, batch statistics in
@@ -14,7 +16,7 @@ builds). Gradients reach the same parameters as in JAX; the EGNN's
 coordinate branch (`coors_mlp_*`, `coors_norm`) gets none in either
 framework, because `encode` drops the EGNN's coordinates. Configurations
 the port does not support yet raise here: `compute_dtype` other than
-float32, `remat`, `cross_molecule_knn=True`.
+float32, and `remat`.
 """
 
 from __future__ import annotations
@@ -29,20 +31,17 @@ from equihgnn_tpu_torch.nn.encoders import AtomEncoder
 
 class _EGNNBase(HybridModel):
     def build_encoder(self, cfg, generator):
-        if cfg.cross_molecule_knn:
-            raise NotImplementedError(
-                "cross_molecule_knn=True (the flat batch-wide kNN path) is not ported yet")
         self.atom_encoder = AtomEncoder(cfg.mlp_hidden, generator=generator)
         self.egnn_layer = EGNN(
             dim=cfg.mlp_hidden, num_nearest_neighbors=16, valid_radius=5.0,
-            generator=generator,
+            cross_molecule=cfg.cross_molecule_knn, generator=generator,
         )
 
     def encode(self, batch: HyperGraphBatch):
-        if batch.pos is None or batch.slot_index is None:
+        if batch.pos is None:
             raise ValueError(
-                "egnn_equihnn* models need 3-D coordinates and the slot view: "
-                "build batches with with_pos=True and max_atoms_per_graph > 0"
+                "egnn_equihnn* models need 3-D coordinates: build batches with "
+                "with_pos=True (use a *_hg_3d dataset)"
             )
         x = self.atom_encoder(batch.atom_feat)
         x, _ = self.egnn_layer(
@@ -52,6 +51,8 @@ class _EGNNBase(HybridModel):
             atom_slot=batch.atom_slot,
             atom_row=batch.atom_row,
             slot_gid=batch.slot_gid,
+            mask=batch.atom_mask,
+            graph_id=batch.atom_graph_id,
         )
         return x
 

@@ -1,7 +1,8 @@
-"""E(n)-equivariant graph layer (EGNN) on the dense per-molecule slot view.
+"""E(n)-equivariant graph layer (EGNN), on the dense per-molecule slot view
+or on the flat batch.
 
-Port of the dense path of `equihgnn_tpu/nn/egnn.py` (`EGNN`, `:224-259`),
-itself the reference's single EGNN layer
+Port of `equihgnn_tpu/nn/egnn.py` (`EGNN`: the dense path `:224-259`, the
+flat path `:261-276`), itself the reference's single EGNN layer
 (`reference equihgnn/models/layers/egnn_layer.py:145-366`). Semantics kept:
 
   * ranking and `rel_dist` use the **squared** distance, and `valid_radius`
@@ -16,7 +17,8 @@ itself the reference's single EGNN layer
     [Linear(d+m → 2d), SiLU, Linear(2d → d)] + residual; CoorsNorm; a
     LayerNorm on the node features; every Linear weight ~ N(0, 1e-3²).
 
-The edge MLP runs as one fused kernel (`ops/kernels/edge_mlp.py`), so the
+On the dense path (a batch with the slot view, `cross_molecule=False`)
+the edge MLP runs as one fused kernel (`ops/kernels/edge_mlp.py`), so the
 [R, A, k, 2(2d+1)] pre-activation is never stored; `ui = x·Wiᵀ` and
 `ujn = x·Wjᵀ` are plain matmuls at the node sites. The kernel takes
 `pair_mask` and gives 0 at the masked edges (it skips the slots with no
@@ -24,8 +26,16 @@ kept edge): both consumers of the messages mask them anyway, and the
 coordinate MLP between works row by row, so a masked edge's message reaches
 no output and no gradient, and the layer's outputs and gradients are the
 same bits with the mask as without it (`tests/test_torch_egnn.py`).
-Dropout is 0 in every model that uses this layer, so it has none. The flat cross-molecule path
-(`cross_molecule=True`) is not ported yet.
+Dropout is 0 in every model that uses this layer, so it has none.
+
+The flat path runs where JAX's does: with `cross_molecule=True` (the
+reference's batch-as-one-point-cloud kNN, `knn_graph` with no molecule
+ids) or on a batch without the slot view (then `graph_id` keeps the
+neighbours in the molecule). Its pair mask is
+`nbr_mask & mask[:, None] & mask[nbr_idx]`, and its edge MLP is JAX's
+unfused composition (`_EdgeLinear0`, SiLU, `edge_mlp_1`, SiLU) with the
+same parameters, gathered with `index_select`: JAX fuses the edge MLP only
+on the dense view (`nn/egnn.py:139-143`), so no kernel runs on this path.
 """
 
 from __future__ import annotations
@@ -38,7 +48,7 @@ from torch import nn
 
 from equihgnn_tpu_torch.nn.mlp import TorchLinear, normal_, uniform_
 from equihgnn_tpu_torch.ops.kernels.edge_mlp import fused_edge_messages
-from equihgnn_tpu_torch.ops.knn import knn_dense
+from equihgnn_tpu_torch.ops.knn import knn_dense, knn_graph
 from equihgnn_tpu_torch.ops.numerics import safe_norm
 
 EGNN_WEIGHT_STD = 1e-3  # `egnn_layer.py:227-230`
@@ -82,14 +92,16 @@ class CoorsNorm(nn.Module):
 
 class EGNN(nn.Module):
     """One E(n)-equivariant message-passing layer over the k nearest
-    neighbours of each atom within its molecule."""
+    neighbours of each atom: within its molecule, or across the batch with
+    `cross_molecule=True`."""
 
     def __init__(self, dim: int, num_nearest_neighbors: int = 16,
-                 valid_radius: float = 5.0, apply_radius_mask: bool = False, *,
-                 generator: torch.Generator):
+                 valid_radius: float = 5.0, apply_radius_mask: bool = False,
+                 cross_molecule: bool = False, *, generator: torch.Generator):
         super().__init__()
         self.dim, self.k = dim, num_nearest_neighbors
         self.valid_radius, self.apply_radius_mask = valid_radius, apply_radius_mask
+        self.cross_molecule = cross_molecule
         f = 2 * (2 * dim + 1)
         self.edge_mlp_0 = _EdgeLinear0(dim, f, generator=generator)
         self.edge_mlp_1 = _egnn_linear(f, M_DIM, generator)
@@ -104,13 +116,19 @@ class EGNN(nn.Module):
         self,
         feats: torch.Tensor,  # [N, d]
         coors: torch.Tensor,  # [N, 3]
-        slot_index: torch.Tensor,  # [R, A] flat atom index per slot
-        slot_mask: torch.Tensor,  # [R, A] bool
-        atom_slot: torch.Tensor,  # [N] slot within row
-        atom_row: torch.Tensor,  # [N] row index
+        slot_index: torch.Tensor | None = None,  # [R, A] flat atom index per slot
+        slot_mask: torch.Tensor | None = None,  # [R, A] bool
+        atom_slot: torch.Tensor | None = None,  # [N] slot within row
+        atom_row: torch.Tensor | None = None,  # [N] row index
         slot_gid: torch.Tensor | None = None,  # [R, A] molecule id per slot
+        mask: torch.Tensor | None = None,  # [N] bool (the flat path's)
+        graph_id: torch.Tensor | None = None,  # [N] molecule id (the flat path's)
     ):
-        """Returns (feats [N, d], coors [N, 3]) after one layer."""
+        """Returns (feats [N, d], coors [N, 3]) after one layer: on the
+        dense slot view when given (and not `cross_molecule`), else on the
+        flat batch."""
+        if slot_index is None or self.cross_molecule:
+            return self._flat(feats, coors, mask, None if self.cross_molecule else graph_id)
         sm = slot_mask[..., None].to(feats.dtype)
         xd = feats[slot_index] * sm  # [R, A, d]
         pd = coors[slot_index] * sm  # [R, A, 3]
@@ -131,15 +149,39 @@ class EGNN(nn.Module):
             self.edge_mlp_1.weight.t().contiguous(), self.edge_mlp_1.bias,
             edge_mask=pair_mask,
         )  # [R, A, k, m], 0 at the masked edges
-
-        w = self.coors_mlp_1(F.silu(self.coors_mlp_0(m_ij)))[..., 0]  # [R, A, k]
-        w = torch.where(pair_mask, w, 0.0)
-        rc = self.coors_norm(rel_coors)
-        coors_out = torch.einsum("rak,rakc->rac", w, rc) + pd
-
-        m_i = torch.where(pair_mask[..., None], m_ij, 0.0).sum(dim=-2)
-        h = torch.cat([self.node_norm(xd), m_i], dim=-1)
-        h = self.node_mlp_1(F.silu(self.node_mlp_0(h)))
-        xd = h + xd
+        xd, coors_out = self._update(xd, pd, m_ij, rel_coors, pair_mask)
         # back to the flat layout (padded atoms read the padding row)
         return xd[atom_row, atom_slot], coors_out[atom_row, atom_slot]
+
+    def _flat(self, feats, coors, mask, graph_id):
+        """The flat path over [N, k] neighbour lists (`knn_graph`)."""
+        nbr_idx, nbr_mask, _ = knn_graph(
+            coors, self.k, mask=mask, graph_id=graph_id,
+            valid_radius=self.valid_radius if self.apply_radius_mask else None,
+            squared_radius=True,
+        )
+        n, k = nbr_idx.shape
+        flat_idx = nbr_idx.reshape(-1)
+        rel_coors = coors[:, None, :] - coors.index_select(0, flat_idx).view(n, k, 3)
+        rel_dist = torch.sum(rel_coors * rel_coors, dim=-1, keepdim=True)  # [N, k, 1]
+        pair_mask = nbr_mask
+        if mask is not None:
+            pair_mask = pair_mask & mask[:, None] & mask.index_select(0, flat_idx).view(n, k)
+        e0 = self.edge_mlp_0
+        ui = torch.matmul(feats, e0.weight_i.t())  # [N, F] at the node sites
+        uj = torch.matmul(feats, e0.weight_j.t()).index_select(0, flat_idx).view(n, k, -1)
+        m_ij = ui[:, None, :] + uj + rel_dist * e0.weight_d[:, 0] + e0.bias
+        m_ij = F.silu(self.edge_mlp_1(F.silu(m_ij)))  # [N, k, m]
+        return self._update(feats, coors, m_ij, rel_coors, pair_mask)
+
+    def _update(self, x, coors, m_ij, rel_coors, pair_mask):
+        """The coordinate and node updates from the messages m_ij [..., k, m]."""
+        w = self.coors_mlp_1(F.silu(self.coors_mlp_0(m_ij)))[..., 0]  # [..., k]
+        w = torch.where(pair_mask, w, 0.0)
+        rc = self.coors_norm(rel_coors)
+        coors_out = torch.einsum("...k,...kc->...c", w, rc) + coors
+
+        m_i = torch.where(pair_mask[..., None], m_ij, 0.0).sum(dim=-2)
+        h = torch.cat([self.node_norm(x), m_i], dim=-1)
+        h = self.node_mlp_1(F.silu(self.node_mlp_0(h)))
+        return h + x, coors_out

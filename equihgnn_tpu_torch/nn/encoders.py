@@ -1,7 +1,7 @@
-"""OGB-compatible atom embedding (port of `AtomEncoder`,
-`equihgnn_tpu/nn/encoders.py:50`): one table per categorical feature,
-summed, stored as one flat table with per-feature offsets. Tables are
-initialized xavier-uniform, as OGB does. `HedgeEncoder`
+"""OGB-compatible atom and bond embeddings (port of `AtomEncoder` and
+`BondEncoder`, `equihgnn_tpu/nn/encoders.py:50-77`): one table per
+categorical feature, summed, stored as one flat table with per-feature
+offsets. Tables are initialized xavier-uniform, as OGB does. `HedgeEncoder`
 (`equihgnn_tpu/nn/encoders.py:80-94`) embeds a hyperedge's type for the
 MHNN trunks."""
 
@@ -13,7 +13,12 @@ import numpy as np
 import torch
 from torch import nn
 
-from equihgnn_tpu_torch.data.structures import ATOM_FEATURE_DIMS, NUM_HEDGE_TYPES
+from equihgnn_tpu_torch.data.structures import (
+    ATOM_FEATURE_DIMS,
+    BOND_FEATURE_DIMS,
+    NUM_BOND_FEATURES,
+    NUM_HEDGE_TYPES,
+)
 from equihgnn_tpu_torch.nn.mlp import normal_, uniform_
 
 
@@ -45,6 +50,30 @@ class AtomEncoder(nn.Module):
 
     def forward(self, atom_feat: torch.Tensor) -> torch.Tensor:
         return self.atom(atom_feat)
+
+
+class BondEncoder(nn.Module):
+    """The first `width` categorical bond features → summed embedding
+    [..., emb_dim]: 3 from `mol2graph`, 1 (the bond type) in the QM9 graph
+    variants, whose table then has the bond-type rows only, as in JAX. The
+    width is fixed when the module is built; other input raises. The
+    lookup is an `index_select`, whose backward is `index_add_`."""
+
+    def __init__(self, emb_dim: int, width: int = NUM_BOND_FEATURES, *,
+                 generator: torch.Generator):
+        super().__init__()
+        if not 1 <= width <= NUM_BOND_FEATURES:
+            raise ValueError(f"bond feature width {width} not in 1..{NUM_BOND_FEATURES}")
+        self.width = width
+        self.bond = _MultiEmbeddingSum(BOND_FEATURE_DIMS[:width], emb_dim, generator=generator)
+
+    def forward(self, bond_feat: torch.Tensor) -> torch.Tensor:
+        if bond_feat.shape[-1] != self.width:
+            raise ValueError(f"BondEncoder built for {self.width} bond feature column(s) got "
+                             f"{bond_feat.shape[-1]}")
+        table = self.bond.embedding
+        rows = table.index_select(0, (bond_feat + self.bond.offsets).reshape(-1))
+        return rows.view(bond_feat.shape + (table.shape[-1],)).sum(dim=-2)
 
 
 class HedgeEncoder(nn.Module):

@@ -1,8 +1,11 @@
-"""Per-molecule k-nearest-neighbour selection in the dense slot layout.
+"""k-nearest-neighbour selection: per molecule in the dense slot layout,
+or over the flat [N, 3] coordinates of a whole batch.
 
-Port of `knn_dense` (`equihgnn_tpu/ops/knn.py:92-129`). Ranking is by the
-squared distance over [R, A] slot rows (O(R·A²)). The two options keep
-JAX's names and defaults:
+Port of `knn_dense` (`equihgnn_tpu/ops/knn.py:92-129`), whose ranking is by
+the squared distance over [R, A] slot rows (O(R·A²)), and of `knn_graph`
+(`:35-89`), over all N atoms (O(N²); `graph_id` keeps each atom's
+neighbours in its molecule, None makes the batch one point cloud, as the
+reference's EGNN sees it). The options keep JAX's names and defaults:
 
   * `squared_radius`: `valid_radius` (when given) is compared against the
     squared distance (True; the reference EGNN's quirk,
@@ -13,7 +16,9 @@ JAX's names and defaults:
 
 `lax.top_k` returns ties lower index first; a stable ascending sort of the
 same ranking does too, so invalid slots (all ranked `BIG`) resolve to the
-same indices as in the JAX package.
+same indices as in the JAX package. `knn_graph` ranks a chunk of rows at a
+time (~`PAIRS_PER_CHUNK` pairs), so that its [rows, N] ranking and sort stay
+small at any N.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from __future__ import annotations
 import torch
 
 BIG = 1e5  # the reference's masked-fill value (`egnn_layer.py:262`)
+PAIRS_PER_CHUNK = 1 << 24  # pairs knn_graph ranks and sorts at a time
 
 
 def knn_dense(
@@ -57,3 +63,47 @@ def knn_dense(
         nbr_mask = torch.nn.functional.pad(nbr_mask, pad)
         nbr_rank = torch.nn.functional.pad(nbr_rank, pad, value=BIG)
     return nbr_idx, nbr_mask, nbr_rank
+
+
+def knn_graph(
+    pos: torch.Tensor,  # [N, 3]
+    k: int,
+    mask: torch.Tensor | None = None,  # [N] bool
+    graph_id: torch.Tensor | None = None,  # [N] molecule id; None: one point cloud
+    valid_radius: float | None = None,
+    squared_radius: bool = False,
+    exclude_self: bool = False,
+):
+    """Returns (idx [N, k] int64, mask [N, k] bool, sqdist [N, k]: the
+    squared distance to each neighbour). A pair is invalid (ranked `BIG`)
+    where either point is masked, the molecules differ, or (with
+    `exclude_self`) it is the point itself."""
+    n = pos.shape[0]
+    if k > n:
+        raise ValueError(f"k = {k} neighbours of {n} points")
+    chunk = max(1, PAIRS_PER_CHUNK // n)
+    cols = torch.arange(n, device=pos.device)
+    idx_parts, rank_parts = [], []
+    with torch.no_grad():
+        for r0 in range(0, n, chunk):
+            r1 = min(n, r0 + chunk)
+            diff = pos[r0:r1, None, :] - pos[None, :, :]
+            ranking = torch.sum(diff * diff, dim=-1)  # [rows, N]
+            invalid = torch.zeros(ranking.shape, dtype=torch.bool, device=pos.device)
+            if mask is not None:
+                invalid |= ~(mask[r0:r1, None] & mask[None, :])
+            if graph_id is not None:
+                invalid |= graph_id[r0:r1, None] != graph_id[None, :]
+            if exclude_self:
+                invalid |= cols[r0:r1, None] == cols[None, :]
+            ranking.masked_fill_(invalid, BIG)
+            rank, idx = torch.sort(ranking, dim=-1, stable=True)
+            rank_parts.append(rank[:, :k])
+            idx_parts.append(idx[:, :k])
+    nbr_idx = torch.cat(idx_parts).contiguous()
+    nbr_rank = torch.cat(rank_parts)
+    nbr_mask = nbr_rank < BIG / 2
+    if valid_radius is not None:
+        nbr_mask &= nbr_rank <= (valid_radius if squared_radius else valid_radius**2)
+    diff = pos[:, None, :] - pos.index_select(0, nbr_idx.reshape(-1)).view(n, k, -1)
+    return nbr_idx, nbr_mask, torch.sum(diff * diff, dim=-1)

@@ -1,24 +1,32 @@
-"""Batch inference / serving entry of the port: checkpoint + SDF → predictions CSV.
+"""Batch inference / serving entry of the port: checkpoint + SDF or SMILES
+→ predictions CSV.
 
     python -m equihgnn_tpu_torch.predict --device cuda --ckpt model.pt \\
         --sdf molecules.sdf --out preds.csv
+    python -m equihgnn_tpu_torch.predict --device cuda --ckpt model.pt \\
+        --smiles molecules.smi --out preds.csv
 
 The same CLI as `equihgnn_tpu/predict.py`, for the port. The checkpoint is
 the port's own: `torch.save` of the model's state dict at `<ckpt>`, with
 `<ckpt>.meta.json` beside it holding the keys of the JAX run meta:
 `method`, `model_config` and `std` (see `save_checkpoint`). The model is
 rebuilt from the meta alone. Molecules are featurized by the first-party
-SDF reader; a record that fails to parse gives a `nan` row, so the output
-stays aligned with the input. Predictions are de-normalized by `std`.
+SDF reader (`--sdf`) or SMILES parser (`--smiles`, one SMILES a line, blank
+lines skipped; RDKit's where installed): as hypergraphs, or as plain
+graphs (`mol2graph`) for the 2-D baselines; with coordinates for the
+geometric encoders only. A record that fails to parse gives a `nan` row,
+so the output stays aligned with the input. Predictions are de-normalized
+by `std`. This is `equihgnn_tpu/predict.py`'s behaviour.
 
 `--device cuda` needs a card and raises without one; it never falls back
-to the CPU. Covered so far: every model the port registers, from `--sdf`:
-the MHNN family (`mhnn`, `mhnns`, `mhnnm`), which reads no coordinates,
-and the encoders with 3-D coordinates (`egnn_equihnn{,s,m}`,
-`faformer_equihnn{,s,m}`, `visnet_equihnn{,s,m}`,
-`se3_transformer_equihnns`). The model serves in `eval()` mode: dropout
-off, and a masked BatchNorm normalizes by its running statistics, which
-the checkpoint carries.
+to the CPU. Covered: every model the port registers. From `--sdf`: the
+MHNN family (`mhnn`, `mhnns`, `mhnnm`) and the 2-D baselines (`gin`,
+`gcn`, `gat`, `gatv2`), which read no coordinates, and the encoders with
+3-D coordinates (`egnn_equihnn{,s,m}`, `faformer_equihnn{,s,m}`,
+`visnet_equihnn{,s,m}`, `se3_transformer_equihnns`). From `--smiles`: the
+methods without coordinates; a geometric method raises. The model serves
+in `eval()` mode: dropout off, and a masked BatchNorm normalizes by its
+running statistics, which the checkpoint carries.
 """
 
 from __future__ import annotations
@@ -35,10 +43,18 @@ import torch
 
 from equihgnn_tpu_torch import create_model
 from equihgnn_tpu_torch.data.batching import iter_batches, spec_for_samples
-from equihgnn_tpu_torch.data.featurize import mol_to_hypergraph
+from equihgnn_tpu_torch.data.featurize import (
+    mol_from_smiles,
+    mol_to_graph,
+    mol_to_hypergraph,
+    smiles_to_hypergraph,
+)
 from equihgnn_tpu_torch.data.sdf import read_sdf, read_titles
-from equihgnn_tpu_torch.data.structures import HyperGraphSample
+from equihgnn_tpu_torch.data.structures import GraphSample, HyperGraphSample
 from equihgnn_tpu_torch.models.config import ModelConfig
+
+# the methods whose encoders read 3-D coordinates (`equihgnn_tpu/predict.py:101-103`)
+GEOMETRIC_PREFIXES = ("egnn", "visnet", "equiformer", "se3", "faformer")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -47,7 +63,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--ckpt", required=True,
                    help="checkpoint file (torch state dict); expects "
                         "<ckpt>.meta.json next to it")
-    p.add_argument("--sdf", required=True, help="input molecules (.sdf, 3-D)")
+    src = p.add_mutually_exclusive_group(required=True)
+    src.add_argument("--sdf", help="input molecules (.sdf, 3-D capable)")
+    src.add_argument("--smiles", help="input molecules (text file, one SMILES per line; "
+                                      "the methods without coordinates only)")
     p.add_argument("--out", default="predictions.csv")
     p.add_argument("--batch_size", type=int, default=256)
     p.add_argument("--device", default="cuda",
@@ -90,50 +109,90 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
-def featurize_sdf(path: str) -> list[tuple[str, HyperGraphSample | None]]:
-    """[(title, sample | None)] via the first-party reader + perception."""
+def featurize_sdf(path: str, hyper: bool = True, with_pos: bool = True
+                  ) -> list[tuple[str, HyperGraphSample | GraphSample | None]]:
+    """[(title, sample | None)] via the first-party reader + perception: a
+    hypergraph, or (`hyper=False`) a plain graph; with coordinates and
+    atomic numbers when `with_pos`."""
     out = []
     y0 = np.zeros(1, np.float32)
+    featurize = mol_to_hypergraph if hyper else mol_to_graph
     for title, mol in zip(read_titles(path), read_sdf(path)):
         if mol is None:
             out.append((title, None))
             continue
         try:
-            pos = np.asarray(mol.GetConformer().GetPositions(), dtype=np.float32)
-            z = np.asarray([a.GetAtomicNum() for a in mol.GetAtoms()], dtype=np.int32)
-            out.append((title, mol_to_hypergraph(mol, y=y0, pos=pos, z=z)))
+            pos = z = None
+            if with_pos:
+                pos = np.asarray(mol.GetConformer().GetPositions(), dtype=np.float32)
+                z = np.asarray([a.GetAtomicNum() for a in mol.GetAtoms()], dtype=np.int32)
+            out.append((title, featurize(mol, y=y0, pos=pos, z=z)))
         except (ValueError, KeyError, IndexError) as e:  # malformed record → nan row
             print(f"skip {title!r}: {e}")
             out.append((title, None))
     return out
 
 
-def predict_samples(model: torch.nn.Module, samples: Sequence[HyperGraphSample],
+def featurize_smiles_file(path: str, hyper: bool
+                          ) -> list[tuple[str, HyperGraphSample | GraphSample | None]]:
+    """[(smiles, sample | None)], one a non-blank line, via RDKit or the
+    first-party parser; a SMILES that does not parse gives None."""
+    y0 = np.zeros(1, np.float32)
+    out = []
+    with open(path) as f:
+        for line in f:
+            smi = line.strip()
+            if not smi:
+                continue
+            if hyper:
+                out.append((smi, smiles_to_hypergraph(smi, y=y0)))
+            else:
+                mol = mol_from_smiles(smi)
+                out.append((smi, mol_to_graph(mol, y=y0) if mol is not None else None))
+    return out
+
+
+def predict_samples(model: torch.nn.Module,
+                    samples: Sequence[HyperGraphSample] | Sequence[GraphSample],
                     batch_size: int, device: torch.device) -> np.ndarray:
     """The serving path: spec → padded batches → forward → one prediction
-    per sample, in input order (not de-normalized)."""
+    per sample, in input order (not de-normalized). Hypergraph or plain
+    graph batches after the samples' type, with coordinates when every
+    sample has them."""
     spec = spec_for_samples(samples, batch_size=batch_size)
+    hyper = not isinstance(samples[0], GraphSample)
+    with_pos = all(s.pos is not None for s in samples)
     preds = []
     with torch.inference_mode():
-        for batch in iter_batches(samples, spec, with_pos=True):
+        for batch in iter_batches(samples, spec, hyper=hyper, with_pos=with_pos):
             out = model(batch.to(device))
             preds.append(out[batch.graph_mask.to(device)].cpu().numpy())
     return np.concatenate(preds)
 
 
 def run(args) -> str:
+    from equihgnn_tpu_torch.main import GRAPH_METHODS
+
     device = resolve_device(args.device)
     meta, state = load_checkpoint(args.ckpt)
     method = meta["method"]
     cfg = ModelConfig(**meta["model_config"])
     std = float(meta.get("std", 1.0))
+    hyper = method not in GRAPH_METHODS
+    with_pos = method.startswith(GEOMETRIC_PREFIXES)
 
-    rows = featurize_sdf(args.sdf)
+    if args.smiles:
+        if with_pos:
+            raise ValueError(f"method {method!r} needs 3-D coordinates — use --sdf")
+        rows = featurize_smiles_file(args.smiles, hyper)
+    else:
+        rows = featurize_sdf(args.sdf, hyper, with_pos)
     samples = [s for _, s in rows if s is not None]
     if not samples:
         raise ValueError("no parseable molecules in the input")
 
-    model = create_model(method, num_target=1, cfg=cfg, device=device)
+    extra = {} if hyper else {"gnn_type": method}
+    model = create_model(method, num_target=1, cfg=cfg, device=device, **extra)
     model.load_state_dict(state)
     model.eval()
     preds = predict_samples(model, samples, args.batch_size, device) * std

@@ -32,6 +32,9 @@ Port of `equihgnn_tpu/train/trainer.py` (`TrainConfig`, `Trainer`,
     `equihgnn_tpu_torch.predict` serves; `ckpt_{tag}.opt.pt` the optimizer
     state; `ckpt_{tag}.pt.meta.json` the run meta plus `epoch` and `lr`.
 
+A batch is a `HyperGraphBatch` or, for the 2-D baselines, a `GraphBatch`:
+the trainer reads its `y`, `graph_mask`, `pin_memory` and `to` only.
+
 Dropout draws from torch's global generator, seeded from (seed, epoch) at
 each epoch, so a seed gives one trajectory on one device (and a resumed
 run the same stream); the streams differ from JAX's by design. Comet

@@ -229,10 +229,15 @@ CFG = dict(mlp_hidden=16, output_hidden=8, all_num_layers=3, output_num_layers=3
            dropout=0.0)
 
 
-def jax_batch(samples, spec, with_pos):
-    """JAX's padded batch on its flat segment path (the slot tables off)."""
+SLOT_VIEW = ("slot_index", "slot_mask", "slot_gid", "atom_slot", "atom_row")
+
+
+def jax_batch(samples, spec, with_pos, slot_view=True):
+    """JAX's padded batch on its flat segment path (the slot tables off);
+    without `slot_view`, the encoders' dense slot view off too."""
     jb = jax_pad(samples, spec, target=0, with_pos=with_pos)
-    return jax.tree.map(jnp.asarray, dataclasses.replace(jb, **{f: None for f in SLOT_TABLES}))
+    off = SLOT_TABLES if slot_view else SLOT_TABLES + SLOT_VIEW
+    return jax.tree.map(jnp.asarray, dataclasses.replace(jb, **{f: None for f in off}))
 
 
 def random_variables(jmodel, jb, seed=0):
@@ -278,16 +283,17 @@ def jax_reference(jmodel, jb, params, stats, run=None):
     return np.asarray(ev), np.asarray(tr), float(lv), _flat(g), _flat(new)
 
 
-def jax_gradient_spread(run, jmodel, samples, spec, with_pos, params, stats, grads):
+def jax_gradient_spread(run, jmodel, samples, spec, with_pos, params, stats, grads,
+                        slot_view=True):
     """Per gradient element, the most JAX's own gradient moves under changes
     the model is invariant to: the batch's molecules in reverse order (other
     summation orders) and, with coordinates, translations by 1e-4 to 1e-3 Å."""
-    batches = [jax_batch(samples[::-1], spec, with_pos)]
+    batches = [jax_batch(samples[::-1], spec, with_pos, slot_view)]
     if with_pos:
         for t in ((1e-4, 0.7e-4, -0.3e-4), (0.0, 0.0, 1e-3)):
             moved = [dataclasses.replace(m, pos=(m.pos + np.float32(t)).astype(np.float32))
                      for m in samples]
-            batches.append(jax_batch(moved, spec, with_pos))
+            batches.append(jax_batch(moved, spec, with_pos, slot_view))
     spread = {k: np.zeros_like(v) for k, v in grads.items()}
     for jb in batches:
         other = jax_reference(jmodel, jb, params, stats, run)[3]
@@ -311,7 +317,7 @@ def vanishing(model) -> set[str]:
 
 
 def check_against_jax(method, cfg, samples, with_pos, encoder_eval=None, seed=0,
-                      grads=True):
+                      grads=True, slot_view=True):
     """Build `method` in both frameworks at matched weights and hold the
     port to JAX: eval forward, training forward, loss, gradients (every
     parameter reached in JAX is reached here; their values with `grads`)
@@ -320,9 +326,12 @@ def check_against_jax(method, cfg, samples, with_pos, encoder_eval=None, seed=0,
     A gradient tensor is held to 1e-4·max |JAX| + 1e-6, or, where it is
     determined less finely than that in f32 (TrunkM's batch statistics in
     training mode, FAFormer's frames), to that plus twice JAX's own change
-    under the model's invariances (`jax_gradient_spread`)."""
+    under the model's invariances (`jax_gradient_spread`). Without
+    `slot_view`, both batches are built without the dense slot view."""
     jspec, tspec = jax_spec(samples, batch_size=8), spec_for_samples(samples, batch_size=8)
-    jb = jax_batch(samples, jspec, with_pos)
+    if not slot_view:
+        tspec = dataclasses.replace(tspec, max_atoms_per_graph=0)
+    jb = jax_batch(samples, jspec, with_pos, slot_view)
     tb = pad_hypergraph_batch(samples, tspec, target=0, with_pos=with_pos)
     jmodel = jax_create_model(method, num_target=1, cfg=JaxModelConfig(**cfg))
     params, stats = random_variables(jmodel, jb, seed)
@@ -365,7 +374,7 @@ def check_against_jax(method, cfg, samples, with_pos, encoder_eval=None, seed=0,
             beyond[name] = (err, limit)
     if beyond:  # held to JAX's own resolution of those gradients
         spread = params_from_jax(jax_gradient_spread(
-            run, jmodel, samples, jspec, with_pos, params, stats, jgrads), model,
+            run, jmodel, samples, jspec, with_pos, params, stats, jgrads, slot_view), model,
             batch_stats=new or None)
         for name, (err, limit) in beyond.items():
             own = float(spread[name].max())

@@ -125,11 +125,14 @@ def test_params_from_jax_rejects_bad_trees(fault):
 
 @pytest.mark.parametrize(
     "method,override", [("egnn_equihnns", dict(compute_dtype="bfloat16")),
-                        ("egnn_equihnns", dict(cross_molecule_knn=True)),
+                        ("gin", dict(compute_dtype="bfloat16")),
                         ("egnn_equihnns", dict(remat=True)),
-                        ("mhnn", dict(compute_dtype="bfloat16"))],
+                        ("mhnn", dict(compute_dtype="bfloat16")),
+                        ("gat", dict(remat=True)),
+                        ("equiformer_equihnns", {})],
 )
 def test_unported_configs_raise(method, override):
+    """`cross_molecule_knn=True` is ported (`tests/test_torch_egnn_flat.py`)."""
     with pytest.raises((NotImplementedError, ValueError)):
         create_model(method, num_target=1, cfg=ModelConfig(**{**CFG, **override}))
 

@@ -160,6 +160,10 @@ def test_port_imports_no_jax():
         "import equihgnn_tpu_torch, equihgnn_tpu_torch.predict, equihgnn_tpu_torch.convert\n"
         "import equihgnn_tpu_torch.models, equihgnn_tpu_torch.main\n"
         "import equihgnn_tpu_torch.train.trainer, equihgnn_tpu_torch.data.datasets\n"
+        "import equihgnn_tpu_torch.models.baseline_2d, equihgnn_tpu_torch.data.smiles\n"
+        "import equihgnn_tpu_torch.ops.knn, equihgnn_tpu_torch.nn.egnn\n"
+        "from equihgnn_tpu_torch.data.featurize import mol_from_smiles\n"
+        "assert mol_from_smiles('c1ccccc1') is not None\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'equihgnn_tpu'))\n"
         "print(bad)\n"

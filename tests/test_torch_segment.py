@@ -113,9 +113,11 @@ def test_wrapper_rejects_other_devices():
 
 
 def test_unknown_reduce_raises():
+    """"max" is ported (`tests/test_torch_baseline2d.py` holds it to JAX);
+    a reduce neither framework knows still raises."""
     data, ids, mask, s = _inputs(4)
     with pytest.raises(ValueError):
-        masked_segment_reduce(torch.from_numpy(data), torch.from_numpy(ids), s, "max")
+        masked_segment_reduce(torch.from_numpy(data), torch.from_numpy(ids), s, "min")
 
 
 def test_pad_hypergraph_batch_rejects_unsorted_hedge_idx():
