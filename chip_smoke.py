@@ -58,7 +58,8 @@ result line), each printing its seconds:
    (recorded only); error, median time, allocation and the card's least
    time (`bound_ms`) of each;
 then, for each path, `egnn_equihnns`, `faformer_equihnns`,
-`visnet_equihnns` and `se3_transformer_equihnns`, the MHNN family `mhnn`,
+`visnet_equihnns`, `se3_transformer_equihnns` and `equiformer_equihnns`,
+the MHNN family `mhnn`,
 `mhnns` and `mhnnm`, and the encoders with the MHNN and MHNNM trunks
 (`egnn_equihnn{,m}`, `faformer_equihnn{,m}`, `visnet_equihnn{,m}`), at the
 bench recipe (hidden 256, 3 conv layers, output hidden 128 over 3 layers
@@ -66,7 +67,11 @@ bench recipe (hidden 256, 3 conv layers, output hidden 128 over 3 layers
 aggregation, LayerNorm, relu, f32; the FAFormer: 2 layers, 2 heads, k = 16;
 ViSNet: 6 layers, 8 heads, lmax 2, k = 17, 32 RBFs, cutoff 5 Å; the
 SE(3)-Transformer: dim 256, 2 heads, depth 2, dim_head 32, degrees 0 and
-1, k = 16 within 5 Å), and `se3_transformer_equihnns bf16`, the
+1, k = 16 within 5 Å; the Equiformer: fibers (256, 256), 1 head, depth 1,
+dim_head 48, MLP attention, k = 16 within 5 Å, no kernel of its own, its
+zero-init output weights drawn nonzero wherever a phase compares, so that
+its attention and feed-forward take part, `live_branches`), and
+`se3_transformer_equihnns bf16`, the
 SE(3)-Transformer with `--compute_dtype bfloat16` at the CLI's default
 widths (hidden 64, output hidden 64 over 2 layers; its pooled units take
 kernels L and M), the 2-D baselines `gin`, `gcn`, `gat` and `gatv2` at
@@ -81,7 +86,7 @@ kNN), with random weights from a seed:
    launch counters must show that both requests ran through the model's
    kernels (egnn: A 3x and B per forward; faformer: A 3x and D 5x;
    visnet: A 3x, F 6x, H 5x; se3: A 3x, J 4x; se3 bf16: A 3x, L 4x; the
-   MHNN family: A 3x; a hybrid: its encoder's, and A 3x; the
+   MHNN family and equiformer: A 3x; a hybrid: its encoder's, and A 3x; the
    cross-molecule path: A 3x and no B, JAX's flat EGNN being unfused); a
    2-D baseline serves the SDF and a SMILES file the script writes from
    `SMILES` (its last line does not parse: a nan row), each on the card
@@ -110,8 +115,8 @@ kNN), with random weights from a seed:
    finite and the last below the first; the launch counters show the
    model's kernels on every train step (egnn: A 3x, B, C; faformer: A 3x,
    D 5x, E 4x; visnet: A 3x, F 6x, H 5x, G 6x, I 5x; se3: A 3x, J 4x, K 4x;
-   se3 bf16: A 3x, L 8x, M 4x; the MHNN family: A 3x; a hybrid: its
-   encoder's; the 2-D baselines: none) and every eval forward;
+   se3 bf16: A 3x, L 8x, M 4x; the MHNN family and equiformer: A 3x; a
+   hybrid: its encoder's; the 2-D baselines: none) and every eval forward;
    `ckpt_best.pt` serves through `predict.run --device cuda`; the
    cross-molecule path has no train phase (neither CLI sets the flag);
 7. step: one train step at batch 768 (forward + backward + Adam): its
@@ -120,7 +125,15 @@ kNN), with random weights from a seed:
    of its top device kernels; for egnn and faformer, in one more step, the
    share of kernel C's dm and kernel E's dout rows that are exactly 0,
    beside the rows the model masks (egnn's dm must be 0 on every masked
-   edge).
+   edge);
+8. remat (the encoder paths and the bf16 path): one train step with
+   `remat=True` against the same step without it on the card, training
+   mode, the gradient phase's molecules; the remat step's launches (the
+   encoder's kernels again in its backward: egnn B, faformer D 5x, visnet
+   F 6x and H 5x, se3 J 4x, se3 bf16 L 4x more); each gradient within 1e-5
+   of its max plus twice the card's own change between two plain steps
+   (`index_add_` sums with atomics); for se3 and equiformer, the batch-768
+   step's time and peak memory with and without remat (recorded).
 
 FAFormer's frames are the eigenvectors of 3x3 covariances. Where a
 covariance is rank-deficient or has repeated eigenvalues (small, planar or
@@ -148,6 +161,7 @@ import functools
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -163,7 +177,7 @@ HIDDEN = 256
 # the encoders with the MHNNS trunk; the MHNN family (the atom embedding, then
 # the TrunkFull, TrunkS or TrunkM trunk); the encoders with TrunkFull and TrunkM
 ENCODER_METHODS = ("egnn_equihnns", "faformer_equihnns", "visnet_equihnns",
-                   "se3_transformer_equihnns")
+                   "se3_transformer_equihnns", "equiformer_equihnns")
 MHNN_METHODS = ("mhnn", "mhnns", "mhnnm")
 HYBRID_METHODS = ("egnn_equihnn", "egnn_equihnnm", "faformer_equihnn", "faformer_equihnnm",
                   "visnet_equihnn", "visnet_equihnnm")
@@ -200,6 +214,8 @@ FWD_LAUNCHES = {
     "se3_transformer_equihnns": {"sorted_segment_sum": 3, "pooled_conv": 4},
     # the same four units, each a per-J step through kernel L
     BF16_PATH: {"sorted_segment_sum": 3, "pooled_m": 4},
+    # the Equiformer runs no kernel (JAX computes it with XLA einsums)
+    "equiformer_equihnns": {"sorted_segment_sum": 3},
 }
 BWD_LAUNCHES = {
     "egnn_equihnns": {"fused_edge_messages_bwd": 1},
@@ -210,6 +226,7 @@ BWD_LAUNCHES = {
     "se3_transformer_equihnns": {"pooled_conv_bwd": 4},
     # kernel M, and L again where the checkpointed step is recomputed
     BF16_PATH: {"pooled_m": 4, "pooled_m_bwd": 4},
+    "equiformer_equihnns": {},
 }
 # each hybrid's encoder, whose *_equihnns path it shares its encoder's kernels with
 ENCODER_OF = {m: m.removesuffix("m") + "s" for m in HYBRID_METHODS}
@@ -469,10 +486,17 @@ def counters() -> dict:
             "pooled_m": pooled_m, "pooled_m_bwd": pooled_m_bwd}
 
 
-def expected_launches(path: str, forwards: int, backwards: int) -> dict[str, int]:
+def expected_launches(path: str, forwards: int, backwards: int,
+                      remat: bool = False) -> dict[str, int]:
+    """Each kernel's launches over `forwards` forwards and `backwards`
+    backward passes of `path`. With `remat` the checkpointed encoder's
+    forward runs again in each backward pass: its kernels (all but the
+    trunk's A) launch again there."""
     want = dict.fromkeys(counters(), 0)
     for name, n in FWD_LAUNCHES[path].items():
         want[name] += n * forwards
+        if remat and name != "sorted_segment_sum":
+            want[name] += n * backwards
     for name, n in BWD_LAUNCHES[path].items():
         want[name] += n * backwards
     return want
@@ -1299,6 +1323,21 @@ def recipe(path: str | None = None):
     return dataclasses.replace(cfg, **PATHS[path][1]) if path else cfg
 
 
+def live_branches(model):
+    """`model`, with the Equiformer's zero-init output weights (each
+    `attn_i.to_out` and `ff_i.project_out`) drawn at FiberLinear's non-zero
+    init scale 1/√dim_in from seed 7: at zero both branches add exactly 0
+    and their inner weights get exactly zero gradient, so a comparison
+    would hold nothing of them. Other models are left as they are."""
+    gen = torch.Generator().manual_seed(7)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if re.fullmatch(r"equiformer_layer\.(attn_\d+\.to_out|ff_\d+\.project_out)\.w\d+",
+                            name):
+                p.copy_(torch.randn(p.shape, generator=gen) * p.shape[0] ** -0.5)
+    return model
+
+
 def translation_spread(model, samples, batch_size: int) -> np.ndarray:
     """Per molecule, the most the CPU's prediction moves when the input is
     translated by 1e-4 to 1e-3 Å (six directions): the models are
@@ -1323,8 +1362,8 @@ def phase_serve(path: str, samples, smi: str) -> dict[str, int]:
 
     method, cfg = PATHS[path][0], recipe(path)
     dev = torch.device("cuda")
-    model = create_model(method, num_target=1, cfg=cfg,
-                         generator=torch.Generator().manual_seed(0))
+    model = live_branches(create_model(method, num_target=1, cfg=cfg,
+                                       generator=torch.Generator().manual_seed(0)))
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = save_checkpoint(os.path.join(tmp, "model.pt"), model, method, cfg, std=1.0)
         out_gpu, out_cpu = os.path.join(tmp, "gpu.csv"), os.path.join(tmp, "cpu.csv")
@@ -1555,7 +1594,8 @@ def check_bf16_serve(model, method: str, cfg, vals, samples, preds) -> None:
 # references at full width are slow (~17 s a step on 16 molecules), so it
 # takes 16 molecules and one jitter draw (GRAD_CUT).
 STEP_LIMIT = {"egnn_equihnns": 1e-4, "faformer_equihnns": 1e-2, "visnet_equihnns": 1e-4,
-              "se3_transformer_equihnns": 1e-2, **dict.fromkeys(MHNN_METHODS, 1e-4)}
+              "se3_transformer_equihnns": 1e-2, "equiformer_equihnns": 1e-4,
+              **dict.fromkeys(MHNN_METHODS, 1e-4)}
 STEP_LIMIT.update({m: STEP_LIMIT[enc] for m, enc in ENCODER_OF.items()})
 STEP_LIMIT.update({CROSS_PATH: 1e-4, **dict.fromkeys(GRAPH_METHODS, 1e-4)})
 ENCODER_LIMIT = {"se3_transformer_equihnns": 1e-2}  # the others: 1e-4
@@ -1590,6 +1630,12 @@ REACHED = {
                         "visnet_layer.embedding.atom.embedding"),
     "se3_transformer_equihnns": ("se3_transformer_layer.conv_in.pair_0_1.radial_out_W",
                                  "atom_encoder.atom.embedding"),
+    # tp_in's 0 → 1 pair, the attention's logits and values, the feed-forward
+    "equiformer_equihnns": ("equiformer_layer.tp_in.radial_0_1_out_W",
+                            "equiformer_layer.attn_0.to_attn_logits_0.weight",
+                            "equiformer_layer.attn_0.to_attn_and_v.radial_1_0_out_W",
+                            "equiformer_layer.ff_0.project_out.w0",
+                            "atom_encoder.atom.embedding"),
     **dict.fromkeys(MHNN_METHODS, ("atom_encoder.atom.embedding",)),
 }
 REACHED.update({m: REACHED[enc] for m, enc in ENCODER_OF.items()})
@@ -1606,14 +1652,15 @@ def trunk_reached(method: str) -> tuple[str, ...]:
 @contextlib.contextmanager
 def relu_sites(record: list | None = None, signs: list | None = None):
     """Within it, `torch.nn.functional.relu`, which every ReLU of the port
-    calls, and the 2-D baselines' `leaky_relu` append each input to `record`
-    (on the CPU), or, given the inputs an earlier run recorded in `signs`,
-    return x · (its recorded input > 0), or for a LeakyReLU x where its
-    recorded input ≥ 0 and slope · x elsewhere: that run's pattern, with the
-    gradient through it."""
+    calls, and the `leaky_relu` of the 2-D baselines and the Equiformer's
+    attention logits append each input to `record` (on the CPU), or, given
+    the inputs an earlier run recorded in `signs`, return x · (its recorded
+    input > 0), or for a LeakyReLU x where its recorded input ≥ 0 and
+    slope · x elsewhere: that run's pattern, with the gradient through it."""
     import torch.nn.functional as F
 
     from equihgnn_tpu_torch.models import baseline_2d
+    from equihgnn_tpu_torch.nn import equiformer
 
     relu, leaky = F.relu, baseline_2d.leaky_relu
     replay = iter(signs) if signs is not None else None
@@ -1636,11 +1683,11 @@ def relu_sites(record: list | None = None, signs: list | None = None):
         return leaky(x, negative_slope) if ref is None else torch.where(
             ref >= 0, x, x * negative_slope)
 
-    F.relu, baseline_2d.leaky_relu = patched, patched_leaky
+    F.relu, baseline_2d.leaky_relu, equiformer.leaky_relu = patched, patched_leaky, patched_leaky
     try:
         yield
     finally:
-        F.relu, baseline_2d.leaky_relu = relu, leaky
+        F.relu, baseline_2d.leaky_relu, equiformer.leaky_relu = relu, leaky, leaky
     check(replay is None or next(replay, None) is None, "the recorded ReLU pattern was not used up")
 
 
@@ -1683,8 +1730,8 @@ def phase_grads(path: str, pool) -> None:
     method, cfg = PATHS[path][0], recipe(path)
 
     def make(device):
-        return create_model(method, num_target=1, cfg=cfg, device=device,
-                            generator=torch.Generator().manual_seed(3)).eval()
+        return live_branches(create_model(method, num_target=1, cfg=cfg, device=device,
+                                          generator=torch.Generator().manual_seed(3))).eval()
 
     n_mol, draws = GRAD_CUT.get(path, (32, 4))
     spread = translation_spread(make("cpu"), pool, len(pool))
@@ -2015,7 +2062,8 @@ def phase_step(path: str, samples, smi: str) -> None:
 
     dev = torch.device("cuda")
     batch = request_batch(path, samples, target=0).to(dev)
-    model = create_model(PATHS[path][0], num_target=1, cfg=recipe(path), device=dev)
+    model = live_branches(create_model(PATHS[path][0], num_target=1, cfg=recipe(path),
+                                       device=dev))
     trainer = Trainer(model, TrainConfig(lr=1e-4), std=1.0, device=dev)
     trainer.train_step(batch)  # warm-up: cuBLAS handles, Adam state
     reset_launches()
@@ -2064,6 +2112,109 @@ def phase_step(path: str, samples, smi: str) -> None:
     gradient_zero_shares(path, trainer, batch)
     if path == CROSS_PATH:
         knn_graph_reading(batch, smi)
+
+
+# the paths whose encoder `remat` checkpoints, held with it on the card
+REMAT_PATHS = ENCODER_METHODS + (BF16_PATH,)
+# the paths whose batch-768 train step's peak memory is read with and without remat
+REMAT_MEMORY = ("se3_transformer_equihnns", "equiformer_equihnns")
+
+
+def phase_remat(path: str, samples, smi: str) -> None:
+    """`remat=True` (the encoder checkpointed) on the card: one train step in
+    training mode (dropout on where the model has it, seed 5) on the
+    gradient phase's first GRAD_CUT molecules, against the same step
+    without remat. The card's steps are not the same bits twice: the
+    trunk's pooling and the gathers' backward (`index_add_`) sum with
+    atomics (a step's predictions move by ~1e-6 between two runs), and the
+    first step after a model is built can round otherwise (bf16: cuBLAS's
+    first call). So a warm-up step comes first and records the trunk's
+    ReLU inputs; every later step takes its ReLU signs (a trunk ReLU input
+    within ~1e-6 of 0 that flipped moved egnn's embedding gradient by
+    ~1e-3 of its max); the encoders run no ReLU that rounding can flip
+    (their forwards are the same bits each run). Each gradient tensor is
+    held within 1e-5 of its max plus twice the card's own change between
+    two steps without remat; the bf16 path, whose own change reaches ~1e-2
+    of a tensor's max, as relative L2 over all parameters within twice its
+    own plus 1e-6. The remat step's launches must show the encoder's
+    kernels again in its backward. For REMAT_MEMORY, the batch-768 train
+    step's time and peak memory with and without remat (recorded, not
+    held)."""
+    from equihgnn_tpu_torch import create_model
+    from equihgnn_tpu_torch.data.batching import iter_batches, spec_for_samples
+    from equihgnn_tpu_torch.train.trainer import TrainConfig, Trainer, masked_mse
+
+    method = PATHS[path][0]
+    dev = torch.device("cuda")
+    n_mol = GRAD_CUT.get(path, (32,))[0]
+    pool = samples[:n_mol]
+    batch = next(iter_batches(pool, spec_for_samples(pool, n_mol), with_pos=True,
+                              target=0)).to(dev)
+
+    def make(remat):
+        cfg = dataclasses.replace(recipe(path), remat=remat)
+        return live_branches(create_model(method, num_target=1, cfg=cfg, device=dev,
+                                          generator=torch.Generator().manual_seed(3)))
+
+    def step(remat, record=None, signs=None):
+        model = make(remat).train()
+        trunk_forward = model.trunk.forward
+
+        def trunk_with_signs(*args, **kw):  # the trunk's ReLUs only: it is never recomputed
+            with relu_sites(record=record, signs=signs):
+                return trunk_forward(*args, **kw)
+
+        model.trunk.forward = trunk_with_signs
+        torch.manual_seed(5)
+        reset_launches()
+        sq, cnt = masked_mse(model(batch), batch.y, batch.graph_mask)
+        (sq / torch.clamp(cnt, min=1.0)).backward()
+        torch.cuda.synchronize()
+        return {n: p.grad.cpu() for n, p in model.named_parameters() if p.grad is not None}, \
+            read_launches()
+
+    signs = []
+    step(False, record=signs)  # warm-up
+    plain, _ = step(False, signs=signs)
+    again, _ = step(False, signs=signs)
+    got, launches = step(True, signs=signs)
+    check(launches == expected_launches(path, 1, 1, remat=True),
+          f"the remat step did not run {path}'s kernels as expected: {launches}")
+    check(set(got) == set(plain), "remat reaches other parameters")
+    if PATHS[path][1].get("compute_dtype"):
+        d, own = _rel_l2(got, plain), _rel_l2(again, plain)
+        check(d <= 2 * own + 1e-6, f"remat moved the bf16 gradients by {d:.3e} (relative L2), "
+                                   f"the card's own change {own:.3e}")
+        print(f"{path} remat: one train step on {n_mol} molecules, relative L2 over all "
+              f"parameters {d:.3e} (limit twice the card's own change between two steps "
+              f"without remat, {own:.3e}, plus 1e-6); launches {launches}")
+        return
+    worst = own = 0.0
+    for name, w in plain.items():
+        top = float(w.abs().max())
+        spread = float((again[name] - w).abs().max())
+        d = float((got[name] - w).abs().max())
+        check(d <= 1e-5 * top + 2 * spread, f"{name}: remat moved the gradient by {d:.3e} "
+                                            f"(max {top:.3e}, the card's own change {spread:.3e})")
+        if top > 0:
+            worst, own = max(worst, d / top), max(own, spread / top)
+    print(f"{path} remat: one train step on {n_mol} molecules, {len(plain)} gradients within "
+          f"1e-5 of their max plus twice the card's own change (worst max|d| / max {worst:.3e}; "
+          f"the card's own, two steps without remat: {own:.3e}); launches {launches}")
+    if path not in REMAT_MEMORY:
+        return
+    big = request_batch(path, samples, target=0).to(dev)
+    for remat in (False, True):
+        trainer = Trainer(make(remat), TrainConfig(lr=1e-4), std=1.0, device=dev)
+        trainer.train_step(big)  # warm-up: cuBLAS handles, Adam state
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms, = median_ms(lambda: trainer.train_step(big), iters=3)
+        peak = torch.cuda.max_memory_allocated()
+        print(f"{path} train step at batch {BATCH}, remat {remat}: median {ms:.3f} ms "
+              f"(CUDA events, 3 steps), peak memory {peak / 2**20:.1f} MiB; card: {smi}")
+        del trainer
+        torch.cuda.empty_cache()
 
 
 def knn_graph_reading(batch, smi: str) -> None:
@@ -2160,6 +2311,8 @@ def main() -> int:
             paths[f"{path} train"] = timed(f"{path} train", phase_train, path, smi)
         timed(f"{path} step", phase_step, path, graphs if path in GRAPH_METHODS else samples,
               smi)
+        if path in REMAT_PATHS:
+            timed(f"{path} remat", phase_remat, path, samples, smi)
     for row in kernels:
         row["launches"] = sum(counts[row["name"]] for counts in paths.values())
     print(f"launches by path: {paths}")

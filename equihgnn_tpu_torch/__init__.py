@@ -5,12 +5,13 @@ its kernels, on the CPU. It mirrors the module paths of the JAX package
 `equihgnn_tpu`, which stays the reference it is tested against, and
 imports nothing from it. Covered so far, in float32: serving
 (`python -m equihgnn_tpu_torch.predict`) and training
-(`python -m equihgnn_tpu_torch.main`) of 17 of the JAX package's 18
-models: the MHNN family `mhnn`, `mhnns`, `mhnnm`, the EGNN, FAFormer
-and ViSNet encoders each with the MHNN, MHNNS and MHNNM trunks
-(`egnn_equihnn{,s,m}`, `faformer_equihnn{,s,m}`, `visnet_equihnn{,s,m}`;
-EGNN also with the batch-wide kNN, `cross_molecule_knn=True`),
-`se3_transformer_equihnns`, and the 2-D baselines `gin`, `gcn`, `gat`,
+(`python -m equihgnn_tpu_torch.main`, `--remat` included) of all 18 of
+the JAX package's models: the MHNN family `mhnn`, `mhnns`, `mhnnm`, the
+EGNN, FAFormer and ViSNet encoders each with the MHNN, MHNNS and MHNNM
+trunks (`egnn_equihnn{,s,m}`, `faformer_equihnn{,s,m}`,
+`visnet_equihnn{,s,m}`; EGNN also with the batch-wide kNN,
+`cross_molecule_knn=True`), `se3_transformer_equihnns`,
+`equiformer_equihnns`, and the 2-D baselines `gin`, `gcn`, `gat`,
 `gatv2` on plain graphs;
 and `se3_transformer_equihnns` with `compute_dtype="bfloat16"` (its
 encoder in bf16, as in JAX) at widths whose pooled units JAX does not

@@ -12,8 +12,10 @@ path maps to a state-dict key by three rules:
     `MaskedBatchNorm_0` (`_Norm`), `PReLU_0` (`Activation`).
 
 Raw `self.param`s that no rule touches map untransposed under their own
-names (the SE(3)-Transformer's, and the 2-D baselines' `eps`, `root_emb`,
-`att_src`, `att_dst`, `att_edge`, `att`, `bias`, `lin_edge_kernel`).
+names (the SE(3)-Transformer's; the Equiformer's `w{d}` [in, out],
+`scale{d}` [dim, 1], `radial_{din}_{dout}_out_W` [f, o, i] and `_out_b`
+[o, i]; and the 2-D baselines' `eps`, `root_emb`, `att_src`, `att_dst`,
+`att_edge`, `att`, `bias`, `lin_edge_kernel`).
 
 A flax `LSTMCell` (`.../lstm/{ii,if,ig,io}/kernel`, no bias, and
 `.../lstm/{hi,hf,hg,ho}/{kernel,bias}`) maps to the port's `LSTMCell`

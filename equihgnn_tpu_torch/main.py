@@ -7,12 +7,12 @@ Usage:
     python -m equihgnn_tpu_torch.main --data synthetic_hg --method mhnn
     python -m equihgnn_tpu_torch.main --data synthetic_g --method gin
 
-Ported methods: `mhnn`, `mhnns`, `mhnnm`, `egnn_equihnn{,s,m}`,
-`faformer_equihnn{,s,m}`, `visnet_equihnn{,s,m}`,
-`se3_transformer_equihnns`, and the 2-D baselines `gin`, `gcn`, `gat`,
-`gatv2` (`GRAPH_METHODS`, at `ModelConfig`'s `gnn_*` defaults: 5 layers,
-300 wide, JK "last", mean pooling; the CLI has no flags for them, as in
-JAX). Ported datasets: `synthetic_hg` (no coordinates: the MHNN family),
+Ported methods (all 18 of the JAX package): `mhnn`, `mhnns`, `mhnnm`,
+`egnn_equihnn{,s,m}`, `faformer_equihnn{,s,m}`, `visnet_equihnn{,s,m}`,
+`se3_transformer_equihnns`, `equiformer_equihnns`, and the 2-D baselines
+`gin`, `gcn`, `gat`, `gatv2` (`GRAPH_METHODS`, at `ModelConfig`'s `gnn_*`
+defaults: 5 layers, 300 wide, JK "last", mean pooling; the CLI has no
+flags for them, as in JAX). Ported datasets: `synthetic_hg` (no coordinates: the MHNN family),
 `synthetic_hg_3d`, and the plain-graph sets `synthetic_g` and
 `synthetic_g_3d` (the 2-D baselines).
 
@@ -22,9 +22,12 @@ Differences from the JAX CLI:
     `--device` int and its `--platform`. `cuda` without a card raises; the
     run never carries on on the CPU.
   * Flags of paths that are not ported raise NotImplementedError when set:
-    `--data_parallel`, `--streaming`, `--pack_slots`, `--buckets`,
-    `--remat`. `--num_devices` only sizes the data-parallel path, so it has
-    no effect until that path is ported.
+    `--data_parallel`, `--streaming`, `--pack_slots`, `--buckets`.
+    `--num_devices` only sizes the data-parallel path, so it has no effect
+    until that path is ported.
+  * `--remat` checkpoints the encoder of every model that has one, as JAX
+    remats it (`torch.utils.checkpoint`); the MHNN family and the 2-D
+    baselines take the flag and ignore it, as in JAX.
   * `--compute_dtype bfloat16` runs where the model takes it: the encoder
     of `se3_transformer_equihnns` computes in bfloat16 (its pooled units
     through kernels L and M on the card) while the parameters, Adam and
@@ -71,7 +74,6 @@ UNPORTED_FLAGS = {
     "streaming": "ROADMAP item 4 (packed slot rows and the streaming data path)",
     "pack_slots": "ROADMAP item 4 (packed slot rows and the streaming data path)",
     "buckets": "ROADMAP item 4 (packed slot rows and the streaming data path)",
-    "remat": "ROADMAP item 11 (bfloat16 and remat)",
 }
 
 

@@ -44,7 +44,13 @@ from equihgnn_tpu_torch.common.registry import registry
 from equihgnn_tpu_torch.data.structures import NUM_BOND_FEATURES, GraphBatch
 from equihgnn_tpu_torch.models.common import check_compute, flat_pred, global_pool
 from equihgnn_tpu_torch.nn.encoders import AtomEncoder, BondEncoder
-from equihgnn_tpu_torch.nn.mlp import MaskedBatchNorm, TorchLinear, normal_, uniform_
+from equihgnn_tpu_torch.nn.mlp import (
+    MaskedBatchNorm,
+    TorchLinear,
+    leaky_relu,
+    normal_,
+    uniform_,
+)
 from equihgnn_tpu_torch.ops.segment import (
     segment_count,
     segment_max,
@@ -53,12 +59,6 @@ from equihgnn_tpu_torch.ops.segment import (
 )
 
 POOLINGS = ("sum", "mean", "max", "attention", "set2set")
-
-
-def leaky_relu(x: torch.Tensor, negative_slope: float) -> torch.Tensor:
-    """x where x ≥ 0, else slope·x: `jax.nn.leaky_relu`, whose gradient at
-    0 is 1 (`F.leaky_relu`'s is the slope)."""
-    return torch.where(x >= 0, x, x * negative_slope)
 
 
 def _glorot(shape, fan_in: int, fan_out: int, generator) -> nn.Parameter:

@@ -1,13 +1,15 @@
 """Shared model helpers (port of `equihgnn_tpu/models/common.py`): what a
 configuration may ask of the port, the compute-dtype cast, activation,
 graph pooling (sum, mean, max), the conjugated-hyperedge readout, the
-prediction's shape."""
+prediction's shape, and `HybridModel`, whose `remat_encoder` is
+`ModelConfig.remat`."""
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from equihgnn_tpu_torch.nn.mlp import prelu
 from equihgnn_tpu_torch.ops.segment import masked_segment_reduce, segment_sum
@@ -18,16 +20,16 @@ BF16_METHODS = ("se3_transformer_equihnns",)
 
 
 def check_compute(cfg, method: str) -> None:
-    """Raise on what the port does not run yet (ROADMAP item 11): `remat`,
-    and a `compute_dtype` other than float32, except bfloat16 on the models
-    of `BF16_METHODS`."""
+    """Raise on what the port does not run yet (ROADMAP item 11): a
+    `compute_dtype` other than float32, except bfloat16 on the models of
+    `BF16_METHODS`. `remat` runs on every model (`HybridModel.remat_encoder`;
+    the MHNN family and the 2-D baselines take the flag and ignore it, as in
+    JAX)."""
     dt = cfg.compute_dtype
     if dt not in (None, "float32") and not (dt == "bfloat16" and method in BF16_METHODS):
         raise NotImplementedError(
             f"compute_dtype={dt!r} on {method}: the PyTorch port runs bfloat16 only on "
             f"{', '.join(BF16_METHODS)}; the rest is ROADMAP item 11")
-    if cfg.remat:
-        raise NotImplementedError("remat is not ported yet: ROADMAP item 11")
 
 
 def cast_compute(cfg, *tensors):
@@ -111,6 +113,16 @@ class HybridModel(nn.Module):
 
     def encode(self, batch) -> torch.Tensor:
         raise NotImplementedError
+
+    def remat_encoder(self, module: nn.Module, *args, **kwargs):
+        """`module(*args, **kwargs)`; with `cfg.remat`, and autograd
+        recording, a `torch.utils.checkpoint` of it (JAX's `nn.remat` of the
+        encoder): its activations are recomputed in the backward pass, with
+        the same dropout (the CPU and the inputs' CUDA generator states are
+        restored for the recompute), and its kernels launch again there."""
+        if self.cfg.remat and torch.is_grad_enabled():
+            return checkpoint(module, *args, use_reentrant=False, **kwargs)
+        return module(*args, **kwargs)
 
     def forward(self, batch) -> torch.Tensor:
         """[num_graphs] float32 predictions (padding graph included)."""

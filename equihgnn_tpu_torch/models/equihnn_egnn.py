@@ -14,9 +14,10 @@ The port runs in float32, for serving (`model.eval()`) and training
 the masked BatchNorms; the EGNN has none, as in every model the reference
 builds). Gradients reach the same parameters as in JAX; the EGNN's
 coordinate branch (`coors_mlp_*`, `coors_norm`) gets none in either
-framework, because `encode` drops the EGNN's coordinates. Configurations
-the port does not support yet raise here: `compute_dtype` other than
-float32, and `remat`.
+framework, because `encode` drops the EGNN's coordinates. With `remat` the
+EGNN layer is checkpointed, as JAX remats it (`equihnn_egnn.py:38`): kernel
+B runs again in the backward pass. A `compute_dtype` other than float32
+raises (ROADMAP item 11).
 """
 
 from __future__ import annotations
@@ -44,8 +45,8 @@ class _EGNNBase(HybridModel):
                 "with_pos=True (use a *_hg_3d dataset)"
             )
         x = self.atom_encoder(batch.atom_feat)
-        x, _ = self.egnn_layer(
-            x, batch.pos,
+        x, _ = self.remat_encoder(
+            self.egnn_layer, x, batch.pos,
             slot_index=batch.slot_index,
             slot_mask=batch.slot_mask,
             atom_slot=batch.atom_slot,

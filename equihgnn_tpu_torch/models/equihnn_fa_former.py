@@ -12,8 +12,12 @@ The port runs in float32, for serving (`model.eval()`) and training
 attn_drop = 0.1, as the JAX model does: `--dropout` reaches the trunk only.
 The port's batches hold one molecule per slot row (`data/batching.py`), so
 the encoder takes the per-row frame and neighbour path and gets no
-`slot_gid`. Configurations the port does not support yet raise here:
-`compute_dtype` other than float32, `remat`.
+`slot_gid`. With `remat` the FAFormer call is checkpointed, as JAX remats
+it (`equihnn_fa_former.py:53-58`): the recompute replays the same dropout
+(the global generators' states are restored for it, and kernel D's mask
+seeds come from the CPU generator), and kernel D runs again in the
+backward pass. A `compute_dtype` other than float32 raises (ROADMAP item
+11).
 """
 
 from __future__ import annotations
@@ -42,8 +46,8 @@ class _FAFormerBase(HybridModel):
                 "build batches with with_pos=True and max_atoms_per_graph > 0"
             )
         x = self.atom_encoder(batch.atom_feat)
-        x, _ = self.fa_former(x, batch.pos, batch.atom_row, batch.slot_index,
-                              batch.slot_mask, batch.atom_slot)
+        x, _ = self.remat_encoder(self.fa_former, x, batch.pos, batch.atom_row,
+                                  batch.slot_index, batch.slot_mask, batch.atom_slot)
         return x
 
 

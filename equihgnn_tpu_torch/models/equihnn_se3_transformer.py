@@ -12,7 +12,10 @@ pooled ConvSE3 units run kernels J and K on the card, and with
 `compute_dtype="bfloat16"`, which as in JAX reaches the encoder only (its
 output is cast back to float32; the AtomEncoder, the trunk, the
 parameters and the loss stay float32), where they run kernels L and M.
-Configurations the port does not support yet raise here: `remat`, another
+With `remat` the SE(3)-Transformer is checkpointed, as JAX remats it
+(`equihnn_se3_transformer.py:35`), around the bf16 path's per-J
+checkpoints: kernel J (bf16: L) runs again in the backward pass.
+Configurations the port does not support yet raise here: another
 `compute_dtype`, and bfloat16 at a width whose pooled units JAX would fuse
 (`MLP_hidden` a multiple of 128; ROADMAP item 11).
 """
@@ -45,6 +48,6 @@ class SE3TransformerEquiHNNS(HybridModel):
                 "build batches with with_pos=True and max_atoms_per_graph > 0"
             )
         x = self.atom_encoder(batch.atom_feat)
-        return self.se3_transformer_layer(x, batch.pos, batch.atom_row, batch.slot_index,
-                                          batch.slot_mask, batch.atom_slot,
-                                          slot_gid=batch.slot_gid)
+        return self.remat_encoder(self.se3_transformer_layer, x, batch.pos, batch.atom_row,
+                                  batch.slot_index, batch.slot_mask, batch.atom_slot,
+                                  slot_gid=batch.slot_gid)

@@ -11,9 +11,10 @@ per-atom scalars; then the MHNN, MHNNS or MHNNM trunk.
 The port runs in float32, for serving (`model.eval()`) and training
 (`model.train()`: ViSNet has no dropout; `--dropout` reaches the trunk).
 ViSNet keeps JAX's `remat_layers=None`: each layer is recomputed in the
-backward pass on the CPU, never on the card, where kernels F-I run.
-Configurations the port does not support yet raise here: `compute_dtype`
-other than float32, `remat`.
+backward pass on the CPU, never on the card, where kernels F-I run. With
+`remat` the whole ViSNet block is checkpointed besides, as JAX remats it
+(`equihnn_visnet.py:31`): kernels F and H run again in the backward pass.
+A `compute_dtype` other than float32 raises (ROADMAP item 11).
 """
 
 from __future__ import annotations
@@ -36,8 +37,9 @@ class _ViSNetBase(HybridModel):
                 "visnet_equihnn* models need 3-D coordinates and the slot view: "
                 "build batches with with_pos=True and max_atoms_per_graph > 0"
             )
-        return self.visnet_layer(batch.atom_feat, batch.pos, batch.atom_row, batch.slot_index,
-                                 batch.slot_mask, batch.atom_slot, slot_gid=batch.slot_gid)
+        return self.remat_encoder(self.visnet_layer, batch.atom_feat, batch.pos,
+                                  batch.atom_row, batch.slot_index, batch.slot_mask,
+                                  batch.atom_slot, slot_gid=batch.slot_gid)
 
 
 @registry.register_model("visnet_equihnn")

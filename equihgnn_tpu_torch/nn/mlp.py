@@ -6,7 +6,8 @@ the reference MLP: an optional input norm, then [Linear → ReLU → Norm →
 Dropout]×(L-1) → Linear. Normalization is "ln" (LayerNorm), "bn"
 (`MaskedBatchNorm`: BatchNorm1d over the rows a mask keeps, so the padding
 rows of a batch take no part in its statistics) or "None". `prelu` is the
-reference's learnable-slope activation, one slope for all channels.
+reference's learnable-slope activation, one slope for all channels, and
+`leaky_relu` JAX's.
 """
 
 from __future__ import annotations
@@ -57,6 +58,13 @@ class TorchLinear(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.linear(x, self.weight, self.bias)
+
+
+def leaky_relu(x: torch.Tensor, negative_slope: float) -> torch.Tensor:
+    """x where x ≥ 0, else slope·x: `jax.nn.leaky_relu`, whose gradient at
+    0 is 1 (`F.leaky_relu`'s is the slope). The 2-D baselines' GAT and the
+    Equiformer's attention logits call it."""
+    return torch.where(x >= 0, x, x * negative_slope)
 
 
 def prelu(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:

@@ -23,7 +23,8 @@ to the CPU. Covered: every model the port registers. From `--sdf`: the
 MHNN family (`mhnn`, `mhnns`, `mhnnm`) and the 2-D baselines (`gin`,
 `gcn`, `gat`, `gatv2`), which read no coordinates, and the encoders with
 3-D coordinates (`egnn_equihnn{,s,m}`, `faformer_equihnn{,s,m}`,
-`visnet_equihnn{,s,m}`, `se3_transformer_equihnns`). From `--smiles`: the
+`visnet_equihnn{,s,m}`, `se3_transformer_equihnns`,
+`equiformer_equihnns`). From `--smiles`: the
 methods without coordinates; a geometric method raises. The model serves
 in `eval()` mode: dropout off, and a masked BatchNorm normalizes by its
 running statistics, which the checkpoint carries.

@@ -55,6 +55,7 @@ from typing import Callable, Iterable
 
 import torch
 
+from equihgnn_tpu_torch.predict import resolve_device
 from equihgnn_tpu_torch.train.metrics import EvalAccumulator
 from equihgnn_tpu_torch.train.schedule import EarlyStopping, ReduceLROnPlateau
 
@@ -137,13 +138,17 @@ class _Prefetcher:
 
 
 class Trainer:
-    """Drives one run of (fit + test) for a model on padded-batch loaders."""
+    """Drives one run of (fit + test) for a model on padded-batch loaders.
+
+    `device` is keyword-only and defaults to "cuda", as the CLIs do: without
+    a card that raises, and the run never carries on on the CPU unless the
+    caller names it (`device="cpu"`)."""
 
     def __init__(self, model: torch.nn.Module, cfg: TrainConfig,
-                 std: float | None = None, device="cpu"):
+                 std: float | None = None, *, device="cuda"):
         self.cfg = cfg
         self.std = std
-        self.device = torch.device(device)
+        self.device = resolve_device(str(device))
         self.model = model.to(self.device)
         self.params = [p for p in self.model.parameters() if p.requires_grad]
         for p in self.params:  # zero, never None: see the module docstring

@@ -440,7 +440,7 @@ def test_mhnnm_adam_step_matches_jax():
     start = {k: v.clone() for k, v in model.state_dict().items()}
     grads = params_from_jax(jax_reference(jmodel, jb, params, stats)[3], model,
                             batch_stats=stats)
-    tt = Trainer(model, TrainConfig(lr=lr, weight_decay=wd, seed=0), std=1.0)
+    tt = Trainer(model, TrainConfig(lr=lr, weight_decay=wd, seed=0), std=1.0, device="cpu")
     tloss = tt.train_step(tb)
     np.testing.assert_allclose(float(tloss), float(jloss), rtol=1e-5)
     want = params_from_jax(_flat(jp), model, batch_stats=_flat(jstats))

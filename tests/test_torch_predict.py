@@ -162,6 +162,7 @@ def test_port_imports_no_jax():
         "import equihgnn_tpu_torch.train.trainer, equihgnn_tpu_torch.data.datasets\n"
         "import equihgnn_tpu_torch.models.baseline_2d, equihgnn_tpu_torch.data.smiles\n"
         "import equihgnn_tpu_torch.ops.knn, equihgnn_tpu_torch.nn.egnn\n"
+        "import equihgnn_tpu_torch.nn.equiformer, equihgnn_tpu_torch.models.equihnn_equiformer\n"
         "from equihgnn_tpu_torch.data.featurize import mol_from_smiles\n"
         "assert mol_from_smiles('c1ccccc1') is not None\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "

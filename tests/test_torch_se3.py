@@ -456,7 +456,7 @@ def test_three_adam_steps_match_jax(model_case):
     opt_state, stats, key = jt.tx.init(params), {}, jax.random.PRNGKey(1)
     model = create_model("se3_transformer_equihnns", num_target=1, cfg=ModelConfig(**CFG))
     model.load_state_dict(params_from_jax(flat, model))
-    tt = Trainer(model, TrainConfig(lr=lr, weight_decay=wd, seed=0), std=1.0)
+    tt = Trainer(model, TrainConfig(lr=lr, weight_decay=wd, seed=0), std=1.0, device="cpu")
     tt.set_lr(lr)
     for jb, tb in pairs:
         params, opt_state, stats, jloss, key = step(params, opt_state, stats, jb,
@@ -497,13 +497,18 @@ def test_one_atom_batch_has_no_neighbours():
 
 
 def test_unported_options_raise():
-    """remat; another compute dtype; bfloat16 at a width whose pooled units
-    JAX would fuse (`tests/test_torch_se3_bf16.py` runs it at 16)."""
-    for override in (dict(remat=True), dict(compute_dtype="float16"),
+    """Another compute dtype; bfloat16 at a width whose pooled units JAX
+    would fuse (`tests/test_torch_se3_bf16.py` runs it at 16). `remat` is
+    ported: the model builds, and its encoder is a checkpoint
+    (`tests/test_torch_remat.py` holds its step)."""
+    for override in (dict(compute_dtype="float16"),
                      dict(compute_dtype="bfloat16", mlp_hidden=256)):
         with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
             create_model("se3_transformer_equihnns", num_target=1,
                          cfg=ModelConfig(**{**CFG, **override}))
+    model = create_model("se3_transformer_equihnns", num_target=1,
+                         cfg=ModelConfig(**CFG, remat=True))
+    assert model.cfg.remat
 
 
 def test_init_distributions():

@@ -130,7 +130,8 @@ def test_three_adam_steps_match_jax():
     jt = JaxTrainer(jmodel, JaxTrainConfig(lr=lr, weight_decay=wd, seed=0), jbs[0], std=1.0)
     params = traverse_util.unflatten_dict({k: jnp.asarray(v) for k, v in flat.items()}, sep="/")
     opt_state, stats, key = jt.tx.init(params), jt.batch_stats, jax.random.PRNGKey(1)
-    tt = Trainer(_port_model(flat), TrainConfig(lr=lr, weight_decay=wd, seed=0), std=1.0)
+    tt = Trainer(_port_model(flat), TrainConfig(lr=lr, weight_decay=wd, seed=0), std=1.0,
+                 device="cpu")
     tt.set_lr(lr)
     for jb, tb in zip(jbs, tbs):
         params, opt_state, stats, jloss, key = jt._step_fn(
@@ -233,7 +234,7 @@ def _trainer(tmp_path, *, epochs, lr=3e-3, resume=False, dropout=0.0, seed=0, hi
                        num_bootstraps=5,
                        run_meta={"method": method,
                                  "model_config": dataclasses.asdict(cfg), "std": 1.0})
-    return Trainer(model, tcfg, std=1.0)
+    return Trainer(model, tcfg, std=1.0, device="cpu")
 
 
 def _loaders(train, val, spec):
@@ -437,12 +438,19 @@ def test_main_cuda_raises_without_card(tmp_path, monkeypatch):
     assert not os.path.exists(tmp_path / "logs")
 
 
-# --compute_dtype now reaches the model, whose check raises on egnn_equihnns
-@pytest.mark.parametrize("flag", sorted([*UNPORTED_FLAGS, "compute_dtype"]))
+# --compute_dtype now reaches the model, whose check raises on egnn_equihnns;
+# --remat is ported: it trains (its step: tests/test_torch_remat.py)
+@pytest.mark.parametrize("flag", sorted([*UNPORTED_FLAGS, "compute_dtype", "remat"]))
 def test_unported_flags_raise(flag, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     extra = {"buckets": ["--buckets", "16,24"], "compute_dtype": ["--compute_dtype", "bfloat16"]}
     args = build_parser().parse_args(CLI + ["--device", "cpu"] + extra.get(flag, [f"--{flag}"]))
+    if flag == "remat":
+        args = build_parser().parse_args(
+            CLI + ["--device", "cpu", "--remat", "--debug", "--synthetic_size", "40",
+                   "--batch_size", "8", "--MLP_hidden", "16", "--output_hidden", "8"])
+        assert np.isfinite(run(args)["history"][0]["train_loss"])
+        return
     with pytest.raises(NotImplementedError, match=flag):
         run(args)
 

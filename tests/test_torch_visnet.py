@@ -334,9 +334,12 @@ def test_vis_mp_matches_jax(last_layer):
 def test_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="vertex"):
         tvis.ViS_MP(8, 16, 5.0, None, False, vertex=True, **GEN)
-    for override in (dict(compute_dtype="bfloat16"), dict(remat=True)):
-        with pytest.raises(NotImplementedError):
-            create_model("visnet_equihnns", num_target=1, cfg=ModelConfig(**CFG, **override))
+    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
+        create_model("visnet_equihnns", num_target=1,
+                     cfg=ModelConfig(**CFG, compute_dtype="bfloat16"))
+    # remat is ported (its step: tests/test_torch_remat.py)
+    assert create_model("visnet_equihnns", num_target=1,
+                        cfg=ModelConfig(**CFG, remat=True)).cfg.remat
 
 
 def _visnet_args(b, pos=None):
