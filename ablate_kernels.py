@@ -228,8 +228,8 @@ C_PATCHES = {
          "        if (lane % SPAN == 0) sb.dd[warp * (k_nbrs + 1) + list[i0 + lane / SPAN]] = r;",
          "")],
     "a quarter of the W1 products": [
-        ("for (int q = 0; q < M_OUT / 4; ++q) {\n            const float4 v = dz4[q];",
-         "for (int q = 0; q < 1; ++q) {\n            const float4 v = dz4[q];")],
+        ("for (int q = 0; q < M_OUT / 4; ++q) {\n              const float4 v = dz4[q];",
+         "for (int q = 0; q < 1; ++q) {\n              const float4 v = dz4[q];")],
     "4 rows a block": [("constexpr int BW_ROWS = 2;", "constexpr int BW_ROWS = 4;")],
     "4 blocks an SM": [("constexpr int BW_MIN_BLOCKS = 5;", "constexpr int BW_MIN_BLOCKS = 4;")],
     "6 blocks an SM": [("constexpr int BW_MIN_BLOCKS = 5;", "constexpr int BW_MIN_BLOCKS = 6;")],
@@ -314,10 +314,10 @@ E_PATCHES = {
 }
 # kernel B (csrc/edge_mlp.cu, the forward): this tree's kernel with one part
 # switched off or done otherwise
-_B_SPLIT = """            split_tf32_alu(v[0][2 * s], ah[0], al[0]);
-            split_tf32_alu(v[1][2 * s], ah[1], al[1]);
-            split_tf32_alu(v[0][2 * s + 1], ah[2], al[2]);
-            split_tf32_alu(v[1][2 * s + 1], ah[3], al[3]);"""
+_B_SPLIT = """      split_tf32_alu(v[0][2 * s], ah[0], al[0]);
+      split_tf32_alu(v[1][2 * s], ah[1], al[1]);
+      split_tf32_alu(v[0][2 * s + 1], ah[2], al[2]);
+      split_tf32_alu(v[1][2 * s + 1], ah[3], al[3]);"""
 # the split by floating-point operations (Veltkamp: big = c − (c − x), c =
 # 8193·x, rounds to 11 significant bits), of both parts, or of big alone with
 # small's low bits left to the tensor cores
@@ -337,21 +337,19 @@ __device__ __forceinline__ void split_fp_big(float x, uint32_t& big, uint32_t& s
 }
 
 // Kernel B's W1 as mma.sync B fragments"""
-_B_UJN_READ = "            const float4 j4 = *reinterpret_cast<const float4*>(ujn_st + jo[i][h] + c);"
+_B_UJN_READ = "            const float4 j4 = E::load4(ujn_st + jo[i][h] + c);"
 B_PATCHES = {
     "no slot skip": [("      bool on = tile < n_tiles && !emask;", "      bool on = tile < n_tiles;")],
     "ujn from L2": [
         ("        jo[i][h] = ex ? static_cast<int>(idx[at]) * CWP : 0;",
          "        jo[i][h] = ex ? static_cast<int>(idx[at]) * f_dim : 0;"),
-        ("      for (int i = tid; i < a_slots * CW; i += THREADS) {\n"
-         "        const int a = i / CW, c = i - a * CW, f = c0 + c;",
-         "      for (int i = a_slots * CW; i < a_slots * CW; i += THREADS) {\n"
-         "        const int a = i / CW, c = i - a * CW, f = c0 + c;"),
+        ("      for (int i = tid; i < a_slots * WORDS; i += THREADS) {",
+         "      for (int i = a_slots * WORDS; i < a_slots * WORDS; i += THREADS) {"),
         (_B_UJN_READ,
-         "            const float* jp = ujn + row0 * f_dim + jo[i][h] + ch * CW + c;\n"
+         "            const T* jp = ujn + row0 * f_dim + jo[i][h] + ch * CW + c;\n"
          "            const int fl = f_dim - ch * CW - c;\n"
-         "            const float4 j4 = make_float4(fl > 0 ? jp[0] : 0.f, fl > 1 ? jp[1] : 0.f,\n"
-         "                                          fl > 2 ? jp[2] : 0.f, fl > 3 ? jp[3] : 0.f);")],
+         "            const float4 j4 = make_float4(fl > 0 ? E::f(jp[0]) : 0.f, fl > 1 ? E::f(jp[1]) : 0.f,\n"
+         "                                          fl > 2 ? E::f(jp[2]) : 0.f, fl > 3 ? E::f(jp[3]) : 0.f);")],
     "stages of 32 columns": [("  for (int cw = 64; cw >= 16; cw /= 2)", "  for (int cw = 32; cw >= 16; cw /= 2)")],
     "2 tiles a warp": [("constexpr int FW_TPW = 4;", "constexpr int FW_TPW = 2;")],
     # 4 warps of up to 8 tiles (a row's 17 live tiles are then 5 a warp at
@@ -367,18 +365,19 @@ B_PATCHES = {
     # the chunk's sums carried on the tensor cores over its 8 k-steps, not
     # each 16-column group's from 0
     "sums over the chunk on the tensor cores": [
-        ("          float grp[2][4] = {};", ""),
-        ("              mma_3xtf32(grp[j], ah, al,", "              mma_3xtf32(acc[i][j], ah, al,"),
-        ("            for (int r = 0; r < 4; ++r) acc[i][j][r] += grp[j][r];", "            {}")],
+        ("#pragma unroll\n    for (int j = 0; j < 2; ++j)\n#pragma unroll\n"
+         "      for (int r = 0; r < 4; ++r) grp[j][r] = 0.f;\n", ""),
+        ("          float grp[2][4];\n          E::product(grp, v, wf);\n#pragma unroll\n"
+         "          for (int j = 0; j < 2; ++j)\n#pragma unroll\n"
+         "            for (int r = 0; r < 4; ++r) acc[i][j][r] += grp[j][r];",
+         "          E::product(acc[i], v, wf);")],
     # what the products and the SiLUs cost: a1 formed and split, no mma
     # (a dependence on every split value keeps them); a1 without its SiLU
-    "no products": [("              mma_3xtf32(grp[j], ah, al, __float_as_uint(hb[2 * s]),\n"
-                     "                         __float_as_uint(hb[2 * s + 1]), __float_as_uint(lb[2 * s]),\n"
-                     "                         __float_as_uint(lb[2 * s + 1]));",
-                     "              grp[j][0] += as_float(ah[0] ^ ah[1] ^ ah[2] ^ ah[3] ^ al[0] ^ al[1] ^\n"
-                     "                                       al[2] ^ al[3] ^ __float_as_uint(hb[2 * s] + lb[2 * s]));")],
-    "no SiLU in a1": [("              v[h][u] = silu(base[u] + jv[u] + dd[i][h] * w4[u]);",
-                       "              v[h][u] = base[u] + jv[u] + dd[i][h] * w4[u];")],
+    "no products": [("        mma_3xtf32(grp[j], ah, al, __float_as_uint(hb[2 * s]), __float_as_uint(hb[2 * s + 1]),\n"
+                     "                   __float_as_uint(lb[2 * s]), __float_as_uint(lb[2 * s + 1]));",
+                     "        grp[j][0] += as_float(ah[0] ^ ah[1] ^ ah[2] ^ ah[3] ^ al[0] ^ al[1] ^\n"
+                     "                                 al[2] ^ al[3] ^ __float_as_uint(hb[2 * s] + lb[2 * s]));")],
+    "no SiLU in a1": [("    return silu(base + uj + d * w);", "    return base + uj + d * w;")],
     # the split by floating-point operations (Veltkamp: big = c − (c − x), c =
     # 8193·x, rounds to 11 significant bits), of both parts, or of big alone
     # with small's low bits left to the tensor cores

@@ -55,8 +55,15 @@ result line), each printing its seconds:
    one `torch.bmm` over the sites, for M two (dh = tc·dM, dtc = h·dMᵀ, a
    reference time only); then L in
    f32 at the recipe's C = 1 unit with its projection against J
-   (recorded only); error, median time, allocation and the card's least
-   time (`bound_ms`) of each;
+   (recorded only); then A, B and C in bf16 (the bf16 paths' variants,
+   `bf16_kernel_rows`) at the same shapes against their plain bf16
+   versions, the same bits twice: A at the trunk's reduction and its edge
+   cases within one bf16 ulp, timed against `index_add_` into f32 and a
+   cast; B in its three modes within one ulp; C in cases (a) and (b)
+   within two ulps past the bound of dz's rounding; each timed one call a
+   sample and by device time alone, B's and C's products bound at the bf16
+   peak; error, median time, allocation and the card's least time
+   (`bound_ms`) of each;
 then, for each path, `egnn_equihnns`, `faformer_equihnns`,
 `visnet_equihnns`, `se3_transformer_equihnns` and `equiformer_equihnns`,
 the MHNN family `mhnn`,
@@ -74,32 +81,37 @@ its attention and feed-forward take part, `live_branches`), and
 `se3_transformer_equihnns bf16`, the
 SE(3)-Transformer with `--compute_dtype bfloat16` at the CLI's default
 widths (hidden 64, output hidden 64 over 2 layers; its pooled units take
-kernels L and M), the 2-D baselines `gin`, `gcn`, `gat` and `gatv2` at
+kernels L and M), `egnn_equihnns bf16` and `mhnns bf16` (the recipe with
+`--compute_dtype bfloat16`: the EGNN and the trunk in bf16, kernels A, B
+and C in bf16), the 2-D baselines `gin`, `gcn`, `gat` and `gatv2` at
 ModelConfig's gnn_* widths (5 layers, 300 wide, JK "last", mean pooling,
 dropout 0; GAT: 4 heads averaged), and `egnn_equihnns cross-molecule`
 (the recipe with `cross_molecule_knn=True`: EGNN's flat path, a batch-wide
 kNN), with random weights from a seed:
 4. serve: saved as a port checkpoint, served through
    `equihgnn_tpu_torch.predict.run` on `datasets/real_sample/sample.sdf`
-   and checked against the CPU molecule by molecule; then one request of
+   (the bf16 paths with `--compute_dtype bfloat16`) and checked against
+   the CPU molecule by molecule; then one request of
    768 synthetic molecules through the same library path. The kernels'
    launch counters must show that both requests ran through the model's
    kernels (egnn: A 3x and B per forward; faformer: A 3x and D 5x;
-   visnet: A 3x, F 6x, H 5x; se3: A 3x, J 4x; se3 bf16: A 3x, L 4x; the
+   visnet: A 3x, F 6x, H 5x; se3: A 3x, J 4x; se3 bf16: A 3x, L 4x;
+   egnn bf16: A 3x and B, mhnns bf16: A 3x, each also on the wrapper's
+   bf16 counter (`launches_bf16`, which the f32 paths must leave at 0); the
    MHNN family and equiformer: A 3x; a hybrid: its encoder's, and A 3x; the
    cross-molecule path: A 3x and no B, JAX's flat EGNN being unfused); a
    2-D baseline serves the SDF and a SMILES file the script writes from
    `SMILES` (its last line does not parse: a nan row), each on the card
    and the CPU within rtol 1e-4 / atol 1e-5, benzene's two rows equal,
    and the batch-768 request of plain graphs, with no kernel launched; the
-   bf16 path is held instead to its CPU run (BF16_SERVE_SHARE of the CPU's
+   bf16 paths are held instead to their CPU runs (BF16_SERVE_SHARE of the CPU's
    bf16-vs-f32 distance), its distance from the f32 model at the same
    weights on the card recorded;
 5. gradients: one train step's parameter gradients at full width on 32
    molecules (eval mode: no dropout), on the card (kernels) against the
    CPU (plain versions) with the card's pattern of ReLU signs; every
-   parameter the CPU reaches must be reached on the card (the bf16 path:
-   against its CPU bf16 run, as relative L2 over all parameters, a step
+   parameter the CPU reaches must be reached on the card (the bf16 paths:
+   against their CPU bf16 runs, as relative L2 over all parameters, a step
    and the encoder under a smooth loss, BF16_GRAD_SHARE); a hybrid takes
    16 molecules and checks the step only: its encoder alone is held on
    its `*_equihnns` path; a 2-D baseline takes 64 molecules, the CPU run
@@ -125,15 +137,18 @@ kNN), with random weights from a seed:
    of its top device kernels; for egnn and faformer, in one more step, the
    share of kernel C's dm and kernel E's dout rows that are exactly 0,
    beside the rows the model masks (egnn's dm must be 0 on every masked
-   edge);
-8. remat (the encoder paths and the bf16 path): one train step with
+   edge); for egnn bf16, the kNN on the batch's bf16 positions on the card
+   and the CPU: the slots whose neighbour set differs (recorded);
+8. remat (the encoder paths, se3 bf16 and egnn bf16): one train step with
    `remat=True` against the same step without it on the card, training
    mode, the gradient phase's molecules; the remat step's launches (the
    encoder's kernels again in its backward: egnn B, faformer D 5x, visnet
-   F 6x and H 5x, se3 J 4x, se3 bf16 L 4x more); each gradient within 1e-5
-   of its max plus twice the card's own change between two plain steps
-   (`index_add_` sums with atomics); for se3 and equiformer, the batch-768
-   step's time and peak memory with and without remat (recorded).
+   F 6x and H 5x, se3 J 4x, se3 bf16 L 4x, egnn bf16 B more); the steps
+   with PyTorch's deterministic algorithms (`index_add_` in a fixed order,
+   not with atomics); each gradient within 1e-5 of its max plus twice the
+   card's own change between two plain steps; for se3 and equiformer, the
+   batch-768 step's time and peak memory with and without remat
+   (recorded).
 
 FAFormer's frames are the eigenvectors of 3x3 covariances. Where a
 covariance is rank-deficient or has repeated eigenvalues (small, planar or
@@ -188,6 +203,10 @@ GRAPH_METHODS = ("gin", "gcn", "gat", "gatv2")
 # se3_transformer_equihnns --compute_dtype bfloat16 at the CLI's default widths
 # (`equihgnn_tpu/main.py:62-64`), where JAX's fused pooled unit refuses O = 64
 BF16_PATH = "se3_transformer_equihnns bf16"
+# egnn_equihnns and mhnns with --compute_dtype bfloat16 at the recipe: the
+# EGNN encoder and the trunk in bf16 (kernels A, B and C in bf16)
+EGNN_BF16, MHNNS_BF16 = "egnn_equihnns bf16", "mhnns bf16"
+BF16_HYPER_PATHS = (EGNN_BF16, MHNNS_BF16)
 # egnn_equihnns with the reference's batch-as-one-point-cloud kNN
 # (cross_molecule_knn=True): EGNN's flat path, JAX's unfused edge MLP (no kernel B)
 CROSS_PATH = "egnn_equihnns cross-molecule"
@@ -196,6 +215,8 @@ PATHS = {**{m: (m, {}) for m in METHODS},
          BF16_PATH: ("se3_transformer_equihnns", dict(mlp_hidden=64, output_hidden=64,
                                                       output_num_layers=2,
                                                       compute_dtype="bfloat16")),
+         EGNN_BF16: ("egnn_equihnns", dict(compute_dtype="bfloat16")),
+         MHNNS_BF16: ("mhnns", dict(compute_dtype="bfloat16")),
          **{m: (m, {}) for m in GRAPH_METHODS},
          CROSS_PATH: ("egnn_equihnns", dict(cross_molecule_knn=True))}
 # SMILES served by the 2-D paths (one a line; the last does not parse: a nan row)
@@ -216,6 +237,10 @@ FWD_LAUNCHES = {
     BF16_PATH: {"sorted_segment_sum": 3, "pooled_m": 4},
     # the Equiformer runs no kernel (JAX computes it with XLA einsums)
     "equiformer_equihnns": {"sorted_segment_sum": 3},
+    # bf16: each launch counts on the wrapper's counter and on its bf16 one
+    EGNN_BF16: {"sorted_segment_sum": 3, "sorted_segment_sum bf16": 3,
+                "fused_edge_messages": 1, "fused_edge_messages bf16": 1},
+    MHNNS_BF16: {"sorted_segment_sum": 3, "sorted_segment_sum bf16": 3},
 }
 BWD_LAUNCHES = {
     "egnn_equihnns": {"fused_edge_messages_bwd": 1},
@@ -227,6 +252,8 @@ BWD_LAUNCHES = {
     # kernel M, and L again where the checkpointed step is recomputed
     BF16_PATH: {"pooled_m": 4, "pooled_m_bwd": 4},
     "equiformer_equihnns": {},
+    EGNN_BF16: {"fused_edge_messages_bwd": 1, "fused_edge_messages_bwd bf16": 1},
+    MHNNS_BF16: {},
 }
 # each hybrid's encoder, whose *_equihnns path it shares its encoder's kernels with
 ENCODER_OF = {m: m.removesuffix("m") + "s" for m in HYBRID_METHODS}
@@ -456,7 +483,10 @@ def phase_build() -> None:
 
 
 def counters() -> dict:
-    """name → the launch-counted wrapper of every kernel."""
+    """name → (the launch-counted wrapper of a kernel, its counter's
+    attribute): `launches` of every wrapper, in any dtype, and beside it
+    `launches_bf16` of the wrappers of A, B and C, the bf16 launches alone
+    (named "<wrapper> bf16")."""
     from equihgnn_tpu_torch.ops.kernels.edge_mlp import (
         fused_edge_messages,
         fused_edge_messages_bwd,
@@ -475,15 +505,19 @@ def counters() -> dict:
         vis_wdot_bwd,
     )
 
-    return {"sorted_segment_sum": sorted_segment_sum,
-            "fused_edge_messages": fused_edge_messages,
-            "fused_edge_messages_bwd": fused_edge_messages_bwd,
-            "fused_frame_swiglu": fused_frame_swiglu,
-            "fused_frame_swiglu_bwd": fused_frame_swiglu_bwd,
-            "vis_vec_agg": vis_vec_agg, "vis_vec_agg_bwd": vis_vec_agg_bwd,
-            "vis_wdot": vis_wdot, "vis_wdot_bwd": vis_wdot_bwd,
-            "pooled_conv": pooled_conv, "pooled_conv_bwd": pooled_conv_bwd,
-            "pooled_m": pooled_m, "pooled_m_bwd": pooled_m_bwd}
+    fns = {"sorted_segment_sum": sorted_segment_sum,
+           "fused_edge_messages": fused_edge_messages,
+           "fused_edge_messages_bwd": fused_edge_messages_bwd,
+           "fused_frame_swiglu": fused_frame_swiglu,
+           "fused_frame_swiglu_bwd": fused_frame_swiglu_bwd,
+           "vis_vec_agg": vis_vec_agg, "vis_vec_agg_bwd": vis_vec_agg_bwd,
+           "vis_wdot": vis_wdot, "vis_wdot_bwd": vis_wdot_bwd,
+           "pooled_conv": pooled_conv, "pooled_conv_bwd": pooled_conv_bwd,
+           "pooled_m": pooled_m, "pooled_m_bwd": pooled_m_bwd}
+    out = {name: (fn, "launches") for name, fn in fns.items()}
+    for name in ("sorted_segment_sum", "fused_edge_messages", "fused_edge_messages_bwd"):
+        out[f"{name} bf16"] = (fns[name], "launches_bf16")
+    return out
 
 
 def expected_launches(path: str, forwards: int, backwards: int,
@@ -495,7 +529,7 @@ def expected_launches(path: str, forwards: int, backwards: int,
     want = dict.fromkeys(counters(), 0)
     for name, n in FWD_LAUNCHES[path].items():
         want[name] += n * forwards
-        if remat and name != "sorted_segment_sum":
+        if remat and not name.startswith("sorted_segment_sum"):
             want[name] += n * backwards
     for name, n in BWD_LAUNCHES[path].items():
         want[name] += n * backwards
@@ -503,12 +537,12 @@ def expected_launches(path: str, forwards: int, backwards: int,
 
 
 def reset_launches() -> None:
-    for fn in counters().values():
-        fn.launches = 0
+    for fn, attr in counters().values():
+        setattr(fn, attr, 0)
 
 
 def read_launches() -> dict[str, int]:
-    return {name: fn.launches for name, fn in counters().items()}
+    return {name: getattr(fn, attr) for name, (fn, attr) in counters().items()}
 
 
 def phase_kernels(batch) -> list[dict]:
@@ -565,6 +599,7 @@ def phase_kernels(batch) -> list[dict]:
 
     args, pair_mask, pd, sm = edge_mlp_inputs(batch, gen)
     rows += edge_mlp_rows(args, pair_mask, gen)
+    rows += bf16_kernel_rows(batch, args, pair_mask, gen)
     rows += frame_swiglu_rows(pd, sm, gen)
     rows += vis_mix_rows(batch, gen)
     rows += pooled_conv_rows(batch, gen)
@@ -741,6 +776,197 @@ def edge_mlp_rows(args, pair_mask, gen) -> list[dict]:
         replaces="equihgnn_tpu/ops/pallas/edge_mlp.py:222",
         max_abs_err=err, ms=times["a"][0], plain_ms=times["a"][1], library_ms=None, **bc,
     ))
+    return rows
+
+
+def bf16_distance(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
+    """(the share of elements with the same bits, the largest |got − want|
+    in bf16 ulps of max(|want|, max|want| / 256)): an ulp of the value,
+    floored at the ulp of 1/256 of the tensor's largest, where an f32 sum
+    that cancels is resolved in another sum order only to ~1e-6 of its
+    terms."""
+    if not want.numel():
+        return 1.0, 0.0
+    got, want = got.float(), want.float()
+    same = float((got == want).float().mean())
+    top = float(want.abs().max())
+    if top == 0.0:
+        return same, float((got - want).abs().max())
+    ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp(min=top / 256))) - 7)
+    return same, float(((got - want).abs() / ulp).max())
+
+
+def check_bf16(what: str, got, want, ulps: float = 1, equal: float = 0.99,
+               slack=None) -> float:
+    """`got` within `ulps` bf16 ulps of `want` (`bf16_distance`) past a
+    per-element `slack` (none by default), at least `equal` of it the same
+    bits; returns max|d|."""
+    err = float((got.float() - want.float()).abs().max()) if want.numel() else 0.0
+    same, far = bf16_distance(got, want)
+    if slack is not None:
+        excess = ((got.float() - want.float()).abs() - slack).clamp(min=0)
+        far = bf16_distance(want.float() + excess, want.float())[1]
+    ok = got.dtype == want.dtype == torch.bfloat16 and same >= equal and far <= ulps
+    print(f"{what}: {same:.5f} the same bits, {far:.2f} bf16 ulps at most"
+          f"{'' if slack is None else ' past the dz rounding bound'} (limit {ulps}, at "
+          f"least {equal} the same), max|d| {err:.3e}: {'ok' if ok else 'FAIL'}")
+    check(ok, f"{what} disagrees with its plain version")
+    return err
+
+
+def bf16_kernel_rows(batch, args, pair_mask, gen) -> list[dict]:
+    """Kernels A, B and C in bf16 (the bf16 paths' variants) at the batch-768
+    shapes, each against its plain bf16 version (f32 sums rounded once, and
+    for B and C a1, W1 and dz rounded to bf16 before an f32 product) and the
+    same bits twice: A at the trunk's hyperedge reduction (D = 256) and at
+    kernel A's edge cases, within one bf16 ulp, and timed against its
+    library call, `index_add_` into f32 and a cast; B in the three modes of
+    `edge_mlp_rows`, out within one ulp; C in cases (a) and (b), dui, dujn
+    and ddist at least 99 % the same bits and within two ulps past
+    `bwd_bf16_rounding_bound` (C rounds dz from B's z, the plain version
+    from its own, f32 sums in other orders: a dz at a rounding boundary
+    goes either way), the f32 parameter gradients within 1e-4·max|ref|. Each timed one call a sample
+    and by device time alone; B's and C's products bound at the bf16 peak.
+    Rows named "<wrapper> bf16"."""
+    from equihgnn_tpu_torch.ops.kernels.edge_mlp import (
+        _launch_fwd,
+        bwd_bf16_rounding_bound,
+        fused_edge_messages,
+        fused_edge_messages_bwd,
+        fused_edge_messages_bwd_plain,
+        fused_edge_messages_plain,
+    )
+    from equihgnn_tpu_torch.ops.kernels.segment_sum import (
+        _launch,
+        sorted_segment_sum,
+        sorted_segment_sum_plain,
+    )
+
+    bf16, dev = torch.bfloat16, torch.device("cuda")
+    rows = []
+    ids = batch.hedge_idx.to(dev)
+    m, s = ids.shape[0], batch.num_hedges
+    data = torch.randn(m, HIDDEN, generator=gen).to(bf16).to(dev)
+    got = sorted_segment_sum(data, ids, s)
+    err = check_bf16(f"kernel A bf16 [M={m}, D={HIDDEN}] -> [S={s}]", got,
+                     sorted_segment_sum_plain(data, ids, s))
+    check(torch.equal(got, sorted_segment_sum(data, ids, s)), "kernel A bf16: other bits twice")
+    for name, (case_ids, case_s) in segment_sum_cases(gen).items():
+        case_data = torch.randn(case_ids.shape[0], HIDDEN, generator=gen).to(bf16).to(dev)
+        case_ids = case_ids.to(dev)
+        case_got = sorted_segment_sum(case_data, case_ids, case_s)
+        check_bf16(f"kernel A bf16, {name}", case_got,
+                   sorted_segment_sum_plain(case_data, case_ids, case_s))
+        check(torch.equal(case_got, sorted_segment_sum(case_data, case_ids, case_s)),
+              f"kernel A bf16 gave other bits on a second call ({name})")
+    data32, zeros = data.float(), torch.zeros(s, HIDDEN, device=dev)
+    fns = (lambda: _launch(data, ids, s), lambda: zeros.index_add_(0, ids, data32).to(bf16),
+           lambda: sorted_segment_sum_plain(data, ids, s))
+    ms, library_ms, plain_ms = median_ms(*fns)
+    dev_ms, dev_library_ms = (profiled_device_ms(fn) for fn in fns[:2])
+    print(f"kernel A bf16 vs index_add_ into f32 and a cast (median of 20, CUDA events, one call "
+          f"a sample): {ms:.4f} vs {library_ms:.4f} ms; device alone (torch.profiler, 20 calls) "
+          f"{dev_ms:.4f} vs {dev_library_ms:.4f} ms; the plain version {plain_ms:.4f} ms")
+    rows.append(dict(
+        name="sorted_segment_sum bf16", route="cuda",
+        source="equihgnn_tpu_torch/csrc/segment_sum.cu",
+        replaces="equihgnn_tpu/ops/pallas/segment_sum.py:92",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+        **bound(nbytes(data, ids, got), m * HIDDEN),
+    ))
+
+    ui, ujn, dist, nbr_idx, wd, b0, w1, b1 = args
+    bargs = (ui.to(bf16), ujn.to(bf16), dist.to(bf16), nbr_idx, wd, b0, w1, b1)
+    g, a, f = ui.shape
+    k, mo = nbr_idx.shape[-1], 16
+    modes = {
+        "serving, pair_mask": (pair_mask, lambda: fused_edge_messages(*bargs, edge_mask=pair_mask)),
+        "training, pair_mask, z written":
+            (pair_mask, lambda: _launch_fwd(*bargs, edge_mask=pair_mask, want_z=True)[0]),
+        "no mask, every edge": (None, lambda: fused_edge_messages(*bargs)),
+    }
+    calls = [call for _, call in modes.values()]
+    outs, err = {}, 0.0
+    for mode, (mask, call) in modes.items():
+        got, again = call(), call()
+        err = max(err, check_bf16(f"kernel B bf16 [G={g}, A={a}, k={k}, F={f}] {mode}", got,
+                                  fused_edge_messages_plain(*bargs, mask)))
+        check(torch.equal(got, again), f"kernel B bf16 ({mode}) gave other bits on a second call")
+        check(mask is None or bool((got[~mask] == 0).all()),
+              f"kernel B bf16 ({mode}) is not 0 at a dead edge")
+        outs[mode] = got
+    served, trained, every = outs.values()
+    check(torch.equal(served, trained), "kernel B bf16's output moved when it also wrote z")
+    check(torch.equal(served[pair_mask], every[pair_mask]),
+          "kernel B bf16's output at the live edges moved with the mask")
+    *b_ms, plain_ms = median_ms(*calls, lambda: fused_edge_messages_plain(*bargs))
+    b_dev = [profiled_device_ms(call) for call in calls]
+    e_edges, e_live = g * a * k, int(pair_mask.sum())
+    # per edge and column f: pre and its SiLU (8) on the CUDA cores at the
+    # f32 peak, the product with W1 (2m) on the tensor cores at the bf16 peak
+    b_all, b_live = (bound(nbytes(*bargs, *mask_t, served), n * f * 2 * mo, PEAK_BF16_S,
+                           f32_flops=n * f * 8)
+                     for n, mask_t in ((e_edges, ()), (e_live, (pair_mask,))))
+    for mode, t, dv in zip(modes, b_ms, b_dev):
+        print(f"kernel B bf16 {mode}: {t:.4f} ms one call a sample, {dv:.4f} ms device alone")
+    print(f"kernel B bf16: plain (no mask) {plain_ms:.4f} ms; bound {b_all['bound_ms']:.4f} ms "
+          f"over all {e_edges} edges ({b_all['bound_by']}), live bound {b_live['bound_ms']:.4f} "
+          f"ms over the {e_live} kept")
+    rows.append(dict(
+        name="fused_edge_messages bf16", route="cuda",
+        source="equihgnn_tpu_torch/csrc/edge_mlp.cu",
+        replaces="equihgnn_tpu/ops/pallas/edge_mlp.py:179",
+        max_abs_err=err, ms=b_ms[2], plain_ms=plain_ms, library_ms=None, **b_all,
+    ))
+
+    _, z = _launch_fwd(*bargs, want_z=True)
+    _, z_live = _launch_fwd(*bargs, edge_mask=pair_mask, want_z=True)
+    dm = torch.randn(g, a, k, mo, generator=gen).to(bf16).to(dev)
+    err, times = 0.0, {}
+    for case, d in {"a": dm, "b": dm * pair_mask[..., None]}.items():
+        got = fused_edge_messages_bwd(*bargs, d, z)
+        ref = fused_edge_messages_bwd_plain(*bargs, d)
+        slack = bwd_bf16_rounding_bound(*bargs, d, z)
+        for gname, x, y, sl in zip(("dui", "dujn", "ddist", "dwd", "db0", "dw1", "db1"), got,
+                                   ref, (*slack, None, None, None, None)):
+            what = f"kernel C bf16 case ({case}) {gname} {tuple(x.shape)}"
+            if x.dtype == bf16:
+                err = max(err, check_bf16(what, x, y, ulps=2, slack=sl))
+                continue
+            dd, scale = float((x - y).abs().max()), float(y.abs().max())
+            err = max(err, dd)
+            print(f"{what}: max|d| {dd:.3e}, max|ref| {scale:.3e} (limit 1e-4 * max|ref|)")
+            check(dd <= 1e-4 * scale, f"{what} disagrees with the plain backward")
+        check(all(torch.equal(x, y) for x, y in zip(got, fused_edge_messages_bwd(*bargs, d, z))),
+              f"kernel C bf16 gave other bits on a second call in case ({case})")
+        if case == "b":
+            check(bool((got[2][~pair_mask] == 0).all()), "kernel C bf16's ddist is not 0 at a "
+                                                         "masked edge")
+            check(all(torch.equal(x, y) for x, y in
+                      zip(got, fused_edge_messages_bwd(*bargs, d, z_live))),
+                  "kernel C bf16 gave other bits from the masked forward's z in case (b)")
+        del ref, slack
+        times[case] = (*median_ms(lambda: fused_edge_messages_bwd(*bargs, d, z),
+                                  lambda: fused_edge_messages_bwd_plain(*bargs, d)),
+                       profiled_device_ms(lambda: fused_edge_messages_bwd(*bargs, d, z)))
+    # per edge and column f: pre, its SiLU and SiLU' (16) at the f32 peak,
+    # dz·W1ᵀ and a1ᵀ·dz (4m) on the tensor cores at the bf16 peak
+    c_bytes = nbytes(*bargs, dm, z, *got)
+    bc, bl = (bound(c_bytes, n * f * 4 * mo, PEAK_BF16_S, f32_flops=n * f * 16)
+              for n in (e_edges, e_live))
+    for case, (c_ms, p_ms, dv) in times.items():
+        print(f"kernel C bf16 case ({case}): {c_ms:.4f} ms one call a sample, {dv:.4f} ms device "
+              f"alone, plain {p_ms:.4f} ms; bound {bc['bound_ms']:.4f} ms over all {e_edges} "
+              f"edges ({bc['bound_by']}), live bound {bl['bound_ms']:.4f} ms over the {e_live} "
+              f"kept")
+    rows.append(dict(
+        name="fused_edge_messages_bwd bf16", route="cuda",
+        source="equihgnn_tpu_torch/csrc/edge_mlp.cu",
+        replaces="equihgnn_tpu/ops/pallas/edge_mlp.py:222",
+        max_abs_err=err, ms=times["a"][0], plain_ms=times["a"][1], library_ms=None, **bc,
+    ))
+    del bargs, z, z_live
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -1371,7 +1597,8 @@ def phase_serve(path: str, samples, smi: str) -> dict[str, int]:
         reset_launches()
         t0 = time.perf_counter()
         run(build_parser().parse_args(
-            ["--ckpt", ckpt, "--sdf", SDF, "--out", out_gpu, "--device", "cuda"]))
+            ["--ckpt", ckpt, "--sdf", SDF, "--out", out_gpu, "--device", "cuda"] +
+            (["--compute_dtype", cfg.compute_dtype] if cfg.compute_dtype else [])))
         t_sdf = time.perf_counter() - t0
         model_gpu = model.to(dev).eval()
         preds = predict_samples(model_gpu, samples, BATCH, dev)
@@ -1533,12 +1760,13 @@ def check_serve_against_cpu(model, ckpt: str, out_cpu: str, vals, rows) -> None:
                          f"{[rows[i]['title'] for i in np.flatnonzero(bad)]}")
 
 
-# The bf16 path's predictions on the card against the CPU's bf16 model (plain
+# A bf16 path's predictions on the card against the CPU's bf16 model (plain
 # versions): max |card − CPU| at most this share of max |CPU bf16 − CPU f32|,
 # i.e. the card's bf16 predictions lie nearer the CPU's than those lie to f32.
 # At the init the bf16 predictions move with the order of their sums (the
 # trunk's ReLU kinks, fed by a bf16 encoder): the first card run read 0.29
-# (SDF) and 0.42 (64 molecules of the request) of that distance.
+# (SDF) and 0.42 (64 molecules of the request) of that distance (se3 bf16);
+# egnn bf16 0.21 / 0.69, mhnns bf16 0.23 / 0.83.
 BF16_SERVE_SHARE = 1.0
 
 
@@ -1605,6 +1833,7 @@ ENCODER_LIMIT = {"se3_transformer_equihnns": 1e-2}  # the others: 1e-4
 # reading only (the CPU's own spread); ViSNet's CPU step at full width takes
 # ~10 s, so it takes one
 GRAD_CUT = {"se3_transformer_equihnns": (16, 1), BF16_PATH: (16, 0),
+            **dict.fromkeys(BF16_HYPER_PATHS, (16, 0)),
             "visnet_equihnns": (32, 1), **dict.fromkeys(HYBRID_METHODS, (16, 1)),
             CROSS_PATH: (32, 1), **dict.fromkeys(GRAPH_METHODS, (64, 2))}
 # A ReLU input on the other side of 0 on the card than on the CPU makes the
@@ -1903,7 +2132,8 @@ def phase_grads_2d(path: str, pool) -> None:
 # differ from their f32 ones by about their norm, in JAX as in the port
 # (`tests/test_torch_se3_bf16.py`). The card read 0.38 (step) and 0.39
 # (encoder) of that distance; padding a batch otherwise moved the encoder's
-# bf16 gradients by 0.11-0.13 of it on the CPU alone.
+# bf16 gradients by 0.11-0.13 of it on the CPU alone (se3 bf16); egnn bf16
+# 0.54 / 0.005, mhnns bf16 0.41 / 1e-7.
 BF16_GRAD_SHARE = 1.0
 
 
@@ -1914,8 +2144,9 @@ def _rel_l2(got: dict, want: dict) -> float:
 
 
 def phase_grads_bf16(path: str, pool) -> None:
-    """The bf16 path's gradients on the card (kernels L and M) against the
-    CPU's bf16 model (their plain versions), eval mode, on GRAD_CUT
+    """A bf16 path's gradients on the card (se3 bf16: kernels L and M; egnn
+    bf16: A, B and C; mhnns bf16: A) against the CPU's bf16 model (their
+    plain versions), eval mode, on GRAD_CUT
     molecules: of a train step (masked MSE) and of the encoder under a
     smooth loss, each held to BF16_GRAD_SHARE of the CPU's bf16-vs-f32
     distance; every parameter the CPU reaches must be reached on the card."""
@@ -2112,34 +2343,56 @@ def phase_step(path: str, samples, smi: str) -> None:
     gradient_zero_shares(path, trainer, batch)
     if path == CROSS_PATH:
         knn_graph_reading(batch, smi)
+    if path == EGNN_BF16:
+        knn_bf16_reading(batch)
 
 
 # the paths whose encoder `remat` checkpoints, held with it on the card
-REMAT_PATHS = ENCODER_METHODS + (BF16_PATH,)
+REMAT_PATHS = ENCODER_METHODS + (BF16_PATH, EGNN_BF16)
 # the paths whose batch-768 train step's peak memory is read with and without remat
 REMAT_MEMORY = ("se3_transformer_equihnns", "equiformer_equihnns")
+
+
+@contextlib.contextmanager
+def deterministic():
+    """Within it, PyTorch's deterministic algorithms (`index_add_`,
+    `scatter_add_` and the gathers' backward sum in a fixed order, not with
+    atomics); an op with no such form warns and runs as it would."""
+    import warnings
+
+    was = torch.are_deterministic_algorithms_enabled(), \
+        torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            yield
+    finally:
+        torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+    for msg in sorted({str(w.message).splitlines()[0] for w in seen}):
+        print(f"deterministic algorithms: {msg}")
 
 
 def phase_remat(path: str, samples, smi: str) -> None:
     """`remat=True` (the encoder checkpointed) on the card: one train step in
     training mode (dropout on where the model has it, seed 5) on the
     gradient phase's first GRAD_CUT molecules, against the same step
-    without remat. The card's steps are not the same bits twice: the
-    trunk's pooling and the gathers' backward (`index_add_`) sum with
-    atomics (a step's predictions move by ~1e-6 between two runs), and the
-    first step after a model is built can round otherwise (bf16: cuBLAS's
-    first call). So a warm-up step comes first and records the trunk's
-    ReLU inputs; every later step takes its ReLU signs (a trunk ReLU input
-    within ~1e-6 of 0 that flipped moved egnn's embedding gradient by
-    ~1e-3 of its max); the encoders run no ReLU that rounding can flip
-    (their forwards are the same bits each run). Each gradient tensor is
-    held within 1e-5 of its max plus twice the card's own change between
-    two steps without remat; the bf16 path, whose own change reaches ~1e-2
-    of a tensor's max, as relative L2 over all parameters within twice its
-    own plus 1e-6. The remat step's launches must show the encoder's
-    kernels again in its backward. For REMAT_MEMORY, the batch-768 train
-    step's time and peak memory with and without remat (recorded, not
-    held)."""
+    without remat. The steps run with PyTorch's deterministic algorithms
+    (`deterministic`): with atomics, the trunk's pooling and the gathers'
+    backward (`index_add_`) sum in no fixed order, and se3's gradients
+    moved by ~1e-5 of a tensor's max between two steps (~1e-3 relative L2
+    in bf16), now and then more under remat than between the two steps
+    that set its limit. The first step after a model is built can round
+    otherwise (bf16: cuBLAS's first call), so a warm-up step comes first
+    and records the trunk's ReLU inputs; every later step takes its ReLU
+    signs (a trunk ReLU input within ~1e-6 of 0 that flipped moved egnn's
+    embedding gradient by ~1e-3 of its max). Each gradient tensor is held
+    within 1e-5 of its max plus twice the card's own change between two
+    steps without remat; the bf16 path as relative L2 over all parameters
+    within twice its own plus 1e-6. The remat step's launches must show the
+    encoder's kernels again in its backward. For REMAT_MEMORY, the
+    batch-768 train step's time and peak memory with and without remat
+    (recorded, not held)."""
     from equihgnn_tpu_torch import create_model
     from equihgnn_tpu_torch.data.batching import iter_batches, spec_for_samples
     from equihgnn_tpu_torch.train.trainer import TrainConfig, Trainer, masked_mse
@@ -2174,10 +2427,11 @@ def phase_remat(path: str, samples, smi: str) -> None:
             read_launches()
 
     signs = []
-    step(False, record=signs)  # warm-up
-    plain, _ = step(False, signs=signs)
-    again, _ = step(False, signs=signs)
-    got, launches = step(True, signs=signs)
+    with deterministic():
+        step(False, record=signs)  # warm-up
+        plain, _ = step(False, signs=signs)
+        again, _ = step(False, signs=signs)
+        got, launches = step(True, signs=signs)
     check(launches == expected_launches(path, 1, 1, remat=True),
           f"the remat step did not run {path}'s kernels as expected: {launches}")
     check(set(got) == set(plain), "remat reaches other parameters")
@@ -2229,6 +2483,32 @@ def knn_graph_reading(batch, smi: str) -> None:
     print(f"knn_graph over the batch's {n} atoms (k = 16, {n * n:,} pairs, "
           f"{max(1, PAIRS_PER_CHUNK // n)} rows a chunk): median {ms:.3f} ms device time, "
           f"peak allocation {alloc_mib(fn):.1f} MiB above its inputs; card: {smi}")
+
+
+def knn_bf16_reading(batch) -> None:
+    """The EGNN's kNN on the batch-768 slot view's bf16 positions (the bf16
+    path's input) on the card and on the CPU: the slots whose neighbour set
+    (its kept neighbours, as a set) differs, and those whose ranked list
+    differs. bf16 squared distances tie often; a tie's order, or a squared
+    distance rounded otherwise, can move the 16th neighbour. Recorded."""
+    from equihgnn_tpu_torch.ops.knn import knn_dense
+
+    sm = batch.slot_mask
+    pd = (batch.pos[batch.slot_index] * sm[..., None]).to(torch.bfloat16)
+    sets, lists = [], []
+    for dev in ("cuda", "cpu"):
+        idx, mask, _ = knn_dense(pd.to(dev), sm.to(dev), 16, slot_gid=batch.slot_gid.to(dev))
+        idx, mask = idx.cpu(), mask.cpu()
+        lists.append(idx)
+        a = idx.shape[1]  # kept neighbours as a set; the dropped ones to a spare column
+        member = torch.zeros(idx.shape[:2] + (a + 1,), dtype=torch.bool)
+        member.scatter_(-1, torch.where(mask, idx, a), True)
+        sets.append(member[..., :a])
+    real = sm.bool().cpu()
+    n_set = int(((sets[0] != sets[1]).any(-1) & real).sum())
+    n_list = int(((lists[0] != lists[1]).any(-1) & real).sum())
+    print(f"{EGNN_BF16} kNN on bf16 positions, card vs CPU: {n_set} of {int(real.sum())} real "
+          f"slots with another neighbour set, {n_list} with another ranked list (recorded)")
 
 
 def gradient_zero_shares(path: str, trainer, batch) -> None:
@@ -2305,7 +2585,8 @@ def main() -> int:
             timed(f"{path} gradients", phase_grads_2d, path, graphs)
         else:
             paths[f"{path} serve"] = timed(f"{path} serve", phase_serve, path, samples, smi)
-            timed(f"{path} gradients", phase_grads_bf16 if path == BF16_PATH else phase_grads,
+            timed(f"{path} gradients",
+                  phase_grads_bf16 if PATHS[path][1].get("compute_dtype") else phase_grads,
                   path, samples[:2 * GRAD_CUT.get(path, (32,))[0]])
         if path != CROSS_PATH:  # neither CLI sets cross_molecule_knn
             paths[f"{path} train"] = timed(f"{path} train", phase_train, path, smi)

@@ -13,10 +13,12 @@ trunks (`egnn_equihnn{,s,m}`, `faformer_equihnn{,s,m}`,
 `cross_molecule_knn=True`), `se3_transformer_equihnns`,
 `equiformer_equihnns`, and the 2-D baselines `gin`, `gcn`, `gat`,
 `gatv2` on plain graphs;
-and `se3_transformer_equihnns` with `compute_dtype="bfloat16"` (its
+and, with `compute_dtype="bfloat16"`, `se3_transformer_equihnns` (its
 encoder in bf16, as in JAX) at widths whose pooled units JAX does not
-fuse, through kernels L and M. Every Pallas kernel of the JAX package has
-its CUDA counterpart (`csrc/`).
+fuse, through kernels L and M, and the MHNN family and the three
+`egnn_equihnn*` models (from the atom embedding to the prediction, as in
+JAX), through the bf16 variants of kernels A, B and C. Every Pallas kernel
+of the JAX package has its CUDA counterpart (`csrc/`).
 """
 
 __version__ = "0.1.0"

@@ -8,6 +8,7 @@
 #pragma once
 
 #include <cstdint>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -15,11 +16,13 @@ namespace {
 constexpr int SUM_COLS = 32;  // columns per block (lanes)
 constexpr int SUM_LANES = 8;  // rows summed in parallel per column
 
-// out[c] = Σ_r in[r, c] for a row-major [rows, cols] matrix.
+// out[c] = Σ_r in[r, c] for a row-major [rows, cols] matrix; where out_bf
+// is set, the sums are written there, rounded to bf16, instead.
 struct SumJob {
   const float* in;
   float* out;
   int64_t rows, cols;
+  __nv_bfloat16* out_bf = nullptr;
 };
 
 // Each block owns SUM_COLS columns of job a (the first blocks_a blocks) or
@@ -31,6 +34,7 @@ column_sum_kernel(SumJob a, SumJob b, unsigned blocks_a) {
   const bool second = blockIdx.x >= blocks_a;
   const float* in = second ? b.in : a.in;
   float* out = second ? b.out : a.out;
+  __nv_bfloat16* out_bf = second ? b.out_bf : a.out_bf;
   const int64_t rows = second ? b.rows : a.rows, cols = second ? b.cols : a.cols;
   const int64_t c =
       static_cast<int64_t>(second ? blockIdx.x - blocks_a : blockIdx.x) * SUM_COLS + threadIdx.x;
@@ -43,7 +47,10 @@ column_sum_kernel(SumJob a, SumJob b, unsigned blocks_a) {
     float sum = 0.f;
 #pragma unroll
     for (int w = 0; w < SUM_LANES; ++w) sum += part[w][threadIdx.x];
-    out[c] = sum;
+    if (out_bf)
+      out_bf[c] = __float2bfloat16_rn(sum);
+    else
+      out[c] = sum;
   }
 }
 

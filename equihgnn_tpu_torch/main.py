@@ -28,11 +28,14 @@ Differences from the JAX CLI:
   * `--remat` checkpoints the encoder of every model that has one, as JAX
     remats it (`torch.utils.checkpoint`); the MHNN family and the 2-D
     baselines take the flag and ignore it, as in JAX.
-  * `--compute_dtype bfloat16` runs where the model takes it: the encoder
-    of `se3_transformer_equihnns` computes in bfloat16 (its pooled units
-    through kernels L and M on the card) while the parameters, Adam and
-    the loss stay float32, as in JAX; its widths must leave JAX's fused
-    pooled unit out (`--MLP_hidden` not a multiple of 128). Elsewhere the
+  * `--compute_dtype bfloat16` runs where the model takes it, while the
+    parameters, Adam and the loss stay float32, as in JAX: the encoder of
+    `se3_transformer_equihnns` computes in bfloat16 (its pooled units
+    through kernels L and M on the card; its widths must leave JAX's fused
+    pooled unit out, `--MLP_hidden` not a multiple of 128), and `mhnn`,
+    `mhnns`, `mhnnm` and the three `egnn_equihnn*` models compute in
+    bfloat16 from the atom embedding to the prediction (kernels A, B and C
+    in bf16). The 2-D baselines take the flag and ignore it; elsewhere the
     model raises NotImplementedError (ROADMAP item 11).
   * Batches come from `iter_batches` (the JAX package's native packer is
     not ported); each epoch's order is drawn from the same seed.
@@ -123,7 +126,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--streaming", action="store_true",
                    help="object-free packed data path")
     p.add_argument("--compute_dtype", default=None, choices=["bfloat16"],
-                   help="bf16 activations in the geometric encoders")
+                   help="bf16 activations (the SE(3)-Transformer's encoder, the MHNN "
+                        "family and the EGNN models)")
     p.add_argument("--remat", action="store_true",
                    help="additionally checkpoint whole encoders")
     return p

@@ -42,7 +42,7 @@ from torch import nn
 
 from equihgnn_tpu_torch.common.registry import registry
 from equihgnn_tpu_torch.data.structures import NUM_BOND_FEATURES, GraphBatch
-from equihgnn_tpu_torch.models.common import check_compute, flat_pred, global_pool
+from equihgnn_tpu_torch.models.common import flat_pred, global_pool
 from equihgnn_tpu_torch.nn.encoders import AtomEncoder, BondEncoder
 from equihgnn_tpu_torch.nn.mlp import (
     MaskedBatchNorm,
@@ -235,8 +235,7 @@ class GNN2D(nn.Module):
     def __init__(self, num_target: int, cfg, gnn_type: str | None = None,
                  bond_width: int = NUM_BOND_FEATURES, device="cpu",
                  generator: torch.Generator | None = None):
-        super().__init__()
-        check_compute(cfg, self.METHOD)
+        super().__init__()  # cfg.compute_dtype is taken and ignored, as in JAX
         gnn_type = gnn_type or self.METHOD
         num_layer, d = cfg.gnn_num_layer, cfg.gnn_emb_dim
         if num_layer < 2:

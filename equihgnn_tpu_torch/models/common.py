@@ -15,16 +15,20 @@ from equihgnn_tpu_torch.nn.mlp import prelu
 from equihgnn_tpu_torch.ops.segment import masked_segment_reduce, segment_sum
 
 
-# the models that run `compute_dtype="bfloat16"` (in their encoder only, as in JAX)
-BF16_METHODS = ("se3_transformer_equihnns",)
+# the models that run `compute_dtype="bfloat16"`: the SE(3)-Transformer in
+# its encoder only, the MHNN family and the EGNN models from the atom
+# embedding to the prediction, as in JAX
+BF16_METHODS = ("se3_transformer_equihnns", "mhnn", "mhnns", "mhnnm", "egnn_equihnn",
+                "egnn_equihnns", "egnn_equihnnm")
 
 
 def check_compute(cfg, method: str) -> None:
     """Raise on what the port does not run yet (ROADMAP item 11): a
     `compute_dtype` other than float32, except bfloat16 on the models of
-    `BF16_METHODS`. `remat` runs on every model (`HybridModel.remat_encoder`;
-    the MHNN family and the 2-D baselines take the flag and ignore it, as in
-    JAX)."""
+    `BF16_METHODS`. The 2-D baselines do not call it: they take the flag
+    and ignore it, as in JAX. `remat` runs on every model
+    (`HybridModel.remat_encoder`; the MHNN family and the 2-D baselines take
+    the flag and ignore it, as in JAX)."""
     dt = cfg.compute_dtype
     if dt not in (None, "float32") and not (dt == "bfloat16" and method in BF16_METHODS):
         raise NotImplementedError(
@@ -34,9 +38,10 @@ def check_compute(cfg, method: str) -> None:
 
 def cast_compute(cfg, *tensors):
     """Cast activations to the configured compute dtype, a no-op by default
-    (`equihgnn_tpu/models/common.py:68-74`); None passes through. `TrunkFull`
-    and `TrunkM` call it on the hyperedge embedding, as in JAX; the
-    SE(3)-Transformer casts its own inputs."""
+    (`equihgnn_tpu/models/common.py:68-74`); None passes through. The MHNN
+    family calls it on the atom embedding, the EGNN models on it and the
+    positions, `TrunkFull` and `TrunkM` on the hyperedge embedding, as in
+    JAX; the SE(3)-Transformer casts its own inputs."""
     if cfg.compute_dtype is None:
         return tensors if len(tensors) > 1 else tensors[0]
     dt = getattr(torch, cfg.compute_dtype)

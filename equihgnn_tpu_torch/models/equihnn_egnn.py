@@ -9,22 +9,25 @@ per-molecule neighbourhoods in the dense slot view; with
 `cross_molecule_knn=True` (the reference's batch-as-one-point-cloud kNN),
 or on a batch without the slot view, on JAX's flat path.
 
-The port runs in float32, for serving (`model.eval()`) and training
+The port runs in float32 or bfloat16, for serving (`model.eval()`) and training
 (`model.train()`: dropout in the trunk and its MLPs, batch statistics in
 the masked BatchNorms; the EGNN has none, as in every model the reference
 builds). Gradients reach the same parameters as in JAX; the EGNN's
 coordinate branch (`coors_mlp_*`, `coors_norm`) gets none in either
 framework, because `encode` drops the EGNN's coordinates. With `remat` the
 EGNN layer is checkpointed, as JAX remats it (`equihnn_egnn.py:38`): kernel
-B runs again in the backward pass. A `compute_dtype` other than float32
-raises (ROADMAP item 11).
+B runs again in the backward pass. With `compute_dtype="bfloat16"` the
+atom embedding and the positions are cast (`equihnn_egnn.py:34`): the
+neighbours are ranked on bf16 squared distances, the EGNN runs kernels B
+and C in bf16, and the trunk computes in bf16 up to its float32
+prediction.
 """
 
 from __future__ import annotations
 
 from equihgnn_tpu_torch.common.registry import registry
 from equihgnn_tpu_torch.data.structures import HyperGraphBatch
-from equihgnn_tpu_torch.models.common import HybridModel
+from equihgnn_tpu_torch.models.common import HybridModel, cast_compute
 from equihgnn_tpu_torch.models.trunks import TrunkFull, TrunkM, TrunkS
 from equihgnn_tpu_torch.nn.egnn import EGNN
 from equihgnn_tpu_torch.nn.encoders import AtomEncoder
@@ -44,9 +47,9 @@ class _EGNNBase(HybridModel):
                 "egnn_equihnn* models need 3-D coordinates: build batches with "
                 "with_pos=True (use a *_hg_3d dataset)"
             )
-        x = self.atom_encoder(batch.atom_feat)
+        x, pos = cast_compute(self.cfg, self.atom_encoder(batch.atom_feat), batch.pos)
         x, _ = self.remat_encoder(
-            self.egnn_layer, x, batch.pos,
+            self.egnn_layer, x, pos,
             slot_index=batch.slot_index,
             slot_mask=batch.slot_mask,
             atom_slot=batch.atom_slot,

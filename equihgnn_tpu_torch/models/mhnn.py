@@ -4,14 +4,16 @@ Port of `equihgnn_tpu/models/mhnn.py` (`_MHNNBase` `:20-28`, `MHNN` `:31`,
 `MHNNS` `:44`, `MHNNM` `:56`), itself the reference's `mhnn.py:11-218`:
 the OGB atom embedding, then the hypergraph trunk (`TrunkFull`, `TrunkS`
 or `TrunkM`). No coordinates are read: these models train on
-`synthetic_hg` and serve from any SDF.
+`synthetic_hg` and serve from any SDF. With `compute_dtype="bfloat16"`
+the atom embedding is cast (`equihgnn_tpu/models/mhnn.py:28`) and the
+trunk computes in bf16 up to its float32 prediction.
 """
 
 from __future__ import annotations
 
 from equihgnn_tpu_torch.common.registry import registry
 from equihgnn_tpu_torch.data.structures import HyperGraphBatch
-from equihgnn_tpu_torch.models.common import HybridModel
+from equihgnn_tpu_torch.models.common import HybridModel, cast_compute
 from equihgnn_tpu_torch.models.trunks import TrunkFull, TrunkM, TrunkS
 from equihgnn_tpu_torch.nn.encoders import AtomEncoder
 
@@ -21,7 +23,7 @@ class _MHNNBase(HybridModel):
         self.atom_encoder = AtomEncoder(cfg.mlp_hidden, generator=generator)
 
     def encode(self, batch: HyperGraphBatch):
-        return self.atom_encoder(batch.atom_feat)
+        return cast_compute(self.cfg, self.atom_encoder(batch.atom_feat))
 
 
 @registry.register_model("mhnn")

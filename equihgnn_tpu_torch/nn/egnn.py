@@ -36,6 +36,13 @@ neighbours in the molecule). Its pair mask is
 unfused composition (`_EdgeLinear0`, SiLU, `edge_mlp_1`, SiLU) with the
 same parameters, gathered with `index_select`: JAX fuses the edge MLP only
 on the dense view (`nn/egnn.py:139-143`), so no kernel runs on this path.
+
+In bfloat16 (the models' compute dtype) the features and positions come
+in bf16 and the parameters stay f32, as in JAX: each Linear casts its
+weights to the input's dtype (`nn/egnn.py:64,155-156`), `ui`, `ujn` and
+`rel_dist` are bf16 (kernels B and C in bf16), `node_norm` takes float32
+statistics and casts back (`:190-195`), and the coordinate update promotes
+to f32 at `coors_norm`'s f32 scale, as JAX's does.
 """
 
 from __future__ import annotations
@@ -46,9 +53,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from equihgnn_tpu_torch.nn.mlp import TorchLinear, normal_, uniform_
+from equihgnn_tpu_torch.nn.mlp import LayerNorm, TorchLinear, normal_, uniform_
 from equihgnn_tpu_torch.ops.kernels.edge_mlp import fused_edge_messages
-from equihgnn_tpu_torch.ops.knn import knn_dense, knn_graph
+from equihgnn_tpu_torch.ops.knn import knn_dense, knn_graph, sq_dist
 from equihgnn_tpu_torch.ops.numerics import safe_norm
 
 EGNN_WEIGHT_STD = 1e-3  # `egnn_layer.py:227-230`
@@ -108,7 +115,7 @@ class EGNN(nn.Module):
         self.coors_mlp_0 = _egnn_linear(M_DIM, 4 * M_DIM, generator)
         self.coors_mlp_1 = _egnn_linear(4 * M_DIM, 1, generator)
         self.coors_norm = CoorsNorm()
-        self.node_norm = nn.LayerNorm(dim, eps=1e-5)
+        self.node_norm = LayerNorm(dim, eps=1e-5)
         self.node_mlp_0 = _egnn_linear(dim + M_DIM, 2 * dim, generator)
         self.node_mlp_1 = _egnn_linear(2 * dim, dim, generator)
 
@@ -139,12 +146,12 @@ class EGNN(nn.Module):
         )
         rows = torch.arange(pd.shape[0], device=pd.device)[:, None, None]
         rel_coors = pd[:, :, None, :] - pd[rows, nbr_idx]  # [R, A, k, 3]
-        rel_dist = torch.sum(rel_coors * rel_coors, dim=-1)  # [R, A, k]
+        rel_dist = sq_dist(rel_coors)  # [R, A, k]
 
         e0 = self.edge_mlp_0
         m_ij = fused_edge_messages(
-            torch.matmul(xd, e0.weight_i.t()),
-            torch.matmul(xd, e0.weight_j.t()),
+            torch.matmul(xd, e0.weight_i.t().to(xd.dtype)),
+            torch.matmul(xd, e0.weight_j.t().to(xd.dtype)),
             rel_dist, nbr_idx, e0.weight_d[:, 0], e0.bias,
             self.edge_mlp_1.weight.t().contiguous(), self.edge_mlp_1.bias,
             edge_mask=pair_mask,
@@ -163,14 +170,14 @@ class EGNN(nn.Module):
         n, k = nbr_idx.shape
         flat_idx = nbr_idx.reshape(-1)
         rel_coors = coors[:, None, :] - coors.index_select(0, flat_idx).view(n, k, 3)
-        rel_dist = torch.sum(rel_coors * rel_coors, dim=-1, keepdim=True)  # [N, k, 1]
+        rel_dist = sq_dist(rel_coors)[..., None]  # [N, k, 1]
         pair_mask = nbr_mask
         if mask is not None:
             pair_mask = pair_mask & mask[:, None] & mask.index_select(0, flat_idx).view(n, k)
-        e0 = self.edge_mlp_0
-        ui = torch.matmul(feats, e0.weight_i.t())  # [N, F] at the node sites
-        uj = torch.matmul(feats, e0.weight_j.t()).index_select(0, flat_idx).view(n, k, -1)
-        m_ij = ui[:, None, :] + uj + rel_dist * e0.weight_d[:, 0] + e0.bias
+        e0, dt = self.edge_mlp_0, feats.dtype
+        ui = torch.matmul(feats, e0.weight_i.t().to(dt))  # [N, F] at the node sites
+        uj = torch.matmul(feats, e0.weight_j.t().to(dt)).index_select(0, flat_idx).view(n, k, -1)
+        m_ij = ui[:, None, :] + uj + rel_dist * e0.weight_d[:, 0].to(dt) + e0.bias.to(dt)
         m_ij = F.silu(self.edge_mlp_1(F.silu(m_ij)))  # [N, k, m]
         return self._update(feats, coors, m_ij, rel_coors, pair_mask)
 
@@ -178,8 +185,8 @@ class EGNN(nn.Module):
         """The coordinate and node updates from the messages m_ij [..., k, m]."""
         w = self.coors_mlp_1(F.silu(self.coors_mlp_0(m_ij)))[..., 0]  # [..., k]
         w = torch.where(pair_mask, w, 0.0)
-        rc = self.coors_norm(rel_coors)
-        coors_out = torch.einsum("...k,...kc->...c", w, rc) + coors
+        rc = self.coors_norm(rel_coors)  # f32 in bf16 too: the scale is f32
+        coors_out = torch.einsum("...k,...kc->...c", w.to(rc.dtype), rc) + coors
 
         m_i = torch.where(pair_mask[..., None], m_ij, 0.0).sum(dim=-2)
         h = torch.cat([self.node_norm(x), m_i], dim=-1)

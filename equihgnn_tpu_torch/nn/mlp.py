@@ -8,6 +8,11 @@ Dropout]×(L-1) → Linear. Normalization is "ln" (LayerNorm), "bn"
 rows of a batch take no part in its statistics) or "None". `prelu` is the
 reference's learnable-slope activation, one slope for all channels, and
 `leaky_relu` JAX's.
+
+In a compute dtype below float32 (bfloat16) the parameters stay float32,
+as in JAX: each `TorchLinear` casts its weight and bias to the input's
+dtype (`equihgnn_tpu/nn/mlp.py:53,63`), and the norms take their
+statistics in float32 and cast the result back (`:125,143`).
 """
 
 from __future__ import annotations
@@ -34,7 +39,8 @@ class TorchLinear(nn.Module):
     N(0, weight_std²) when `weight_std` is given; bias U(±1/√fan_in).
     `xavier=True` is ViSNet's `_Proj` init (`equihgnn_tpu/nn/visnet.py:46`):
     weight U(±√(6/(fan_in + fan_out))), bias zero. `bias=False` makes a
-    layer without a bias parameter (flax's `use_bias=False`)."""
+    layer without a bias parameter (flax's `use_bias=False`). On input of
+    another dtype (bfloat16) the weight and bias are cast to it."""
 
     def __init__(self, in_features: int, out_features: int, *,
                  generator: torch.Generator, weight_std: float | None = None,
@@ -57,7 +63,12 @@ class TorchLinear(nn.Module):
             self.register_parameter("bias", None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight, self.bias)
+        if x.dtype == self.weight.dtype:
+            return F.linear(x, self.weight, self.bias)
+        # another compute dtype: the product, then the bias add, each rounded
+        # to it, as JAX's `jnp.dot(x, W) + b` (`equihgnn_tpu/nn/mlp.py:53,63`)
+        y = F.linear(x, self.weight.to(x.dtype))
+        return y if self.bias is None else y + self.bias.to(x.dtype)
 
 
 def leaky_relu(x: torch.Tensor, negative_slope: float) -> torch.Tensor:
@@ -114,12 +125,23 @@ class MaskedBatchNorm(nn.Module):
         return (y * self.weight + self.bias).to(x.dtype)
 
 
+class LayerNorm(nn.LayerNorm):
+    """`nn.LayerNorm` whose statistics and affine map are taken in float32
+    and cast back to the input's dtype once, as flax's LayerNorm with
+    float32 parameters followed by `.astype(x.dtype)` (`equihgnn_tpu/nn/
+    mlp.py:143`, `nn/egnn.py:190-195`); on float32 input it is
+    `nn.LayerNorm`."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.float()).to(x.dtype)
+
+
 def make_norm(kind: str, dim: int) -> nn.Module:
     """The reference's Normalization strings: "bn", "ln" or "None"."""
     if kind == "bn":
         return MaskedBatchNorm(dim)
     if kind == "ln":
-        return nn.LayerNorm(dim, eps=1e-5)
+        return LayerNorm(dim, eps=1e-5)
     if kind == "None":
         return nn.Identity()
     raise ValueError(f"unknown normalization {kind!r}")

@@ -34,10 +34,26 @@ padded neighbours: both consumers of `out` mask them), and writes 0 there. `nbr_
 gradient. The kernels take float32, m = 16 and rows of A ≤ 1,138 slots at
 k = 16 (kernel B's shared memory; C's limit is lower, A ≤ 897), or the
 wrapper raises.
+
+bfloat16 (the models' compute dtype): ui, ujn and dist in bf16, the
+parameters in f32, as JAX's bf16 call (`_dot(..., mm_bf16=True)`,
+`:51-62`): pre and its SiLU in f32, the product silu(pre)·W1 with both
+operands rounded to bf16 and summed in f32, out = silu(z) rounded to bf16;
+z stays f32 (C's silu'(z) is the one JAX recomputes). The backward gives
+dui, dujn and ddist in bf16 and the parameters' gradients in f32; dz is
+rounded to bf16 before its two products (dz·W1ᵀ, a1ᵀ·dz), as in JAX, and
+dujn is summed in f32 (JAX rounds dpre to bf16 before its one-hot
+scatter, a TPU matrix-unit artefact not copied). The bf16 kernels
+(`edge_mlp_fwd_bf16`, `edge_mlp_bwd_bf16`) run those products on bf16
+`mma.sync` and take an even F and rows of A ≤ 1,887 slots at k = 16 (B;
+its ujn stage is bf16) and A ≤ 1,164 (C). `fused_edge_messages_plain` is
+the same bf16 function in plain PyTorch (the [G, A, k, F] composition in
+f32, a1 and W1 rounded before an f32 matmul whose backward rounds dz), and
+autograd through it is C's plain version.
 Contract: every index lies in [0, A), as `knn_dense` gives them; the
 kernels do not check it (that would need a device-to-host sync per call).
 `fused_edge_messages.launches` and `fused_edge_messages_bwd.launches` count
-kernel launches.
+kernel launches in either dtype, their `launches_bf16` the bfloat16 ones.
 """
 
 from __future__ import annotations
@@ -55,13 +71,44 @@ GROUP = 8  # kernel C's live edges a warp walks at once (csrc)
 FW_PASS = 32  # kernel B's edge tiles a pass over the columns (csrc)
 
 
+def _round_bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+class _Bf16Product(torch.autograd.Function):
+    """a [..., F] @ w [F, m] with both operands rounded to bfloat16 and the
+    products summed in float32 (JAX's `_dot(..., mm_bf16=True)`); the
+    backward rounds the output gradient dz to bfloat16 too before its two
+    products, as JAX's backward kernel does (`:117,119`)."""
+
+    @staticmethod
+    def forward(ctx, a, w):
+        ar, wr = _round_bf16(a), _round_bf16(w)
+        ctx.save_for_backward(ar, wr)
+        return torch.matmul(ar, wr)
+
+    @staticmethod
+    def backward(ctx, dz):
+        ar, wr = ctx.saved_tensors
+        dzr = _round_bf16(dz)
+        da = torch.matmul(dzr, wr.t())
+        dw = torch.matmul(ar.reshape(-1, ar.shape[-1]).t(), dzr.reshape(-1, dzr.shape[-1]))
+        return da, dw
+
+
 def fused_edge_messages_plain(ui, ujn, dist, nbr_idx, wd, b0, w1, b1, edge_mask=None):
     """The same function in plain PyTorch: materializes [G, A, k, F]; 0 at
-    the edges `edge_mask` drops."""
+    the edges `edge_mask` drops. bfloat16 inputs take the bf16 function
+    (see the module docstring) and give a bfloat16 output."""
     g = torch.arange(ujn.shape[0], device=ujn.device)[:, None, None]
-    uj = ujn[g, nbr_idx]  # [G, A, k, F]
-    pre = ui[:, :, None, :] + uj + dist[..., None] * wd + b0
-    out = F.silu(torch.matmul(F.silu(pre), w1) + b1)
+    if ui.dtype == torch.bfloat16:  # f32 before the gather: dujn is summed in f32
+        # JAX's order, (ui + b0) + ujn[idx] + dist·wd, which the kernels keep
+        pre = ((ui.float()[:, :, None, :] + b0) + ujn.float()[g, nbr_idx]
+               + dist.float()[..., None] * wd)
+        out = F.silu(_Bf16Product.apply(F.silu(pre), w1) + b1).to(torch.bfloat16)
+    else:
+        pre = ui[:, :, None, :] + ujn[g, nbr_idx] + dist[..., None] * wd + b0
+        out = F.silu(torch.matmul(F.silu(pre), w1) + b1)
     if edge_mask is None:
         return out
     return torch.where(edge_mask[..., None], out, torch.zeros((), dtype=out.dtype, device=out.device))
@@ -76,15 +123,40 @@ def fused_edge_messages_bwd_plain(ui, ujn, dist, nbr_idx, wd, b0, w1, b1, dm, ed
         return torch.autograd.grad(out, leaves, dm)
 
 
+def bwd_bf16_rounding_bound(ui, ujn, dist, nbr_idx, wd, b0, w1, b1, dm, z):
+    """Per element of the bf16 backward's (dui, dujn, ddist), the most that
+    rounding dz to bf16 at another boundary can move it: 2^-7 of the sum
+    over the element's terms of |dz|·|W1|ᵀ·|silu'(pre)| (times |wd| for
+    ddist), dz = dm·silu'(z) from the `z` given. Kernel C rounds dz from
+    kernel B's z, autograd through `fused_edge_messages_plain` from its own,
+    and the two z's are f32 sums in other orders: a dz at a rounding
+    boundary can round up in one and down in the other."""
+    g = torch.arange(ujn.shape[0], device=ujn.device)[:, None, None]
+    pre = ((ui.float()[:, :, None, :] + b0) + ujn.float()[g, nbr_idx]
+           + dist.float()[..., None] * wd)
+    s, sp = torch.sigmoid(z), torch.sigmoid(pre)
+    dz = (dm.float() * s * (1 + z * (1 - s))).abs()
+    terms = torch.matmul(dz, w1.abs().t()) * (sp * (1 + pre * (1 - sp))).abs() * 2.0 ** -7
+    del pre, sp
+    rows = (g * ujn.shape[1] + nbr_idx).reshape(-1)
+    dujn = torch.zeros(ujn.shape[0] * ujn.shape[1], ujn.shape[2], device=ujn.device)
+    dujn.index_add_(0, rows, terms.reshape(-1, terms.shape[-1]))
+    return terms.sum(2), dujn.view(ujn.shape), torch.matmul(terms, wd.abs())
+
+
 def _check(ui, ujn, dist, nbr_idx, wd, b0, w1, b1, dm=None, z=None, edge_mask=None):
     named = dict(ui=ui, ujn=ujn, dist=dist, wd=wd, b0=b0, w1=w1, b1=b1)
     if dm is not None:
         named["dm"] = dm
     if z is not None:
         named["z"] = z
+    act = ui.dtype  # of ui, ujn, dist and dm; the parameters and z are float32
+    if act not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"edge_mlp kernel takes float32 or bfloat16 ui, got {act}")
     for name, t in named.items():
-        if t.dtype != torch.float32:
-            raise TypeError(f"edge_mlp kernel takes float32 {name}, got {t.dtype}")
+        want = act if name in ("ui", "ujn", "dist", "dm") else torch.float32
+        if t.dtype != want:
+            raise TypeError(f"edge_mlp kernel takes {want} {name} with {act} ui, got {t.dtype}")
     if nbr_idx.dtype != torch.int64:
         raise TypeError(f"edge_mlp kernel takes int64 nbr_idx, got {nbr_idx.dtype}")
     if edge_mask is not None and edge_mask.dtype != torch.bool:
@@ -114,12 +186,15 @@ def _check(ui, ujn, dist, nbr_idx, wd, b0, w1, b1, dm=None, z=None, edge_mask=No
             f"[{KERNEL_M}]; got {tuple(wd.shape)}, {tuple(b0.shape)}, "
             f"{tuple(w1.shape)}, {tuple(b1.shape)}"
         )
-    if _fwd_smem(a, k, 16) > SMEM_LIMIT:
+    bf16 = act == torch.bfloat16
+    if bf16 and (f < 2 or f % 2):
+        raise ValueError(f"the bfloat16 edge_mlp kernels take an even F, got {f}")
+    if (_fwd_smem_bf16 if bf16 else _fwd_smem)(a, k, 16) > SMEM_LIMIT:
         raise ValueError(f"A = {a}, k = {k} need more shared memory than a block has (kernel B)")
     for name, t in (("dm", dm), ("z", z)):
         if t is not None and t.shape != (g, a, k, KERNEL_M):
             raise ValueError(f"{name} must be [{g}, {a}, {k}, {KERNEL_M}], got {tuple(t.shape)}")
-    if dm is not None and _bwd_smem(a, k, 32) > SMEM_LIMIT:
+    if dm is not None and (_bwd_smem_bf16 if bf16 else _bwd_smem)(a, k, 32) > SMEM_LIMIT:
         raise ValueError(f"A = {a}, k = {k} need more shared memory than a block has")
 
 
@@ -134,10 +209,21 @@ def _fwd_smem(a: int, k: int, cw: int) -> int:
     return (FW_PASS * 256 + 2 * stage) * 4 + (2 * tiles + 1) * 4
 
 
-def fwd_workspace_floats(f: int) -> int:
+def _fwd_smem_bf16(a: int, k: int, cw: int) -> int:
+    """Kernel B in bf16's shared memory in bytes (csrc `fwd_smem_bf16`):
+    the running sums, two stages of ujn [A][cw + 8] and the pass's ui in
+    bf16, wd and b0 in f32 and W1's bf16 fragments (32 bytes a column), and
+    the live-tile list."""
+    tiles = a * -(-k // 16)
+    stage = 2 * a * (cw + 8) + 2 * FW_PASS * cw + 8 * cw + 32 * cw
+    return FW_PASS * 256 * 4 + 2 * stage + (2 * tiles + 1) * 4
+
+
+def fwd_workspace_floats(f: int, dtype: torch.dtype = torch.float32) -> int:
     """Floats of kernel B's workspace: W1's split fragments, 32 floats a
-    column of F rounded up to 16 (csrc `edge_mlp_fwd_f32`)."""
-    return -(-f // 16) * 512
+    column of F rounded up to 16 (csrc `edge_mlp_fwd_f32`); in bf16 its
+    bf16 fragments, 8 floats' worth a column (`edge_mlp_fwd_bf16`)."""
+    return -(-f // 16) * (128 if dtype == torch.bfloat16 else 512)
 
 
 def _bwd_smem(a: int, k: int, cols: int) -> int:
@@ -150,6 +236,24 @@ def _bwd_smem(a: int, k: int, cols: int) -> int:
     return (2 * a * cols + 2 * slot + warps * (-(-k // GROUP) * GROUP)) * 4
 
 
+def _bwd_smem_bf16(a: int, k: int, cols: int) -> int:
+    """Kernel C in bf16's shared memory in bytes (csrc `bwd_smem_bf16`):
+    dujn [A][cols] in f32 and ujn in bf16, two slot buffers (kernel C's and
+    dz in bf16 as [KT][16] and [16][KT + 8], KT = k rounded up to 16), each
+    warp's live list, t [KT][32] in f32 and a1 [32][KT + 8] in bf16."""
+    def up16(n):
+        return -(-n // 16) * 16
+
+    warps, kt = cols // 32, -(-k // 16) * 16
+    slot_f32 = ((k + 1) * (KERNEL_M + 2 + warps) + k + 3) // 4 * 4 * 4
+    slot = slot_f32 + kt * 16 * 2 + up16(16 * (kt + 8) * 2)
+    lists = up16(warps * (-(-k // GROUP) * GROUP) * 4)
+    return up16(a * cols * 6) + 2 * slot + lists + warps * (kt * 32 * 4 + 32 * (kt + 8) * 2)
+
+
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -159,20 +263,22 @@ def _launch_fwd(ui, ujn, dist, nbr_idx, wd, b0, w1, b1, edge_mask=None, want_z: 
     `edge_mask`, z is written at the live edges only)."""
     g, a, f = ui.shape
     k = nbr_idx.shape[-1]
-    out = torch.empty((g, a, k, KERNEL_M), dtype=torch.float32, device=ui.device)
-    z = torch.empty_like(out) if want_z else None
+    out = torch.empty((g, a, k, KERNEL_M), dtype=ui.dtype, device=ui.device)
+    z = torch.empty(out.shape, dtype=torch.float32, device=ui.device) if want_z else None
     lib = build.library()
-    ws = torch.empty(fwd_workspace_floats(f), dtype=torch.float32, device=ui.device)
+    ws = torch.empty(fwd_workspace_floats(f, ui.dtype), dtype=torch.float32, device=ui.device)
+    name = f"edge_mlp_fwd_{_SUFFIX[ui.dtype]}"
     with torch.cuda.device(ui.device):
-        code = lib.edge_mlp_fwd_f32(
+        code = getattr(lib, name)(
             ui.data_ptr(), ujn.data_ptr(), dist.data_ptr(), nbr_idx.data_ptr(),
             None if edge_mask is None else edge_mask.data_ptr(),
             wd.data_ptr(), b0.data_ptr(), w1.data_ptr(), b1.data_ptr(),
             out.data_ptr(), z.data_ptr() if want_z else None, ws.data_ptr(), g, a, k, f,
             KERNEL_M, _stream(ui),
         )
-    build.check(lib, "edge_mlp_fwd_f32", code)
+    build.check(lib, name, code)
     fused_edge_messages.launches += 1
+    fused_edge_messages.launches_bf16 += ui.dtype == torch.bfloat16
     return out, z
 
 
@@ -182,31 +288,37 @@ def fused_edge_messages_bwd(ui, ujn, dist, nbr_idx, wd, b0, w1, b1, dm, z):
     differentiates `fused_edge_messages_plain` itself, and
     `fused_edge_messages_bwd_plain` is the same backward for other callers.
     `z` [G, A, k, m] is the forward's pre-activation of the last SiLU, as
-    kernel B writes it (`_launch_fwd(..., want_z=True)`)."""
+    kernel B writes it (`_launch_fwd(..., want_z=True)`), in float32 in
+    either dtype; the input gradients come in ui's dtype, the parameters'
+    in float32."""
     if ui.device.type != "cuda":
         raise ValueError(f"fused_edge_messages_bwd: unsupported device {ui.device}")
     _check(ui, ujn, dist, nbr_idx, wd, b0, w1, b1, dm, z)
     g, a, f = ui.shape
     k = nbr_idx.shape[-1]
     lib = build.library()
+    sfx = _SUFFIX[ui.dtype]
     floats = ctypes.c_int64()
-    code = lib.edge_mlp_bwd_workspace_f32(g, a, k, f, KERNEL_M, ctypes.byref(floats))
-    build.check(lib, "edge_mlp_bwd_workspace_f32", code)
+    code = getattr(lib, f"edge_mlp_bwd_workspace_{sfx}")(g, a, k, f, KERNEL_M,
+                                                          ctypes.byref(floats))
+    build.check(lib, f"edge_mlp_bwd_workspace_{sfx}", code)
     opts = dict(dtype=torch.float32, device=ui.device)
-    dui, dujn = torch.empty((g, a, f), **opts), torch.empty((g, a, f), **opts)
-    ddist = torch.empty((g, a, k), **opts)
+    act = dict(dtype=ui.dtype, device=ui.device)  # the input gradients' dtype
+    dui, dujn = torch.empty((g, a, f), **act), torch.empty((g, a, f), **act)
+    ddist = torch.empty((g, a, k), **act)
     dparams = torch.empty(f * (KERNEL_M + 2) + KERNEL_M, **opts)
     ws = torch.empty(floats.value, **opts)
     with torch.cuda.device(ui.device):
-        code = lib.edge_mlp_bwd_f32(
+        code = getattr(lib, f"edge_mlp_bwd_{sfx}")(
             ui.data_ptr(), ujn.data_ptr(), dist.data_ptr(), nbr_idx.data_ptr(),
             wd.data_ptr(), b0.data_ptr(), w1.data_ptr(), b1.data_ptr(), dm.data_ptr(),
             z.data_ptr(), dui.data_ptr(), dujn.data_ptr(),
             ddist.data_ptr(), dparams.data_ptr(), ws.data_ptr(), g, a, k, f, KERNEL_M,
             _stream(ui),
         )
-    build.check(lib, "edge_mlp_bwd_f32", code)
+    build.check(lib, f"edge_mlp_bwd_{sfx}", code)
     fused_edge_messages_bwd.launches += 1
+    fused_edge_messages_bwd.launches_bf16 += ui.dtype == torch.bfloat16
     dw1, dwd, db0, db1 = torch.split(dparams, [f * KERNEL_M, f, f, KERNEL_M])
     return dui, dujn, ddist, dwd, db0, dw1.view(f, KERNEL_M), db1
 
@@ -254,5 +366,5 @@ def fused_edge_messages(ui, ujn, dist, nbr_idx, wd, b0, w1, b1, *, edge_mask=Non
                                     _recorded(ui, ujn, dist, wd, b0, w1, b1))
 
 
-fused_edge_messages.launches = 0
-fused_edge_messages_bwd.launches = 0
+fused_edge_messages.launches = fused_edge_messages.launches_bf16 = 0
+fused_edge_messages_bwd.launches = fused_edge_messages_bwd.launches_bf16 = 0

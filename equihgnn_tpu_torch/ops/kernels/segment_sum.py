@@ -6,7 +6,10 @@ Replaces `equihgnn_tpu/ops/pallas/segment_sum.py` `sorted_segment_sum`.
 through `_SortedSegmentSum`, an `autograd.Function` whose forward is the
 kernel (raising if it cannot launch) and whose backward is the gather
 `grad_out[segment_ids]` in plain indexing, as the JAX custom VJP's `_bwd`
-is plain XLA. `sorted_segment_sum.launches` counts kernel launches.
+is plain XLA. `sorted_segment_sum.launches` counts kernel launches, in
+either dtype: float32, or bfloat16 data summed in float32 and rounded
+once to bfloat16 (JAX's `_pallas_forward`, `:92-109`);
+`sorted_segment_sum.launches_bf16` counts the bfloat16 ones alone.
 
 Contract: `segment_ids` is non-decreasing. The kernel relies on it and
 does not check it; `pad_hypergraph_batch` checks it on the host, once per
@@ -38,15 +41,19 @@ def sorted_segment_sum_plain(data: torch.Tensor, segment_ids: torch.Tensor,
                              num_segments: int) -> torch.Tensor:
     """out[s] = Σ_{i: ids[i] = s} data[i] with `index_add_` (any id order);
     rows whose id lies outside [0, num_segments) go to a spare row that is
-    cut off."""
-    out = data.new_zeros((num_segments + 1,) + tuple(data.shape[1:]))
+    cut off. bfloat16 data is summed into a float32 buffer and the sums
+    rounded once, as JAX's kernel does (`_pallas_forward`, `:108-109`)."""
+    acc = torch.float32 if data.dtype == torch.bfloat16 else data.dtype
+    out = torch.zeros((num_segments + 1,) + tuple(data.shape[1:]), dtype=acc,
+                      device=data.device)
     inside = (segment_ids >= 0) & (segment_ids < num_segments)
-    return out.index_add_(0, torch.where(inside, segment_ids, num_segments), data)[:num_segments]
+    out.index_add_(0, torch.where(inside, segment_ids, num_segments), data.to(acc))
+    return out[:num_segments].to(data.dtype)
 
 
 def _check(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int):
-    if data.dtype != torch.float32:
-        raise TypeError(f"sorted_segment_sum kernel takes float32 data, got {data.dtype}")
+    if data.dtype not in _ENTRY:
+        raise TypeError(f"sorted_segment_sum kernel takes float32 or bfloat16 data, got {data.dtype}")
     if segment_ids.dtype != torch.int64:
         raise TypeError(f"sorted_segment_sum kernel takes int64 ids, got {segment_ids.dtype}")
     if data.ndim != 2 or segment_ids.ndim != 1 or segment_ids.shape[0] != data.shape[0]:
@@ -65,24 +72,32 @@ def _check(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int):
         raise ValueError(f"unsupported num_segments={num_segments}")
 
 
+_ENTRY = {torch.float32: "sorted_segment_sum_f32", torch.bfloat16: "sorted_segment_sum_bf16"}
+
+
 @functools.cache
-def _entry():
+def _entry(dtype: torch.dtype):
     lib = build.library()
-    return lib, lib.sorted_segment_sum_f32
+    return lib, getattr(lib, _ENTRY[dtype])
 
 
 def _launch(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """The kernel's output [num_segments, D] in the data's dtype; its float32
+    workspace follows it in the same allocation, 16-byte aligned."""
     m, d = data.shape
     ws = 2 * -(-m // TILE_ROWS) * d
-    buf = torch.empty(num_segments * d + ws, dtype=torch.float32, device=data.device)
-    out = buf[:num_segments * d].view(num_segments, d)
-    lib, fn = _entry()
-    code = fn(data.data_ptr(), segment_ids.data_ptr(), buf.data_ptr(),
-              buf.data_ptr() + 4 * num_segments * d, ws, m, d, num_segments,
-              torch._C._cuda_getCurrentRawStream(data.device.index))
+    out_bytes = data.element_size() * num_segments * d
+    ws_at = -(-out_bytes // 16) * 16
+    buf = torch.empty(ws_at + 4 * ws, dtype=torch.uint8, device=data.device)
+    out = buf[:out_bytes].view(data.dtype).view(num_segments, d)
+    lib, fn = _entry(data.dtype)
+    code = fn(data.data_ptr(), segment_ids.data_ptr(), buf.data_ptr(), buf.data_ptr() + ws_at,
+              ws, m, d, num_segments, torch._C._cuda_getCurrentRawStream(data.device.index))
     if code:
-        build.check(lib, "sorted_segment_sum_f32", code)
+        build.check(lib, _ENTRY[data.dtype], code)
     sorted_segment_sum.launches += 1
+    if data.dtype == torch.bfloat16:
+        sorted_segment_sum.launches_bf16 += 1
     return out
 
 
@@ -102,7 +117,9 @@ class _SortedSegmentSum(torch.autograd.Function):
 
 def sorted_segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
                        num_segments: int) -> torch.Tensor:
-    """Segment sum for non-decreasing `segment_ids` → [num_segments, D]."""
+    """Segment sum for non-decreasing `segment_ids` → [num_segments, D] in
+    the data's dtype (float32 or bfloat16; a bfloat16 sum is taken in
+    float32 and rounded once)."""
     if data.device.type == "cpu":
         return sorted_segment_sum_plain(data, segment_ids, num_segments)
     if data.device.type != "cuda":
@@ -112,3 +129,4 @@ def sorted_segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
 
 
 sorted_segment_sum.launches = 0
+sorted_segment_sum.launches_bf16 = 0

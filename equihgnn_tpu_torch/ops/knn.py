@@ -19,6 +19,12 @@ same ranking does too, so invalid slots (all ranked `BIG`) resolve to the
 same indices as in the JAX package. `knn_graph` ranks a chunk of rows at a
 time (~`PAIRS_PER_CHUNK` pairs), so that its [rows, N] ranking and sort stay
 small at any N.
+
+On bfloat16 positions (the EGNN models' compute dtype) the differences are
+bf16 and each squared distance is their squares' f32 sum rounded once to
+bf16 (`sq_dist`), as XLA compiles JAX's `jnp.sum(diff * diff, -1)`: it
+keeps the products before a reduction unrounded. bf16 squared distances tie
+often; ties resolve lower index first on both sides.
 """
 
 from __future__ import annotations
@@ -27,6 +33,15 @@ import torch
 
 BIG = 1e5  # the reference's masked-fill value (`egnn_layer.py:262`)
 PAIRS_PER_CHUNK = 1 << 24  # pairs knn_graph ranks and sorts at a time
+
+
+def sq_dist(diff: torch.Tensor) -> torch.Tensor:
+    """Σ diff² over the last axis; for bfloat16 differences the squares are
+    summed in float32 and rounded once, as JAX's fused reduction does."""
+    if diff.dtype == torch.bfloat16:
+        d = diff.float()
+        return torch.sum(d * d, dim=-1).to(diff.dtype)
+    return torch.sum(diff * diff, dim=-1)
 
 
 def knn_dense(
@@ -43,8 +58,7 @@ def knn_dense(
     axis is padded to k when A < k. All three are contiguous."""
     a = pos_d.shape[1]
     k_eff = min(k, a)
-    diff = pos_d[:, :, None, :] - pos_d[:, None, :, :]
-    sq = torch.sum(diff * diff, dim=-1)  # [R, A, A]
+    sq = sq_dist(pos_d[:, :, None, :] - pos_d[:, None, :, :])  # [R, A, A]
     invalid = ~(slot_mask[:, :, None] & slot_mask[:, None, :])
     if slot_gid is not None:
         invalid |= slot_gid[:, :, None] != slot_gid[:, None, :]
@@ -87,8 +101,7 @@ def knn_graph(
     with torch.no_grad():
         for r0 in range(0, n, chunk):
             r1 = min(n, r0 + chunk)
-            diff = pos[r0:r1, None, :] - pos[None, :, :]
-            ranking = torch.sum(diff * diff, dim=-1)  # [rows, N]
+            ranking = sq_dist(pos[r0:r1, None, :] - pos[None, :, :])  # [rows, N]
             invalid = torch.zeros(ranking.shape, dtype=torch.bool, device=pos.device)
             if mask is not None:
                 invalid |= ~(mask[r0:r1, None] & mask[None, :])
@@ -106,4 +119,4 @@ def knn_graph(
     if valid_radius is not None:
         nbr_mask &= nbr_rank <= (valid_radius if squared_radius else valid_radius**2)
     diff = pos[:, None, :] - pos.index_select(0, nbr_idx.reshape(-1)).view(n, k, -1)
-    return nbr_idx, nbr_mask, torch.sum(diff * diff, dim=-1)
+    return nbr_idx, nbr_mask, sq_dist(diff)

@@ -14,6 +14,14 @@ by the batch builder) sends the sum to the sorted-segment-sum kernel
 (`ops/kernels/segment_sum.py`). Unsorted ids (the vertex direction, the
 graph pooling) stay on `index_add_`, as the JAX package leaves them to
 `jax.ops.segment_sum` outside any Pallas kernel.
+
+Sums of bfloat16 data are taken in float32 and rounded once to bfloat16,
+on both routes (kernel A's function, `equihgnn_tpu/ops/pallas/
+segment_sum.py:108-109`); `index_add_` into a bfloat16 buffer would round
+at every add on the card (its atomics), where XLA's CPU scatter rounds at
+every add too and the TPU's Pallas kernel does not. A mean's member count
+is taken in the data's dtype, as in JAX (`equihgnn_tpu/ops/segment.py:41,
+99`).
 """
 
 from __future__ import annotations
@@ -34,10 +42,12 @@ def _broadcast(v: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
 
 
 def segment_sum(data, segment_ids, num_segments: int, mask=None):
-    """Masked segment sum. `data` [M, ...], `segment_ids` [M] → [num_segments, ...]."""
+    """Masked segment sum. `data` [M, ...], `segment_ids` [M] → [num_segments, ...];
+    a bfloat16 sum is taken in float32 and rounded once."""
     data = _apply_mask(data, mask)
-    out = data.new_zeros((num_segments,) + tuple(data.shape[1:]))
-    return out.index_add_(0, segment_ids, data)
+    acc = torch.float32 if data.dtype == torch.bfloat16 else data.dtype
+    out = torch.zeros((num_segments,) + tuple(data.shape[1:]), dtype=acc, device=data.device)
+    return out.index_add_(0, segment_ids, data.to(acc)).to(data.dtype)
 
 
 def segment_count(segment_ids, num_segments: int, mask=None, dtype=torch.float32):

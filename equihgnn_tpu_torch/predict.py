@@ -27,7 +27,10 @@ MHNN family (`mhnn`, `mhnns`, `mhnnm`) and the 2-D baselines (`gin`,
 `equiformer_equihnns`). From `--smiles`: the
 methods without coordinates; a geometric method raises. The model serves
 in `eval()` mode: dropout off, and a masked BatchNorm normalizes by its
-running statistics, which the checkpoint carries.
+running statistics, which the checkpoint carries. It computes in the
+checkpoint's compute dtype, or in `--compute_dtype` where given (the
+weights are float32 either way, so an f32 checkpoint serves in bfloat16 on
+the models that take it).
 """
 
 from __future__ import annotations
@@ -72,6 +75,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch_size", type=int, default=256)
     p.add_argument("--device", default="cuda",
                    help="torch device, e.g. cuda, cuda:1 or cpu (default cuda)")
+    p.add_argument("--compute_dtype", choices=("float32", "bfloat16"), default=None,
+                   help="serve in this compute dtype (default: the checkpoint's own); "
+                        "the weights are float32 in either")
     return p
 
 
@@ -178,6 +184,8 @@ def run(args) -> str:
     meta, state = load_checkpoint(args.ckpt)
     method = meta["method"]
     cfg = ModelConfig(**meta["model_config"])
+    if args.compute_dtype:
+        cfg = dataclasses.replace(cfg, compute_dtype=args.compute_dtype)
     std = float(meta.get("std", 1.0))
     hyper = method not in GRAPH_METHODS
     with_pos = method.startswith(GEOMETRIC_PREFIXES)

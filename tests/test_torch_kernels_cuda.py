@@ -58,6 +58,17 @@ the card against the bf16 model on the CPU: predictions within the CPU's
 own bfloat16-vs-float32 distance at the same weights, and the encoder's
 gradients under a smooth loss (relative L2 over all parameters) within
 half of it; cuBLAS's reduced-precision bf16 reductions are off for it.
+Kernels A, B and C in bfloat16 against their plain bf16 versions: A and
+B's out within one bf16 ulp (of max(|value|, max/256)) and at least 99 %
+the same bits (A at the trunk's batch-768 shape, its edge cases and the
+scalar path), B with every kind of edge mask and on both sides of each
+stage-width switch up to its limit (A = 1,887 at k = 16; 1,888 raises); C
+at least 99 % the same bits and within two ulps past the bound of dz's
+rounding (`bwd_bf16_rounding_bound`), its f32 parameter gradients as
+above, on both sides of each column-chunk switch up to its limit (A =
+1,164; 1,165 raises); an odd F and a bf16 parameter raise. `egnn_equihnns`
+and `mhnns` in bf16 at hidden 32 on the card against the CPU, as the
+SE(3)-Transformer's.
 """
 
 import pytest
@@ -65,6 +76,7 @@ import torch
 
 from equihgnn_tpu_torch.ops.kernels.edge_mlp import (
     _launch_fwd,
+    bwd_bf16_rounding_bound,
     fused_edge_messages,
     fused_edge_messages_bwd,
     fused_edge_messages_bwd_plain,
@@ -1298,3 +1310,270 @@ def test_se3_transformer_bf16_on_card_matches_cpu(dev):
         assert name in got and bool(got[name].abs().max() > 0), name
     want, want32 = grads("cpu", encoder), grads("cpu", encoder, None)
     assert _rel_l2(grads(dev, encoder), want) <= 0.5 * _rel_l2(want, want32)
+
+
+# ------------------------------------------------ kernels A, B and C in bfloat16
+
+
+def bf16_ulp_distance(got, want):
+    """Per element, |got − want| in bfloat16 ulps of max(|want|,
+    max|want| / 256): an ulp of the value, floored at the ulp of 1/256 of
+    the tensor's largest (an f32 sum that cancels to near 0 is resolved in
+    the other f32 sum's order only to ~1e-6 of its terms, whichever
+    framework rounds it)."""
+    want, got = want.float(), got.float()
+    top = float(want.abs().max()) if want.numel() else 0.0
+    if top == 0.0:
+        return (got - want).abs()
+    mag = want.abs().clamp(min=top / 256)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return (got - want).abs() / ulp
+
+
+def _assert_bf16_close(got, want, name, ulps=1, equal=0.99):
+    """bfloat16 outputs of a kernel and its plain version, both f32 sums
+    rounded once: at least `equal` of the elements the same bits, every one
+    within `ulps` bfloat16 ulps (`bf16_ulp_distance`)."""
+    assert got.dtype == want.dtype == torch.bfloat16 and got.shape == want.shape, name
+    if not want.numel():
+        return
+    same = float((got == want).float().mean())
+    far = float(bf16_ulp_distance(got, want).max())
+    assert same >= equal and far <= ulps, f"{name}: {same:.5f} equal, {far:.2f} ulps at most"
+
+
+def _bf16_edge_args(g, a, k, f, seed):
+    args, dm = _edge_args(g, a, k, f, seed)
+    return [t.to(torch.bfloat16) if i < 3 else t for i, t in enumerate(args)], \
+        dm.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("m,s,d", [(300, 120, 7), (1000, 40, 130), (5, 1, 1), (0, 9, 16),
+                                   (29456, 13968, 256)])
+def test_sorted_segment_sum_bf16_kernel(dev, m, s, d):
+    """Kernel A in bfloat16 (f32 sums rounded once) against its plain
+    version (`index_add_` into f32, then a cast): within one bf16 ulp, at
+    least 99 % the same bits, 0 at the empty segments, the same bits twice;
+    D = 7 and 130 take the kernel's scalar path, 256 its 8-byte one."""
+    gen = torch.Generator().manual_seed(m + s + d)
+    ids = torch.sort(2 * torch.randint(0, max(s // 2, 1), (m,), generator=gen) + (s > 1)).values
+    ids = ids.clamp(max=s - 1).to(dev)
+    data = torch.randn(m, d, generator=gen).to(torch.bfloat16).to(dev)
+    before = sorted_segment_sum.launches
+    got = sorted_segment_sum(data, ids, s)
+    assert sorted_segment_sum.launches == before + 1 and got.dtype == torch.bfloat16
+    _assert_bf16_close(got, sorted_segment_sum_plain(data, ids, s), "out")
+    counts = torch.bincount(ids, minlength=s)
+    assert torch.all(got[counts == 0] == 0)
+    assert torch.equal(sorted_segment_sum(data, ids, s), got)
+
+
+@pytest.mark.parametrize("name", ["no_rows", "no_segments", "empty_start_middle_end",
+                                  "one_segment_of_5000", "ids_at_or_above_s", "every_id_equal"])
+def test_sorted_segment_sum_bf16_edge_cases(dev, name):
+    gen = torch.Generator().manual_seed(8)
+    ids, s = _segment_case(name, gen)
+    data = torch.randn(ids.shape[0], 256, generator=gen).to(torch.bfloat16).to(dev)
+    ids = ids.to(dev)
+    got = sorted_segment_sum(data, ids, s)
+    _assert_bf16_close(got, sorted_segment_sum_plain(data, ids, s), name)
+    assert torch.equal(sorted_segment_sum(data, ids, s), got)
+
+
+def test_sorted_segment_sum_bf16_autograd(dev):
+    gen = torch.Generator().manual_seed(6)
+    ids = torch.sort(torch.randint(0, 90, (500,), generator=gen)).values.to(dev)
+    data = torch.randn(500, 40, generator=gen).to(torch.bfloat16).to(dev).requires_grad_()
+    dout = torch.randn(90, 40, generator=gen).to(torch.bfloat16).to(dev)
+    sorted_segment_sum(data, ids, 90).backward(dout)
+    assert data.grad.dtype == torch.bfloat16 and torch.equal(data.grad, dout[ids])
+
+
+BF16_EDGE_CASES = [(3, 8, 5, 34), (5, 29, 16, 1026), (4, 32, 16, 130), (2, 6, 40, 20),
+                   (2, 1, 1, 4)]
+
+
+@pytest.mark.parametrize("kind", ["random", "dead", "live", "slots"])
+@pytest.mark.parametrize("g,a,k,f", BF16_EDGE_CASES)
+def test_edge_mlp_bf16_kernel(dev, g, a, k, f, kind):
+    """Kernel B in bfloat16 against its plain version (a1 and W1 rounded to
+    bf16, f32 sums): out within one bf16 ulp (`bf16_ulp_distance`), at least
+    99 % the same bits; with and without the edge mask (0 at the dead edges,
+    the live edges' bits as without it), z (f32) the same bits with the mask
+    at the live edges and the same bits twice."""
+    args, _ = _bf16_edge_args(g, a, k, f, seed=g * a + k + f)
+    cuda_args = [t.to(dev) for t in args]
+    mask = _b_mask(kind, g, a, k, seed=g + k).to(dev)
+    before = fused_edge_messages.launches
+    got = fused_edge_messages(*cuda_args, edge_mask=mask)
+    assert fused_edge_messages.launches == before + 1 and got.dtype == torch.bfloat16
+    _assert_bf16_close(got, fused_edge_messages_plain(*cuda_args, mask), "out")
+    assert torch.all(got[~mask] == 0)
+    unmasked, z_all = _launch_fwd(*cuda_args, want_z=True)
+    _assert_bf16_close(unmasked, fused_edge_messages_plain(*cuda_args), "out, no mask")
+    assert torch.equal(got[mask], unmasked[mask])
+    got_z, z = _launch_fwd(*cuda_args, edge_mask=mask, want_z=True)
+    assert torch.equal(got, got_z) and z.dtype == torch.float32
+    assert torch.equal(z[mask], z_all[mask])
+    assert torch.equal(got, fused_edge_messages(*cuda_args, edge_mask=mask))
+
+
+def _assert_bf16_grads(got, want, args, dm, z):
+    """Kernel C in bfloat16 against autograd through the plain bf16 forward:
+    dui, dujn and ddist at least 99 % the same bits, each within two bf16
+    ulps (`bf16_ulp_distance`) plus `bwd_bf16_rounding_bound` (C rounds dz
+    from kernel B's z, the plain version from its own: a dz at a rounding
+    boundary goes either way); the f32 parameter gradients within
+    1e-4·max|plain| + 1e-6."""
+    bounds = dict(zip(("dui", "dujn", "ddist"), bwd_bf16_rounding_bound(*args, dm, z)))
+    for name, x, y in zip(("dui", "dujn", "ddist", "dwd", "db0", "dw1", "db1"), got, want):
+        if name in bounds:
+            assert x.dtype == y.dtype == torch.bfloat16 and x.shape == y.shape, name
+            same = float((x == y).float().mean())
+            excess = (x.float() - y.float()).abs() - bounds[name]
+            far = float(bf16_ulp_distance(y.float() + excess.clamp(min=0), y.float()).max())
+            assert same >= 0.99 and far <= 2, f"{name}: {same:.5f} equal, {far:.2f} ulps past"
+        else:
+            assert x.dtype == y.dtype == torch.float32, name
+            _assert_grad_close(x, y, name)
+
+
+@pytest.mark.parametrize("kind", ["rand", "mask", "slot", "zero"])
+@pytest.mark.parametrize("g,a,k,f", BF16_EDGE_CASES + [(1, 276, 16, 130), (1, 277, 16, 130),
+                                                        (1, 572, 16, 130), (1, 573, 16, 130)])
+def test_edge_mlp_bwd_bf16_kernel(dev, g, a, k, f, kind):
+    """Kernel C in bfloat16 with kernel B's z, on both sides of each switch
+    of its column chunk at k = 16 (128 columns a block up to A = 276, 64 up
+    to 572, 32 up to 1,164): within `_assert_bf16_grads` of the plain
+    backward, 0 in ddist at a zero-gradient edge, the same bits twice."""
+    args, dm = _bf16_edge_args(g, a, k, f, seed=g * a + k + f)
+    cuda_args = [t.to(dev) for t in args]
+    dm = _zero_grad_case(dm, kind, seed=g + k).to(dev)
+    _, z = _launch_fwd(*cuda_args, want_z=True)
+    before = fused_edge_messages_bwd.launches
+    got = fused_edge_messages_bwd(*cuda_args, dm, z)
+    assert fused_edge_messages_bwd.launches == before + 1
+    _assert_bf16_grads(got, fused_edge_messages_bwd_plain(*cuda_args, dm), cuda_args, dm, z)
+    assert torch.all(got[2][(dm == 0).all(-1)] == 0)
+    if kind == "zero":
+        assert all(torch.all(x == 0) for x in got)
+    for x, y in zip(got, fused_edge_messages_bwd(*cuda_args, dm, z)):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("kind", ["rand", "mask"])
+def test_edge_mlp_bf16_autograd(dev, kind):
+    """Kernels B and C in bfloat16 through the autograd.Function, with the
+    model's kind of mask: the gradients of the plain version, and with z NaN
+    at the dead edges the same bits (C never reads z there)."""
+    args, dm = _bf16_edge_args(5, 29, 16, 1026, seed=11)
+    args, dm = [t.to(dev) for t in args], dm.to(dev)
+    mask = _b_mask("slots" if kind == "mask" else "live", 5, 29, 16, seed=2).to(dev)
+    diff = [0, 1, 2, 4, 5, 6, 7]
+    leaves = [t.clone().requires_grad_() if i in diff else t for i, t in enumerate(args)]
+    out = fused_edge_messages(*leaves, edge_mask=mask)
+    assert out.grad_fn is not None and out.dtype == torch.bfloat16
+    out.backward(dm)
+    want = fused_edge_messages_bwd_plain(*args, dm, mask)
+    _, z = _launch_fwd(*args, edge_mask=mask, want_z=True)
+    dmm = dm * mask[..., None]
+    _assert_bf16_grads([leaves[i].grad for i in diff], want, args, dmm,
+                       torch.where(mask[..., None], z, 0.0))
+    z[~mask] = float("nan")
+    for i, g in zip(diff, fused_edge_messages_bwd(*args, dmm, z)):
+        assert torch.equal(leaves[i].grad, g), f"input {i}"
+
+
+@pytest.mark.parametrize("a", [629, 630, 1148, 1149, 1164, 1887])
+def test_edge_mlp_bf16_row_sizes(dev, a):
+    """Kernel B in bfloat16 on both sides of each switch of its stage width
+    (64 columns up to A = 629 slots at k = 16, 32 up to 1,148, 16 up to
+    1,887, its limit), and kernel C at its limit (A = 1,164), with the
+    model's kind of mask, against the plain versions."""
+    args, dm = _bf16_edge_args(1, a, 16, 130, seed=a)
+    cuda_args = [t.to(dev) for t in args]
+    mask = _b_mask("slots", 1, a, 16, seed=a).to(dev)
+    got = fused_edge_messages(*cuda_args, edge_mask=mask)
+    _assert_bf16_close(got, fused_edge_messages_plain(*cuda_args, mask), "out")
+    if a <= 1164:
+        dm = dm.to(dev) * mask[..., None]
+        _, z = _launch_fwd(*cuda_args, edge_mask=mask, want_z=True)
+        z = torch.where(mask[..., None], z, 0.0)  # unwritten at the dead edges
+        _assert_bf16_grads(fused_edge_messages_bwd(*cuda_args, dm, z),
+                           fused_edge_messages_bwd_plain(*cuda_args, dm), cuda_args, dm, z)
+
+
+def test_edge_mlp_bf16_rejects_what_it_does_not_take(dev):
+    """One slot past B's limit (A = 1,888) or C's (A = 1,165), an odd F,
+    and float32 parameters' partners in another dtype raise."""
+    args, dm = _bf16_edge_args(1, 1888, 16, 4, seed=4)
+    with pytest.raises(ValueError, match="A = 1888, k = 16"):
+        fused_edge_messages(*[t.to(dev) for t in args])
+    args, dm = _bf16_edge_args(1, 1165, 16, 4, seed=5)
+    cuda_args = [t.to(dev) for t in args]
+    with pytest.raises(ValueError, match="A = 1165, k = 16"):
+        fused_edge_messages_bwd(*cuda_args, dm.to(dev), dm.float().to(dev))
+    args, _ = _bf16_edge_args(2, 4, 3, 9, seed=6)
+    with pytest.raises(ValueError, match="even F"):
+        fused_edge_messages(*[t.to(dev) for t in args])
+    args, _ = _bf16_edge_args(2, 4, 3, 10, seed=7)
+    args[4] = args[4].to(torch.bfloat16)
+    with pytest.raises(TypeError, match="wd"):
+        fused_edge_messages(*[t.to(dev) for t in args])
+
+
+@pytest.mark.parametrize("method", ["egnn_equihnns", "mhnns"])
+def test_bf16_hypergraph_model_on_card_matches_cpu(dev, method):
+    """`egnn_equihnns` and `mhnns` in bfloat16 at hidden 32: kernels A (3 a
+    forward, in bf16), B (1) and C (1 a step) for the EGNN, A alone for
+    mhnns; the eval forward against the CPU's bf16 model within the CPU's
+    own bfloat16-vs-float32 distance, every parameter the CPU's step reaches
+    reached, and the encoder's gradients under a smooth loss within half of
+    that distance (relative L2 over all parameters)."""
+    from equihgnn_tpu_torch import create_model
+    from equihgnn_tpu_torch.models.config import ModelConfig
+    from equihgnn_tpu_torch.train.trainer import masked_mse
+
+    _, batch = _faformer_setup()
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    egnn = method == "egnn_equihnns"
+
+    def make(device, dtype="bfloat16"):
+        cfg = ModelConfig(mlp_hidden=32, output_hidden=8, compute_dtype=dtype)
+        return create_model(method, num_target=1, cfg=cfg,
+                            generator=torch.Generator().manual_seed(1)).to(device)
+
+    with torch.inference_mode():
+        want, want32 = make("cpu").eval()(batch), make("cpu", None).eval()(batch)
+        _reset_counts()
+        got = make(dev).eval()(batch.to(dev)).cpu()
+    assert got.dtype == torch.float32
+    assert (sorted_segment_sum.launches, fused_edge_messages.launches) == (3, int(egnn))
+    assert float((got - want).abs().max()) <= float((want - want32).abs().max())
+
+    def grads(device, loss, dtype="bfloat16"):
+        model = make(device, dtype)
+        loss(model, batch.to(device)).backward()
+        return {n: p.grad for n, p in model.named_parameters() if p.grad is not None}
+
+    def step(model, b):
+        sq, cnt = masked_mse(model(b), b.y, b.graph_mask)
+        return sq / cnt.clamp(min=1.0)
+
+    proj = torch.randn(batch.num_atoms, 32, generator=torch.Generator().manual_seed(4))
+
+    def encoder(model, b):
+        return torch.sum(model.encode(b)[b.atom_mask].float() * proj.to(b.pos.device)[b.atom_mask])
+
+    want = grads("cpu", step)
+    _reset_counts()
+    got = grads(dev, step)
+    assert (sorted_segment_sum.launches, fused_edge_messages.launches,
+            fused_edge_messages_bwd.launches) == (3, int(egnn), int(egnn))
+    nonzero = {n for n, g in want.items() if bool(g.abs().max() > 0)}
+    assert {"atom_encoder.atom.embedding", "trunk.conv.W2.lin_0.weight"} <= nonzero
+    for name in nonzero:
+        assert name in got and bool(got[name].abs().max() > 0), name
+    if egnn:
+        want, want32 = grads("cpu", encoder), grads("cpu", encoder, None)
+        assert _rel_l2(grads(dev, encoder), want) <= 0.5 * _rel_l2(want, want32)

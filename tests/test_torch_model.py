@@ -129,23 +129,40 @@ def test_params_from_jax_rejects_bad_trees(fault):
                         ("egnn_equihnns", dict(remat=True)),
                         ("mhnn", dict(compute_dtype="bfloat16")),
                         ("gat", dict(remat=True)),
-                        ("equiformer_equihnns", {})],
+                        ("equiformer_equihnns", {}),
+                        ("faformer_equihnns", dict(compute_dtype="bfloat16")),
+                        ("visnet_equihnns", dict(compute_dtype="bfloat16"))],
 )
 def test_unported_configs_raise(method, override):
-    """A `compute_dtype` other than float32 raises on these models (ROADMAP
-    item 11); `remat` and `equiformer_equihnns` are ported since and build
-    (remat's steps: `tests/test_torch_remat.py`; the Equiformer:
-    `tests/test_torch_equiformer.py`). `cross_molecule_knn=True` is ported
-    (`tests/test_torch_egnn_flat.py`)."""
+    """A `compute_dtype` other than float32 raises on the models that do not
+    run it yet (ROADMAP item 11): FAFormer and ViSNet. The MHNN family and
+    the EGNN models build in bfloat16 (held to JAX in
+    `tests/test_torch_bf16_hypergraph.py`), and the 2-D baselines take the
+    flag and ignore it, as in JAX. `remat` and `equiformer_equihnns` are
+    ported and build (remat's steps: `tests/test_torch_remat.py`; the
+    Equiformer: `tests/test_torch_equiformer.py`). `cross_molecule_knn=True`
+    is ported (`tests/test_torch_egnn_flat.py`)."""
     cfg = ModelConfig(**{**CFG, **override})
-    if "compute_dtype" in override:
+    if method in ("faformer_equihnns", "visnet_equihnns"):
         with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
             create_model(method, num_target=1, cfg=cfg)
         return
     model = create_model(method, num_target=1, cfg=cfg, **(
-        {"gnn_type": method} if method == "gat" else {}))
+        {"gnn_type": method} if method in ("gat", "gin") else {}))
     assert model.cfg.remat == bool(override.get("remat"))
+    assert model.cfg.compute_dtype == override.get("compute_dtype")
     assert sum(p.numel() for p in model.parameters()) > 0
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    if method == "gin" and "compute_dtype" in override:  # taken and ignored
+        from equihgnn_tpu_torch.data.batching import pad_graph_batch
+        from equihgnn_tpu_torch.data.synthetic import make_synthetic_dataset as graphs
+
+        plain = create_model(method, num_target=1, cfg=ModelConfig(**CFG), gnn_type=method)
+        samples = graphs(6, seed=71, hyper=False)
+        batch = pad_graph_batch(samples, spec_for_samples(samples, batch_size=8), target=0)
+        with torch.no_grad():
+            got, want = model.eval()(batch), plain.eval()(batch)
+        assert got.dtype == torch.float32 and torch.equal(got, want)
 
 
 def test_bn_prelu_model_matches_jax():

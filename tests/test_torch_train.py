@@ -438,17 +438,19 @@ def test_main_cuda_raises_without_card(tmp_path, monkeypatch):
     assert not os.path.exists(tmp_path / "logs")
 
 
-# --compute_dtype now reaches the model, whose check raises on egnn_equihnns;
-# --remat is ported: it trains (its step: tests/test_torch_remat.py)
+# --remat and --compute_dtype bfloat16 on egnn_equihnns are ported: each
+# trains (remat's step: tests/test_torch_remat.py; bf16 against JAX:
+# tests/test_torch_bf16_hypergraph.py)
 @pytest.mark.parametrize("flag", sorted([*UNPORTED_FLAGS, "compute_dtype", "remat"]))
 def test_unported_flags_raise(flag, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     extra = {"buckets": ["--buckets", "16,24"], "compute_dtype": ["--compute_dtype", "bfloat16"]}
     args = build_parser().parse_args(CLI + ["--device", "cpu"] + extra.get(flag, [f"--{flag}"]))
-    if flag == "remat":
+    if flag in ("remat", "compute_dtype"):
         args = build_parser().parse_args(
-            CLI + ["--device", "cpu", "--remat", "--debug", "--synthetic_size", "40",
-                   "--batch_size", "8", "--MLP_hidden", "16", "--output_hidden", "8"])
+            CLI + ["--device", "cpu", "--debug", "--synthetic_size", "40", "--batch_size", "8",
+                   "--MLP_hidden", "16", "--output_hidden", "8"]
+            + (["--remat"] if flag == "remat" else extra[flag]))
         assert np.isfinite(run(args)["history"][0]["train_loss"])
         return
     with pytest.raises(NotImplementedError, match=flag):
