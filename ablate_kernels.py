@@ -106,7 +106,7 @@ H (`csrc/vis_mix.cu`, at `vis_mix_inputs`): full; the grid's row index
   cp.async); masked edges computed; and, with --vis-mix-before, the kernel
   H of another `vis_mix.cu`; beside it F of the full and the before build
   (F's code unchanged). One call a sample, and device time alone.
-B, D, H and M: ptxas's registers of their kernels (full and before).
+B, D, H (with F), G and I, and M: ptxas's registers of their kernels (full and before).
 A variant is the source with exact lines removed or replaced; a line that is
 not in the source once stops the script. A variant's output is wrong by
 design and is not checked. Times: `chip_smoke.median_ms`, 10 samples (L: of
@@ -661,7 +661,10 @@ M_PATCHES = {
 # builds whose ptxas report to print, and the kernels in it to print
 REGISTERS = {"B full": ("fwd_kernel", "w1_frags"), "B before": ("fwd_kernel", "w1_frags"),
              "D full": ("fwd_kernel",), "D before": ("fwd_kernel",),
-             "H full": ("wdot_fwd_kernel",), "H before": ("wdot_fwd_kernel",),
+             "H full": ("wdot_fwd_kernel", "vec_agg_fwd_kernel"),
+             "H before": ("wdot_fwd_kernel", "vec_agg_fwd_kernel"),
+             "GI full": ("vec_agg_bwd_kernel", "wdot_bwd_kernel"),
+             "GI before": ("vec_agg_bwd_kernel", "wdot_bwd_kernel"),
              "M full": ("pooled_m_bwd",), "M before": ("pooled_m_bwd",)}
 
 def _patched(src: Path, patches, out: Path) -> Path:

@@ -39,9 +39,12 @@ result line), each printing its seconds:
    products) and their backwards G and I on the batch's k = 17
    neighbourhoods (self included, 5 Å) at L = 8, h = 256, with s1 a
    strided view as in ViS_MP (G and I one cluster of blocks a row; each of
-   F-I also by its device time alone); J and K (the SE(3)-Transformer's fused
-   pooled ConvSE3 unit, forward and backward) at its pooled sites (k =
-   16, F = 128, I = O = 256; C = 1 at three of the four, C = 3 at
+   F-I also by its device time alone, and the same bits as the parent
+   commit's f32 kernels, `F32_BEFORE`, where the inputs are the recorded
+   run's), then F-I in bf16 (`vis_mix_bf16_rows`) at the same shapes
+   against their plain bf16 versions within one bf16 ulp; J and K (the
+   SE(3)-Transformer's fused pooled ConvSE3 unit, forward and backward) at
+   its pooled sites (k = 16, F = 128, I = O = 256; C = 1 at three of the four, C = 3 at
    conv_in's 0 → 1), J and K with the sites that have a neighbour as
    `live` (as the model calls them) and without, against the plain
    versions (K's on dout · live, 0 at the dead sites) and, for J, the
@@ -83,9 +86,11 @@ SE(3)-Transformer with `--compute_dtype bfloat16` at the CLI's default
 widths (hidden 64, output hidden 64 over 2 layers; its pooled units take
 kernels L and M), `egnn_equihnns bf16` and `mhnns bf16` (the recipe with
 `--compute_dtype bfloat16`: the EGNN and the trunk in bf16, kernels A, B
-and C in bf16), the 2-D baselines `gin`, `gcn`, `gat` and `gatv2` at
-ModelConfig's gnn_* widths (5 layers, 300 wide, JK "last", mean pooling,
-dropout 0; GAT: 4 heads averaged), and `egnn_equihnns cross-molecule`
+and C in bf16), `visnet_equihnns bf16` (ViSNet's layer loop in bf16,
+kernels F-I in bf16, its readout and the trunk f32) and, served only (4),
+`visnet_equihnn bf16` and `visnet_equihnnm bf16`, the 2-D baselines `gin`,
+`gcn`, `gat` and `gatv2` at ModelConfig's gnn_* widths (5 layers, 300
+wide, JK "last", mean pooling, dropout 0; GAT: 4 heads averaged), and `egnn_equihnns cross-molecule`
 (the recipe with `cross_molecule_knn=True`: EGNN's flat path, a batch-wide
 kNN), with random weights from a seed:
 4. serve: saved as a port checkpoint, served through
@@ -97,7 +102,9 @@ kNN), with random weights from a seed:
    kernels (egnn: A 3x and B per forward; faformer: A 3x and D 5x;
    visnet: A 3x, F 6x, H 5x; se3: A 3x, J 4x; se3 bf16: A 3x, L 4x;
    egnn bf16: A 3x and B, mhnns bf16: A 3x, each also on the wrapper's
-   bf16 counter (`launches_bf16`, which the f32 paths must leave at 0); the
+   bf16 counter (`launches_bf16`, which the f32 paths must leave at 0);
+   visnet bf16 and its hybrids: F 6x and H 5x, each also on the bf16
+   counter, A 3x in f32; the
    MHNN family and equiformer: A 3x; a hybrid: its encoder's, and A 3x; the
    cross-molecule path: A 3x and no B, JAX's flat EGNN being unfused); a
    2-D baseline serves the SDF and a SMILES file the script writes from
@@ -127,7 +134,8 @@ kNN), with random weights from a seed:
    finite and the last below the first; the launch counters show the
    model's kernels on every train step (egnn: A 3x, B, C; faformer: A 3x,
    D 5x, E 4x; visnet: A 3x, F 6x, H 5x, G 6x, I 5x; se3: A 3x, J 4x, K 4x;
-   se3 bf16: A 3x, L 8x, M 4x; the MHNN family and equiformer: A 3x; a
+   se3 bf16: A 3x, L 8x, M 4x; visnet bf16: as visnet, F-I on the bf16
+   counters too; the MHNN family and equiformer: A 3x; a
    hybrid: its encoder's; the 2-D baselines: none) and every eval forward;
    `ckpt_best.pt` serves through `predict.run --device cuda`; the
    cross-molecule path has no train phase (neither CLI sets the flag);
@@ -139,9 +147,9 @@ kNN), with random weights from a seed:
    beside the rows the model masks (egnn's dm must be 0 on every masked
    edge); for egnn bf16, the kNN on the batch's bf16 positions on the card
    and the CPU: the slots whose neighbour set differs (recorded);
-8. remat (the encoder paths, se3 bf16 and egnn bf16): one train step with
-   `remat=True` against the same step without it on the card, training
-   mode, the gradient phase's molecules; the remat step's launches (the
+8. remat (the encoder paths, se3 bf16, egnn bf16 and visnet bf16): one
+   train step with `remat=True` against the same step without it on the
+   card, training mode, the gradient phase's molecules; the remat step's launches (the
    encoder's kernels again in its backward: egnn B, faformer D 5x, visnet
    F 6x and H 5x, se3 J 4x, se3 bf16 L 4x, egnn bf16 B more); the steps
    with PyTorch's deterministic algorithms (`index_add_` in a fixed order,
@@ -173,6 +181,7 @@ import contextlib
 import csv
 import dataclasses
 import functools
+import hashlib
 import json
 import math
 import os
@@ -207,6 +216,12 @@ BF16_PATH = "se3_transformer_equihnns bf16"
 # EGNN encoder and the trunk in bf16 (kernels A, B and C in bf16)
 EGNN_BF16, MHNNS_BF16 = "egnn_equihnns bf16", "mhnns bf16"
 BF16_HYPER_PATHS = (EGNN_BF16, MHNNS_BF16)
+# the ViSNet models with --compute_dtype bfloat16 at the recipe: ViSNet's layer
+# loop in bf16 (kernels F-I in bf16), its readout and the trunk in f32; the two
+# hybrids are served only (their encoder is held on the visnet_equihnns path)
+VISNET_BF16 = "visnet_equihnns bf16"
+VISNET_HYBRIDS_BF16 = ("visnet_equihnn bf16", "visnet_equihnnm bf16")
+SERVE_ONLY = VISNET_HYBRIDS_BF16
 # egnn_equihnns with the reference's batch-as-one-point-cloud kNN
 # (cross_molecule_knn=True): EGNN's flat path, JAX's unfused edge MLP (no kernel B)
 CROSS_PATH = "egnn_equihnns cross-molecule"
@@ -217,6 +232,8 @@ PATHS = {**{m: (m, {}) for m in METHODS},
                                                       compute_dtype="bfloat16")),
          EGNN_BF16: ("egnn_equihnns", dict(compute_dtype="bfloat16")),
          MHNNS_BF16: ("mhnns", dict(compute_dtype="bfloat16")),
+         **{p: (p.removesuffix(" bf16"), dict(compute_dtype="bfloat16"))
+            for p in (VISNET_BF16, *VISNET_HYBRIDS_BF16)},
          **{m: (m, {}) for m in GRAPH_METHODS},
          CROSS_PATH: ("egnn_equihnns", dict(cross_molecule_knn=True))}
 # SMILES served by the 2-D paths (one a line; the last does not parse: a nan row)
@@ -241,6 +258,9 @@ FWD_LAUNCHES = {
     EGNN_BF16: {"sorted_segment_sum": 3, "sorted_segment_sum bf16": 3,
                 "fused_edge_messages": 1, "fused_edge_messages bf16": 1},
     MHNNS_BF16: {"sorted_segment_sum": 3, "sorted_segment_sum bf16": 3},
+    # the trunk reads ViSNet's f32 readout: A in f32
+    VISNET_BF16: {"sorted_segment_sum": 3, "vis_vec_agg": 6, "vis_vec_agg bf16": 6,
+                  "vis_wdot": 5, "vis_wdot bf16": 5},
 }
 BWD_LAUNCHES = {
     "egnn_equihnns": {"fused_edge_messages_bwd": 1},
@@ -254,6 +274,8 @@ BWD_LAUNCHES = {
     "equiformer_equihnns": {},
     EGNN_BF16: {"fused_edge_messages_bwd": 1, "fused_edge_messages_bwd bf16": 1},
     MHNNS_BF16: {},
+    VISNET_BF16: {"vis_vec_agg_bwd": 6, "vis_vec_agg_bwd bf16": 6, "vis_wdot_bwd": 5,
+                  "vis_wdot_bwd bf16": 5},
 }
 # each hybrid's encoder, whose *_equihnns path it shares its encoder's kernels with
 ENCODER_OF = {m: m.removesuffix("m") + "s" for m in HYBRID_METHODS}
@@ -268,6 +290,11 @@ for _m, _enc in ENCODER_OF.items():
 for _m in GRAPH_METHODS:
     FWD_LAUNCHES[_m], BWD_LAUNCHES[_m] = {}, {}
 FWD_LAUNCHES[CROSS_PATH], BWD_LAUNCHES[CROSS_PATH] = {"sorted_segment_sum": 3}, {}
+# TrunkFull and TrunkM cast their hyperedge embedding to bf16; their first
+# concatenation with ViSNet's f32 output promotes it: A in f32
+for _p in VISNET_HYBRIDS_BF16:
+    FWD_LAUNCHES[_p], BWD_LAUNCHES[_p] = dict(FWD_LAUNCHES[VISNET_BF16]), \
+        dict(BWD_LAUNCHES[VISNET_BF16])
 LR = {"visnet_equihnns": "1e-4", "visnet_equihnn": "1e-4",
       "visnet_equihnnm": "1e-4"}  # the others train at 1e-3
 # the MHNN family trains on the coordinate-free set, as users of those models do
@@ -485,8 +512,8 @@ def phase_build() -> None:
 def counters() -> dict:
     """name → (the launch-counted wrapper of a kernel, its counter's
     attribute): `launches` of every wrapper, in any dtype, and beside it
-    `launches_bf16` of the wrappers of A, B and C, the bf16 launches alone
-    (named "<wrapper> bf16")."""
+    `launches_bf16` of the wrappers of A, B, C and F-I, the bf16 launches
+    alone (named "<wrapper> bf16")."""
     from equihgnn_tpu_torch.ops.kernels.edge_mlp import (
         fused_edge_messages,
         fused_edge_messages_bwd,
@@ -515,7 +542,8 @@ def counters() -> dict:
            "pooled_conv": pooled_conv, "pooled_conv_bwd": pooled_conv_bwd,
            "pooled_m": pooled_m, "pooled_m_bwd": pooled_m_bwd}
     out = {name: (fn, "launches") for name, fn in fns.items()}
-    for name in ("sorted_segment_sum", "fused_edge_messages", "fused_edge_messages_bwd"):
+    for name in ("sorted_segment_sum", "fused_edge_messages", "fused_edge_messages_bwd",
+                 "vis_vec_agg", "vis_vec_agg_bwd", "vis_wdot", "vis_wdot_bwd"):
         out[f"{name} bf16"] = (fns[name], "launches_bf16")
     return out
 
@@ -601,7 +629,8 @@ def phase_kernels(batch) -> list[dict]:
     rows += edge_mlp_rows(args, pair_mask, gen)
     rows += bf16_kernel_rows(batch, args, pair_mask, gen)
     rows += frame_swiglu_rows(pd, sm, gen)
-    rows += vis_mix_rows(batch, gen)
+    rows += vis_mix_rows(batch)
+    rows += vis_mix_bf16_rows(batch)
     rows += pooled_conv_rows(batch, gen)
     rows += pooled_m_rows(batch, gen)
     for row in rows:
@@ -1191,11 +1220,11 @@ def frame_swiglu_bounds(x: torch.Tensor) -> tuple[dict, dict]:
             bound(2 * nbytes(x) + 2 * w_b + out_b, p * 8 * (6 * c * HIDDEN + 20 * HIDDEN)))
 
 
-def vis_mix_inputs(batch, gen) -> dict:
-    """Kernels F-I's inputs at ViSNet's shapes of the batch: the k = 17
-    neighbourhoods (self included, within 5 Å) of its slot view, d the SH
-    (L = 8) of the real edge directions, h = 256; s1 a strided view of a
-    [.., 2h] tensor, s2m masked, as ViS_MP passes them; gva and gw the
+def vis_mix_inputs(batch, gen, dtype=torch.float32) -> dict:
+    """Kernels F-I's inputs at ViSNet's shapes of the batch, in `dtype`: the
+    k = 17 neighbourhoods (self included, within 5 Å) of its slot view, d
+    the SH (L = 8) of the real edge directions, h = 256; s1 a strided view
+    of a [.., 2h] tensor, s2m masked, as ViS_MP passes them; gva and gw the
     output gradients of F and H."""
     from equihgnn_tpu_torch.nn.visnet import edge_geometry
 
@@ -1205,16 +1234,38 @@ def vis_mix_inputs(batch, gen) -> dict:
     idx, mask, _, _, d = edge_geometry(pd, sm, 17, 5.0, 2, batch.slot_gid.to(dev))
     g, a, k = idx.shape
     L, h = d.shape[-1], HIDDEN
-    rnd = lambda *shape: torch.randn(*shape, generator=gen).to(dev)  # noqa: E731
+    rnd = lambda *shape: torch.randn(*shape, generator=gen).to(dev).to(dtype)  # noqa: E731
     vec, u, vv = rnd(g, a, L, h), rnd(g, a, L, h), rnd(g, a, L, h)
     s1 = rnd(g, a, k, 2 * h)[..., :h]
     s2m = rnd(g, a, k, h) * mask[..., None]
-    return dict(vec=vec, s1=s1, s2m=s2m, d=d, idx=idx, mask=mask, u=u, vv=vv,
+    return dict(vec=vec, s1=s1, s2m=s2m, d=d.to(dtype), idx=idx, mask=mask, u=u, vv=vv,
                 gva=rnd(g, a, L, h), gw=rnd(g, a, k, h))
 
 
-def vis_mix_rows(batch, gen) -> list[dict]:
-    """Kernels F-I at ViSNet's shapes of the batch (`vis_mix_inputs`)."""
+def digest(*tensors) -> str:
+    """sha256 of the tensors' bytes, in order (a view: its elements)."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+# The f32 kernels F-I's outputs at `vis_mix_inputs(batch, Generator(17))`,
+# as the kernels of the parent commit 947d224 computed them (sha256 of
+# `digest`, its first 16 hex digits), beside the digest of those inputs:
+# the f32 F-I must give the same bits from this commit's source, whose
+# f32 kernels are the parent's, kept apart from the bf16 ones. Compared
+# where this run's inputs have the recorded digest (the same torch and
+# card: the neighbourhoods come from the card's kNN).
+F32_BEFORE = {"inputs": "a26ce47550a642e6", "vis_vec_agg": "c6221ab45e775200",
+              "vis_vec_agg_bwd": "a1bb35ae208404bb", "vis_wdot": "4eecfd41d83d0295",
+              "vis_wdot_bwd": "d70a0f50320ee24b"}
+
+
+def vis_mix_case_table(x, bf16: bool) -> dict:
+    """name → (letter, kernel call, plain call, input bytes, output bytes,
+    operations, TPU kernel's line) of kernels F-I on the inputs `x`. s1
+    (F, G) and gw (I) are read on the masked-in edges only, all they need."""
     from equihgnn_tpu_torch.ops.kernels.vis_mix import (
         vec_agg_bwd_plain,
         vec_agg_plain,
@@ -1226,41 +1277,62 @@ def vis_mix_rows(batch, gen) -> list[dict]:
         wdot_plain,
     )
 
-    x = vis_mix_inputs(batch, gen)
     vec, s1, s2m, d, idx, mask = (x[n] for n in ("vec", "s1", "s2m", "d", "idx", "mask"))
     u, vv, gva, gw = x["u"], x["vv"], x["gva"], x["gw"]
     g, a, k = idx.shape
-    L, h = d.shape[-1], HIDDEN
+    L, h = d.shape[-1], vec.shape[-1]
     e_all, e_valid = g * a * k, int(mask.sum())
-    live_b = e_valid * h * 4  # s1 (F, G) or gw (I) on the masked-in edges, all they need
+    live_b = e_valid * h * vec.element_size()
+    sfx = " bf16" if bf16 else ""
+    return {
+        "vis_vec_agg" + sfx: ("F", lambda: vis_vec_agg(vec, s1, s2m, d, idx, mask),
+                              lambda: vec_agg_plain(vec, s1, s2m, d, idx, mask),
+                              nbytes(vec, s2m, d, idx, mask) + live_b, nbytes(vec),
+                              (e_valid + e_all) * L * h * 2, ":437"),
+        "vis_vec_agg_bwd" + sfx: ("G", lambda: vis_vec_agg_bwd(vec, s1, s2m, d, idx, mask, gva),
+                                  lambda: vec_agg_bwd_plain(vec, s1, s2m, d, idx, mask, gva),
+                                  nbytes(vec, s2m, d, idx, mask, gva) + live_b,
+                                  nbytes(vec, s1, s2m, d), (2 * e_valid + 2 * e_all) * L * h * 2,
+                                  ":461"),
+        "vis_wdot" + sfx: ("H", lambda: vis_wdot(d, u, vv, idx, mask),
+                           lambda: wdot_plain(d, u, vv, idx, mask),
+                           nbytes(d, u, vv, idx, mask), nbytes(s2m),
+                           (2 * e_valid + e_all) * L * h * 2 + e_all * h * 4, ":505"),
+        "vis_wdot_bwd" + sfx: ("I", lambda: vis_wdot_bwd(d, u, vv, idx, mask, gw),
+                               lambda: wdot_bwd_plain(d, u, vv, idx, mask, gw),
+                               nbytes(d, u, vv, idx, mask) + live_b, nbytes(u, vv, d),
+                               e_valid * 16 * L * h, ":528"),
+    }
+
+
+def vis_mix_rows(batch) -> list[dict]:
+    """Kernels F-I at ViSNet's shapes of the batch (`vis_mix_inputs`, their
+    own generator), each also against the parent commit's bits
+    (F32_BEFORE)."""
+    xs = vis_mix_inputs(batch, torch.Generator().manual_seed(17))
+    idx, mask = xs["idx"], xs["mask"]
+    g, a, k = idx.shape
+    L, h = xs["d"].shape[-1], HIDDEN
+    e_all, e_valid = g * a * k, int(mask.sum())
     print(f"ViSNet vector mix inputs: G={g}, A={a}, k={k}, L={L}, h={h}; {e_valid} of "
           f"{e_all} edges within 5 Å ({e_valid / e_all:.3f})")
-    cases = {
-        # name: (letter, kernel call, plain call, input bytes, output bytes, operations)
-        "vis_vec_agg": ("F", lambda: vis_vec_agg(vec, s1, s2m, d, idx, mask),
-                        lambda: vec_agg_plain(vec, s1, s2m, d, idx, mask),
-                        nbytes(vec, s2m, d, idx, mask) + live_b, nbytes(vec),
-                        (e_valid + e_all) * L * h * 2, ":437"),
-        "vis_vec_agg_bwd": ("G", lambda: vis_vec_agg_bwd(vec, s1, s2m, d, idx, mask, gva),
-                            lambda: vec_agg_bwd_plain(vec, s1, s2m, d, idx, mask, gva),
-                            nbytes(vec, s2m, d, idx, mask, gva) + live_b,
-                            nbytes(vec, s1, s2m, d), (2 * e_valid + 2 * e_all) * L * h * 2,
-                            ":461"),
-        "vis_wdot": ("H", lambda: vis_wdot(d, u, vv, idx, mask),
-                     lambda: wdot_plain(d, u, vv, idx, mask),
-                     nbytes(d, u, vv, idx, mask), nbytes(s2m),
-                     (2 * e_valid + e_all) * L * h * 2 + e_all * h * 4, ":505"),
-        "vis_wdot_bwd": ("I", lambda: vis_wdot_bwd(d, u, vv, idx, mask, gw),
-                         lambda: wdot_bwd_plain(d, u, vv, idx, mask, gw),
-                         nbytes(d, u, vv, idx, mask) + live_b, nbytes(u, vv, d),
-                         e_valid * 16 * L * h, ":528"),
-    }
+    inputs = digest(*(xs[n] for n in ("vec", "s1", "s2m", "d", "idx", "mask", "u", "vv", "gva",
+                                      "gw")))
+    same_inputs = inputs == F32_BEFORE["inputs"]
+    print(f"f32 F-I inputs' digest {inputs}, the recorded run's {F32_BEFORE['inputs']}"
+          f"{'' if same_inputs else ': other inputs, the bits are not compared'}")
     rows = []
+    cases = vis_mix_case_table(xs, False)
     for name, (letter, call, plain, in_b, out_b, ops, line) in cases.items():
         got, ref = call(), plain()
         torch.cuda.synchronize()
         got = got if isinstance(got, tuple) else (got,)
         ref = ref if isinstance(ref, tuple) else (ref,)
+        bits = digest(*got)
+        print(f"kernel {letter} {name} f32 outputs' digest {bits}; the parent's "
+              f"{F32_BEFORE[name]}")
+        check(not same_inputs or bits == F32_BEFORE[name],
+              f"kernel {letter} ({name}) in f32 gave other bits than the parent commit's")
         limit = 1e-5 if letter in "FH" else 1e-4
         err = 0.0
         for x, y in zip(got, ref):
@@ -1288,6 +1360,44 @@ def vis_mix_rows(batch, gen) -> list[dict]:
               f"({(in_b + out_b) / 1e9:.3f} GB, {ops / 1e9:.2f} GFLOP); a call allocates "
               f"{mib:.1f} MiB at peak, the plain version {plain_mib:.1f} MiB; deterministic")
         rows.append(row)
+    return rows
+
+
+def vis_mix_bf16_rows(batch) -> list[dict]:
+    """Kernels F-I in bf16 (the bf16 ViSNet's variants) at ViSNet's shapes
+    of the batch (`vis_mix_inputs` in bf16, s1 a strided view), each against
+    its plain bf16 version on the card (f32 sums in the kernels' order,
+    rounded once; G's and I's per-edge terms of dvec and dvv rounded first):
+    within one bf16 ulp, at least 99 % the same bits, the same bits twice;
+    timed one call a sample (alternating with the plain version) and by
+    device time alone; bound by the bf16 bytes they must move at
+    PEAK_BYTES_S, their f32 products at the f32 peak. Rows "<wrapper> bf16"."""
+    x = vis_mix_inputs(batch, torch.Generator().manual_seed(18), torch.bfloat16)
+    rows = []
+    cases = vis_mix_case_table(x, True)
+    for name, (letter, call, plain, in_b, out_b, ops, line) in cases.items():
+        got, ref = call(), plain()
+        got = got if isinstance(got, tuple) else (got,)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        err = max(check_bf16(f"kernel {letter} {name} {tuple(t.shape)}", t, r)
+                  for t, r in zip(got, ref))
+        again = call()
+        again = again if isinstance(again, tuple) else (again,)
+        check(all(torch.equal(t, r) for t, r in zip(got, again)),
+              f"kernel {letter} bf16 gave other bits on a second run")
+        del got, ref, again
+        ms, plain_ms = median_ms(call, plain)
+        alone = profiled_device_ms(call)
+        row = dict(name=name, route="cuda", source="equihgnn_tpu_torch/csrc/vis_mix.cu",
+                   replaces=f"equihgnn_tpu/ops/pallas/vis_mix.py{line}", max_abs_err=err,
+                   ms=ms, plain_ms=plain_ms, library_ms=None, **bound(in_b + out_b, ops))
+        print(f"kernel {letter} {name}: {ms:.4f} ms vs plain {plain_ms:.4f} ms (median of 20, "
+              f"CUDA events); device alone {alone:.4f} ms (torch.profiler); bound "
+              f"{row['bound_ms']:.4f} ms by {row['bound_by']} ({(in_b + out_b) / 1e9:.3f} GB, "
+              f"{ops / 1e9:.2f} GFLOP); deterministic")
+        rows.append(row)
+    del x
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -1833,7 +1943,7 @@ ENCODER_LIMIT = {"se3_transformer_equihnns": 1e-2}  # the others: 1e-4
 # reading only (the CPU's own spread); ViSNet's CPU step at full width takes
 # ~10 s, so it takes one
 GRAD_CUT = {"se3_transformer_equihnns": (16, 1), BF16_PATH: (16, 0),
-            **dict.fromkeys(BF16_HYPER_PATHS, (16, 0)),
+            **dict.fromkeys(BF16_HYPER_PATHS, (16, 0)), VISNET_BF16: (16, 0),
             "visnet_equihnns": (32, 1), **dict.fromkeys(HYBRID_METHODS, (16, 1)),
             CROSS_PATH: (32, 1), **dict.fromkeys(GRAPH_METHODS, (64, 2))}
 # A ReLU input on the other side of 0 on the card than on the CPU makes the
@@ -2348,7 +2458,7 @@ def phase_step(path: str, samples, smi: str) -> None:
 
 
 # the paths whose encoder `remat` checkpoints, held with it on the card
-REMAT_PATHS = ENCODER_METHODS + (BF16_PATH, EGNN_BF16)
+REMAT_PATHS = ENCODER_METHODS + (BF16_PATH, EGNN_BF16, VISNET_BF16)
 # the paths whose batch-768 train step's peak memory is read with and without remat
 REMAT_MEMORY = ("se3_transformer_equihnns", "equiformer_equihnns")
 
@@ -2585,6 +2695,8 @@ def main() -> int:
             timed(f"{path} gradients", phase_grads_2d, path, graphs)
         else:
             paths[f"{path} serve"] = timed(f"{path} serve", phase_serve, path, samples, smi)
+            if path in SERVE_ONLY:
+                continue
             timed(f"{path} gradients",
                   phase_grads_bf16 if PATHS[path][1].get("compute_dtype") else phase_grads,
                   path, samples[:2 * GRAD_CUT.get(path, (32,))[0]])

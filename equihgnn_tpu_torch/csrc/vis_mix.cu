@@ -82,9 +82,28 @@
 // Contract: every index lies in [0, A), as `knn_dense` gives them; one
 // outside that range counts as a masked edge (the wrapper does not check,
 // which would cost a device-to-host sync).
+//
+// bf16 (`*_bf16` entries): the function of the TPU kernels' bf16 calls,
+// which JAX's ViSNet runs below f32. Every tensor is bf16; each is read,
+// widened to f32, and every product and sum is f32, unfused (__fmul_rn,
+// __fadd_rn) and in the order of the TPU kernels' bodies, so that the
+// plain version computes the same bits; each output is rounded once to
+// bf16. G's dvecj = s1·gva[i] and I's dvvj = gw·u[i] + dvd·d are rounded to
+// bf16 before their f32 sum over the edges that share a source (the TPU's
+// one-hot matmul takes bf16 operands); dd is summed over all of h in f32
+// and rounded once. The f32 kernels above are kept apart, so that their
+// code is what it was. The bf16 kernels keep the designs of F-I, with a
+// chunk of HC2 = 64 columns, a pair a lane: a warp reads a 128-byte row as
+// __nv_bfloat162 pairs, as the f32 kernels read 32 floats. The staged
+// chunks and the row's d are bf16; the sums of dd stay f32. At L = 8,
+// k = 17 a block of F or H holds a row of A ≤ 170 slots (1,364 bytes a
+// slot), and G and I take the same rows; G stages vec and gva up to A = 77,
+// I vv and u up to A = 113. I keeps no gw rows in shared memory (the f32
+// I's `keep`): both passes read them from device memory.
 
 #include <cooperative_groups.h>
 #include <cstdint>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "tf32_mma.cuh"  // cp_async, set_smem, MAX_SMEM
@@ -271,10 +290,14 @@ __device__ void build_source_lists(const int* idx_s, int ak, int a_slots, int k_
 
 // Each rank of the row's cluster sums its share of the row's dd entries t
 // over the ranks' partial sums (at `part` + at(t) in each rank's shared
-// memory, at(t) < 0 for a term that is 0), in rank order, and writes them.
-template <typename At>
+// memory, at(t) < 0 for a term that is 0), in rank order, and writes them
+// (rounded once where `out` is bf16).
+__device__ __forceinline__ void put(float* p, float v) { *p = v; }
+__device__ __forceinline__ void put(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+
+template <typename At, typename Out>
 __device__ __forceinline__ void cluster_dd_sum(cg::cluster_group& cluster, const float* part,
-                                               At at, int n, float* __restrict__ out) {
+                                               At at, int n, Out* __restrict__ out) {
   const int cl = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
   cluster.sync();  // every rank's partial sums are complete
@@ -285,7 +308,7 @@ __device__ __forceinline__ void cluster_dd_sum(cg::cluster_group& cluster, const
     float s = 0.f;
     if (src >= 0)
       for (int q = 0; q < cl; ++q) s += cluster.map_shared_rank(part, q)[src];
-    out[t] = s;
+    put(out + t, s);
   }
   cluster.sync();  // no rank leaves while another reads its shared memory
 }
@@ -733,6 +756,493 @@ wdot_bwd_kernel(const float* __restrict__ d, const float* __restrict__ u,
   }, ak * L, dd + row_e * L);
 }
 
+// ------------------------------------------------------------------ bf16
+
+using bf16 = __nv_bfloat16;
+using bf162 = __nv_bfloat162;
+
+constexpr int HC2 = 64;  // bf16 columns a chunk: a pair a lane
+
+__host__ __device__ constexpr size_t pad16(size_t n) { return (n + 15) & ~static_cast<size_t>(15); }
+
+// Bytes of one [A][L][HC2] bf16 chunk.
+__host__ __device__ constexpr size_t chunk_bytes(int a_slots, int L) {
+  return static_cast<size_t>(a_slots) * L * HC2 * sizeof(bf16);
+}
+
+__device__ __forceinline__ float2 ld_pair(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const bf162*>(p));
+}
+
+__device__ __forceinline__ void st_pair(bf16* p, float x, float y) {
+  *reinterpret_cast<bf162*>(p) = __floats2bfloat162_rn(x, y);
+}
+
+// x rounded to bf16 and widened back.
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// The f32 arithmetic of the bf16 kernels: IEEE products and sums, never
+// contracted into an FMA, as the plain version computes them.
+__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
+
+// n bf16 values from src into x_s (16-byte aligned) by cp.async (committed
+// by the caller) where src is 16-byte aligned, the tail by plain loads.
+__device__ __forceinline__ void stage_bf16_async(const bf16* __restrict__ src, int n, bf16* x_s) {
+  const int n8 = (reinterpret_cast<uintptr_t>(src) & 15) == 0 ? n / 8 : 0;
+  for (int t = threadIdx.x; t < n8; t += THREADS)
+    cp_async<16>(reinterpret_cast<float*>(x_s + 8 * t), reinterpret_cast<const float*>(src + 8 * t),
+                 true);
+  for (int t = 8 * n8 + threadIdx.x; t < n; t += THREADS) x_s[t] = src[t];
+}
+
+// One [A][L][HC2] chunk (columns c0 .. c0 + HC2) of a bf16 [G, A, L, h]
+// tensor's row g by cp.async (committed by the caller), zero beyond h:
+// 16-byte copies where the rows allow (`vec16`: h % 8 == 0, 16-byte
+// aligned), else 4-byte ones (a column pair; h is even).
+__device__ __forceinline__ void stage_chunk_bf16_async(const bf16* __restrict__ x, int g,
+                                                       int a_slots, int L, int h, int c0,
+                                                       bool vec16, bf16* x_s) {
+  const size_t base = static_cast<size_t>(g) * a_slots * L;
+  const int w = vec16 ? 8 : 2, per = HC2 / w;  // values a copy, copies a row
+  for (int t = threadIdx.x; t < a_slots * L * per; t += THREADS) {
+    const int cc = (t % per) * w, al = t / per;
+    const bool ok = c0 + cc < h;
+    const float* src = reinterpret_cast<const float*>(ok ? x + (base + al) * h + c0 + cc : x);
+    float* dst = reinterpret_cast<float*>(x_s + al * HC2 + cc);
+    if (vec16) cp_async<16>(dst, src, ok);
+    else cp_async<4>(dst, src, ok);
+  }
+}
+
+// An edge's L values of d, widened, from the row's bf16 d in shared memory.
+template <int L>
+__device__ __forceinline__ void load_d_bf16(const bf16* de, float (&dl)[L]) {
+#pragma unroll
+  for (int l = 0; l < L; ++l) dl[l] = __bfloat162float(de[l]);
+}
+
+// Kernel F in bf16. Grid (G, ceil(h / HC2)). Shared memory: the chunk of
+// vec [A][L][HC2], the row's d [A·K][L] (bf16), its indices [A·K].
+template <int L>
+__global__ void __launch_bounds__(THREADS)
+vec_agg_fwd_bf16_kernel(const bf16* __restrict__ vec, const bf16* __restrict__ s1,
+                        int64_t s1_stride, const bf16* __restrict__ s2m,
+                        const bf16* __restrict__ d, const int64_t* __restrict__ idx,
+                        const bool* __restrict__ mask, bf16* __restrict__ out, int a_slots,
+                        int k_nbrs, int h, bool vec16) {
+  extern __shared__ __align__(16) unsigned char smem_b[];
+  const int ak = a_slots * k_nbrs;
+  bf16* vec_s = reinterpret_cast<bf16*>(smem_b);
+  bf16* d_s = reinterpret_cast<bf16*>(smem_b + chunk_bytes(a_slots, L));
+  int* idx_s = reinterpret_cast<int*>(smem_b + chunk_bytes(a_slots, L) +
+                                      pad16(static_cast<size_t>(ak) * L * sizeof(bf16)));
+  const int g = blockIdx.x, c0 = blockIdx.y * HC2;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int c = c0 + 2 * lane;
+  const bool live = c < h;
+  const size_t row_e = static_cast<size_t>(g) * ak;
+  stage_chunk_bf16_async(vec, g, a_slots, L, h, c0, vec16, vec_s);
+  stage_bf16_async(d + row_e * L, ak * L, d_s);
+  cp_async_commit();
+  load_idx(idx, mask, row_e, ak, a_slots, idx_s);
+  cp_async_wait_all();
+  __syncthreads();
+
+  const float2 zero = make_float2(0.f, 0.f);
+  for (int i = warp; i < a_slots; i += WARPS) {
+    float ax[L], ay[L];
+#pragma unroll
+    for (int l = 0; l < L; ++l) ax[l] = ay[l] = 0.f;
+    for (int k = 0; k < k_nbrs; ++k) {
+      const int e = i * k_nbrs + k;
+      const int j = idx_s[e];
+      const size_t er = row_e + e;
+      const float2 a1 = (live && j >= 0) ? ld_pair(s1 + er * s1_stride + c) : zero;
+      const float2 a2 = live ? ld_pair(s2m + er * h + c) : zero;
+      const bf16* vj = vec_s + (j >= 0 ? j : 0) * L * HC2 + 2 * lane;
+      float dl[L];
+      load_d_bf16<L>(d_s + e * L, dl);
+#pragma unroll
+      for (int l = 0; l < L; ++l) {  // Σ_k (s1·vec[j] + s2m·d), k in order
+        const float2 v = ld_pair(vj + l * HC2);
+        ax[l] = add(ax[l], add(mul(a1.x, v.x), mul(a2.x, dl[l])));
+        ay[l] = add(ay[l], add(mul(a1.y, v.y), mul(a2.y, dl[l])));
+      }
+    }
+    if (live) {
+      bf16* o = out + (static_cast<size_t>(g) * a_slots + i) * L * h + c;
+#pragma unroll
+      for (int l = 0; l < L; ++l) st_pair(o + static_cast<size_t>(l) * h, ax[l], ay[l]);
+    }
+  }
+}
+
+// Kernel H in bf16. Grid G · ceil(h / HC2) blocks, the chunk the fastest
+// index; shared memory as F's, vv's chunk in vec's place. A masked edge
+// writes +0 and reads neither d nor vv.
+template <int L>
+__global__ void __launch_bounds__(THREADS)
+wdot_fwd_bf16_kernel(const bf16* __restrict__ d, const bf16* __restrict__ u,
+                     const bf16* __restrict__ vv, const int64_t* __restrict__ idx,
+                     const bool* __restrict__ mask, bf16* __restrict__ out, int a_slots,
+                     int k_nbrs, int h, bool vec16) {
+  extern __shared__ __align__(16) unsigned char smem_b[];
+  const int ak = a_slots * k_nbrs;
+  bf16* vv_s = reinterpret_cast<bf16*>(smem_b);
+  bf16* d_s = reinterpret_cast<bf16*>(smem_b + chunk_bytes(a_slots, L));
+  int* idx_s = reinterpret_cast<int*>(smem_b + chunk_bytes(a_slots, L) +
+                                      pad16(static_cast<size_t>(ak) * L * sizeof(bf16)));
+  const int n_chunks = (h + HC2 - 1) / HC2;
+  const int g = blockIdx.x / n_chunks, c0 = blockIdx.x % n_chunks * HC2;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int c = c0 + 2 * lane;
+  const bool live = c < h;
+  const size_t row_e = static_cast<size_t>(g) * ak;
+  stage_chunk_bf16_async(vv, g, a_slots, L, h, c0, vec16, vv_s);
+  stage_bf16_async(d + row_e * L, ak * L, d_s);
+  cp_async_commit();
+  load_idx(idx, mask, row_e, ak, a_slots, idx_s);
+  const bf16* u_row = u + static_cast<size_t>(g) * a_slots * L * h + c;
+  const float2 zero = make_float2(0.f, 0.f);
+  float2 ui[L];
+#pragma unroll
+  for (int l = 0; l < L; ++l)
+    ui[l] = live && warp < a_slots ? ld_pair(u_row + (warp * L + l) * h) : zero;
+  cp_async_wait_all();
+  __syncthreads();
+
+  for (int i = warp; i < a_slots; i += WARPS) {
+    if (i != warp) {
+#pragma unroll
+      for (int l = 0; l < L; ++l)
+        ui[l] = live ? ld_pair(u_row + (static_cast<size_t>(i) * L + l) * h) : zero;
+    }
+    bf16* o = out + (row_e + i * k_nbrs) * h + c;
+    for (int k = 0; k < k_nbrs; ++k) {
+      const int e = i * k_nbrs + k;
+      const int j = idx_s[e];
+      float wx = 0.f, wy = 0.f;
+      if (j >= 0) {  // warp-uniform
+        float dl[L];
+        load_d_bf16<L>(d_s + e * L, dl);
+        const bf16* vj = vv_s + j * L * HC2 + 2 * lane;
+        float uvx = 0.f, uvy = 0.f, vdx = 0.f, vdy = 0.f, udx = 0.f, udy = 0.f, dd = 0.f;
+#pragma unroll
+        for (int l = 0; l < L; ++l) {  // the sums over l in order, as JAX's kernel
+          const float2 v = ld_pair(vj + l * HC2);
+          uvx = add(uvx, mul(ui[l].x, v.x));
+          uvy = add(uvy, mul(ui[l].y, v.y));
+          vdx = add(vdx, mul(dl[l], v.x));
+          vdy = add(vdy, mul(dl[l], v.y));
+          udx = add(udx, mul(ui[l].x, dl[l]));
+          udy = add(udy, mul(ui[l].y, dl[l]));
+          dd = add(dd, mul(dl[l], dl[l]));
+        }
+        const float t = __fsub_rn(2.f, dd);  // uv − ud·vd·(2 − |d|²)
+        wx = __fsub_rn(uvx, mul(mul(udx, vdx), t));
+        wy = __fsub_rn(uvy, mul(mul(udy, vdy), t));
+      }
+      if (live) st_pair(o + static_cast<size_t>(k) * h, wx, wy);
+    }
+  }
+}
+
+// Kernel G in bf16. Grid (G · CL) in clusters of CL = min(h / HC2, 8)
+// blocks, one cluster per row g; as the f32 G, with the chunk of HC2
+// columns and dvec's per-edge terms rounded to bf16. STAGE: vec and gva of
+// the block's chunk in shared memory (else gathered from device memory).
+template <int L, bool STAGE>
+__global__ void __launch_bounds__(THREADS)
+vec_agg_bwd_bf16_kernel(const bf16* __restrict__ vec, const bf16* __restrict__ s1,
+                        int64_t s1_stride, const bf16* __restrict__ s2m,
+                        const bf16* __restrict__ d, const int64_t* __restrict__ idx,
+                        const bool* __restrict__ mask, const bf16* __restrict__ gva,
+                        bf16* __restrict__ dvec, bf16* __restrict__ ds1, bf16* __restrict__ ds2m,
+                        bf16* __restrict__ dd, int a_slots, int k_nbrs, int h, bool vec16) {
+  constexpr int P = pow2_ceil(L);
+  constexpr int SPAN = 32 / P;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cl = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  extern __shared__ __align__(16) unsigned char smem_b[];
+  const int ak = a_slots * k_nbrs;
+  const size_t chunk = STAGE ? chunk_bytes(a_slots, L) : 0;
+  bf16* vec_s = reinterpret_cast<bf16*>(smem_b);                         // [A][L][HC2] (STAGE)
+  bf16* g_s = reinterpret_cast<bf16*>(smem_b + chunk);                   // [A][L][HC2] (STAGE)
+  bf16* d_s = reinterpret_cast<bf16*>(smem_b + 2 * chunk);               // [A·K][L]
+  float* dd_s = reinterpret_cast<float*>(smem_b + 2 * chunk +            // [A·K][L] f32
+                                         pad16(static_cast<size_t>(ak) * L * sizeof(bf16)));
+  int* idx_s = reinterpret_cast<int*>(dd_s + ak * L);                    // [A·K]
+  int* off_s = idx_s + ak;                                               // [A + 1]
+  int* list_s = off_s + a_slots + 1;                                     // [A·K]
+  const int g = blockIdx.x / cl;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n_chunks = (h + HC2 - 1) / HC2;
+  const size_t row_e = static_cast<size_t>(g) * ak;
+  const size_t row_v = static_cast<size_t>(g) * a_slots * L;
+  stage_bf16_async(d + row_e * L, ak * L, d_s);
+  if constexpr (STAGE) {
+    stage_chunk_bf16_async(vec, g, a_slots, L, h, rank * HC2, vec16, vec_s);
+    stage_chunk_bf16_async(gva, g, a_slots, L, h, rank * HC2, vec16, g_s);
+  }
+  cp_async_commit();
+  load_idx(idx, mask, row_e, ak, a_slots, idx_s);
+  __syncthreads();
+  build_source_lists(idx_s, ak, a_slots, k_nbrs, off_s, list_s);
+
+  const float2 zero = make_float2(0.f, 0.f);
+  for (int n = rank; n < n_chunks; n += cl) {
+    const int c = n * HC2 + 2 * lane;
+    const bool live = c < h;
+    const int cr = live ? c : h - 2;  // a column pair the dead lanes may read (results dropped)
+    if (STAGE && n != rank) {
+      stage_chunk_bf16_async(vec, g, a_slots, L, h, n * HC2, vec16, vec_s);
+      stage_chunk_bf16_async(gva, g, a_slots, L, h, n * HC2, vec16, g_s);
+      cp_async_commit();
+    }
+    cp_async_wait_all();
+    __syncthreads();
+    auto vec_at = [&](int s, int l) {
+      if constexpr (STAGE) return ld_pair(vec_s + (s * L + l) * HC2 + 2 * lane);
+      else return ld_pair(vec + (row_v + s * L + l) * h + cr);
+    };
+    auto gva_at = [&](int s, int l) {
+      if constexpr (STAGE) return ld_pair(g_s + (s * L + l) * HC2 + 2 * lane);
+      else return ld_pair(gva + (row_v + s * L + l) * h + cr);
+    };
+
+    // the target pass, per edge (i, k): ds1 = Σ_l vec[j]·gva[i], ds2m =
+    // Σ_l d·gva[i] (l in order) and this chunk's terms of dd = Σ_c s2m·gva[i]
+    for (int i = warp; i < a_slots; i += WARPS) {
+      float2 gi[L];
+#pragma unroll
+      for (int l = 0; l < L; ++l) gi[l] = gva_at(i, l);
+      for (int k = 0; k < k_nbrs; ++k) {
+        const int e = i * k_nbrs + k;
+        const int j = idx_s[e];
+        const size_t er = row_e + e;
+        const float2 a2 = live ? ld_pair(s2m + er * h + c) : zero;
+        float dl[L], part[P];
+        load_d_bf16<L>(d_s + e * L, dl);
+        float t1x = 0.f, t1y = 0.f, t2x = 0.f, t2y = 0.f;
+#pragma unroll
+        for (int l = 0; l < L; ++l) {
+          const float2 v = j >= 0 ? vec_at(j, l) : zero;
+          t1x = add(t1x, mul(v.x, gi[l].x));
+          t1y = add(t1y, mul(v.y, gi[l].y));
+          t2x = add(t2x, mul(dl[l], gi[l].x));
+          t2y = add(t2y, mul(dl[l], gi[l].y));
+          part[l] = add(mul(a2.x, gi[l].x), mul(a2.y, gi[l].y));
+        }
+#pragma unroll
+        for (int l = L; l < P; ++l) part[l] = 0.f;
+        if (live) {
+          st_pair(ds1 + er * h + c, t1x, t1y);
+          st_pair(ds2m + er * h + c, t2x, t2y);
+        }
+        const float r = warp_sum_many<P>(part, lane);
+        const int l = lane / SPAN;
+        if (lane % SPAN == 0 && l < L) dd_s[e * L + l] = n == rank ? r : dd_s[e * L + l] + r;
+      }
+    }
+
+    // the per-source walk: dvec[j] = Σ over the edges whose source is j, in
+    // order, of s1·gva[i], each term rounded to bf16
+    for (int j = warp; j < a_slots; j += WARPS) {
+      float ax[L], ay[L];
+#pragma unroll
+      for (int l = 0; l < L; ++l) ax[l] = ay[l] = 0.f;
+      const int end = off_s[j + 1];
+      for (int p = off_s[j]; p < end; ++p) {
+        const int v = list_s[p];
+        const int i = v >> 16;
+        const float2 a1 = live ? ld_pair(s1 + (row_e + (v & 0xffff)) * s1_stride + c) : zero;
+#pragma unroll
+        for (int l = 0; l < L; ++l) {
+          const float2 gi = gva_at(i, l);
+          ax[l] = add(ax[l], round_bf16(mul(a1.x, gi.x)));
+          ay[l] = add(ay[l], round_bf16(mul(a1.y, gi.y)));
+        }
+      }
+      if (live) {
+        bf16* o = dvec + (row_v + j * L) * h + c;
+#pragma unroll
+        for (int l = 0; l < L; ++l) st_pair(o + static_cast<size_t>(l) * h, ax[l], ay[l]);
+      }
+    }
+    if constexpr (STAGE) __syncthreads();  // the chunk's staged tensors are read no more
+  }
+  cluster_dd_sum(cluster, dd_s, [](int t) { return t; }, ak * L, dd + row_e * L);
+}
+
+// Kernel I in bf16. Grid (G · CL) in clusters of CL = min(h / HC2, 8)
+// blocks, one cluster per row g; as the f32 I, with the chunk of HC2
+// columns and dvv's per-edge terms rounded to bf16, and no gw rows kept in
+// shared memory: the walk leaves each edge's terms of dd in ddx_s [A·K][L]
+// by the edge's index. STAGE: vv's chunk for the target pass, u's in its
+// place for the walk (else both gathered from device memory).
+template <int L, bool STAGE>
+__global__ void __launch_bounds__(THREADS)
+wdot_bwd_bf16_kernel(const bf16* __restrict__ d, const bf16* __restrict__ u,
+                     const bf16* __restrict__ vv, const int64_t* __restrict__ idx,
+                     const bool* __restrict__ mask, const bf16* __restrict__ gw,
+                     bf16* __restrict__ du, bf16* __restrict__ dvv, bf16* __restrict__ dd,
+                     int a_slots, int k_nbrs, int h, bool vec16) {
+  constexpr int P = pow2_ceil(L);
+  constexpr int SPAN = 32 / P;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cl = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  extern __shared__ __align__(16) unsigned char smem_b[];
+  const int ak = a_slots * k_nbrs;
+  const size_t chunk = STAGE ? chunk_bytes(a_slots, L) : 0;
+  bf16* x_s = reinterpret_cast<bf16*>(smem_b);                           // [A][L][HC2] (STAGE)
+  bf16* d_s = reinterpret_cast<bf16*>(smem_b + chunk);                   // [A·K][L]
+  float* t_s = reinterpret_cast<float*>(smem_b + chunk +                 // [A·K] 2 − |d|²
+                                        pad16(static_cast<size_t>(ak) * L * sizeof(bf16)));
+  float* ddx_s = t_s + ak;                                               // [A·K][L] f32
+  int* idx_s = reinterpret_cast<int*>(ddx_s + ak * L);                   // [A·K]
+  int* off_s = idx_s + ak;                                               // [A + 1]
+  int* list_s = off_s + a_slots + 1;                                     // [A·K]
+  const int g = blockIdx.x / cl;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n_chunks = (h + HC2 - 1) / HC2;
+  const size_t row_e = static_cast<size_t>(g) * ak;
+  const size_t row_v = static_cast<size_t>(g) * a_slots * L;
+  stage_bf16_async(d + row_e * L, ak * L, d_s);
+  if constexpr (STAGE) stage_chunk_bf16_async(vv, g, a_slots, L, h, rank * HC2, vec16, x_s);
+  cp_async_commit();
+  for (int t = threadIdx.x; t < ak * L; t += THREADS) ddx_s[t] = 0.f;
+  load_idx(idx, mask, row_e, ak, a_slots, idx_s);
+  __syncthreads();
+  build_source_lists(idx_s, ak, a_slots, k_nbrs, off_s, list_s);
+  cp_async_wait_all();
+  __syncthreads();
+  for (int e = threadIdx.x; e < ak; e += THREADS) {
+    float dl[L], dde = 0.f;
+    load_d_bf16<L>(d_s + e * L, dl);
+#pragma unroll
+    for (int l = 0; l < L; ++l) dde = add(dde, mul(dl[l], dl[l]));
+    t_s[e] = __fsub_rn(2.f, dde);
+  }
+
+  const float2 zero = make_float2(0.f, 0.f);
+  for (int n = rank; n < n_chunks; n += cl) {
+    const int c = n * HC2 + 2 * lane;
+    const bool live = c < h;
+    const int cr = live ? c : h - 2;  // a column pair the dead lanes may read (results dropped)
+    if (STAGE && n != rank) {
+      stage_chunk_bf16_async(vv, g, a_slots, L, h, n * HC2, vec16, x_s);
+      cp_async_commit();
+      cp_async_wait_all();
+    }
+    __syncthreads();
+
+    // the target pass: du[i] = Σ_k gw·vv[j] + dud·d, dud = −gw·vd·(2 − |d|²)
+    for (int i = warp; i < a_slots; i += WARPS) {
+      float ux[L], uy[L];
+#pragma unroll
+      for (int l = 0; l < L; ++l) ux[l] = uy[l] = 0.f;
+      for (int k = 0; k < k_nbrs; ++k) {
+        const int e = i * k_nbrs + k;
+        const int j = idx_s[e];
+        if (j < 0) continue;  // the same for the whole warp; a masked edge adds 0
+        const float2 gwv = live ? ld_pair(gw + (row_e + e) * h + c) : zero;
+        float dl[L];
+        float2 vjl[L];
+        load_d_bf16<L>(d_s + e * L, dl);
+        float vdx = 0.f, vdy = 0.f;
+#pragma unroll
+        for (int l = 0; l < L; ++l) {
+          if constexpr (STAGE) vjl[l] = ld_pair(x_s + (j * L + l) * HC2 + 2 * lane);
+          else vjl[l] = ld_pair(vv + (row_v + j * L + l) * h + cr);
+          vdx = add(vdx, mul(dl[l], vjl[l].x));
+          vdy = add(vdy, mul(dl[l], vjl[l].y));
+        }
+        const float dudx = mul(mul(-gwv.x, vdx), t_s[e]), dudy = mul(mul(-gwv.y, vdy), t_s[e]);
+#pragma unroll
+        for (int l = 0; l < L; ++l) {
+          ux[l] = add(ux[l], add(mul(gwv.x, vjl[l].x), mul(dudx, dl[l])));
+          uy[l] = add(uy[l], add(mul(gwv.y, vjl[l].y), mul(dudy, dl[l])));
+        }
+      }
+      if (live) {
+        bf16* o = du + (row_v + i * L) * h + c;
+#pragma unroll
+        for (int l = 0; l < L; ++l) st_pair(o + static_cast<size_t>(l) * h, ux[l], uy[l]);
+      }
+    }
+    __syncthreads();  // vv's chunk is read no more
+    if constexpr (STAGE) {  // u's chunk takes its place
+      stage_chunk_bf16_async(u, g, a_slots, L, h, n * HC2, vec16, x_s);
+      cp_async_commit();
+      cp_async_wait_all();
+      __syncthreads();
+    }
+
+    // the per-source walk: dvv[j] = Σ over the edges whose source is j, in
+    // order, of gw·u[i] + dvd·d (dvd = −gw·ud·(2 − |d|²)), each term rounded
+    // to bf16; and each edge's terms of dd: dvd·vv[j] + dud·u[i] + 2·d·gw·ud·vd
+    for (int j = warp; j < a_slots; j += WARPS) {
+      float2 vj[L];
+      float ax[L], ay[L];
+#pragma unroll
+      for (int l = 0; l < L; ++l) {
+        vj[l] = ld_pair(vv + (row_v + j * L + l) * h + cr);
+        ax[l] = ay[l] = 0.f;
+      }
+      const int end = off_s[j + 1];
+      for (int p = off_s[j]; p < end; ++p) {
+        const int v = list_s[p];
+        const int e = v & 0xffff, i = v >> 16;
+        const float2 gwv = live ? ld_pair(gw + (row_e + e) * h + c) : zero;
+        float dl[L], part[P];
+        float2 ui[L];
+        load_d_bf16<L>(d_s + e * L, dl);
+        float udx = 0.f, udy = 0.f, vdx = 0.f, vdy = 0.f;
+#pragma unroll
+        for (int l = 0; l < L; ++l) {
+          if constexpr (STAGE) ui[l] = ld_pair(x_s + (i * L + l) * HC2 + 2 * lane);
+          else ui[l] = ld_pair(u + (row_v + i * L + l) * h + cr);
+          udx = add(udx, mul(ui[l].x, dl[l]));
+          udy = add(udy, mul(ui[l].y, dl[l]));
+          vdx = add(vdx, mul(dl[l], vj[l].x));
+          vdy = add(vdy, mul(dl[l], vj[l].y));
+        }
+        const float t = t_s[e];
+        const float dvdx = mul(mul(-gwv.x, udx), t), dvdy = mul(mul(-gwv.y, udy), t);
+        const float dudx = mul(mul(-gwv.x, vdx), t), dudy = mul(mul(-gwv.y, vdy), t);
+        const float gx = mul(mul(gwv.x, udx), vdx), gy = mul(mul(gwv.y, udy), vdy);
+#pragma unroll
+        for (int l = 0; l < L; ++l) {
+          ax[l] = add(ax[l], round_bf16(add(mul(gwv.x, ui[l].x), mul(dvdx, dl[l]))));
+          ay[l] = add(ay[l], round_bf16(add(mul(gwv.y, ui[l].y), mul(dvdy, dl[l]))));
+          const float px = add(add(mul(dvdx, vj[l].x), mul(dudx, ui[l].x)),
+                               mul(mul(2.f, dl[l]), gx));
+          const float py = add(add(mul(dvdy, vj[l].y), mul(dudy, ui[l].y)),
+                               mul(mul(2.f, dl[l]), gy));
+          part[l] = add(px, py);
+        }
+#pragma unroll
+        for (int l = L; l < P; ++l) part[l] = 0.f;
+        const float r = warp_sum_many<P>(part, lane);
+        const int l = lane / SPAN;
+        if (lane % SPAN == 0 && l < L) ddx_s[e * L + l] += r;
+      }
+      if (live) {
+        bf16* o = dvv + (row_v + j * L) * h + c;
+#pragma unroll
+        for (int l = 0; l < L; ++l) st_pair(o + static_cast<size_t>(l) * h, ax[l], ay[l]);
+      }
+    }
+    if constexpr (STAGE) __syncthreads();  // u's chunk is read no more
+  }
+  cluster_dd_sum(cluster, ddx_s, [](int t) { return t; }, ak * L, dd + row_e * L);
+}
+
 // Dynamic shared memory of a block of F or H. It grows with the slot axis
 // A: at L = 8, k = 17 a block takes A ≤ 142 within the 227 KB a Hopper
 // block may use; G and I take the same rows.
@@ -762,14 +1272,14 @@ size_t wdot_bwd_smem(int a_slots, int k_nbrs, int L, bool stage) {
          (3 * ak + a + 1) * sizeof(int);
 }
 
-// Launches a backward kernel on G rows, each a cluster of min(h / 32, 8)
-// blocks (h > 0).
+// Launches a backward kernel on G rows, each a cluster of min(n_chunks, 8)
+// blocks (n_chunks > 0: the row's column chunks).
 template <typename... Params, typename... Args>
-cudaError_t launch_rows(void (*kernel)(Params...), int g_rows, int h, size_t smem,
+cudaError_t launch_rows(void (*kernel)(Params...), int g_rows, int n_chunks, size_t smem,
                         cudaStream_t stream, Args... args) {
   const cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  const int cl = (h + HC - 1) / HC < MAX_CLUSTER ? (h + HC - 1) / HC : MAX_CLUSTER;
+  const int cl = n_chunks < MAX_CLUSTER ? n_chunks : MAX_CLUSTER;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = cl;
@@ -828,17 +1338,18 @@ extern "C" int vis_wdot_fwd_f32(const float* d, const float* u, const float* vv,
 }
 
 // The backward kernels' refusals and empty cases: 0 to launch, else the
-// code to return (a row F and H refuse, an L other than 3 and 8, or
-// nothing to write but dd's zeros when h = 0).
-int bwd_prologue(int g_rows, int a_slots, int k_nbrs, int L, int h, float* dd,
-                 cudaStream_t stream, bool* launch) {
+// code to return (a row F and H refuse, `fwd` being their shared memory
+// for it, an L other than 3 and 8, or nothing to write but dd's zeros, of
+// `elem` bytes each, when h = 0).
+int bwd_prologue(int g_rows, int a_slots, int k_nbrs, int L, int h, size_t fwd, void* dd,
+                 size_t elem, cudaStream_t stream, bool* launch) {
   *launch = false;
   if (bad_l(L)) return static_cast<int>(cudaErrorInvalidValue);
   if (g_rows <= 0 || a_slots <= 0) return 0;
-  if (fwd_smem(a_slots, k_nbrs, L) > MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
+  if (fwd > MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
   if (h <= 0) {  // no columns: dd sums nothing
     const size_t n = static_cast<size_t>(g_rows) * a_slots * k_nbrs * L;
-    return static_cast<int>(n ? cudaMemsetAsync(dd, 0, n * sizeof(float), stream) : cudaSuccess);
+    return static_cast<int>(n ? cudaMemsetAsync(dd, 0, n * elem, stream) : cudaSuccess);
   }
   *launch = true;
   return 0;
@@ -852,16 +1363,17 @@ extern "C" int vis_vec_agg_bwd_f32(const float* vec, const float* s1, int64_t s1
                                    float* ds2m, float* dd, int g_rows, int a_slots, int k_nbrs,
                                    int L, int h, cudaStream_t stream) {
   bool launch;
-  const int code = bwd_prologue(g_rows, a_slots, k_nbrs, L, h, dd, stream, &launch);
+  const int code = bwd_prologue(g_rows, a_slots, k_nbrs, L, h, fwd_smem(a_slots, k_nbrs, L), dd,
+                                sizeof(float), stream, &launch);
   if (!launch) return code;
   const bool stage = agg_bwd_smem(a_slots, k_nbrs, L, true) <= MAX_SMEM;
   const bool vec4 = h % 4 == 0 && aligned16(vec) && aligned16(gva);
   const size_t smem = agg_bwd_smem(a_slots, k_nbrs, L, stage);
   auto kernel = L == 8 ? (stage ? vec_agg_bwd_kernel<8, true> : vec_agg_bwd_kernel<8, false>)
                        : (stage ? vec_agg_bwd_kernel<3, true> : vec_agg_bwd_kernel<3, false>);
-  return static_cast<int>(launch_rows(kernel, g_rows, h, smem, stream, vec, s1, s1_stride, s2m,
-                                      d, idx, mask, gva, dvec, ds1, ds2m, dd, a_slots, k_nbrs,
-                                      h, vec4, rows16(d, a_slots, k_nbrs, L)));
+  return static_cast<int>(launch_rows(kernel, g_rows, (h + HC - 1) / HC, smem, stream, vec, s1,
+                                      s1_stride, s2m, d, idx, mask, gva, dvec, ds1, ds2m, dd,
+                                      a_slots, k_nbrs, h, vec4, rows16(d, a_slots, k_nbrs, L)));
 }
 
 // Writes du, dvv [G, A, L, h] and dd [G, A, K, L] for the output gradient
@@ -871,7 +1383,8 @@ extern "C" int vis_wdot_bwd_f32(const float* d, const float* u, const float* vv,
                                 float* dvv, float* dd, int g_rows, int a_slots, int k_nbrs, int L,
                                 int h, cudaStream_t stream) {
   bool launch;
-  const int code = bwd_prologue(g_rows, a_slots, k_nbrs, L, h, dd, stream, &launch);
+  const int code = bwd_prologue(g_rows, a_slots, k_nbrs, L, h, fwd_smem(a_slots, k_nbrs, L), dd,
+                                sizeof(float), stream, &launch);
   if (!launch) return code;
   const bool stage = wdot_bwd_smem(a_slots, k_nbrs, L, true) <= MAX_SMEM;
   const size_t base = wdot_bwd_smem(a_slots, k_nbrs, L, stage);
@@ -883,7 +1396,109 @@ extern "C" int vis_wdot_bwd_f32(const float* d, const float* u, const float* vv,
   const bool vec4 = h % 4 == 0 && aligned16(vv) && aligned16(u) && aligned16(gw);
   auto kernel = L == 8 ? (stage ? wdot_bwd_kernel<8, true> : wdot_bwd_kernel<8, false>)
                        : (stage ? wdot_bwd_kernel<3, true> : wdot_bwd_kernel<3, false>);
-  return static_cast<int>(launch_rows(kernel, g_rows, h, base + keep * per_row, stream, d, u, vv,
+  return static_cast<int>(launch_rows(kernel, g_rows, (h + HC - 1) / HC, base + keep * per_row,
+                                      stream, d, u, vv, idx, mask, gw, du, dvv, dd, a_slots,
+                                      k_nbrs, h, static_cast<int>(keep), vec4,
+                                      rows16(d, a_slots, k_nbrs, L)));
+}
+
+// ------------------------------------------------------------ bf16 entries
+
+// Dynamic shared memory of a block of F or H in bf16: the chunk, the row's
+// d and its indices. At L = 8, k = 17: A ≤ 170.
+size_t fwd_smem_bf16(int a_slots, int k_nbrs, int L) {
+  const size_t ak = static_cast<size_t>(a_slots) * k_nbrs;
+  return chunk_bytes(a_slots, L) + pad16(ak * L * sizeof(bf16)) + ak * sizeof(int);
+}
+
+// G in bf16: the staged chunks of vec and gva (STAGE), the row's d, dd's
+// f32 terms, the indices and the lists. STAGE at L = 8, k = 17: A ≤ 77.
+size_t agg_bwd_smem_bf16(int a_slots, int k_nbrs, int L, bool stage) {
+  const size_t a = a_slots, ak = a * k_nbrs;
+  return (stage ? 2 * chunk_bytes(a_slots, L) : 0) + pad16(ak * L * sizeof(bf16)) +
+         ak * L * sizeof(float) + (2 * ak + a + 1) * sizeof(int);
+}
+
+// I in bf16: the staged chunk (STAGE), the row's d, 2 − |d|², dd's f32
+// terms, the indices and the lists. STAGE at L = 8, k = 17: A ≤ 113.
+size_t wdot_bwd_smem_bf16(int a_slots, int k_nbrs, int L, bool stage) {
+  const size_t a = a_slots, ak = a * k_nbrs;
+  return (stage ? chunk_bytes(a_slots, L) : 0) + pad16(ak * L * sizeof(bf16)) +
+         ak * (L + 1) * sizeof(float) + (2 * ak + a + 1) * sizeof(int);
+}
+
+// Whether 16-byte copies of a bf16 [G, A, L, h] tensor's chunks are aligned.
+bool rows16_bf16(const void* x, int h) { return h % 8 == 0 && aligned16(x); }
+
+extern "C" int vis_vec_agg_fwd_bf16(const bf16* vec, const bf16* s1, int64_t s1_stride,
+                                    const bf16* s2m, const bf16* d, const int64_t* idx,
+                                    const bool* mask, bf16* out, int g_rows, int a_slots,
+                                    int k_nbrs, int L, int h, cudaStream_t stream) {
+  if (bad_l(L) || h % 2) return static_cast<int>(cudaErrorInvalidValue);
+  if (g_rows <= 0 || a_slots <= 0 || h <= 0) return 0;  // an empty output
+  const dim3 grid(g_rows, (h + HC2 - 1) / HC2);
+  const size_t smem = fwd_smem_bf16(a_slots, k_nbrs, L);
+  auto kernel = L == 8 ? vec_agg_fwd_bf16_kernel<8> : vec_agg_fwd_bf16_kernel<3>;
+  const cudaError_t err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<grid, THREADS, smem, stream>>>(vec, s1, s1_stride, s2m, d, idx, mask, out, a_slots,
+                                          k_nbrs, h, rows16_bf16(vec, h));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int vis_wdot_fwd_bf16(const bf16* d, const bf16* u, const bf16* vv, const int64_t* idx,
+                                 const bool* mask, bf16* out, int g_rows, int a_slots, int k_nbrs,
+                                 int L, int h, cudaStream_t stream) {
+  if (bad_l(L) || h % 2) return static_cast<int>(cudaErrorInvalidValue);
+  if (g_rows <= 0 || a_slots <= 0 || k_nbrs <= 0 || h <= 0) return 0;
+  const size_t smem = fwd_smem_bf16(a_slots, k_nbrs, L);
+  auto kernel = L == 8 ? wdot_fwd_bf16_kernel<8> : wdot_fwd_bf16_kernel<3>;
+  const cudaError_t err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<g_rows * ((h + HC2 - 1) / HC2), THREADS, smem, stream>>>(
+      d, u, vv, idx, mask, out, a_slots, k_nbrs, h, rows16_bf16(vv, h));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Writes dvec [G, A, L, h], ds1 and ds2m [G, A, K, h] (contiguous) and
+// dd [G, A, K, L], all bf16, for the output gradient gva [G, A, L, h].
+extern "C" int vis_vec_agg_bwd_bf16(const bf16* vec, const bf16* s1, int64_t s1_stride,
+                                    const bf16* s2m, const bf16* d, const int64_t* idx,
+                                    const bool* mask, const bf16* gva, bf16* dvec, bf16* ds1,
+                                    bf16* ds2m, bf16* dd, int g_rows, int a_slots, int k_nbrs,
+                                    int L, int h, cudaStream_t stream) {
+  if (h % 2) return static_cast<int>(cudaErrorInvalidValue);
+  bool launch;
+  const int code = bwd_prologue(g_rows, a_slots, k_nbrs, L, h, fwd_smem_bf16(a_slots, k_nbrs, L),
+                                dd, sizeof(bf16), stream, &launch);
+  if (!launch) return code;
+  const bool stage = agg_bwd_smem_bf16(a_slots, k_nbrs, L, true) <= MAX_SMEM;
+  const size_t smem = agg_bwd_smem_bf16(a_slots, k_nbrs, L, stage);
+  auto kernel = L == 8
+      ? (stage ? vec_agg_bwd_bf16_kernel<8, true> : vec_agg_bwd_bf16_kernel<8, false>)
+      : (stage ? vec_agg_bwd_bf16_kernel<3, true> : vec_agg_bwd_bf16_kernel<3, false>);
+  return static_cast<int>(launch_rows(kernel, g_rows, (h + HC2 - 1) / HC2, smem, stream, vec, s1,
+                                      s1_stride, s2m, d, idx, mask, gva, dvec, ds1, ds2m, dd,
+                                      a_slots, k_nbrs, h,
+                                      rows16_bf16(vec, h) && rows16_bf16(gva, h)));
+}
+
+// Writes du, dvv [G, A, L, h] and dd [G, A, K, L], all bf16, for the output
+// gradient gw [G, A, K, h].
+extern "C" int vis_wdot_bwd_bf16(const bf16* d, const bf16* u, const bf16* vv, const int64_t* idx,
+                                 const bool* mask, const bf16* gw, bf16* du, bf16* dvv, bf16* dd,
+                                 int g_rows, int a_slots, int k_nbrs, int L, int h,
+                                 cudaStream_t stream) {
+  if (h % 2) return static_cast<int>(cudaErrorInvalidValue);
+  bool launch;
+  const int code = bwd_prologue(g_rows, a_slots, k_nbrs, L, h, fwd_smem_bf16(a_slots, k_nbrs, L),
+                                dd, sizeof(bf16), stream, &launch);
+  if (!launch) return code;
+  const bool stage = wdot_bwd_smem_bf16(a_slots, k_nbrs, L, true) <= MAX_SMEM;
+  const size_t smem = wdot_bwd_smem_bf16(a_slots, k_nbrs, L, stage);
+  auto kernel = L == 8 ? (stage ? wdot_bwd_bf16_kernel<8, true> : wdot_bwd_bf16_kernel<8, false>)
+                       : (stage ? wdot_bwd_bf16_kernel<3, true> : wdot_bwd_bf16_kernel<3, false>);
+  return static_cast<int>(launch_rows(kernel, g_rows, (h + HC2 - 1) / HC2, smem, stream, d, u, vv,
                                       idx, mask, gw, du, dvv, dd, a_slots, k_nbrs, h,
-                                      static_cast<int>(keep), vec4, rows16(d, a_slots, k_nbrs, L)));
+                                      rows16_bf16(vv, h) && rows16_bf16(u, h)));
 }

@@ -8,13 +8,17 @@ lmax 2, 6 layers, 8 heads, 32 RBFs, cutoff 5 Å, max_num_neighbors 16)
 embeds the OGB atom features itself and encodes the 3-D structure into
 per-atom scalars; then the MHNN, MHNNS or MHNNM trunk.
 
-The port runs in float32, for serving (`model.eval()`) and training
-(`model.train()`: ViSNet has no dropout; `--dropout` reaches the trunk).
+The port serves (`model.eval()`) and trains (`model.train()`: ViSNet has
+no dropout; `--dropout` reaches the trunk) in float32, and with
+`compute_dtype="bfloat16"` ViSNet's layer loop runs in bf16 (kernels F-I
+in bf16 on the card) while its readout, and so the trunk, stay f32, as in
+JAX (`equihnn_visnet.py:34`); `TrunkFull` and `TrunkM` cast their
+hyperedge embedding to bf16 and meet the f32 atom features in their first
+concatenation, which promotes it back.
 ViSNet keeps JAX's `remat_layers=None`: each layer is recomputed in the
 backward pass on the CPU, never on the card, where kernels F-I run. With
 `remat` the whole ViSNet block is checkpointed besides, as JAX remats it
 (`equihnn_visnet.py:31`): kernels F and H run again in the backward pass.
-A `compute_dtype` other than float32 raises (ROADMAP item 11).
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ from equihgnn_tpu_torch.nn.visnet import ViSNet
 class _ViSNetBase(HybridModel):
     def build_encoder(self, cfg, generator):
         self.visnet_layer = ViSNet(hidden_channels=cfg.mlp_hidden, lmax=2, max_num_neighbors=16,
-                                   generator=generator)
+                                   dtype=cfg.compute_dtype, generator=generator)
 
     def encode(self, batch: HyperGraphBatch):
         if batch.pos is None or batch.slot_index is None:

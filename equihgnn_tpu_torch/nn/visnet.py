@@ -17,6 +17,21 @@ flax tree (`vis_mp_layers_{i}/q_proj`, `output_network_{i}/update_net_0`,
 means and betas and the non-trainable vector-norm weight are constants, not
 state-dict entries, as they are not flax parameters.
 
+With `dtype="bfloat16"` (JAX's `ViSNet(dtype=...)`, `:429-433`) the layer
+loop computes in bf16: x, vec, f_ij and d_ij are cast after the
+EdgeEmbedding, and everything before that (positions, r_ij, the RBFs, both
+AtomEncoders, `neighbor_combine`, `edge_proj`) stays f32. The parameters
+stay f32, cast to the input's dtype where they meet it (`TorchLinear`,
+`VecLayerNorm`'s weight, `:153`); the ViS_MP LayerNorm computes in f32 and
+casts back (`:193-194`); the cosine cutoff of the attention is cast to its
+dtype (`:234-236`); `out_norm` and `vec_out_norm` return f32 (`:466-470`),
+so the readout runs in f32 and the encoder's output is f32. The port
+rounds where XLA's CPU backend rounds JAX's bf16 ViSNet: every sum runs in
+f32 and is rounded once, vec1·vec2 keeps its products in f32, SiLU rounds
+at each op (`_silu`), and the LayerNorms and the readout read the f32
+residual sums x + dx and vec + dvec unrounded. The vector mix runs kernels
+F-I in bf16 on the card.
+
 Not ported, and raising NotImplementedError: `vertex=True` (`ViS_MP_Vertex`;
 no registered model uses it, and the JAX fused path for it raises
 NameError).
@@ -43,6 +58,24 @@ from equihgnn_tpu_torch.ops.numerics import safe_norm
 def _proj(in_features: int, out_features: int, generator: torch.Generator,
           bias: bool = True) -> TorchLinear:
     return TorchLinear(in_features, out_features, generator=generator, bias=bias, xavier=True)
+
+
+def _silu(x: torch.Tensor) -> torch.Tensor:
+    """SiLU; below float32 `jax.nn.silu` as XLA's CPU backend computes it,
+    x · 1/(1 + exp(−x)) with every op rounded to x's dtype (`F.silu` rounds
+    once: 0.61 of the bf16 values came out the same)."""
+    if x.dtype == torch.float32:
+        return F.silu(x)
+    return x * (1 / (1 + torch.exp(-x)))
+
+
+def _sum_of_products(a: torch.Tensor, b: torch.Tensor, dim: int) -> torch.Tensor:
+    """torch.sum(a * b, dim); below float32 the product is kept in f32 and
+    the sum rounded once, as XLA's CPU backend computes `jnp.sum(a * b)` of
+    two bf16 operands (as a dot; a product of three it rounds first)."""
+    if a.dtype == torch.float32:
+        return torch.sum(a * b, dim=dim)
+    return torch.sum(a.float() * b.float(), dim=dim).to(a.dtype)
 
 
 def cosine_cutoff(d: torch.Tensor, cutoff: float) -> torch.Tensor:
@@ -121,7 +154,7 @@ class VecLayerNorm(nn.Module):
                                 dim=-2)
             else:
                 vec = self._max_min(vec)
-        return vec if self.weight is None else vec * self.weight
+        return vec if self.weight is None else vec * self.weight.to(vec.dtype)
 
 
 class ViS_MP(nn.Module):
@@ -149,27 +182,27 @@ class ViS_MP(nn.Module):
             self.f_proj = _proj(h, h, generator)
 
     def forward(self, x, vec, nbr_idx, nbr_mask, r_ij, f_ij, d_ij):
-        # x [G, A, h], vec [G, A, L, h], nbr_idx/nbr_mask/r_ij [G, A, k],
-        # f_ij [G, A, k, h], d_ij [G, A, k, L]
+        # x [G, A, h] (f32 or the compute dtype), vec [G, A, L, h],
+        # nbr_idx/nbr_mask/r_ij [G, A, k], f_ij [G, A, k, h], d_ij [G, A, k, L]
         g, a, k = nbr_idx.shape
         nh = self.num_heads
-        x = self.layernorm(x)
+        x = self.layernorm(x.float()).to(vec.dtype)  # f32 statistics, as JAX's LayerNorm
         vec = self.vec_layernorm(vec)
         q, kk, v = self.q_proj(x), self.k_proj(x), self.v_proj(x)
-        dk = F.silu(self.dk_proj(f_ij))
-        dv = F.silu(self.dv_proj(f_ij))
+        dk = _silu(self.dk_proj(f_ij))
+        dv = _silu(self.dv_proj(f_ij))
         vec1, vec2, vec3 = self.vec_proj(vec).chunk(3, dim=-1)
-        vec_dot = torch.sum(vec1 * vec2, dim=-2)  # [G, A, h]
+        vec_dot = _sum_of_products(vec1, vec2, dim=-2)  # [G, A, h]
 
         k_j = nbr_gather(kk, nbr_idx, nbr_mask)  # [G, A, k, h]
         prod = q[:, :, None, :] * k_j * dk
-        attn = prod.view(g, a, k, nh, -1).sum(-1)  # per-head reduce
-        attn = F.silu(attn) * cosine_cutoff(r_ij, self.cutoff)[..., None]
+        attn = prod.view(g, a, k, nh, -1).sum(-1)  # per-head reduce (bf16: f32 sums)
+        attn = _silu(attn) * cosine_cutoff(r_ij, self.cutoff).to(attn.dtype)[..., None]
         attn = torch.where(nbr_mask[..., None], attn, torch.zeros((), dtype=attn.dtype,
                                                                   device=attn.device))
         v_j = nbr_gather(v, nbr_idx, nbr_mask) * dv
         v_j = (v_j.view(g, a, k, nh, -1) * attn[..., None]).view(g, a, k, -1)
-        s1, s2 = F.silu(self.s_proj(v_j)).chunk(2, dim=-1)  # s1: a strided view
+        s1, s2 = _silu(self.s_proj(v_j)).chunk(2, dim=-1)  # s1: a strided view
         mk = nbr_mask[..., None].to(x.dtype)
         x_agg = torch.sum(v_j * mk, dim=2)  # [G, A, h]
 
@@ -182,7 +215,7 @@ class ViS_MP(nn.Module):
         # w1·w2 with w1 = u − (u·d)d, w2 = v − (v·(−d))(−d), u at the
         # target, v at the source (`visnet_layer.py:546-553,660-667`)
         w_dot = vis_wdot(d_ij, self.w_trg_proj(vec), self.w_src_proj(vec), nbr_idx, nbr_mask)
-        return dx, dvec, F.silu(self.f_proj(f_ij)) * w_dot
+        return dx, dvec, _silu(self.f_proj(f_ij)) * w_dot
 
 
 class GatedEquivariantBlock(nn.Module):
@@ -233,7 +266,9 @@ class ViSNet(nn.Module):
 
     `remat_layers` is JAX's: None recomputes each `ViS_MP` in the backward
     pass (`torch.utils.checkpoint`) only where the vector-mix kernels do
-    not run, i.e. on CPU tensors; True always, False never.
+    not run, i.e. on CPU tensors; True always, False never. `dtype`
+    ("bfloat16" or None) is the layer loop's compute dtype (see the module
+    docstring).
     """
 
     def __init__(self, hidden_channels: int = 128, lmax: int = 2,
@@ -241,9 +276,11 @@ class ViSNet(nn.Module):
                  num_heads: int = 8, num_layers: int = 6, num_rbf: int = 32,
                  trainable_rbf: bool = False, cutoff: float = 5.0,
                  max_num_neighbors: int = 32, vertex: bool = False, std: float = 1.0,
-                 remat_layers: bool | None = None, *, generator: torch.Generator):
+                 remat_layers: bool | None = None, dtype: str | None = None, *,
+                 generator: torch.Generator):
         super().__init__()
         h = hidden_channels
+        self.compute_dtype = None if dtype in (None, "float32") else getattr(torch, dtype)
         self.lmax, self.cutoff, self.std = lmax, cutoff, std
         self.max_num_neighbors, self.num_layers = max_num_neighbors, num_layers
         self.remat_layers = remat_layers
@@ -298,23 +335,33 @@ class ViSNet(nn.Module):
         vec = torch.zeros((g, a, L, x.shape[-1]), dtype=x.dtype, device=x.device)
         # EdgeEmbedding (`visnet_layer.py:430-469`)
         f_ij = (x[:, :, None] + nbr_gather(x, nbr_idx, nbr_mask)) * self.edge_proj(f_rbf)
+        if self.compute_dtype is not None:
+            x, vec, f_ij, d_ij = (t.to(self.compute_dtype) for t in (x, vec, f_ij, d_ij))
 
         remat = self.remat_layers
         if remat is None:
             remat = x.device.type != "cuda"
         remat = remat and torch.is_grad_enabled()
+        # What a LayerNorm (and the readout's cast) reads in bf16 is the f32
+        # sum x + dx (vec + dvec), unrounded, as XLA hands it to a consumer
+        # that casts it to f32; the residual stream itself is rounded. In
+        # f32 both are the same tensor.
+        x_ln = x
         for i in range(self.num_layers):
             layer = getattr(self, f"vis_mp_layers_{i}")
-            args = (x, vec, nbr_idx, nbr_mask, r_ij, f_ij, d_ij)
+            args = (x_ln, vec, nbr_idx, nbr_mask, r_ij, f_ij, d_ij)
             dx, dvec, df = checkpoint(layer, *args, use_reentrant=False) if remat else layer(*args)
-            x = x + dx
-            vec = vec + dvec
-            if df is not None:
+            x_ln = x.float() + dx.float()
+            x = x_ln.to(x.dtype)
+            if df is None:  # the last layer
+                vec = vec.float() + dvec.float()
+            else:
+                vec = vec + dvec
                 f_ij = f_ij + df
 
-        x = self.out_norm(x)
+        x = self.out_norm(x_ln)
         vec = self.vec_out_norm(vec)
-        # EquivariantScalar readout (`visnet_layer.py:911-949`)
+        # EquivariantScalar readout (f32) (`visnet_layer.py:911-949`)
         for i in range(2):
             x, vec = getattr(self, f"output_network_{i}")(x, vec)
         x = (x + torch.sum(vec) * 0.0) * self.std

@@ -52,6 +52,11 @@ SIGNATURES = {
                             _I, _I, _I, _I, _I, _P),
     "vis_wdot_fwd_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "vis_wdot_bwd_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "vis_vec_agg_fwd_bf16": (_P, _P, _I64, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "vis_vec_agg_bwd_bf16": (_P, _P, _I64, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                             _I, _I, _I, _I, _I, _P),
+    "vis_wdot_fwd_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "vis_wdot_bwd_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "pooled_conv_fwd_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "pooled_conv_bwd_workspace_f32": (_I, _I, _I, ctypes.POINTER(_I64)),
     "pooled_conv_bwd_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),

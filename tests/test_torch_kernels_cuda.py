@@ -68,7 +68,14 @@ rounding (`bwd_bf16_rounding_bound`), its f32 parameter gradients as
 above, on both sides of each column-chunk switch up to its limit (A =
 1,164; 1,165 raises); an odd F and a bf16 parameter raise. `egnn_equihnns`
 and `mhnns` in bf16 at hidden 32 on the card against the CPU, as the
-SE(3)-Transformer's.
+SE(3)-Transformer's. Kernels F-I in bfloat16 against their plain bf16
+versions: within one bf16 ulp and at least 99 % the same bits, the same
+bits twice, at `MIX_CASES`' kinds of input (h = 42 and 34 take the 4-byte
+copies, h = 576 two turns of a cluster of 8), on both sides of G's and
+I's staging switches (A = 77 / 113) and at the rows' limit (A = 170 at L
+= 8, k = 17; 171 raises); a mixed dtype or an odd h raises;
+`visnet_equihnns` in bf16 at hidden 32 on the card against the CPU, F-I
+on the bf16 counters and the trunk's A in f32.
 """
 
 import pytest
@@ -1577,3 +1584,196 @@ def test_bf16_hypergraph_model_on_card_matches_cpu(dev, method):
     if egnn:
         want, want32 = grads("cpu", encoder), grads("cpu", encoder, None)
         assert _rel_l2(grads(dev, encoder), want) <= 0.5 * _rel_l2(want, want32)
+
+
+# ------------------------------------------------ kernels F-I in bfloat16
+
+
+def _bf16_mix_args(g, a, k, L, h, seed, knn_pad=0):
+    """`_mix_args` in bfloat16 (s1 still a strided view of a [.., 2h] tensor)."""
+    vec, s1, s2m, d, idx, mask, u, vv = _mix_args(g, a, k, L, h, seed, knn_pad)
+    bf = torch.bfloat16
+    s12 = torch.cat([s1, torch.randn_like(s1)], dim=-1).to(bf)
+    return vec.to(bf), s12[..., :h], s2m.to(bf), d.to(bf), idx, mask, u.to(bf), vv.to(bf)
+
+
+def _check_bf16_mix(args, seed, equal=0.99):
+    """F and H against their plain bf16 versions, G and I against theirs
+    for random output gradients: within one bf16 ulp, at least `equal` the
+    same bits, the same bits twice."""
+    vec, s1, s2m, d, idx, mask, u, vv = args
+    g, a, L, h = vec.shape
+    gen = torch.Generator().manual_seed(seed)
+    gva = torch.randn(g, a, L, h, generator=gen).to(torch.bfloat16).to(vec.device)
+    gw = torch.randn(g, a, idx.shape[-1], h, generator=gen).to(torch.bfloat16).to(vec.device)
+    cases = {
+        "F": (lambda: (vis_vec_agg(vec, s1, s2m, d, idx, mask),),
+              lambda: (vec_agg_plain(vec, s1, s2m, d, idx, mask),), ("vec_agg",)),
+        "H": (lambda: (vis_wdot(d, u, vv, idx, mask),), lambda: (wdot_plain(d, u, vv, idx, mask),),
+              ("w_dot",)),
+        "G": (lambda: vis_vec_agg_bwd(vec, s1, s2m, d, idx, mask, gva),
+              lambda: vec_agg_bwd_plain(vec, s1, s2m, d, idx, mask, gva),
+              ("dvec", "ds1", "ds2m", "dd")),
+        "I": (lambda: vis_wdot_bwd(d, u, vv, idx, mask, gw),
+              lambda: wdot_bwd_plain(d, u, vv, idx, mask, gw), ("dd", "du", "dvv")),
+    }
+    with torch.no_grad():
+        for letter, (call, plain, names) in cases.items():
+            got, want = call(), plain()
+            for name, x, y in zip(names, got, want):
+                _assert_bf16_close(x, y, f"{letter} {name}", equal=equal)
+            assert all(torch.equal(x, y) for x, y in zip(got, call())), letter
+
+
+BF16_MIX_CASES = [(6, 32, 17, 8, 256, 0), (4, 10, 17, 8, 42, 7), (3, 5, 7, 3, 16, 0),
+                  (1, 3, 4, 8, 34, 0), (2, 1, 1, 3, 8, 0), (4, 12, 17, 8, 576, 0)]
+
+
+@pytest.mark.parametrize("g,a,k,L,h,pad", BF16_MIX_CASES)
+def test_vis_mix_bf16_kernels(dev, g, a, k, L, h, pad):
+    """Kernels F-I in bfloat16 against their plain bf16 versions (f32 sums in
+    the kernels' order, rounded once; G's and I's per-edge terms of dvec and
+    dvv rounded first): masked edges, an all-empty padding row, A < k, L = 3
+    and 8, h not a multiple of 8 (the 4-byte copies) or of 64, a strided s1,
+    G and I over clusters of 1, 4 and 8 blocks a row and two turns of one
+    (h = 576); each launch on the bf16 counters as well."""
+    args = [t.to(dev) for t in _bf16_mix_args(g, a, k, L, h, g + a + k + 1, knn_pad=pad)]
+    for fn in (vis_vec_agg, vis_vec_agg_bwd, vis_wdot, vis_wdot_bwd):
+        fn.launches = fn.launches_bf16 = 0
+    _check_bf16_mix(args, h)
+    for fn in (vis_vec_agg, vis_vec_agg_bwd, vis_wdot, vis_wdot_bwd):
+        assert fn.launches == fn.launches_bf16 == 2, fn.__name__
+    vec, s1, s2m, d, idx, mask, u, vv = args
+    assert bool((vis_wdot(d, u, vv, idx, mask)[~mask] == 0).all())
+
+
+def test_vis_mix_bf16_rows_at_each_switch_and_the_limit(dev):
+    """At L = 8, k = 17 a bf16 block of F or H holds a row of A ≤ 170 slots
+    (1,364 bytes a slot of shared memory; f32: 142); G stages vec and gva up
+    to A = 77, I vv and u up to A = 113 (above that they gather from device
+    memory): on both sides of each switch and at the limit all four match
+    their plain versions; one slot past it, each raises."""
+    for a in (77, 78, 113, 114, 170):
+        _check_bf16_mix([t.to(dev) for t in _bf16_mix_args(2, a, 17, 8, 72, a)], a)
+    vec, s1, s2m, d, idx, mask, u, vv = (t.to(dev) for t in _bf16_mix_args(1, 171, 17, 8, 32, 6))
+    gw = torch.ones(1, 171, 17, 32, dtype=torch.bfloat16, device=dev)
+    for call in (lambda: vis_vec_agg(vec, s1, s2m, d, idx, mask),
+                 lambda: vis_wdot(d, u, vv, idx, mask),
+                 lambda: vis_vec_agg_bwd(vec, s1, s2m, d, idx, mask, torch.ones_like(vec)),
+                 lambda: vis_wdot_bwd(d, u, vv, idx, mask, gw)):
+        with pytest.raises(RuntimeError, match="A = 171, k = 17, L = 8"):
+            call()
+    # the refusal leaves no error behind for the next launch
+    small = [t.to(dev) for t in _bf16_mix_args(2, 6, 5, 8, 32, 1)]
+    assert vis_vec_agg(*small[:6]).dtype == torch.bfloat16
+
+
+def test_vis_mix_bf16_is_deterministic_with_many_edges_on_one_source(dev):
+    args = [t.to(dev) for t in _bf16_mix_args(40, 32, 17, 8, 128, 3)]
+    args[4][:, :, :8] = 0  # many edges onto one source slot
+    _check_bf16_mix(args, 3)
+
+
+def test_vis_mix_bf16_autograd(dev):
+    """Kernels F-I in bfloat16 through the autograd.Functions (s1 a view of
+    the s_proj output, as in ViS_MP) against the same Functions on the CPU
+    (the plain bf16 forwards and backwards): each input's gradient within
+    one bf16 ulp, d's two gradients added in bf16 on both."""
+    vec, s1, s2m, d, idx, mask, u, vv = _bf16_mix_args(5, 12, 17, 8, 64, 8)
+    s12 = s1._base if s1._base is not None else s1
+    gen = torch.Generator().manual_seed(2)
+    r1 = torch.randn(5, 12, 8, 64, generator=gen).to(torch.bfloat16)
+    r2 = torch.randn(5, 12, 17, 64, generator=gen).to(torch.bfloat16)
+
+    def run(device):
+        leaves = [t.to(device).clone().requires_grad_() for t in (vec, s12, s2m, d, u, vv)]
+        i, m = idx.to(device), mask.to(device)
+        va = vis_vec_agg(leaves[0], leaves[1][..., :64], leaves[2], leaves[3], i, m)
+        wd = vis_wdot(leaves[3], leaves[4], leaves[5], i, m)
+        (torch.sum(va.float() * r1.to(device).float()) +
+         torch.sum(wd.float() * r2.to(device).float())).backward()
+        return va, [t.grad.cpu() for t in leaves]
+
+    va, got = run(dev)
+    assert va.grad_fn is not None and va.dtype == torch.bfloat16
+    _, want = run("cpu")
+    for name, x, y in zip(("vec", "s12", "s2m", "d", "u", "vv"), got, want):
+        _assert_bf16_close(x, y, name)
+
+
+def test_vis_mix_bf16_rejects_what_it_does_not_take(dev):
+    vec, s1, s2m, d, idx, mask, u, vv = (t.to(dev) for t in _bf16_mix_args(2, 6, 5, 8, 32, 1))
+    with pytest.raises(TypeError):  # one float32 input among bfloat16 ones
+        vis_vec_agg(vec, s1, s2m.float(), d, idx, mask)
+    with pytest.raises(TypeError):
+        vis_wdot_bwd(d, u, vv, idx, mask, torch.zeros(2, 6, 5, 32, device=dev))
+    odd = [t.to(dev) for t in _bf16_mix_args(2, 6, 5, 8, 33, 1)]
+    with pytest.raises(ValueError, match="even h"):
+        vis_vec_agg(*odd[:6])
+    with pytest.raises(ValueError, match="even h"):
+        vis_wdot(odd[3], odd[6], odd[7], odd[4], odd[5])
+
+
+def test_visnet_bf16_on_card_matches_cpu(dev):
+    """`visnet_equihnns` in bfloat16 at hidden 32: kernels F (6 a forward)
+    and H (5), with G (6) and I (5) in a train step, all on the bf16
+    counters, and the trunk's A in f32 (JAX's ViSNet returns f32 scalars to
+    TrunkS); the eval forward against the CPU's bf16 model within the CPU's
+    own bfloat16-vs-float32 distance, every parameter the CPU's step reaches
+    reached, and the encoder's gradients under a smooth loss within half of
+    that distance (relative L2 over all parameters)."""
+    from equihgnn_tpu_torch import create_model
+    from equihgnn_tpu_torch.models.config import ModelConfig
+    from equihgnn_tpu_torch.train.trainer import masked_mse
+
+    _, batch = _faformer_setup()
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    mix = (vis_vec_agg, vis_wdot, vis_vec_agg_bwd, vis_wdot_bwd)
+
+    def make(device, dtype="bfloat16"):
+        cfg = ModelConfig(mlp_hidden=32, output_hidden=8, compute_dtype=dtype)
+        return create_model("visnet_equihnns", num_target=1, cfg=cfg,
+                            generator=torch.Generator().manual_seed(1)).to(device)
+
+    def counts():
+        return [(fn.launches, fn.launches_bf16) for fn in mix] + \
+            [(sorted_segment_sum.launches, sorted_segment_sum.launches_bf16)]
+
+    def reset():
+        _reset_counts()
+        for fn in (*mix, sorted_segment_sum):
+            fn.launches_bf16 = 0
+
+    with torch.inference_mode():
+        want, want32 = make("cpu").eval()(batch), make("cpu", None).eval()(batch)
+        reset()
+        got = make(dev).eval()(batch.to(dev)).cpu()
+    assert got.dtype == torch.float32
+    assert counts() == [(6, 6), (5, 5), (0, 0), (0, 0), (3, 0)]
+    assert float((got - want).abs().max()) <= float((want - want32).abs().max())
+
+    def grads(device, loss, dtype="bfloat16"):
+        model = make(device, dtype)
+        loss(model, batch.to(device)).backward()
+        return {n: p.grad for n, p in model.named_parameters() if p.grad is not None}
+
+    def step(model, b):
+        sq, cnt = masked_mse(model(b), b.y, b.graph_mask)
+        return sq / cnt.clamp(min=1.0)
+
+    proj = torch.randn(batch.num_atoms, 32, generator=torch.Generator().manual_seed(4))
+
+    def encoder(model, b):
+        return torch.sum(model.encode(b)[b.atom_mask].float() * proj.to(b.pos.device)[b.atom_mask])
+
+    want = grads("cpu", step)
+    reset()
+    got = grads(dev, step)
+    assert counts() == [(6, 6), (5, 5), (6, 6), (5, 5), (3, 0)]
+    nonzero = {n for n, g in want.items() if bool(g.abs().max() > 0)}
+    assert {"visnet_layer.vis_mp_layers_1.w_src_proj.weight",
+            "visnet_layer.embedding.atom.embedding", "trunk.conv.W1.lin_0.weight"} <= nonzero
+    for name in nonzero:
+        assert name in got and bool(got[name].abs().max() > 0), name
+    want, want32 = grads("cpu", encoder), grads("cpu", encoder, None)
+    assert _rel_l2(grads(dev, encoder), want) <= 0.5 * _rel_l2(want, want32)

@@ -135,15 +135,16 @@ def test_params_from_jax_rejects_bad_trees(fault):
 )
 def test_unported_configs_raise(method, override):
     """A `compute_dtype` other than float32 raises on the models that do not
-    run it yet (ROADMAP item 11): FAFormer and ViSNet. The MHNN family and
-    the EGNN models build in bfloat16 (held to JAX in
-    `tests/test_torch_bf16_hypergraph.py`), and the 2-D baselines take the
+    run it yet (ROADMAP item 11): FAFormer. The MHNN family and the EGNN
+    models build in bfloat16 (held to JAX in
+    `tests/test_torch_bf16_hypergraph.py`), the ViSNet models too
+    (`tests/test_torch_visnet_bf16.py`), and the 2-D baselines take the
     flag and ignore it, as in JAX. `remat` and `equiformer_equihnns` are
     ported and build (remat's steps: `tests/test_torch_remat.py`; the
     Equiformer: `tests/test_torch_equiformer.py`). `cross_molecule_knn=True`
     is ported (`tests/test_torch_egnn_flat.py`)."""
     cfg = ModelConfig(**{**CFG, **override})
-    if method in ("faformer_equihnns", "visnet_equihnns"):
+    if method == "faformer_equihnns":
         with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
             create_model(method, num_target=1, cfg=cfg)
         return

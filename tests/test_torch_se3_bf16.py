@@ -201,10 +201,11 @@ def test_bf16_routes_pooled_units_through_pooled_m(case, monkeypatch):
 ])
 def test_bf16_elsewhere_raises(method, override):
     """bfloat16 raises where the port does not run it yet (ROADMAP item 11);
-    `egnn_equihnns` runs it since (`tests/test_torch_bf16_hypergraph.py`)
-    and builds."""
+    `egnn_equihnns` runs it since (`tests/test_torch_bf16_hypergraph.py`),
+    `visnet_equihnns` too (`tests/test_torch_visnet_bf16.py`), and both
+    build."""
     cfg = ModelConfig(**{**BF16, **override})
-    if method == "egnn_equihnns":
+    if method in ("egnn_equihnns", "visnet_equihnns"):
         assert create_model(method, num_target=1, cfg=cfg).cfg.compute_dtype == "bfloat16"
         return
     with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
