@@ -24,7 +24,8 @@ B (`csrc/edge_mlp.cu`, the EGNN edge MLP's forward at `edge_mlp_inputs`),
   partial sums a lane) given the mask (its 4-edge items skipped where all
   dead), `__fdividef`, and its 64 full butterflies or one reduce-scatter.
 D (`csrc/frame_swiglu.cu`, FAFormer's frame-SwiGLU forward at its two
-  sites), at dropout 0 and 0.1: full; the statistics a frame at a time (two
+  sites), at dropout 0 and 0.1: full; the full kernel's bf16 entry (x and
+  out bf16, timed in the same turns); the statistics a frame at a time (two
   dependent butterflies a frame); E's one-pass pivot-shifted statistics (one
   butterfly of 16 sums); the frames in Gray-code order (each moving the
   coordinate terms by ±2·x_i·w1[i]), not each frame's terms anew; the exact sigmoid (`expf`, IEEE division); tanh.approx in the
@@ -53,7 +54,8 @@ E (`csrc/frame_swiglu.cu`, FAFormer's frame-SwiGLU backward at its
   frame statistics in three dependent chains (mean, variance, mean(dz·z)),
   not one butterfly; the parameter sums in registers, one block an SM (the
   layout of the kernel before it); 3 blocks an SM, not 2; and, with
-  --frame-swiglu-before, the kernel of another `frame_swiglu.cu`.
+  --frame-swiglu-before, the kernel of another `frame_swiglu.cu`; the full
+  kernel's bf16 entry (x, dout and dx bf16, timed in the same turns).
 C and E: one call a sample, and device time alone (torch.profiler).
 
 G and I (`csrc/vis_mix.cu`, ViSNet's vector-mix backward at `chip_smoke`'s
@@ -106,7 +108,8 @@ H (`csrc/vis_mix.cu`, at `vis_mix_inputs`): full; the grid's row index
   cp.async); masked edges computed; and, with --vis-mix-before, the kernel
   H of another `vis_mix.cu`; beside it F of the full and the before build
   (F's code unchanged). One call a sample, and device time alone.
-B, D, H (with F), G and I, and M: ptxas's registers of their kernels (full and before).
+B, D, E, H (with F), G and I, and M: ptxas's registers of their kernels (full and before;
+D's and E's in both instances, float and bf16).
 A variant is the source with exact lines removed or replaced; a line that is
 not in the source once stops the script. A variant's output is wrong by
 design and is not checked. Times: `chip_smoke.median_ms`, 10 samples (L: of
@@ -118,6 +121,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import re
 import subprocess
 import sys
 import tempfile
@@ -620,7 +624,7 @@ D_PATCHES = {
                             (_D_SIG, "        float v = h1 * sigmoid_tanh(h1) * h2;")],
     "hash per value": [(_D_KEEP, _D_KEEP.replace("keep_bit_h(ph,", "keep_bit_h(fmix32(static_cast<uint32_t>(p) ^ drop.smix),"))],
     "x not loaded ahead": [("    for (int c = 0; c < C; ++c) xv[c] = xn[c];",
-                            "    for (int c = 0; c < C; ++c) xv[c] = x[p * C + c];")],
+                            "    for (int c = 0; c < C; ++c) xv[c] = to_f32(x[p * C + c]);")],
     "3 blocks an SM": [("constexpr int FWD_MIN_BLOCKS = 2;", "constexpr int FWD_MIN_BLOCKS = 3;")],
 }
 L_PATCHES = {
@@ -661,6 +665,7 @@ M_PATCHES = {
 # builds whose ptxas report to print, and the kernels in it to print
 REGISTERS = {"B full": ("fwd_kernel", "w1_frags"), "B before": ("fwd_kernel", "w1_frags"),
              "D full": ("fwd_kernel",), "D before": ("fwd_kernel",),
+             "E full": ("bwd_kernel",), "E before": ("bwd_kernel",),
              "H full": ("wdot_fwd_kernel", "vec_agg_fwd_kernel"),
              "H before": ("wdot_fwd_kernel", "vec_agg_fwd_kernel"),
              "GI full": ("vec_agg_bwd_kernel", "wdot_bwd_kernel"),
@@ -703,6 +708,7 @@ def _print_registers(name: str, ptxas: str, kernels) -> None:
     for i, line in enumerate(lines):
         if "Compiling entry function" in line and any(k in line for k in kernels):
             fn = line.split("'")[1] if "'" in line else line
+            fn = re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_\w{8}\d+", "", fn)  # the file's namespace
             info = " ".join(x.split("ptxas info    :")[-1].strip() for x in lines[i + 1:i + 4]
                             if "registers" in x or "spill" in x)
             print(f"{name} ptxas: {fn[:80]}: {info}")
@@ -1029,7 +1035,7 @@ def _time_d(libs, batch) -> None:
     sites, _ = frame_swiglu_sites(pd, sm)
     gen = torch.Generator().manual_seed(2)
     stream = torch.cuda.current_stream().cuda_stream
-    names = [n for n in libs if n.startswith("D")]
+    names = [n for n in libs if n.startswith("D")] + ["D full bf16"]
     thresh = int(round(0.1 * 2.0 ** 32))
     for site, x in sites.items():
         p, c = x.shape
@@ -1039,13 +1045,16 @@ def _time_d(libs, batch) -> None:
                   (1.0 + 0.2 * torch.randn(h // 2, generator=gen)).to(dev),
                   (0.1 * torch.randn(h // 2, generator=gen)).to(dev)]
         out = torch.empty(p, h // 2, device=dev)
+        xb, outb = x.to(torch.bfloat16), torch.empty(p, h // 2, dtype=torch.bfloat16, device=dev)
         fns = {0: [], 1: []}
         for name in names:
-            fn = libs[name].frame_swiglu_fwd_f32
-            fn.argtypes = build.SIGNATURES["frame_swiglu_fwd_f32"]
+            sfx = "bf16" if name.endswith("bf16") else "f32"
+            fn = getattr(libs[name.removesuffix(" bf16")], f"frame_swiglu_fwd_{sfx}")
+            fn.argtypes = build.SIGNATURES[f"frame_swiglu_fwd_{sfx}"]
+            xi, oi = (xb, outb) if sfx == "bf16" else (x, out)
             for drop in fns:
-                fns[drop].append(lambda fn=fn, drop=drop: fn(
-                    x.data_ptr(), *[t.data_ptr() for t in params], out.data_ptr(), p, c, h, drop,
+                fns[drop].append(lambda fn=fn, drop=drop, xi=xi, oi=oi: fn(
+                    xi.data_ptr(), *[t.data_ptr() for t in params], oi.data_ptr(), p, c, h, drop,
                     thresh if drop else 0, 1.0 / 0.9 if drop else 1.0, 7, stream))
         if "D tanh.approx sigmoid" in names:
             fns[0][names.index("D tanh.approx sigmoid")]()
@@ -1075,7 +1084,7 @@ def _time_e(libs, batch) -> None:
     sites, kept = frame_swiglu_sites(pd, sm)
     gen = torch.Generator().manual_seed(2)
     stream = torch.cuda.current_stream().cuda_stream
-    names = [n for n in libs if n.startswith("E")]
+    names = [n for n in libs if n.startswith("E")] + ["E full bf16"]
     for site, x in sites.items():
         p, c = x.shape
         h = HIDDEN
@@ -1086,20 +1095,24 @@ def _time_e(libs, batch) -> None:
         cases = {"a": (dout, 0), "b": (dout * kept[site][:, None], 0),
                  "b, drop 0.1": (dout * kept[site][:, None], 1)}
         dx, dparams = torch.empty(p, c, device=dev), torch.empty(c * h + 2 * h, device=dev)
+        xb, dxb = x.to(torch.bfloat16), torch.empty(p, c, dtype=torch.bfloat16, device=dev)
         thresh = int(round(0.1 * 2.0 ** 32))
         fns = {case: [] for case in cases}
         for name in names:
-            lib, floats = libs[name], ctypes.c_int64()
-            lib.frame_swiglu_bwd_workspace_f32.argtypes = build.SIGNATURES[
-                "frame_swiglu_bwd_workspace_f32"]
-            lib.frame_swiglu_bwd_workspace_f32(p, c, h, ctypes.byref(floats))
+            sfx = "bf16" if name.endswith("bf16") else "f32"
+            lib, floats = libs[name.removesuffix(" bf16")], ctypes.c_int64()
+            ws_fn = getattr(lib, f"frame_swiglu_bwd_workspace_{sfx}")
+            ws_fn.argtypes = build.SIGNATURES[f"frame_swiglu_bwd_workspace_{sfx}"]
+            ws_fn(p, c, h, ctypes.byref(floats))
             ws = torch.empty(floats.value, device=dev)
-            fn = lib.frame_swiglu_bwd_f32
-            fn.argtypes = build.SIGNATURES["frame_swiglu_bwd_f32"]
+            fn = getattr(lib, f"frame_swiglu_bwd_{sfx}")
+            fn.argtypes = build.SIGNATURES[f"frame_swiglu_bwd_{sfx}"]
+            xi, dxi = (xb, dxb) if sfx == "bf16" else (x, dx)
             for case, (d, drop) in cases.items():
-                fns[case].append(lambda fn=fn, d=d, drop=drop, ws=ws: fn(
-                    x.data_ptr(), w1.data_ptr(), b1.data_ptr(), ls.data_ptr(), d.data_ptr(),
-                    dx.data_ptr(), dparams.data_ptr(), ws.data_ptr(), p, c, h, drop,
+                di = d.to(torch.bfloat16) if sfx == "bf16" else d
+                fns[case].append(lambda fn=fn, di=di, drop=drop, ws=ws, xi=xi, dxi=dxi: fn(
+                    xi.data_ptr(), w1.data_ptr(), b1.data_ptr(), ls.data_ptr(), di.data_ptr(),
+                    dxi.data_ptr(), dparams.data_ptr(), ws.data_ptr(), p, c, h, drop,
                     thresh if drop else 0, 1.0 / 0.9 if drop else 1.0, 7, stream))
         for case, cfns in fns.items():
             times = median_ms(*cfns, cfns[0])

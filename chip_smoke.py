@@ -11,7 +11,9 @@ result line), each printing its seconds:
    and cuBLAS's reduced-precision bf16 reductions off (the references sum
    in f32, as XLA does);
 2. build: the CUDA kernels compiled from `equihgnn_tpu_torch/csrc/` (one
-   nvcc per source, in parallel);
+   nvcc per source, in parallel), and beside them `frame_swiglu.cu` once
+   more with ptxas's report, whose f32 D and E instances must keep the
+   parent commit's registers and spills (`FRAME_F32_PTXAS_BEFORE`);
 3. kernels vs their plain PyTorch versions on the card, at the shapes of a
    batch of 768 synthetic molecules at hidden 256: kernel A (sorted
    segment sum; also at six edge cases at D = 256, each the same bits
@@ -65,8 +67,12 @@ result line), each printing its seconds:
    cast; B in its three modes within one ulp; C in cases (a) and (b)
    within two ulps past the bound of dz's rounding; each timed one call a
    sample and by device time alone, B's and C's products bound at the bf16
-   peak; error, median time, allocation and the card's least time
-   (`bound_ms`) of each;
+   peak; then D and E in bf16 (`frame_swiglu_bf16_rows`) at both FAFormer
+   sites against their plain bf16 versions, out and dx within one bf16 ulp
+   (dropout 0 and 0.1, cases (a) and (b), a bf16 mask probe against the f32
+   plain version), the f32 D and E also against the parent commit's bits
+   (`FRAME_F32_BEFORE`); error, median time, allocation and the card's
+   least time (`bound_ms`) of each;
 then, for each path, `egnn_equihnns`, `faformer_equihnns`,
 `visnet_equihnns`, `se3_transformer_equihnns` and `equiformer_equihnns`,
 the MHNN family `mhnn`,
@@ -88,7 +94,9 @@ kernels L and M), `egnn_equihnns bf16` and `mhnns bf16` (the recipe with
 `--compute_dtype bfloat16`: the EGNN and the trunk in bf16, kernels A, B
 and C in bf16), `visnet_equihnns bf16` (ViSNet's layer loop in bf16,
 kernels F-I in bf16, its readout and the trunk f32) and, served only (4),
-`visnet_equihnn bf16` and `visnet_equihnnm bf16`, the 2-D baselines `gin`,
+`visnet_equihnn bf16` and `visnet_equihnnm bf16`, `faformer_equihnns bf16`
+(the FAFormer and the trunk in bf16: kernels D, E and A in bf16) and, served
+only, `faformer_equihnn bf16` and `faformer_equihnnm bf16`, the 2-D baselines `gin`,
 `gcn`, `gat` and `gatv2` at ModelConfig's gnn_* widths (5 layers, 300
 wide, JK "last", mean pooling, dropout 0; GAT: 4 heads averaged), and `egnn_equihnns cross-molecule`
 (the recipe with `cross_molecule_knn=True`: EGNN's flat path, a batch-wide
@@ -104,7 +112,8 @@ kNN), with random weights from a seed:
    egnn bf16: A 3x and B, mhnns bf16: A 3x, each also on the wrapper's
    bf16 counter (`launches_bf16`, which the f32 paths must leave at 0);
    visnet bf16 and its hybrids: F 6x and H 5x, each also on the bf16
-   counter, A 3x in f32; the
+   counter, A 3x in f32; faformer bf16 and its hybrids: A 3x and D 5x, each
+   also on the bf16 counter; the
    MHNN family and equiformer: A 3x; a hybrid: its encoder's, and A 3x; the
    cross-molecule path: A 3x and no B, JAX's flat EGNN being unfused); a
    2-D baseline serves the SDF and a SMILES file the script writes from
@@ -135,6 +144,7 @@ kNN), with random weights from a seed:
    model's kernels on every train step (egnn: A 3x, B, C; faformer: A 3x,
    D 5x, E 4x; visnet: A 3x, F 6x, H 5x, G 6x, I 5x; se3: A 3x, J 4x, K 4x;
    se3 bf16: A 3x, L 8x, M 4x; visnet bf16: as visnet, F-I on the bf16
+   counters too; faformer bf16: as faformer, A, D and E on the bf16
    counters too; the MHNN family and equiformer: A 3x; a
    hybrid: its encoder's; the 2-D baselines: none) and every eval forward;
    `ckpt_best.pt` serves through `predict.run --device cuda`; the
@@ -147,11 +157,13 @@ kNN), with random weights from a seed:
    beside the rows the model masks (egnn's dm must be 0 on every masked
    edge); for egnn bf16, the kNN on the batch's bf16 positions on the card
    and the CPU: the slots whose neighbour set differs (recorded);
-8. remat (the encoder paths, se3 bf16, egnn bf16 and visnet bf16): one
+8. remat (the encoder paths, se3 bf16, egnn bf16, visnet bf16 and faformer
+   bf16): one
    train step with `remat=True` against the same step without it on the
    card, training mode, the gradient phase's molecules; the remat step's launches (the
    encoder's kernels again in its backward: egnn B, faformer D 5x, visnet
-   F 6x and H 5x, se3 J 4x, se3 bf16 L 4x, egnn bf16 B more); the steps
+   F 6x and H 5x, se3 J 4x, se3 bf16 L 4x, egnn bf16 B more, faformer bf16
+   D 5x more); the steps
    with PyTorch's deterministic algorithms (`index_add_` in a fixed order,
    not with atomics); each gradient within 1e-5 of its max plus twice the
    card's own change between two plain steps; for se3 and equiformer, the
@@ -221,7 +233,12 @@ BF16_HYPER_PATHS = (EGNN_BF16, MHNNS_BF16)
 # hybrids are served only (their encoder is held on the visnet_equihnns path)
 VISNET_BF16 = "visnet_equihnns bf16"
 VISNET_HYBRIDS_BF16 = ("visnet_equihnn bf16", "visnet_equihnnm bf16")
-SERVE_ONLY = VISNET_HYBRIDS_BF16
+# the FAFormer models with --compute_dtype bfloat16 at the recipe: the FAFormer
+# and the trunk in bf16 (kernels D and E in bf16, the trunk's A in bf16); the two
+# hybrids are served only (their encoder is held on the faformer_equihnns path)
+FAFORMER_BF16 = "faformer_equihnns bf16"
+FAFORMER_HYBRIDS_BF16 = ("faformer_equihnn bf16", "faformer_equihnnm bf16")
+SERVE_ONLY = VISNET_HYBRIDS_BF16 + FAFORMER_HYBRIDS_BF16
 # egnn_equihnns with the reference's batch-as-one-point-cloud kNN
 # (cross_molecule_knn=True): EGNN's flat path, JAX's unfused edge MLP (no kernel B)
 CROSS_PATH = "egnn_equihnns cross-molecule"
@@ -233,7 +250,8 @@ PATHS = {**{m: (m, {}) for m in METHODS},
          EGNN_BF16: ("egnn_equihnns", dict(compute_dtype="bfloat16")),
          MHNNS_BF16: ("mhnns", dict(compute_dtype="bfloat16")),
          **{p: (p.removesuffix(" bf16"), dict(compute_dtype="bfloat16"))
-            for p in (VISNET_BF16, *VISNET_HYBRIDS_BF16)},
+            for p in (VISNET_BF16, *VISNET_HYBRIDS_BF16, FAFORMER_BF16,
+                      *FAFORMER_HYBRIDS_BF16)},
          **{m: (m, {}) for m in GRAPH_METHODS},
          CROSS_PATH: ("egnn_equihnns", dict(cross_molecule_knn=True))}
 # SMILES served by the 2-D paths (one a line; the last does not parse: a nan row)
@@ -261,6 +279,9 @@ FWD_LAUNCHES = {
     # the trunk reads ViSNet's f32 readout: A in f32
     VISNET_BF16: {"sorted_segment_sum": 3, "vis_vec_agg": 6, "vis_vec_agg bf16": 6,
                   "vis_wdot": 5, "vis_wdot bf16": 5},
+    # FAFormer's output is bf16: the trunk's A in bf16
+    FAFORMER_BF16: {"sorted_segment_sum": 3, "sorted_segment_sum bf16": 3,
+                    "fused_frame_swiglu": 5, "fused_frame_swiglu bf16": 5},
 }
 BWD_LAUNCHES = {
     "egnn_equihnns": {"fused_edge_messages_bwd": 1},
@@ -276,6 +297,7 @@ BWD_LAUNCHES = {
     MHNNS_BF16: {},
     VISNET_BF16: {"vis_vec_agg_bwd": 6, "vis_vec_agg_bwd bf16": 6, "vis_wdot_bwd": 5,
                   "vis_wdot_bwd bf16": 5},
+    FAFORMER_BF16: {"fused_frame_swiglu_bwd": 4, "fused_frame_swiglu_bwd bf16": 4},
 }
 # each hybrid's encoder, whose *_equihnns path it shares its encoder's kernels with
 ENCODER_OF = {m: m.removesuffix("m") + "s" for m in HYBRID_METHODS}
@@ -295,6 +317,10 @@ FWD_LAUNCHES[CROSS_PATH], BWD_LAUNCHES[CROSS_PATH] = {"sorted_segment_sum": 3}, 
 for _p in VISNET_HYBRIDS_BF16:
     FWD_LAUNCHES[_p], BWD_LAUNCHES[_p] = dict(FWD_LAUNCHES[VISNET_BF16]), \
         dict(BWD_LAUNCHES[VISNET_BF16])
+# with FAFormer's bf16 output the concatenations stay bf16: A in bf16
+for _p in FAFORMER_HYBRIDS_BF16:
+    FWD_LAUNCHES[_p], BWD_LAUNCHES[_p] = dict(FWD_LAUNCHES[FAFORMER_BF16]), \
+        dict(BWD_LAUNCHES[FAFORMER_BF16])
 LR = {"visnet_equihnns": "1e-4", "visnet_equihnn": "1e-4",
       "visnet_equihnnm": "1e-4"}  # the others train at 1e-3
 # the MHNN family trains on the coordinate-free set, as users of those models do
@@ -503,17 +529,75 @@ def phase_build() -> None:
     check(pkg == os.path.join(ROOT, "equihgnn_tpu_torch"),
           f"equihgnn_tpu_torch imported from {pkg}, not from this checkout")
     t0 = time.perf_counter()
-    build.library()
+    with tempfile.TemporaryDirectory() as tmp:
+        report = subprocess.Popen(
+            [build._nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
+             os.path.join(tmp, "frame_swiglu.o"), str(build.CSRC_DIR / "frame_swiglu.cu")],
+            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+        build.library()
+        ptxas = report.communicate()[1]
     seconds = time.perf_counter() - t0
+    check(report.returncode == 0, f"nvcc -Xptxas -v failed on frame_swiglu.cu:\n{ptxas}")
     print(f"build: {seconds:.2f} s, nvcc {' '.join(build.NVCC_FLAGS)} "
           f"-> {build.library_path().name} from {[s.name for s in build.sources()]}")
+    check_frame_swiglu_f32_ptxas(ptxas)
+
+
+# ptxas's report of the f32 kernels D ("fwd") and E ("bwd") of the parent
+# commit 1723ae6 at the flags of `build.NVCC_FLAGS`, by (C, CPL): registers,
+# stack frame, spill stores and spill loads (bytes). The f32 D and E of
+# this commit's source are the parent's bodies, instantiated for float
+# beside the bf16 ones, and must keep them.
+FRAME_F32_PTXAS_BEFORE = {
+    ("fwd", 4, 8): (255, 0, 0, 0), ("fwd", 4, 4): (128, 0, 0, 0),
+    ("fwd", 4, 2): (120, 0, 0, 0), ("fwd", 4, 1): (64, 0, 0, 0),
+    ("fwd", 3, 8): (255, 0, 0, 0), ("fwd", 3, 4): (128, 0, 0, 0),
+    ("fwd", 3, 2): (107, 0, 0, 0), ("fwd", 3, 1): (64, 0, 0, 0),
+    ("bwd", 4, 8): (254, 0, 0, 0), ("bwd", 4, 4): (128, 56, 56, 56),
+    ("bwd", 4, 2): (80, 0, 0, 0), ("bwd", 4, 1): (91, 0, 0, 0),
+    ("bwd", 3, 8): (255, 0, 0, 0), ("bwd", 3, 4): (128, 16, 12, 12),
+    ("bwd", 3, 2): (80, 0, 0, 0), ("bwd", 3, 1): (95, 0, 0, 0),
+}
+
+
+def ptxas_usage(report: str, kernel: str) -> dict[tuple, tuple[str, tuple[int, ...]]]:
+    """(fwd/bwd, C, CPL) → (element type, (registers, stack frame, spill
+    stores, spill loads)) of each instance of `kernel` in a ptxas -v report:
+    "f" or "13__nv_bfloat16", from the mangled name."""
+    lines, out = report.splitlines(), {}
+    name = re.compile(rf"{kernel}_(fwd|bwd)_kernelILi(\d+)ELi(\d+)E(\w+?)EEv")
+    for i, line in enumerate(lines):
+        m = name.search(line)
+        if "Compiling entry function" not in line or not m:
+            continue
+        info = " ".join(lines[i + 1:i + 4])
+        regs = re.search(r"Used (\d+) registers", info)
+        spill = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads", info)
+        check(regs is not None and spill is not None, f"no ptxas usage for {m.group(0)}")
+        key = (m.group(1), int(m.group(2)), int(m.group(3)))
+        out.setdefault(m.group(4), {})[key] = (int(regs.group(1)), *map(int, spill.groups()))
+    return out
+
+
+def check_frame_swiglu_f32_ptxas(report: str) -> None:
+    usage = ptxas_usage(report, "frame_swiglu")
+    for dtype, table in sorted(usage.items()):
+        print(f"ptxas, frame_swiglu.cu {dtype} instances (registers, stack, spill stores, spill "
+              f"loads): " + ", ".join(f"{k[0]} C={k[1]} CPL={k[2]} {v}"
+                                      for k, v in sorted(table.items())))
+    f32 = usage.get("f", {})
+    check(f32 == FRAME_F32_PTXAS_BEFORE,
+          f"the f32 D/E instances' registers or spills differ from the parent commit's: "
+          f"{ {k: (f32.get(k), v) for k, v in FRAME_F32_PTXAS_BEFORE.items() if f32.get(k) != v} }")
+    print("ptxas: the f32 D and E instances keep the parent commit's registers and spills")
 
 
 def counters() -> dict:
     """name → (the launch-counted wrapper of a kernel, its counter's
     attribute): `launches` of every wrapper, in any dtype, and beside it
-    `launches_bf16` of the wrappers of A, B, C and F-I, the bf16 launches
-    alone (named "<wrapper> bf16")."""
+    `launches_bf16` of the wrappers of A-I, the bf16 launches alone (named
+    "<wrapper> bf16")."""
     from equihgnn_tpu_torch.ops.kernels.edge_mlp import (
         fused_edge_messages,
         fused_edge_messages_bwd,
@@ -543,7 +627,8 @@ def counters() -> dict:
            "pooled_m": pooled_m, "pooled_m_bwd": pooled_m_bwd}
     out = {name: (fn, "launches") for name, fn in fns.items()}
     for name in ("sorted_segment_sum", "fused_edge_messages", "fused_edge_messages_bwd",
-                 "vis_vec_agg", "vis_vec_agg_bwd", "vis_wdot", "vis_wdot_bwd"):
+                 "fused_frame_swiglu", "fused_frame_swiglu_bwd", "vis_vec_agg",
+                 "vis_vec_agg_bwd", "vis_wdot", "vis_wdot_bwd"):
         out[f"{name} bf16"] = (fns[name], "launches_bf16")
     return out
 
@@ -629,6 +714,8 @@ def phase_kernels(batch) -> list[dict]:
     rows += edge_mlp_rows(args, pair_mask, gen)
     rows += bf16_kernel_rows(batch, args, pair_mask, gen)
     rows += frame_swiglu_rows(pd, sm, gen)
+    check_frame_swiglu_f32_bits()
+    rows += frame_swiglu_bf16_rows(pd, sm, gen)
     rows += vis_mix_rows(batch)
     rows += vis_mix_bf16_rows(batch)
     rows += pooled_conv_rows(batch, gen)
@@ -1051,27 +1138,35 @@ def segment_sum_case(name: str, data, ids, s: int) -> float:
     return err
 
 
-def mask_probe(p: int, gen, dev) -> float:
+def mask_probe(p: int, gen, dev, dtype=torch.float32) -> float:
     """Kernel D with dropout on inputs that make every mask bit visible:
     SwiGLU values in [1.5, 4.5] (never near 0) and distinct in each frame,
     so one kept value the kernel dropped (or the reverse), or a swap
-    between frames, moves its output by > 1e-2. Agreement within 1e-5
-    means the kernel's mask is the plain version's, bit for bit."""
+    between frames, moves its output by > 1e-2. Agreement with the f32
+    plain version within 1e-5 (in bf16, x rounded to bf16 and the output
+    within half an ulp more) means the kernel's mask is the plain
+    version's, bit for bit."""
     from equihgnn_tpu_torch.ops.kernels.frame_swiglu import frame_swiglu_plain, fused_frame_swiglu
 
     hh = HIDDEN // 2
-    x = (0.5 + torch.rand(p, 4, generator=gen)).to(dev)
+    x = (0.5 + torch.rand(p, 4, generator=gen)).to(dtype).to(dev)
     w1 = torch.cat([0.2 * torch.rand(4, hh, generator=gen) + 0.1,
                     0.02 * torch.randn(4, hh, generator=gen)], 1).to(dev)
     b1 = torch.cat([torch.linspace(2.5, 3.5, hh), torch.ones(hh)]).to(dev)
     ls, lb = torch.ones(hh, device=dev), torch.zeros(hh, device=dev)
-    got = fused_frame_swiglu(x, w1, b1, ls, lb, drop_rate=0.1, seed=13)
-    ref = frame_swiglu_plain(x, w1, b1, ls, lb, drop_rate=0.1, seed=13)
+    got = fused_frame_swiglu(x, w1, b1, ls, lb, drop_rate=0.1, seed=13).float()
+    ref = frame_swiglu_plain(x.float(), w1, b1, ls, lb, drop_rate=0.1, seed=13)
     torch.cuda.synchronize()
-    d = float((got - ref).abs().max())
-    other = float((frame_swiglu_plain(x, w1, b1, ls, lb, drop_rate=0.1, seed=14) - got).abs().max())
-    print(f"kernel D dropout mask probe [P={p}, C=4]: max|d| {d:.3e} against the plain "
-          f"version's mask (limit 1e-5; another seed's mask: {other:.3e})")
+    d = (got - ref).abs()
+    if dtype != torch.float32:
+        d = d - half_ulp(ref, 1e-5)
+    d = float(d.max())
+    other = float((frame_swiglu_plain(x.float(), w1, b1, ls, lb, drop_rate=0.1, seed=14)
+                   - got).abs().max())
+    what = "max|d|" if dtype == torch.float32 else "max(|d| - half a bf16 ulp)"
+    print(f"kernel D {'' if dtype == torch.float32 else 'bf16 '}dropout mask probe [P={p}, C=4]: "
+          f"{what} {d:.3e} against the plain version's mask (limit 1e-5; another seed's mask: "
+          f"{other:.3e})")
     check(d <= 1e-5 and other > 1e-2, "kernel D's dropout mask differs from the plain version's")
     return d
 
@@ -1117,10 +1212,7 @@ def frame_swiglu_rows(pd, sm, gen) -> list[dict]:
     times = {}
     for site, x in sites.items():
         p, c = x.shape
-        params = [((torch.rand(c, HIDDEN, generator=gen) * 2 - 1) / c ** 0.5).to(dev),
-                  ((torch.rand(HIDDEN, generator=gen) * 2 - 1) / c ** 0.5).to(dev),
-                  (1.0 + 0.2 * torch.randn(HIDDEN // 2, generator=gen)).to(dev),
-                  (0.1 * torch.randn(HIDDEN // 2, generator=gen)).to(dev)]
+        params = frame_swiglu_params(c, gen)
         dout = torch.randn(p, HIDDEN // 2, generator=gen).to(dev)
         douts = {"a": dout, "b": dout * kept[site][:, None]}
         for rate in (0.0, 0.1):
@@ -1210,14 +1302,187 @@ def frame_swiglu_rows(pd, sm, gen) -> list[dict]:
 
 
 def frame_swiglu_bounds(x: torch.Tensor) -> tuple[dict, dict]:
-    """Kernels D's and E's bounds on the positions x [P, C]. Operations per
-    position and frame: fc1 (2·C·H), SwiGLU, LayerNorm and mean (~7·H); the
+    """Kernels D's and E's bounds on the positions x [P, C] (f32 or bf16: x,
+    out, dout and dx in x's dtype, the parameters f32). Operations per
+    position and frame, at the f32 peak in either dtype (the bf16 kernels
+    compute in f32): fc1 (2·C·H), SwiGLU, LayerNorm and mean (~7·H); the
     backward recomputes them and adds dx and dw1 (4·C·H) and ~13·H."""
     p, c = x.shape
-    out_b = p * (HIDDEN // 2) * 4
+    out_b = p * (HIDDEN // 2) * x.element_size()
     w_b = (c * HIDDEN + HIDDEN + HIDDEN) * 4
     return (bound(nbytes(x) + w_b + out_b, p * 8 * (2 * c * HIDDEN + 7 * HIDDEN)),
             bound(2 * nbytes(x) + 2 * w_b + out_b, p * 8 * (6 * c * HIDDEN + 20 * HIDDEN)))
+
+
+def frame_swiglu_params(c: int, gen) -> list[torch.Tensor]:
+    """w1, b1, γ and β of a frame site at the width 256 (f32, on the card)."""
+    dev = torch.device("cuda")
+    return [((torch.rand(c, HIDDEN, generator=gen) * 2 - 1) / c ** 0.5).to(dev),
+            ((torch.rand(HIDDEN, generator=gen) * 2 - 1) / c ** 0.5).to(dev),
+            (1.0 + 0.2 * torch.randn(HIDDEN // 2, generator=gen)).to(dev),
+            (0.1 * torch.randn(HIDDEN // 2, generator=gen)).to(dev)]
+
+
+def half_ulp(ref: torch.Tensor, slack: float) -> torch.Tensor:
+    """Half a bf16 ulp of any f32 value within `slack` of `ref`: what
+    rounding such a value to bf16 can move it."""
+    return torch.exp2(torch.floor(torch.log2(ref.abs() + slack)) - 8)
+
+
+def frame_swiglu_bf16_rows(pd, sm, gen) -> list[dict]:
+    """Kernels D and E in bf16 (the bf16 FAFormer's variants: x, out, dout
+    and dx bf16, the parameters and the arithmetic f32) at FAFormer's two
+    sites of the batch (`frame_swiglu_sites`, x rounded to bf16), each
+    against its plain bf16 version (the f32 function of x.float(), out and
+    dx rounded once): out and dx within one bf16 ulp, out at least 99 % the
+    same bits, and so dx at the positions the model gives a gradient
+    (`frame_swiglu_sites`' kept); dx also within half an ulp of the plain
+    version's f32 dx plus f32 E's gate (1e-4·max|ref| + 1e-6). At the
+    positions the model masks, x's coordinate columns are 0, the 8 frames'
+    terms cancel exactly, and dx's coordinate columns are f32 rounding
+    noise around 0, whose bf16 bits differ between any two sum orders;
+    the f32 parameter gradients within 1e-4·max|ref| + 1e-6, the same bits
+    twice; D and E at dropout 0 and 0.1 (0.1 on the FAFFN's P of
+    positions at both sites, as `frame_swiglu_rows`), E in cases (a) and (b)
+    (dx 0 at the positions of zero gradient); the mask probe: bf16 D with
+    dropout (`mask_probe`). Timed one call a sample
+    (alternating with the plain version) and by device time alone; bound by
+    the bf16 bytes and the f32 operations (`frame_swiglu_bounds`). Rows
+    "<wrapper> bf16", with the EdgeModule site's times."""
+    from equihgnn_tpu_torch.ops.kernels.frame_swiglu import (
+        frame_swiglu_bwd_plain,
+        frame_swiglu_plain,
+        fused_frame_swiglu,
+        fused_frame_swiglu_bwd,
+    )
+
+    bf16 = torch.bfloat16
+    sites, kept = frame_swiglu_sites(pd, sm)
+    n_drop = sites["FAFFN"].shape[0]
+    err_d = err_e = 0.0
+    times = {}
+    for site, x32 in sites.items():
+        x = x32.to(bf16)
+        p, c = x.shape
+        params = frame_swiglu_params(c, gen)
+        dout = torch.randn(p, HIDDEN // 2, generator=gen).to(bf16).to(pd.device)
+        douts = {"a": dout, "b": dout * kept[site][:, None]}
+        for rate in (0.0, 0.1):
+            xs = x if rate == 0.0 else x[:n_drop]
+            tag = f"kernel D bf16 {site} [P={xs.shape[0]}, C={c}, H={HIDDEN}] drop {rate}"
+            got = fused_frame_swiglu(xs, *params, drop_rate=rate, seed=7)
+            err_d = max(err_d, check_bf16(tag, got,
+                                          frame_swiglu_plain(xs, *params, drop_rate=rate, seed=7)))
+            check(torch.equal(got, fused_frame_swiglu(xs, *params, drop_rate=rate, seed=7)),
+                  f"{tag}: other bits on a second call")
+            for case, dcase in douts.items():
+                ds = dcase[:xs.shape[0]]
+                got = fused_frame_swiglu_bwd(xs, *params, ds, rate, 7)
+                again = fused_frame_swiglu_bwd(xs, *params, ds, rate, 7)
+                ref = frame_swiglu_bwd_plain(xs, *params, ds, rate, 7)
+                tag = f"kernel E bf16 {site} drop {rate} case ({case})"
+                err_e = max(err_e, check_bf16(f"{tag} dx {tuple(got[0].shape)}", got[0], ref[0],
+                                              equal=0.0))
+                live = kept[site][:xs.shape[0]]
+                check_bf16(f"{tag} dx at the {int(live.sum())} kept positions", got[0][live],
+                           ref[0][live])
+                dx32 = frame_swiglu_bwd_plain(xs.float(), *params, ds.float(), rate, 7)[0]
+                slack = 1e-4 * float(dx32.abs().max()) + 1e-6
+                excess = float(((got[0].float() - dx32).abs() - half_ulp(dx32, slack)
+                                - slack).max())
+                print(f"{tag} dx against the plain version's f32 dx: max(|d| - half an ulp - "
+                      f"{slack:.3e}) {excess:.3e} (limit 0)")
+                check(excess <= 0, f"{tag}: dx is not an f32 value within E's gate, rounded")
+                for gname, a, b in zip(("dw1", "db1", "dls", "dlb"), got[1:], ref[1:]):
+                    d, scale = float((a - b).abs().max()), float(b.abs().max())
+                    err_e = max(err_e, d)
+                    ok = a.dtype == torch.float32 and d <= 1e-4 * scale + 1e-6
+                    print(f"{tag} {gname} {tuple(a.shape)}: max|d| {d:.3e}, max|ref| {scale:.3e} "
+                          f"(limit 1e-4 * max|ref| + 1e-6): {'ok' if ok else 'FAIL'}")
+                    check(ok, f"{tag}: {gname} disagrees with the plain backward")
+                check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                      f"{tag}: other bits on a second call")
+                if case == "b":
+                    check(bool((got[0][(ds == 0).all(-1)] == 0).all()),
+                          f"{tag}: dx is not 0 at a position of zero gradient")
+                del got, again, ref
+        db = douts["b"]
+        d_calls = [lambda: fused_frame_swiglu(x, *params),
+                   lambda: fused_frame_swiglu(x, *params, drop_rate=0.1, seed=7)]
+        e_calls = [lambda: fused_frame_swiglu_bwd(x, *params, dout),
+                   lambda: fused_frame_swiglu_bwd(x, *params, db)]
+        (dk, dk1, dp), (ek, ekb, ep) = (
+            median_ms(*d_calls, lambda: frame_swiglu_plain(x, *params)),
+            median_ms(*e_calls, lambda: frame_swiglu_bwd_plain(x, *params, dout)))
+        ddev, ddev1, edev, edevb = (profiled_device_ms(call) for call in d_calls + e_calls)
+        bd, be = frame_swiglu_bounds(x)
+        times[site] = (dk, dp, ek, ep, bd, be)
+        print(f"kernels D/E bf16 at {site} [P={p}, C={c}]: D dropout 0 {dk:.4f} ms one call a "
+              f"sample, {ddev:.4f} ms device alone; dropout 0.1 {dk1:.4f} / {ddev1:.4f} ms; "
+              f"plain {dp:.4f} ms; bound {bd['bound_ms']:.4f} ms by {bd['bound_by']}; E case (a) "
+              f"{ek:.4f} ms, case (b) {ekb:.4f} ms one call a sample (device alone {edev:.4f} / "
+              f"{edevb:.4f} ms, torch.profiler, 20 calls) vs plain backward {ep:.4f} ms (bound "
+              f"{be['bound_ms']:.4f} ms by {be['bound_by']}) (median of 20, CUDA events)")
+    mask_probe(n_drop, gen, pd.device, bf16)
+    dk, dp, ek, ep, bd, be = times["EdgeModule"]
+    src = "equihgnn_tpu_torch/csrc/frame_swiglu.cu"
+    return [
+        dict(name="fused_frame_swiglu bf16", route="cuda", source=src,
+             replaces="equihgnn_tpu/ops/pallas/frame_swiglu.py:254",
+             max_abs_err=err_d, ms=dk, plain_ms=dp, library_ms=None, **bd),
+        dict(name="fused_frame_swiglu_bwd bf16", route="cuda", source=src,
+             replaces="equihgnn_tpu/ops/pallas/frame_swiglu.py:274",
+             max_abs_err=err_e, ms=ek, plain_ms=ep, library_ms=None, **be),
+    ]
+
+
+def frame_swiglu_digests() -> dict[str, str]:
+    """`digest`s of the f32 kernels D's and E's outputs on inputs drawn on the
+    CPU from seed 19 at FAFormer's two sites' shapes (P = 393,728, C = 4 and
+    P = 24,608, C = 3; H = 256): D at dropout 0 and 0.1, E in case (a) at
+    dropout 0.1 and in case (b) (half the rows of dout 0) at 0; and the
+    inputs' own digest."""
+    from equihgnn_tpu_torch.ops.kernels.frame_swiglu import (
+        fused_frame_swiglu,
+        fused_frame_swiglu_bwd,
+    )
+
+    gen = torch.Generator().manual_seed(19)
+    dev = torch.device("cuda")
+    inputs, out = [], {}
+    for p, c in ((393_728, 4), (24_608, 3)):
+        x = torch.randn(p, c, generator=gen).to(dev)
+        params = frame_swiglu_params(c, gen)
+        dout = torch.randn(p, HIDDEN // 2, generator=gen).to(dev)
+        db = dout * (torch.rand(p, generator=gen) < 0.5).to(dev)[:, None]
+        inputs += [x, *params, dout, db]
+        out[f"D C={c}"] = digest(fused_frame_swiglu(x, *params),
+                                 fused_frame_swiglu(x, *params, drop_rate=0.1, seed=7))
+        out[f"E C={c}"] = digest(*fused_frame_swiglu_bwd(x, *params, dout, 0.1, 7),
+                                 *fused_frame_swiglu_bwd(x, *params, db))
+    return {"inputs": digest(*inputs), **out}
+
+
+# The f32 kernels D's and E's outputs at `frame_swiglu_digests`' inputs, as
+# the kernels of the parent commit 1723ae6 computed them on the card (its
+# first 16 hex digits), beside the digest of those inputs: the f32 D and E
+# must give the same bits from this commit's source, whose f32 kernels are
+# the parent's bodies instantiated for float beside the bf16 ones. The
+# inputs come from torch's CPU generator; a run whose inputs have another
+# digest (another torch's generator) cannot compare and fails.
+FRAME_F32_BEFORE = {"inputs": "ea8db4f57fe17a43", "D C=4": "05f676a373dc29d5",
+                    "E C=4": "03d4a1788cb1e7eb", "D C=3": "97b69a1ad179f51b",
+                    "E C=3": "1144681e2876c6fe"}
+
+
+def check_frame_swiglu_f32_bits() -> None:
+    got = frame_swiglu_digests()
+    print(f"f32 D/E digests {got}; the parent's {FRAME_F32_BEFORE}")
+    check(got["inputs"] == FRAME_F32_BEFORE["inputs"],
+          "the f32 D/E digests' inputs differ from those recorded: nothing to compare with")
+    for name, bits in got.items():
+        check(bits == FRAME_F32_BEFORE[name],
+              f"f32 kernel {name} gave other bits than the parent commit's")
 
 
 def vis_mix_inputs(batch, gen, dtype=torch.float32) -> dict:
@@ -1944,6 +2209,7 @@ ENCODER_LIMIT = {"se3_transformer_equihnns": 1e-2}  # the others: 1e-4
 # ~10 s, so it takes one
 GRAD_CUT = {"se3_transformer_equihnns": (16, 1), BF16_PATH: (16, 0),
             **dict.fromkeys(BF16_HYPER_PATHS, (16, 0)), VISNET_BF16: (16, 0),
+            FAFORMER_BF16: (16, 0),
             "visnet_equihnns": (32, 1), **dict.fromkeys(HYBRID_METHODS, (16, 1)),
             CROSS_PATH: (32, 1), **dict.fromkeys(GRAPH_METHODS, (64, 2))}
 # A ReLU input on the other side of 0 on the card than on the CPU makes the
@@ -2458,7 +2724,7 @@ def phase_step(path: str, samples, smi: str) -> None:
 
 
 # the paths whose encoder `remat` checkpoints, held with it on the card
-REMAT_PATHS = ENCODER_METHODS + (BF16_PATH, EGNN_BF16, VISNET_BF16)
+REMAT_PATHS = ENCODER_METHODS + (BF16_PATH, EGNN_BF16, VISNET_BF16, FAFORMER_BF16)
 # the paths whose batch-768 train step's peak memory is read with and without remat
 REMAT_MEMORY = ("se3_transformer_equihnns", "equiformer_equihnns")
 

@@ -6,7 +6,15 @@
 //   out   = mean_o LN(drop(silu(pre_o[:, :H/2]) · pre_o[:, H/2:]))·γ + β
 //
 // over the 8 sign patterns s_o of `_SIGN_OPS` (o = 4·bx + 2·by + bz, bit 0
-// → −1, bit 1 → +1). All f32.
+// → −1, bit 1 → +1). The parameters are f32, and so is every sum. x and out
+// (and, in the backward, dout and dx) are f32 or bf16: the bf16 kernels are
+// JAX's fused function on bf16 input (`_prep` casts x to f32, `_vjp_fwd`
+// rounds out once, `_vjp_bwd` casts dout up and rounds dx once), the f32
+// kernels' arithmetic on x and dout read as bf16 and widened, out and dx
+// rounded to bf16 at the store. The element type T is a template argument
+// of the kernels, used only where they read x and dout and write out and dx
+// (`to_f32`, `from_f32`, `store_row`): the f32 instances are the code they
+// were before the bf16 ones came.
 //
 // Replaces: equihgnn_tpu/ops/pallas/frame_swiglu.py `_vjp_fwd` /
 // `_fwd_kernel` (forward) and `_vjp_bwd` / `_bwd_kernel` (backward). As on
@@ -92,7 +100,9 @@
 // the same bits with integer tensor ops. Keep iff hash ≥ round(rate·2³²).
 
 #include <cstdint>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <type_traits>
 
 #include "column_sum.cuh"
 
@@ -101,6 +111,37 @@ namespace {
 constexpr int WARPS = 8;  // warps per block
 constexpr unsigned FULL = 0xffffffffu;
 constexpr float LN_EPS = 1e-5f;
+
+using bf16 = __nv_bfloat16;
+
+// the element type's value as f32 (exact), and an f32 value rounded to it
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+template <typename T>
+__device__ __forceinline__ T from_f32(float v) {
+  if constexpr (std::is_same<T, float>::value) return v;
+  else return __float2bfloat16_rn(v);
+}
+
+// A bf16 row of H/2 = 32·CPL values, lane l holding v[q] of column l + 32q,
+// stored in __nv_bfloat162 pairs: of each two of a lane's columns (q0 = 2j,
+// q1 = 2j + 1) an even lane stores q0's pair (its own, its odd neighbour's)
+// and an odd lane q1's (its even neighbour's, its own), one shuffle a pair;
+// at CPL = 1 the even lanes store every pair.
+template <int CPL>
+__device__ __forceinline__ void store_row(bf16* row, const float (&v)[CPL], int lane) {
+  const bool odd = lane & 1;
+  const int c0 = lane & ~1;
+#pragma unroll
+  for (int q0 = 0; q0 < CPL; q0 += 2) {
+    const int q1 = q0 + 1 < CPL ? q0 + 1 : q0;
+    const float other = __shfl_xor_sync(0xffffffffu, odd ? v[q0] : v[q1], 1);
+    if (!odd)
+      *reinterpret_cast<__nv_bfloat162*>(row + c0 + 32 * q0) = __floats2bfloat162_rn(v[q0], other);
+    else if (q1 != q0)
+      *reinterpret_cast<__nv_bfloat162*>(row + c0 + 32 * q1) = __floats2bfloat162_rn(other, v[q1]);
+  }
+}
 
 __device__ __forceinline__ float sigmoid_fast(float x) {
   return __fdividef(1.f, 1.f + __expf(-x));
@@ -175,11 +216,11 @@ __device__ __forceinline__ float warp_reduce_scatter(float (&v)[N], int lane) {
 constexpr int FWD_MIN_BLOCKS = 2;
 
 // Kernel D: see the file comment. A warp owns a position at a time.
-template <int C, int CPL>
+template <int C, int CPL, typename T>
 __global__ void __launch_bounds__(WARPS * 32, CPL >= 8 ? 1 : FWD_MIN_BLOCKS)
-frame_swiglu_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w1,
+frame_swiglu_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w1,
                         const float* __restrict__ b1, const float* __restrict__ ls,
-                        const float* __restrict__ lb, float* __restrict__ out, int64_t n_pos,
+                        const float* __restrict__ lb, T* __restrict__ out, int64_t n_pos,
                         Dropout drop) {
   constexpr int HH = 32 * CPL, H = 2 * HH, K = 2 * CPL;
   constexpr float INV_HH = 1.f / HH;  // exact: HH is a power of 2
@@ -202,14 +243,14 @@ frame_swiglu_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w
   int64_t p = static_cast<int64_t>(blockIdx.x) * WARPS + (threadIdx.x >> 5);
   float xn[C];  // x of the warp's next position, loaded one position ahead
 #pragma unroll
-  for (int c = 0; c < C; ++c) xn[c] = p < n_pos ? x[p * C + c] : 0.f;
+  for (int c = 0; c < C; ++c) xn[c] = p < n_pos ? to_f32(x[p * C + c]) : 0.f;
   for (; p < n_pos; p += nwarps) {
     float xv[C];
 #pragma unroll
     for (int c = 0; c < C; ++c) xv[c] = xn[c];
     if (p + nwarps < n_pos) {
 #pragma unroll
-      for (int c = 0; c < C; ++c) xn[c] = x[(p + nwarps) * C + c];
+      for (int c = 0; c < C; ++c) xn[c] = to_f32(x[(p + nwarps) * C + c]);
     }
     const uint32_t ph = drop.on ? fmix32(static_cast<uint32_t>(p) ^ drop.smix) : 0u;
 
@@ -266,14 +307,18 @@ frame_swiglu_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w
     const float r2 = warp_reduce_scatter<8>(ss, lane);
 #pragma unroll
     for (int o = 0; o < 8; ++o) inv[o] = rsqrtf(__shfl_sync(FULL, r2, 4 * o) * INV_HH + LN_EPS);
-    // out = γ·mean_o((y_o − μ_o)/σ_o) + β
+    // out = γ·mean_o((y_o − μ_o)/σ_o) + β; in bf16 kept in frame 0's row
+    // (each column read there before it is written) and stored in pairs
 #pragma unroll
     for (int q = 0; q < CPL; ++q) {
       float acc = 0.f;
 #pragma unroll
       for (int o = 0; o < 8; ++o) acc = fmaf(y[o][q], inv[o], acc);
-      out[p * HH + lane + 32 * q] = fmaf(acc * 0.125f, g[q], be[q]);
+      acc = fmaf(acc * 0.125f, g[q], be[q]);
+      if constexpr (std::is_same<T, float>::value) out[p * HH + lane + 32 * q] = acc;
+      else y[0][q] = acc;
     }
+    if constexpr (!std::is_same<T, float>::value) store_row<CPL>(out + p * HH, y[0], lane);
   }
 }
 
@@ -291,11 +336,11 @@ struct BwdShape {
 };
 
 // Kernel E: see the file comment. One workspace row per block.
-template <int C, int CPL>
+template <int C, int CPL, typename T>
 __global__ void __launch_bounds__(WARPS * 32, CPL >= 8 ? 1 : BWD_MIN_BLOCKS)
-frame_swiglu_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w1,
+frame_swiglu_bwd_kernel(const T* __restrict__ x, const float* __restrict__ w1,
                         const float* __restrict__ b1, const float* __restrict__ ls,
-                        const float* __restrict__ dout, float* __restrict__ dx,
+                        const T* __restrict__ dout, T* __restrict__ dx,
                         float* __restrict__ part, int64_t n_pos, Dropout drop) {
   using S = BwdShape<C, CPL>;
   constexpr int HH = S::HH, H = S::H, K = S::K, ROW = S::ROW;
@@ -324,16 +369,16 @@ frame_swiglu_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w
     bool nz = false;
 #pragma unroll
     for (int q = 0; q < CPL; ++q) {
-      d[q] = dout[p * HH + lane + 32 * q];
+      d[q] = to_f32(dout[p * HH + lane + 32 * q]);
       nz |= d[q] != 0.f;
     }
     if (!__any_sync(FULL, nz)) {  // adds nothing anywhere
-      if (lane < C) dx[p * C + lane] = 0.f;
+      if (lane < C) dx[p * C + lane] = from_f32<T>(0.f);
       continue;
     }
     float xv[C];
 #pragma unroll
-    for (int c = 0; c < C; ++c) xv[c] = x[p * C + c];
+    for (int c = 0; c < C; ++c) xv[c] = to_f32(x[p * C + c]);
     const uint32_t ph = drop.on ? fmix32(static_cast<uint32_t>(p) ^ drop.smix) : 0u;
 
     // frame 0's pre-activations (every coordinate sign −1); the frames are
@@ -437,7 +482,7 @@ frame_swiglu_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w
       if (C == 4) v4[3] = fmaf(wx_s[col<CPL>(k, lane)], D[k], v4[3]);
     }
     const float r = warp_reduce_scatter<4>(v4, lane);
-    if ((lane & 7) == 0 && (lane >> 3) < C) dx[p * C + (lane >> 3)] = r;
+    if ((lane & 7) == 0 && (lane >> 3) < C) dx[p * C + (lane >> 3)] = from_f32<T>(r);
 
     // the parameter sums: dw1[i] += x_i·G_i, dw1[c ≥ 3] += x_c·D, db1 += D,
     // dγ += (dout/8)·Σ_o z_o, dβ += dout
@@ -486,47 +531,51 @@ cudaError_t grid_for(Kernel kernel, int64_t n_pos, size_t smem, int* blocks) {
   return cudaSuccess;
 }
 
-// The three C entry points' bodies, one instance per (C, H/2/32).
-template <int C, int CPL>
-struct Fwd {
-  static cudaError_t run(const float* x, const float* w1, const float* b1, const float* ls,
-                         const float* lb, float* out, int64_t n_pos, Dropout drop,
-                         cudaStream_t stream) {
-    int blocks = 0;
-    cudaError_t err = grid_for(frame_swiglu_fwd_kernel<C, CPL>, n_pos, 0, &blocks);
-    if (err != cudaSuccess) return err;
-    frame_swiglu_fwd_kernel<C, CPL><<<blocks, WARPS * 32, 0, stream>>>(x, w1, b1, ls, lb, out,
-                                                                        n_pos, drop);
-    return cudaGetLastError();
-  }
-};
+// The C entry points' bodies, one instance per (C, H/2/32), for x, out,
+// dout and dx of element type T.
+template <typename T>
+struct Ops {
+  template <int C, int CPL>
+  struct Fwd {
+    static cudaError_t run(const T* x, const float* w1, const float* b1, const float* ls,
+                           const float* lb, T* out, int64_t n_pos, Dropout drop,
+                           cudaStream_t stream) {
+      int blocks = 0;
+      cudaError_t err = grid_for(frame_swiglu_fwd_kernel<C, CPL, T>, n_pos, 0, &blocks);
+      if (err != cudaSuccess) return err;
+      frame_swiglu_fwd_kernel<C, CPL, T><<<blocks, WARPS * 32, 0, stream>>>(x, w1, b1, ls, lb,
+                                                                             out, n_pos, drop);
+      return cudaGetLastError();
+    }
+  };
 
-template <int C, int CPL>
-struct BwdWorkspace {
-  static cudaError_t run(int64_t n_pos, int64_t* floats) {
-    int blocks = 0;
-    cudaError_t err =
-        grid_for(frame_swiglu_bwd_kernel<C, CPL>, n_pos, BwdShape<C, CPL>::SMEM, &blocks);
-    *floats = static_cast<int64_t>(blocks) * BwdShape<C, CPL>::ROW;
-    return err;
-  }
-};
+  template <int C, int CPL>
+  struct BwdWorkspace {
+    static cudaError_t run(int64_t n_pos, int64_t* floats) {
+      int blocks = 0;
+      cudaError_t err =
+          grid_for(frame_swiglu_bwd_kernel<C, CPL, T>, n_pos, BwdShape<C, CPL>::SMEM, &blocks);
+      *floats = static_cast<int64_t>(blocks) * BwdShape<C, CPL>::ROW;
+      return err;
+    }
+  };
 
-template <int C, int CPL>
-struct Bwd {
-  static cudaError_t run(const float* x, const float* w1, const float* b1, const float* ls,
-                         const float* dout, float* dx, float* dparams, float* ws, int64_t n_pos,
-                         Dropout drop, cudaStream_t stream) {
-    constexpr size_t smem = BwdShape<C, CPL>::SMEM;
-    int blocks = 0;
-    cudaError_t err = grid_for(frame_swiglu_bwd_kernel<C, CPL>, n_pos, smem, &blocks);
-    if (err != cudaSuccess) return err;
-    frame_swiglu_bwd_kernel<C, CPL><<<blocks, WARPS * 32, smem, stream>>>(x, w1, b1, ls, dout,
-                                                                           dx, ws, n_pos, drop);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    return column_sum(ws, dparams, blocks, BwdShape<C, CPL>::ROW, stream);
-  }
+  template <int C, int CPL>
+  struct Bwd {
+    static cudaError_t run(const T* x, const float* w1, const float* b1, const float* ls,
+                           const T* dout, T* dx, float* dparams, float* ws, int64_t n_pos,
+                           Dropout drop, cudaStream_t stream) {
+      constexpr size_t smem = BwdShape<C, CPL>::SMEM;
+      int blocks = 0;
+      cudaError_t err = grid_for(frame_swiglu_bwd_kernel<C, CPL, T>, n_pos, smem, &blocks);
+      if (err != cudaSuccess) return err;
+      frame_swiglu_bwd_kernel<C, CPL, T><<<blocks, WARPS * 32, smem, stream>>>(
+          x, w1, b1, ls, dout, dx, ws, n_pos, drop);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return err;
+      return column_sum(ws, dparams, blocks, BwdShape<C, CPL>::ROW, stream);
+    }
+  };
 };
 
 // Op<C, CPL>::run(args...) for C ∈ {3, 4}, H/2 = 32·CPL ∈ {32, 64, 128, 256};
@@ -550,14 +599,46 @@ Dropout make_dropout(int on, uint32_t thresh, float inv_keep, uint32_t seed) {
   return Dropout{on, thresh, inv_keep, fmix32(seed)};
 }
 
+template <typename T>
+int workspace(int64_t n_pos, int c_cols, int h_dim, int64_t* floats) {
+  if (n_pos < 0 || h_dim % 2) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(
+      dispatch<Ops<T>::template BwdWorkspace>(c_cols, h_dim, n_pos, floats));
+}
+
+template <typename T>
+int forward(const T* x, const float* w1, const float* b1, const float* ls, const float* lb,
+            T* out, int64_t n_pos, int c_cols, int h_dim, int drop, uint32_t thresh,
+            float inv_keep, uint32_t seed, cudaStream_t stream) {
+  if (n_pos < 0 || h_dim % 2) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_pos == 0) return 0;
+  return static_cast<int>(dispatch<Ops<T>::template Fwd>(
+      c_cols, h_dim, x, w1, b1, ls, lb, out, n_pos, make_dropout(drop, thresh, inv_keep, seed),
+      stream));
+}
+
+template <typename T>
+int backward(const T* x, const float* w1, const float* b1, const float* ls, const T* dout,
+             T* dx, float* dparams, float* ws, int64_t n_pos, int c_cols, int h_dim, int drop,
+             uint32_t thresh, float inv_keep, uint32_t seed, cudaStream_t stream) {
+  if (n_pos < 0 || h_dim % 2) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(dispatch<Ops<T>::template Bwd>(
+      c_cols, h_dim, x, w1, b1, ls, dout, dx, dparams, ws, n_pos,
+      make_dropout(drop, thresh, inv_keep, seed), stream));
+}
+
 }  // namespace
 
-// Floats of scratch that frame_swiglu_bwd_f32 needs: one row of partial
-// parameter sums per block of its grid.
+// Floats of scratch that frame_swiglu_bwd_f32 (_bf16) needs: one row of
+// partial parameter sums per block of its grid.
 extern "C" int frame_swiglu_bwd_workspace_f32(int64_t n_pos, int c_cols, int h_dim,
                                               int64_t* floats) {
-  if (n_pos < 0 || h_dim % 2) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(dispatch<BwdWorkspace>(c_cols, h_dim, n_pos, floats));
+  return workspace<float>(n_pos, c_cols, h_dim, floats);
+}
+
+extern "C" int frame_swiglu_bwd_workspace_bf16(int64_t n_pos, int c_cols, int h_dim,
+                                               int64_t* floats) {
+  return workspace<bf16>(n_pos, c_cols, h_dim, floats);
 }
 
 // out [P, H/2] = kernel D of x [P, C], w1 [C, H], b1 [H], ls/lb [H/2].
@@ -567,10 +648,18 @@ extern "C" int frame_swiglu_fwd_f32(const float* x, const float* w1, const float
                                     const float* ls, const float* lb, float* out, int64_t n_pos,
                                     int c_cols, int h_dim, int drop, uint32_t thresh,
                                     float inv_keep, uint32_t seed, cudaStream_t stream) {
-  if (n_pos < 0 || h_dim % 2) return static_cast<int>(cudaErrorInvalidValue);
-  if (n_pos == 0) return 0;
-  return static_cast<int>(dispatch<Fwd>(c_cols, h_dim, x, w1, b1, ls, lb, out, n_pos,
-                                        make_dropout(drop, thresh, inv_keep, seed), stream));
+  return forward(x, w1, b1, ls, lb, out, n_pos, c_cols, h_dim, drop, thresh, inv_keep, seed,
+                 stream);
+}
+
+// The same with x and out in bf16 (the f32 parameters and arithmetic; out
+// rounded once).
+extern "C" int frame_swiglu_fwd_bf16(const bf16* x, const float* w1, const float* b1,
+                                     const float* ls, const float* lb, bf16* out, int64_t n_pos,
+                                     int c_cols, int h_dim, int drop, uint32_t thresh,
+                                     float inv_keep, uint32_t seed, cudaStream_t stream) {
+  return forward(x, w1, b1, ls, lb, out, n_pos, c_cols, h_dim, drop, thresh, inv_keep, seed,
+                 stream);
 }
 
 // Kernel E: dx [P, C] and dparams = [dw1 (C·H) | db1 (H) | dls (H/2) |
@@ -581,8 +670,17 @@ extern "C" int frame_swiglu_bwd_f32(const float* x, const float* w1, const float
                                     float* dparams, float* ws, int64_t n_pos, int c_cols,
                                     int h_dim, int drop, uint32_t thresh, float inv_keep,
                                     uint32_t seed, cudaStream_t stream) {
-  if (n_pos < 0 || h_dim % 2) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(dispatch<Bwd>(c_cols, h_dim, x, w1, b1, ls, dout, dx, dparams, ws,
-                                        n_pos, make_dropout(drop, thresh, inv_keep, seed),
-                                        stream));
+  return backward(x, w1, b1, ls, dout, dx, dparams, ws, n_pos, c_cols, h_dim, drop, thresh,
+                  inv_keep, seed, stream);
+}
+
+// The same with x, dout and dx in bf16 (dx rounded once; dparams f32), `ws`
+// of frame_swiglu_bwd_workspace_bf16 floats.
+extern "C" int frame_swiglu_bwd_bf16(const bf16* x, const float* w1, const float* b1,
+                                     const float* ls, const bf16* dout, bf16* dx,
+                                     float* dparams, float* ws, int64_t n_pos, int c_cols,
+                                     int h_dim, int drop, uint32_t thresh, float inv_keep,
+                                     uint32_t seed, cudaStream_t stream) {
+  return backward(x, w1, b1, ls, dout, dx, dparams, ws, n_pos, c_cols, h_dim, drop, thresh,
+                  inv_keep, seed, stream);
 }

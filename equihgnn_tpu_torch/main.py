@@ -36,7 +36,9 @@ Differences from the JAX CLI:
     `mhnns`, `mhnnm` and the three `egnn_equihnn*` models compute in
     bfloat16 from the atom embedding to the prediction (kernels A, B and C
     in bf16), and the three `visnet_equihnn*` models in ViSNet's layer loop
-    (kernels F-I in bf16; its readout and the trunk stay float32). The 2-D
+    (kernels F-I in bf16; its readout and the trunk stay float32), and the
+    three `faformer_equihnn*` models from the atom embedding to the
+    prediction (kernels D, E and A in bf16). The 2-D
     baselines take the flag and ignore it; elsewhere the model raises
     NotImplementedError (ROADMAP item 11).
   * Batches come from `iter_batches` (the JAX package's native packer is

@@ -16,12 +16,12 @@ from equihgnn_tpu_torch.ops.segment import masked_segment_reduce, segment_sum
 
 
 # the models that run `compute_dtype="bfloat16"`: the SE(3)-Transformer in
-# its encoder only, the MHNN family and the EGNN models from the atom
-# embedding to the prediction, the ViSNet models in ViSNet's layer loop
+# its encoder only, the MHNN family, the EGNN and the FAFormer models from the
+# atom embedding to the prediction, the ViSNet models in ViSNet's layer loop
 # (and TrunkFull/TrunkM's hyperedge embedding), as in JAX
 BF16_METHODS = ("se3_transformer_equihnns", "mhnn", "mhnns", "mhnnm", "egnn_equihnn",
-                "egnn_equihnns", "egnn_equihnnm", "visnet_equihnn", "visnet_equihnns",
-                "visnet_equihnnm")
+                "egnn_equihnns", "egnn_equihnnm", "faformer_equihnn", "faformer_equihnns",
+                "faformer_equihnnm", "visnet_equihnn", "visnet_equihnns", "visnet_equihnnm")
 
 
 def check_compute(cfg, method: str) -> None:
@@ -35,15 +35,14 @@ def check_compute(cfg, method: str) -> None:
     if dt not in (None, "float32") and not (dt == "bfloat16" and method in BF16_METHODS):
         raise NotImplementedError(
             f"compute_dtype={dt!r} on {method}: the PyTorch port runs bfloat16 only on "
-            f"{', '.join(BF16_METHODS)}; the rest (FAFormer, the Equiformer) is ROADMAP "
-            f"item 11")
+            f"{', '.join(BF16_METHODS)}; the rest (the Equiformer) is ROADMAP item 11")
 
 
 def cast_compute(cfg, *tensors):
     """Cast activations to the configured compute dtype, a no-op by default
     (`equihgnn_tpu/models/common.py:68-74`); None passes through. The MHNN
-    family calls it on the atom embedding, the EGNN models on it and the
-    positions, `TrunkFull` and `TrunkM` on the hyperedge embedding, as in
+    family calls it on the atom embedding, the EGNN and FAFormer models on
+    it and the positions, `TrunkFull` and `TrunkM` on the hyperedge embedding, as in
     JAX; the SE(3)-Transformer casts its own inputs."""
     if cfg.compute_dtype is None:
         return tensors if len(tensors) > 1 else tensors[0]

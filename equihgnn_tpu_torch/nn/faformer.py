@@ -32,6 +32,31 @@ Dropout: `proj_drop` and `attn_drop` are active in `train()` mode through
 `nn.Dropout` (torch's global generator); inside `_FrameSwiGLU` the kernels'
 counter-based mask is seeded per call from the CPU generator (see
 `ops/kernels/frame_swiglu.py`).
+
+Below float32 (bfloat16 features and coordinates, as the FAFormer models
+pass them with `compute_dtype="bfloat16"`) every op computes in that dtype
+with the parameters cast to it, the frame statistics and the LayerNorms in
+f32, and kernels D/E in bf16 (f32 inside). The port rounds where XLA's CPU
+backend rounds JAX's bf16 FAFormer, which differs from the obvious spelling
+at these points:
+  * SiLU and sigmoid are rounded after each op (`nn/mlp.py` `silu`,
+    `sigmoid`); the LayerNorms compute in f32 and the caller casts;
+  * an explicit cast to f32 (a LayerNorm's input, `_frame_stats`'
+    `coords.astype(f32)`, the centroid's `geo.astype(f32)`, the logits'
+    `.astype(f32)`) reads the elementwise op before it unrounded: the
+    product silu(x1)·x2 in `_SwiGLU`, the difference geo_i − geo_j of the
+    EdgeModule's frames, the sum of the two attention logits, and the
+    residual streams: the EdgeModule's pair·att, the attention's
+    W_output(…) + token and its coordinate update, and the layers'
+    residual adds. So the encoder layers take and return token, geo and
+    edge_feats unrounded (f32) and round them where JAX's ops read them
+    rounded, to the compute dtype that `FAFormer(dtype=...)` gives them at
+    construction (JAX's FAFormer follows its input's dtype; the model
+    builds the port's with its `compute_dtype`);
+  * |radial|² keeps its squares unrounded and rounds their sum once.
+With these, `_SwiGLU`, `_FrameSwiGLU`, `EdgeModule`, `FAFFN` and
+`MLPAttnEdgeAggregation` give JAX's bits on bf16 inputs
+(`tests/test_torch_faformer_bf16.py`).
 """
 
 from __future__ import annotations
@@ -40,7 +65,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from equihgnn_tpu_torch.nn.mlp import TorchLinear
+from equihgnn_tpu_torch.nn.mlp import TorchLinear, sigmoid, silu
 from equihgnn_tpu_torch.ops.eigh3 import eigh3x3
 from equihgnn_tpu_torch.ops.gather import nbr_gather
 from equihgnn_tpu_torch.ops.kernels.frame_swiglu import SIGN_OPS, fused_frame_swiglu
@@ -112,6 +137,8 @@ def invert_frame(x, mask, f_ops, center):
 
 
 def _layer_norm(dim: int) -> nn.LayerNorm:
+    """flax's LayerNorm: called on f32 input, it returns f32, which the
+    caller casts to its compute dtype (`.astype(dt)` in JAX)."""
     return nn.LayerNorm(dim, eps=1e-5)
 
 
@@ -151,7 +178,8 @@ class _SwiGLU(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x1, x2 = self.fc1(x).chunk(2, dim=-1)
-        x = self.norm(self.dropout(F.silu(x1) * x2))
+        # below f32 the LayerNorm reads silu(x1)·x2 unrounded
+        x = self.norm(self.dropout(silu(x1).float() * x2.float())).to(x1.dtype)
         if self.mean_axis is not None:
             x = x.mean(dim=self.mean_axis)
         return self.dropout(self.fc2(x))
@@ -213,12 +241,18 @@ class EdgeModule(nn.Module):
         self.att_mlp = TorchLinear(d_model, 1, generator=generator)
 
     def forward(self, token, geo, nbr_idx, nbr_mask):
-        # token [G, A, d], geo [G, A, 3], nbr_idx/nbr_mask [G, A, k]
+        """token [G, A, d], geo [G, A, 3], nbr_idx/nbr_mask [G, A, k] →
+        [G, A, k, d]: pair · att, unrounded (f32) below f32."""
         g, a, k = nbr_idx.shape
-        radial = geo[:, :, None, :] - nbr_gather(geo, nbr_idx, nbr_mask)
-        radial_norm = torch.sum(radial * radial, dim=-1, keepdim=True)
+        geo_nb = nbr_gather(geo, nbr_idx, nbr_mask)
+        radial = geo[:, :, None, :] - geo_nb
+        # below f32 the squares unrounded, their sum rounded once
+        radial_norm = torch.sum(radial.float() * radial.float(), dim=-1,
+                                keepdim=True).to(radial.dtype)
         if self.swiglu:  # unsigned basis; the sign expansion is the kernel's
-            vbar, _ = create_frame_basis(radial, nbr_mask)  # [G, A, k, 3]
+            # the frame statistics read the difference unrounded (f32)
+            vbar = create_frame_basis(geo[:, :, None, :].float() - geo_nb.float(),
+                                      nbr_mask)[0].to(radial.dtype)  # [G, A, k, 3]
             frame_feats = self.coord_mlp(torch.cat([vbar, radial_norm], dim=-1))
         else:
             frames, _, _ = create_frame(radial, nbr_mask)  # [G, A, 8, k, 3]
@@ -228,7 +262,7 @@ class EdgeModule(nn.Module):
         pair = torch.cat([token[:, :, None, :].expand(g, a, k, token.shape[-1]),
                           nbr_gather(token, nbr_idx, nbr_mask)], dim=-1)
         pair = self.edge_mlp(torch.cat([pair, frame_feats], dim=-1))
-        return pair * torch.sigmoid(self.att_mlp(pair))
+        return pair.float() * sigmoid(self.att_mlp(pair)).float()
 
 
 class FAFFN(nn.Module):
@@ -236,9 +270,10 @@ class FAFFN(nn.Module):
     (`fa_former_layer.py:293-337`)."""
 
     def __init__(self, d_model: int, proj_drop: float = 0.0, activation: str = "gelu",
-                 mlp_ratio: float = 4.0, *, generator: torch.Generator):
+                 mlp_ratio: float = 4.0, dtype: torch.dtype = torch.float32, *,
+                 generator: torch.Generator):
         super().__init__()
-        self.swiglu = activation == "swiglu"
+        self.swiglu, self.compute_dtype = activation == "swiglu", dtype
         self.ln = _layer_norm(d_model)
         if self.swiglu:
             self.W_frame = _FrameSwiGLU(3, d_model, d_model, drop=proj_drop,
@@ -250,11 +285,14 @@ class FAFFN(nn.Module):
                         proj_drop, generator=generator)
 
     def forward(self, token, geo, slot_mask):
-        token = self.ln(token)
+        """token [G, A, d] and geo [G, A, 3] unrounded (f32) below f32: the
+        LayerNorm and the frames read them so, as JAX's casts to f32 do."""
+        dt = self.compute_dtype
+        token = self.ln(token.float()).to(dt)
         if self.swiglu:
-            h = self.W_frame(create_frame_basis(geo, slot_mask)[0])
+            h = self.W_frame(create_frame_basis(geo, slot_mask)[0].to(dt))
         else:
-            h = self.W_frame(create_frame(geo, slot_mask)[0])  # frames [G, 8, A, 3]
+            h = self.W_frame(create_frame(geo, slot_mask)[0].to(dt))  # frames [G, 8, A, 3]
         return self.ffn(torch.cat([token, h], dim=-1))  # h [G, A, d]
 
 
@@ -266,13 +304,14 @@ class MLPAttnEdgeAggregation(nn.Module):
 
     def __init__(self, d_model: int, d_edge_model: int, n_heads: int,
                  proj_drop: float = 0.0, attn_drop: float = 0.0, activation: str = "gelu",
-                 faithful_frame_agg: bool = False, *, generator: torch.Generator):
+                 faithful_frame_agg: bool = False, dtype: torch.dtype = torch.float32, *,
+                 generator: torch.Generator):
         super().__init__()
         if faithful_frame_agg:
             raise NotImplementedError(
                 "faithful_frame_agg=True (W_frame_agg) is not ported yet: ROADMAP item 6"
             )
-        self.n_heads = n_heads
+        self.n_heads, self.compute_dtype = n_heads, dtype
         d, de, nh = d_model, d_edge_model, n_heads
         self.qkv_ln = _layer_norm(d)
         self.qkv_lin = TorchLinear(d, 3 * d, generator=generator)
@@ -289,33 +328,42 @@ class MLPAttnEdgeAggregation(nn.Module):
         self.W_output = _mlp(d + de, d, d, activation, proj_drop, generator=generator)
 
     def forward(self, token, geo, edge_feats, nbr_idx, nbr_mask, slot_mask):
+        """(token [G, A, d], geo [G, A, 3]) after the attention. Below f32
+        the inputs are unrounded (f32): the LayerNorms and the centroid read
+        them so, as JAX's casts to f32 do, the rest rounded to the compute
+        dtype; the outputs are the unrounded (f32) results of their last
+        ops, which the caller rounds where JAX does."""
+        dt = self.compute_dtype
         g, a, k = nbr_idx.shape
         nh = self.n_heads
-        qkv = self.qkv_lin(self.qkv_ln(token))
+        qkv = self.qkv_lin(self.qkv_ln(token.float()).to(dt))
         q_s, k_s, v_s = (t.reshape(g, a, nh, -1) for t in qkv.chunk(3, dim=-1))
-        qv_e = self.qkv_edge_lin(self.qkv_edge_ln(edge_feats))
+        qv_e = self.qkv_edge_lin(self.qkv_edge_ln(edge_feats.float()).to(dt))
         q_e, v_e = (t.reshape(g, a, k, nh, -1) for t in qv_e.chunk(2, dim=-1))
-        gate = torch.sigmoid(self.W_gate(token))
+        geo_x, token, geo = geo, token.to(dt), geo.to(dt)
+        gate = sigmoid(self.W_gate(token))
 
         # attention logits over the neighbours
         message = q_s[:, :, None] + nbr_gather(k_s, nbr_idx, nbr_mask)
-        attn = self.mlp_attn(message)[..., 0] + self.edge_attn(q_e)[..., 0]  # [G, A, k, nh]
-        attn = torch.where(nbr_mask[..., None], attn.float(), -1e9)
+        # [G, A, k, nh], the sum unrounded (below f32) where it is cast to f32
+        attn = self.mlp_attn(message)[..., 0].float() + self.edge_attn(q_e)[..., 0].float()
+        attn = torch.where(nbr_mask[..., None], attn, -1e9)
         attn = self.attn_dropout(torch.softmax(attn, dim=2).to(v_e.dtype))
 
         v_nb = nbr_gather(v_s, nbr_idx, nbr_mask)  # [G, A, k, nh, dh]
         scalar_ctx = torch.einsum("gakh,gakhd->gahd", attn, v_nb).reshape(g, a, -1)
         edge_ctx = torch.einsum("gakh,gakhd->gahd", attn, v_e).reshape(g, a, -1)
-        scalar_out = self.W_output(torch.cat([scalar_ctx, edge_ctx], dim=-1)) + token
+        scalar_out = (self.W_output(torch.cat([scalar_ctx, edge_ctx], dim=-1)).float()
+                      + token.float())
 
         if nh == 1:
             geo_ctx = torch.einsum("gakh,gakd->gad", attn, nbr_gather(geo, nbr_idx, nbr_mask))
         else:  # the reference-bug path: the per-molecule centroid
             mf = slot_mask[..., None].float()
             cnt = torch.clamp(torch.sum(mf, dim=-2, keepdim=True), min=1.0)
-            center = torch.sum(geo.float() * mf, dim=-2, keepdim=True) / cnt
-            geo_ctx = (center.expand(geo.shape) * mf).to(geo.dtype)
-        return scalar_out, geo_ctx * gate + geo * (1.0 - gate)
+            center = torch.sum(geo_x.float() * mf, dim=-2, keepdim=True) / cnt
+            geo_ctx = (center.expand(geo.shape) * mf).to(dt)
+        return scalar_out, (geo_ctx * gate).float() + (geo * (1.0 - gate)).float()
 
 
 class FAFormerEncoderLayer(nn.Module):
@@ -323,32 +371,43 @@ class FAFormerEncoderLayer(nn.Module):
 
     def __init__(self, d_model: int, d_edge_model: int, n_heads: int,
                  proj_drop: float = 0.0, attn_drop: float = 0.0, activation: str = "gelu",
-                 faithful_frame_agg: bool = False, *, generator: torch.Generator):
+                 faithful_frame_agg: bool = False, dtype: torch.dtype = torch.float32, *,
+                 generator: torch.Generator):
         super().__init__()
+        self.compute_dtype = dtype
         self.self_attn = MLPAttnEdgeAggregation(
             d_model, d_edge_model, n_heads, proj_drop, attn_drop, activation,
-            faithful_frame_agg, generator=generator)
+            faithful_frame_agg, dtype, generator=generator)
         self.edge_module = EdgeModule(d_model, d_edge_model, proj_drop, activation,
                                       generator=generator)
-        self.ffn = FAFFN(d_model, proj_drop, activation, generator=generator)
+        self.ffn = FAFFN(d_model, proj_drop, activation, dtype=dtype, generator=generator)
 
     def forward(self, token, geo, edge_feats, nbr_idx, nbr_mask, slot_mask):
-        token, geo = self.self_attn(token, geo, edge_feats, nbr_idx, nbr_mask, slot_mask)
-        edge_feats = edge_feats + self.edge_module(token, geo, nbr_idx, nbr_mask)
-        token = token + self.ffn(token, geo, slot_mask)
-        return token, geo, edge_feats
+        """(token, geo, edge_feats) after the layer. Below f32 the inputs and
+        outputs are unrounded (f32), as `MLPAttnEdgeAggregation` takes them."""
+        dt = self.compute_dtype
+        token_x, geo_x = self.self_attn(token, geo, edge_feats, nbr_idx, nbr_mask, slot_mask)
+        token, geo = token_x.to(dt), geo_x.to(dt)
+        edge_feats = (edge_feats.to(dt).float()
+                      + self.edge_module(token, geo, nbr_idx, nbr_mask).to(dt).float())
+        token_x = token.float() + self.ffn(token_x, geo_x, slot_mask).float()
+        return token_x, geo_x, edge_feats
 
 
 class FAFormer(nn.Module):
     """Top-level FAFormer (`fa_former_layer.py:621-716`) on the dense slot
-    view; input and output in the flat [N, ...] atom layout."""
+    view; input and output in the flat [N, ...] atom layout. `dtype`
+    ("bfloat16" or None, the model's `compute_dtype`) is the dtype it
+    computes in: the inputs are cast to it, and its layers round their
+    residual streams to it (see the module docstring)."""
 
     def __init__(self, d_input: int = 64, d_model: int = 64, d_edge_model: int = 64,
                  n_layers: int = 3, n_heads: int = 4, n_neighbors: int = 16,
                  valid_radius: float = 1e6, proj_drop: float = 0.1, attn_drop: float = 0.1,
-                 activation: str = "silu", faithful_frame_agg: bool = False, *,
-                 generator: torch.Generator):
+                 activation: str = "silu", faithful_frame_agg: bool = False,
+                 dtype: str | None = None, *, generator: torch.Generator):
         super().__init__()
+        self.compute_dtype = getattr(torch, dtype or "float32")
         self.n_layers, self.n_neighbors, self.valid_radius = n_layers, n_neighbors, valid_radius
         self.input_transform = TorchLinear(d_input, d_model, generator=generator)
         self.dropout = nn.Dropout(proj_drop)
@@ -357,7 +416,7 @@ class FAFormer(nn.Module):
         for i in range(n_layers):
             self.add_module(f"layers_{i}", FAFormerEncoderLayer(
                 d_model, d_edge_model, n_heads, proj_drop, attn_drop, activation,
-                faithful_frame_agg, generator=generator))
+                faithful_frame_agg, self.compute_dtype, generator=generator))
 
     def forward(
         self,
@@ -371,6 +430,7 @@ class FAFormer(nn.Module):
         """(token_embs [N, d_model], coords [N, 3]) after the encoder; one
         molecule per slot row."""
         g, a = slot_mask.shape
+        features, coords = features.to(self.compute_dtype), coords.to(self.compute_dtype)
         sm = slot_mask[..., None].to(features.dtype)
         token = self.dropout(self.input_transform(features))
         flat = slot_index.reshape(-1)  # index_select: its backward is index_add_
@@ -381,10 +441,12 @@ class FAFormer(nn.Module):
             geo, slot_mask, min(self.n_neighbors, a), valid_radius=self.valid_radius,
             squared_radius=False, exclude_self=True,  # `_build_graph` (`:651-656`)
         )
+        # below f32 the layers pass on token, geo and edge_feats unrounded (f32)
         edge_feats = self.edge_module(td, geo, nbr_idx, nbr_mask)
         for i in range(self.n_layers):
             td, geo, edge_feats = getattr(self, f"layers_{i}")(
                 td, geo, edge_feats, nbr_idx, nbr_mask, slot_mask)
+        td, geo = td.to(features.dtype), geo.to(features.dtype)
         out = graph_id * a + atom_slot
         return (td.reshape(g * a, -1).index_select(0, out),
                 geo.reshape(g * a, 3).index_select(0, out))

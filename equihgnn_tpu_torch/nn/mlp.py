@@ -71,6 +71,24 @@ class TorchLinear(nn.Module):
         return y if self.bias is None else y + self.bias.to(x.dtype)
 
 
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """The logistic function; below float32 `jax.nn.sigmoid` as XLA's CPU
+    backend computes it, 1/(1 + exp(−x)) with the exponential, the sum and
+    the reciprocal each rounded to x's dtype."""
+    if x.dtype == torch.float32:
+        return torch.sigmoid(x)
+    return 1 / (1 + torch.exp(-x))
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """SiLU; below float32 `jax.nn.silu` as XLA's CPU backend computes it,
+    x · 1/(1 + exp(−x)) with every op rounded to x's dtype (`F.silu` rounds
+    once: 0.61 of ViSNet's bf16 values came out the same)."""
+    if x.dtype == torch.float32:
+        return F.silu(x)
+    return x * sigmoid(x)
+
+
 def leaky_relu(x: torch.Tensor, negative_slope: float) -> torch.Tensor:
     """x where x ≥ 0, else slope·x: `jax.nn.leaky_relu`, whose gradient at
     0 is 1 (`F.leaky_relu`'s is the slope). The 2-D baselines' GAT and the

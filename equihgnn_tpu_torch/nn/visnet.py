@@ -28,7 +28,7 @@ dtype (`:234-236`); `out_norm` and `vec_out_norm` return f32 (`:466-470`),
 so the readout runs in f32 and the encoder's output is f32. The port
 rounds where XLA's CPU backend rounds JAX's bf16 ViSNet: every sum runs in
 f32 and is rounded once, vec1·vec2 keeps its products in f32, SiLU rounds
-at each op (`_silu`), and the LayerNorms and the readout read the f32
+at each op (`nn/mlp.py` `silu`), and the LayerNorms and the readout read the f32
 residual sums x + dx and vec + dvec unrounded. The vector mix runs kernels
 F-I in bf16 on the card.
 
@@ -48,7 +48,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from equihgnn_tpu_torch.nn.encoders import AtomEncoder
-from equihgnn_tpu_torch.nn.mlp import TorchLinear
+from equihgnn_tpu_torch.nn.mlp import TorchLinear, silu
 from equihgnn_tpu_torch.ops.gather import nbr_gather
 from equihgnn_tpu_torch.ops.kernels.vis_mix import vis_vec_agg, vis_wdot
 from equihgnn_tpu_torch.ops.knn import knn_dense
@@ -58,15 +58,6 @@ from equihgnn_tpu_torch.ops.numerics import safe_norm
 def _proj(in_features: int, out_features: int, generator: torch.Generator,
           bias: bool = True) -> TorchLinear:
     return TorchLinear(in_features, out_features, generator=generator, bias=bias, xavier=True)
-
-
-def _silu(x: torch.Tensor) -> torch.Tensor:
-    """SiLU; below float32 `jax.nn.silu` as XLA's CPU backend computes it,
-    x · 1/(1 + exp(−x)) with every op rounded to x's dtype (`F.silu` rounds
-    once: 0.61 of the bf16 values came out the same)."""
-    if x.dtype == torch.float32:
-        return F.silu(x)
-    return x * (1 / (1 + torch.exp(-x)))
 
 
 def _sum_of_products(a: torch.Tensor, b: torch.Tensor, dim: int) -> torch.Tensor:
@@ -189,20 +180,20 @@ class ViS_MP(nn.Module):
         x = self.layernorm(x.float()).to(vec.dtype)  # f32 statistics, as JAX's LayerNorm
         vec = self.vec_layernorm(vec)
         q, kk, v = self.q_proj(x), self.k_proj(x), self.v_proj(x)
-        dk = _silu(self.dk_proj(f_ij))
-        dv = _silu(self.dv_proj(f_ij))
+        dk = silu(self.dk_proj(f_ij))
+        dv = silu(self.dv_proj(f_ij))
         vec1, vec2, vec3 = self.vec_proj(vec).chunk(3, dim=-1)
         vec_dot = _sum_of_products(vec1, vec2, dim=-2)  # [G, A, h]
 
         k_j = nbr_gather(kk, nbr_idx, nbr_mask)  # [G, A, k, h]
         prod = q[:, :, None, :] * k_j * dk
         attn = prod.view(g, a, k, nh, -1).sum(-1)  # per-head reduce (bf16: f32 sums)
-        attn = _silu(attn) * cosine_cutoff(r_ij, self.cutoff).to(attn.dtype)[..., None]
+        attn = silu(attn) * cosine_cutoff(r_ij, self.cutoff).to(attn.dtype)[..., None]
         attn = torch.where(nbr_mask[..., None], attn, torch.zeros((), dtype=attn.dtype,
                                                                   device=attn.device))
         v_j = nbr_gather(v, nbr_idx, nbr_mask) * dv
         v_j = (v_j.view(g, a, k, nh, -1) * attn[..., None]).view(g, a, k, -1)
-        s1, s2 = _silu(self.s_proj(v_j)).chunk(2, dim=-1)  # s1: a strided view
+        s1, s2 = silu(self.s_proj(v_j)).chunk(2, dim=-1)  # s1: a strided view
         mk = nbr_mask[..., None].to(x.dtype)
         x_agg = torch.sum(v_j * mk, dim=2)  # [G, A, h]
 
@@ -215,7 +206,7 @@ class ViS_MP(nn.Module):
         # w1·w2 with w1 = u − (u·d)d, w2 = v − (v·(−d))(−d), u at the
         # target, v at the source (`visnet_layer.py:546-553,660-667`)
         w_dot = vis_wdot(d_ij, self.w_trg_proj(vec), self.w_src_proj(vec), nbr_idx, nbr_mask)
-        return dx, dvec, _silu(self.f_proj(f_ij)) * w_dot
+        return dx, dvec, silu(self.f_proj(f_ij)) * w_dot
 
 
 class GatedEquivariantBlock(nn.Module):

@@ -47,6 +47,10 @@ SIGNATURES = {
     "frame_swiglu_bwd_workspace_f32": (_I64, _I, _I, ctypes.POINTER(_I64)),
     "frame_swiglu_bwd_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _U32, _F, _U32,
                              _P),
+    "frame_swiglu_fwd_bf16": (_P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _U32, _F, _U32, _P),
+    "frame_swiglu_bwd_workspace_bf16": (_I64, _I, _I, ctypes.POINTER(_I64)),
+    "frame_swiglu_bwd_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _U32, _F, _U32,
+                              _P),
     "vis_vec_agg_fwd_f32": (_P, _P, _I64, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "vis_vec_agg_bwd_f32": (_P, _P, _I64, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _I, _P),

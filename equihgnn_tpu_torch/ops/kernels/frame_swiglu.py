@@ -21,10 +21,19 @@ autograd traces. A CUDA tensor goes through `_FusedFrameSwiGLU`, an
 and kernel E recomputes the chain. Kernel E skips, exactly, every position
 whose row of dout is all 0 (FAFormer passes 0 at its masked neighbours and
 padding slots) and writes dx = 0 there. Any other device raises, and so does a
-shape the kernels do not take (float32, C ∈ {3, 4}, H/2 ∈ {32, 64, 128,
-256}): there is no fallback to the materialized frames on the card.
+shape the kernels do not take (C ∈ {3, 4}, H/2 ∈ {32, 64, 128, 256}):
+there is no fallback to the materialized frames on the card.
+
+x (and the backward's dout) is float32 or bfloat16; w1, b1, γ and β are
+float32 in both, as JAX's `_FrameSwiGLU` passes them (`.astype(jnp.float32)`),
+and any other mix of dtypes raises TypeError. In bfloat16 the function is
+JAX's fused function on bf16 input: x widened to f32, the f32 chain, out
+rounded once to bf16 (`_prep`, `_vjp_fwd`); in the backward dout widened,
+dx rounded once, the parameter gradients f32 (`_vjp_bwd`). The plain
+version is the f32 one on x.float(), rounded; on the card kernels D and E
+have bf16 entry points with the f32 kernels' arithmetic.
 `fused_frame_swiglu.launches` and `fused_frame_swiglu_bwd.launches` count
-kernel launches.
+kernel launches in either dtype, their `launches_bf16` the bfloat16 ones.
 
 Dropout departs from JAX by design. The TPU kernel draws its mask from the
 TPU's PRNG seeded by (seed, tile id), which no other device reproduces.
@@ -89,7 +98,11 @@ def dropout_keep(seed: int, n_pos: int, hh: int, drop_rate: float,
 
 
 def frame_swiglu_plain(x, w1, b1, ls, lb, drop_rate: float = 0.0, seed: int = 0):
-    """The same function in plain PyTorch: materializes [P, 8, H]."""
+    """The same function in plain PyTorch: materializes [P, 8, H]. On bf16 x
+    the f32 function of x.float(), rounded to bf16 once (under autograd x's
+    gradient is the f32 one, rounded once, and the parameters' stay f32)."""
+    if x.dtype == torch.bfloat16:
+        return frame_swiglu_plain(x.float(), w1, b1, ls, lb, drop_rate, seed).to(x.dtype)
     p, c = x.shape
     hh = w1.shape[1] // 2
     sgn = torch.cat([torch.tensor(SIGN_OPS, dtype=x.dtype, device=x.device),
@@ -106,20 +119,35 @@ def frame_swiglu_plain(x, w1, b1, ls, lb, drop_rate: float = 0.0, seed: int = 0)
 
 def frame_swiglu_bwd_plain(x, w1, b1, ls, lb, dout, drop_rate: float = 0.0, seed: int = 0):
     """(dx, dw1, db1, dls, dlb): autograd through `frame_swiglu_plain` for
-    the output gradient `dout`."""
+    the output gradient `dout`. On bf16 x and dout: dout widened to f32, the
+    f32 backward, dx rounded once to bf16, the parameter gradients f32 (JAX's
+    `_vjp_bwd`)."""
+    _check_dtypes(x, w1, b1, ls, lb, dout)
     with torch.enable_grad():
-        leaves = [t.detach().requires_grad_() for t in (x, w1, b1, ls, lb)]
+        leaves = [t.detach().float().requires_grad_() for t in (x, w1, b1, ls, lb)]
         out = frame_swiglu_plain(*leaves, drop_rate=drop_rate, seed=seed)
-        return torch.autograd.grad(out, leaves, dout)
+        dx, *dparams = torch.autograd.grad(out, leaves, dout.float())
+        return (dx.to(x.dtype), *dparams)
+
+
+def _check_dtypes(x, w1, b1, ls, lb, dout=None):
+    """x (and dout) float32 or bfloat16, the parameters float32."""
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"frame_swiglu takes float32 or bfloat16 x, got {x.dtype}")
+    if dout is not None and dout.dtype != x.dtype:
+        raise TypeError(f"frame_swiglu takes dout in x's dtype {x.dtype}, got {dout.dtype}")
+    for name, t in dict(w1=w1, b1=b1, ls=ls, lb=lb).items():
+        if t.dtype != torch.float32:
+            raise TypeError(f"frame_swiglu takes float32 {name} (in either dtype of x), "
+                            f"got {t.dtype}")
 
 
 def _check(x, w1, b1, ls, lb, dout=None):
+    _check_dtypes(x, w1, b1, ls, lb, dout)
     named = dict(x=x, w1=w1, b1=b1, ls=ls, lb=lb)
     if dout is not None:
         named["dout"] = dout
     for name, t in named.items():
-        if t.dtype != torch.float32:
-            raise TypeError(f"frame_swiglu kernel takes float32 {name}, got {t.dtype}")
         if t.device != x.device:
             raise ValueError(f"{name} lies on {t.device}, x on {x.device}")
         if not t.is_contiguous():
@@ -153,18 +181,24 @@ def _drop_args(drop_rate: float, seed: int):
     return 1, thresh, inv_keep, int(seed) & _M32
 
 
+def _suffix(x) -> str:
+    return "bf16" if x.dtype == torch.bfloat16 else "f32"
+
+
 def _launch_fwd(x, w1, b1, ls, lb, drop_rate, seed):
     p, c = x.shape
     h = w1.shape[1]
-    out = torch.empty((p, h // 2), dtype=torch.float32, device=x.device)
+    out = torch.empty((p, h // 2), dtype=x.dtype, device=x.device)
     lib = build.library()
+    name = f"frame_swiglu_fwd_{_suffix(x)}"
     with torch.cuda.device(x.device):
-        code = lib.frame_swiglu_fwd_f32(
+        code = getattr(lib, name)(
             x.data_ptr(), w1.data_ptr(), b1.data_ptr(), ls.data_ptr(), lb.data_ptr(),
             out.data_ptr(), p, c, h, *_drop_args(drop_rate, seed), _stream(x),
         )
-    build.check(lib, "frame_swiglu_fwd_f32", code)
+    build.check(lib, name, code)
     fused_frame_swiglu.launches += 1
+    fused_frame_swiglu.launches_bf16 += x.dtype == torch.bfloat16
     return out
 
 
@@ -172,7 +206,8 @@ def fused_frame_swiglu_bwd(x, w1, b1, ls, lb, dout, drop_rate: float = 0.0, seed
     """Kernel E: (dx, dw1, db1, dls, dlb) for the output gradient `dout`
     [P, H/2], on CUDA tensors only (on the CPU autograd differentiates
     `frame_swiglu_plain`; `frame_swiglu_bwd_plain` is the same backward).
-    `drop_rate` and `seed` must be the forward's."""
+    `drop_rate` and `seed` must be the forward's. dx in x's dtype, the
+    parameter gradients float32."""
     if x.device.type != "cuda":
         raise ValueError(f"fused_frame_swiglu_bwd: unsupported device {x.device}")
     _check(x, w1, b1, ls, lb, dout)
@@ -180,21 +215,23 @@ def fused_frame_swiglu_bwd(x, w1, b1, ls, lb, dout, drop_rate: float = 0.0, seed
     h = w1.shape[1]
     lib = build.library()
     floats = ctypes.c_int64()
+    sfx = _suffix(x)
     with torch.cuda.device(x.device):
-        code = lib.frame_swiglu_bwd_workspace_f32(p, c, h, ctypes.byref(floats))
-    build.check(lib, "frame_swiglu_bwd_workspace_f32", code)
+        code = getattr(lib, f"frame_swiglu_bwd_workspace_{sfx}")(p, c, h, ctypes.byref(floats))
+    build.check(lib, f"frame_swiglu_bwd_workspace_{sfx}", code)
     opts = dict(dtype=torch.float32, device=x.device)
-    dx = torch.empty((p, c), **opts)
+    dx = torch.empty((p, c), dtype=x.dtype, device=x.device)
     dparams = torch.empty(c * h + 2 * h, **opts)
     ws = torch.empty(floats.value, **opts)
     with torch.cuda.device(x.device):
-        code = lib.frame_swiglu_bwd_f32(
+        code = getattr(lib, f"frame_swiglu_bwd_{sfx}")(
             x.data_ptr(), w1.data_ptr(), b1.data_ptr(), ls.data_ptr(), dout.data_ptr(),
             dx.data_ptr(), dparams.data_ptr(), ws.data_ptr(), p, c, h,
             *_drop_args(drop_rate, seed), _stream(x),
         )
-    build.check(lib, "frame_swiglu_bwd_f32", code)
+    build.check(lib, f"frame_swiglu_bwd_{sfx}", code)
     fused_frame_swiglu_bwd.launches += 1
+    fused_frame_swiglu_bwd.launches_bf16 += x.dtype == torch.bfloat16
     dw1, db1, dls, dlb = torch.split(dparams, [c * h, h, h // 2, h // 2])
     return dx, dw1.view(c, h), db1, dls, dlb
 
@@ -216,8 +253,10 @@ class _FusedFrameSwiGLU(torch.autograd.Function):
 
 def fused_frame_swiglu(x, w1, b1, ls, lb, *, drop_rate: float = 0.0, seed: int = 0):
     """mean_o LN(dropout(swiglu((s_o ⊙ x[:, :3] ‖ x[:, 3:]) @ w1 + b1)))·γ + β
-    → [P, H/2]. `seed` picks the dropout mask when `drop_rate` > 0."""
+    → [P, H/2] in x's dtype. `seed` picks the dropout mask when `drop_rate`
+    > 0."""
     if x.device.type == "cpu":
+        _check_dtypes(x, w1, b1, ls, lb)
         return frame_swiglu_plain(x, w1, b1, ls, lb, drop_rate, seed)
     if x.device.type != "cuda":
         raise ValueError(f"fused_frame_swiglu: unsupported device {x.device}")
@@ -225,5 +264,5 @@ def fused_frame_swiglu(x, w1, b1, ls, lb, *, drop_rate: float = 0.0, seed: int =
     return _FusedFrameSwiGLU.apply(x, w1, b1, ls, lb, float(drop_rate), int(seed))
 
 
-fused_frame_swiglu.launches = 0
-fused_frame_swiglu_bwd.launches = 0
+fused_frame_swiglu.launches = fused_frame_swiglu.launches_bf16 = 0
+fused_frame_swiglu_bwd.launches = fused_frame_swiglu_bwd.launches_bf16 = 0

@@ -396,8 +396,8 @@ def test_predict_compute_dtype_flag(tmp_path, method):
     """`predict.run --compute_dtype bfloat16` serves a float32 checkpoint in
     bf16: the predictions of the model built in bf16 with the checkpoint's
     weights, bit for bit (the weights are float32 in both), and without the
-    flag the checkpoint's own f32 model's. FAFormer has no bf16 path yet:
-    the flag raises "ROADMAP item 11"."""
+    flag the checkpoint's own f32 model's (FAFormer's bf16 path:
+    `tests/test_torch_faformer_bf16.py`)."""
     from equihgnn_tpu_torch import create_model
     from equihgnn_tpu_torch.models.config import ModelConfig
     from equihgnn_tpu_torch.predict import (build_parser, featurize_sdf, load_checkpoint,
@@ -408,12 +408,7 @@ def test_predict_compute_dtype_flag(tmp_path, method):
     model = create_model(method, num_target=1, cfg=cfg, generator=torch.Generator().manual_seed(0))
     ckpt = save_checkpoint(str(tmp_path / "model.pt"), model, method, cfg)
     args = ["--ckpt", ckpt, "--sdf", SDF, "--device", "cpu"]
-    if method not in METHODS:
-        with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-            run(build_parser().parse_args(args + ["--out", str(tmp_path / "x.csv"),
-                                                  "--compute_dtype", "bfloat16"]))
-        return
-    samples = [s for _, s in featurize_sdf(SDF, True, method.startswith("egnn"))]
+    samples = [s for _, s in featurize_sdf(SDF, True, method.startswith(("egnn", "faformer")))]
     _, state = load_checkpoint(ckpt)
     got = {}
     for dtype in ("bfloat16", None):

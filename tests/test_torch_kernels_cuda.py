@@ -75,7 +75,14 @@ copies, h = 576 two turns of a cluster of 8), on both sides of G's and
 I's staging switches (A = 77 / 113) and at the rows' limit (A = 170 at L
 = 8, k = 17; 171 raises); a mixed dtype or an odd h raises;
 `visnet_equihnns` in bf16 at hidden 32 on the card against the CPU, F-I
-on the bf16 counters and the trunk's A in f32.
+on the bf16 counters and the trunk's A in f32. Kernels D and E in
+bfloat16 against their plain bf16 versions (the f32 function of x.float()
+and dout.float(), out and dx rounded once): out and dx within one bf16 ulp
+and at least 99 % the same bits, E's f32 parameter gradients as above, at
+`FS_CASES` (dropout 0 and 0.1: the same mask), every (C, H/2) on the
+"offset" inputs, the mask probe, and E's zero-row skip; bf16 parameters,
+float16 x or a dout of another dtype raise; `faformer_equihnns` in bf16 at
+hidden 64 on the card against the CPU, D and E on the bf16 counters.
 """
 
 import pytest
@@ -1773,6 +1780,193 @@ def test_visnet_bf16_on_card_matches_cpu(dev):
     nonzero = {n for n, g in want.items() if bool(g.abs().max() > 0)}
     assert {"visnet_layer.vis_mp_layers_1.w_src_proj.weight",
             "visnet_layer.embedding.atom.embedding", "trunk.conv.W1.lin_0.weight"} <= nonzero
+    for name in nonzero:
+        assert name in got and bool(got[name].abs().max() > 0), name
+    want, want32 = grads("cpu", encoder), grads("cpu", encoder, None)
+    assert _rel_l2(grads(dev, encoder), want) <= 0.5 * _rel_l2(want, want32)
+
+
+# ------------------------------------------------ kernels D and E in bfloat16
+
+
+def _fs_bf16_args(p, c, h, seed, offset=0.0):
+    """`_fs_args` with x and dout in bfloat16 and the parameters float32, as
+    the bf16 FAFormer passes them; `offset` added to b1."""
+    (x, w1, b1, ls, lb), dout = _fs_args(p, c, h, seed)
+    return (x.to(torch.bfloat16), w1, b1 + offset, ls, lb), dout.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("p,c,h,rate", FS_CASES)
+def test_frame_swiglu_bf16_kernel(dev, p, c, h, rate):
+    """bf16 D against its plain bf16 version (the f32 function of x.float(),
+    rounded once): within one bf16 ulp, at least 99 % the same bits, the
+    same bits twice; with dropout the same seed's mask (a mask bit that
+    differs moves its row's LayerNorm by many ulps), on the bf16 counter."""
+    args, _ = _fs_bf16_args(p, c, h, seed=p + c + h)
+    cuda_args = [t.to(dev) for t in args]
+    before = (fused_frame_swiglu.launches, fused_frame_swiglu.launches_bf16)
+    got = fused_frame_swiglu(*cuda_args, drop_rate=rate, seed=11)
+    assert (fused_frame_swiglu.launches, fused_frame_swiglu.launches_bf16) == (
+        before[0] + 1, before[1] + 1)
+    _assert_bf16_close(got, frame_swiglu_plain(*cuda_args, drop_rate=rate, seed=11), "out")
+    assert torch.equal(got, fused_frame_swiglu(*cuda_args, drop_rate=rate, seed=11))
+
+
+@pytest.mark.parametrize("c", [3, 4])
+@pytest.mark.parametrize("hh", [32, 64, 128, 256])
+def test_frame_swiglu_bf16_kernel_offset_statistics(dev, c, hh):
+    """bf16 D at every instance (C, H/2) on the "offset" inputs (b1 + 10),
+    dropout off and on: its packed stores of every width, within one ulp."""
+    args, _ = _fs_bf16_args(777, c, 2 * hh, seed=c * hh, offset=10.0)
+    cuda_args = [t.to(dev) for t in args]
+    for rate in (0.0, 0.1):
+        _assert_bf16_close(fused_frame_swiglu(*cuda_args, drop_rate=rate, seed=3),
+                           frame_swiglu_plain(*cuda_args, drop_rate=rate, seed=3),
+                           f"C={c}, H/2={hh}, drop {rate}")
+
+
+def test_frame_swiglu_bf16_dropout_mask_is_the_plain_versions(dev):
+    """The mask probe of `test_frame_swiglu_dropout_mask_is_the_plain_versions`
+    in bf16: one mask bit that differs moves a row by > 1e-2, one bf16 ulp
+    of its outputs is at most 2^-6; within one ulp is the same mask."""
+    gen = torch.Generator().manual_seed(0)
+    p, hh = 3001, 128
+    x = (0.5 + torch.rand(p, 4, generator=gen)).to(torch.bfloat16)
+    w1 = torch.cat([0.2 * torch.rand(4, hh, generator=gen) + 0.1,
+                    0.02 * torch.randn(4, hh, generator=gen)], 1)
+    b1 = torch.cat([torch.linspace(2.5, 3.5, hh), torch.ones(hh)])
+    args = [t.to(dev) for t in (x, w1, b1, torch.ones(hh), torch.zeros(hh))]
+    got = fused_frame_swiglu(*args, drop_rate=0.1, seed=13)
+    _assert_bf16_close(got, frame_swiglu_plain(*args, drop_rate=0.1, seed=13), "out")
+    other = frame_swiglu_plain(*args, drop_rate=0.1, seed=14)
+    assert float((other.float() - got.float()).abs().max()) > 1e-2
+
+
+@pytest.mark.parametrize("kind", ["rand", "mask", "slot", "zero", "offset"])
+@pytest.mark.parametrize("p,c,h,rate", FS_CASES)
+def test_frame_swiglu_bwd_bf16_kernel(dev, p, c, h, rate, kind):
+    """bf16 E against its plain bf16 version: dx within one bf16 ulp and at
+    least 99 % the same bits (both round one f32 value), the f32 parameter
+    gradients as E's; a zero-gradient position skipped (0 in its dx); the
+    same bits twice; on the bf16 counter."""
+    args, dout = _fs_bf16_args(p, c, h, seed=p * c + h, offset=10.0 if kind == "offset" else 0.0)
+    cuda_args = [t.to(dev) for t in args]
+    dout = _zero_grad_case(dout, "rand" if kind == "offset" else kind, seed=p + c).to(dev)
+    before = (fused_frame_swiglu_bwd.launches, fused_frame_swiglu_bwd.launches_bf16)
+    got = fused_frame_swiglu_bwd(*cuda_args, dout, rate, 11)
+    assert (fused_frame_swiglu_bwd.launches, fused_frame_swiglu_bwd.launches_bf16) == (
+        before[0] + 1, before[1] + 1)
+    want = frame_swiglu_bwd_plain(*cuda_args, dout, rate, 11)
+    _assert_bf16_close(got[0], want[0], "dx")
+    for name, x, y in zip(("dw1", "db1", "dls", "dlb"), got[1:], want[1:]):
+        assert x.dtype == torch.float32 and x.shape == y.shape, name
+        _assert_grad_close(x, y, name)
+    assert torch.all(got[0][(dout == 0).all(-1)] == 0)
+    if kind == "zero":
+        assert all(torch.all(x == 0) for x in got)
+    for x, y in zip(got, fused_frame_swiglu_bwd(*cuda_args, dout, rate, 11)):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_frame_swiglu_bf16_autograd(dev, rate):
+    """bf16 D inside its autograd.Function: x's gradient (bf16 E's dx) and
+    the parameters' (f32) equal autograd through the plain bf16 version's,
+    dx within one ulp."""
+    args, dout = _fs_bf16_args(700, 4, 256, seed=9)
+    args, dout = [t.to(dev) for t in args], _zero_grad_case(dout, "mask", 5).to(dev)
+    leaves = [t.clone().requires_grad_() for t in args]
+    out = fused_frame_swiglu(*leaves, drop_rate=rate, seed=4)
+    assert out.grad_fn is not None and out.dtype == torch.bfloat16
+    out.backward(dout)
+    ref = [t.clone().requires_grad_() for t in args]
+    frame_swiglu_plain(*ref, drop_rate=rate, seed=4).backward(dout)
+    _assert_bf16_close(leaves[0].grad, ref[0].grad, "dx")
+    for i, (x, y) in enumerate(zip(leaves[1:], ref[1:])):
+        _assert_grad_close(x.grad, y.grad, f"parameter {i}")
+
+
+def test_frame_swiglu_bf16_rejects_what_it_does_not_take(dev):
+    """bf16 parameters, float16 x, a dout of another dtype than x, and the
+    shapes the f32 kernels refuse raise; nothing falls back."""
+    (x, w1, b1, ls, lb), dout = _fs_bf16_args(10, 4, 64, seed=1)
+    x, w1, b1, ls, lb, dout = (t.to(dev) for t in (x, w1, b1, ls, lb, dout))
+    with pytest.raises(TypeError):
+        fused_frame_swiglu(x, w1.to(torch.bfloat16), b1, ls, lb)
+    with pytest.raises(TypeError):
+        fused_frame_swiglu(x, w1, b1, ls.to(torch.bfloat16), lb)
+    with pytest.raises(TypeError):
+        fused_frame_swiglu(x.half(), w1, b1, ls, lb)
+    with pytest.raises(TypeError):
+        fused_frame_swiglu_bwd(x, w1, b1, ls, lb, dout.float())
+    with pytest.raises(TypeError):
+        fused_frame_swiglu_bwd(x.float(), w1, b1, ls, lb, dout)
+    for p, c, h in ((10, 5, 256), (10, 4, 96), (10, 2, 64)):
+        (xs, *ps), _ = _fs_bf16_args(p, c, h, seed=1)
+        with pytest.raises(ValueError):
+            fused_frame_swiglu(*[t.to(dev) for t in (xs, *ps)])
+    with pytest.raises(ValueError):
+        fused_frame_swiglu_bwd(x, w1, b1, ls, lb, dout[:, :8].contiguous())
+
+
+def test_faformer_bf16_on_card_matches_cpu(dev):
+    """`faformer_equihnns` in bfloat16 at hidden 64: kernels D (5 a forward)
+    and E (4 a step) on their bf16 counters, the trunk's A (3) in bf16; the
+    eval forward against the CPU's bf16 model within the CPU's own
+    bfloat16-vs-float32 distance, every parameter the CPU's step reaches
+    reached, and the encoder's gradients under a smooth loss within half of
+    that distance (relative L2 over all parameters)."""
+    from equihgnn_tpu_torch import create_model
+    from equihgnn_tpu_torch.models.config import ModelConfig
+    from equihgnn_tpu_torch.train.trainer import masked_mse
+
+    _, batch = _faformer_setup()
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    fns = (fused_frame_swiglu, fused_frame_swiglu_bwd, sorted_segment_sum)
+
+    def make(device, dtype="bfloat16"):
+        cfg = ModelConfig(mlp_hidden=64, output_hidden=8, compute_dtype=dtype)
+        return create_model("faformer_equihnns", num_target=1, cfg=cfg,
+                            generator=torch.Generator().manual_seed(1)).to(device)
+
+    def counts():
+        return [(fn.launches, fn.launches_bf16) for fn in fns]
+
+    def reset():
+        _reset_counts()
+        for fn in fns:
+            fn.launches_bf16 = 0
+
+    with torch.inference_mode():
+        want, want32 = make("cpu").eval()(batch), make("cpu", None).eval()(batch)
+        reset()
+        got = make(dev).eval()(batch.to(dev)).cpu()
+    assert got.dtype == torch.float32
+    assert counts() == [(5, 5), (0, 0), (3, 3)]
+    assert float((got - want).abs().max()) <= float((want - want32).abs().max())
+
+    def grads(device, loss, dtype="bfloat16"):
+        model = make(device, dtype).eval()
+        loss(model, batch.to(device)).backward()
+        return {n: p.grad for n, p in model.named_parameters() if p.grad is not None}
+
+    def step(model, b):
+        sq, cnt = masked_mse(model(b), b.y, b.graph_mask)
+        return sq / cnt.clamp(min=1.0)
+
+    proj = torch.randn(batch.num_atoms, 64, generator=torch.Generator().manual_seed(4))
+
+    def encoder(model, b):
+        return torch.sum(model.encode(b)[b.atom_mask].float() * proj.to(b.pos.device)[b.atom_mask])
+
+    want = grads("cpu", step)
+    reset()
+    got = grads(dev, step)
+    assert counts() == [(5, 5), (4, 4), (3, 3)]
+    nonzero = {n for n, g in want.items() if bool(g.abs().max() > 0)}
+    assert {"fa_former.edge_module.coord_mlp.fc1.weight",
+            "fa_former.layers_0.ffn.W_frame.fc1.weight", "atom_encoder.atom.embedding",
+            "trunk.conv.W1.lin_0.weight"} <= nonzero
     for name in nonzero:
         assert name in got and bool(got[name].abs().max() > 0), name
     want, want32 = grads("cpu", encoder), grads("cpu", encoder, None)

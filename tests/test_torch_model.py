@@ -134,20 +134,17 @@ def test_params_from_jax_rejects_bad_trees(fault):
                         ("visnet_equihnns", dict(compute_dtype="bfloat16"))],
 )
 def test_unported_configs_raise(method, override):
-    """A `compute_dtype` other than float32 raises on the models that do not
-    run it yet (ROADMAP item 11): FAFormer. The MHNN family and the EGNN
-    models build in bfloat16 (held to JAX in
+    """The configurations that once raised build. The MHNN family and the
+    EGNN models build in bfloat16 (held to JAX in
     `tests/test_torch_bf16_hypergraph.py`), the ViSNet models too
-    (`tests/test_torch_visnet_bf16.py`), and the 2-D baselines take the
-    flag and ignore it, as in JAX. `remat` and `equiformer_equihnns` are
+    (`tests/test_torch_visnet_bf16.py`), the FAFormer models too
+    (`tests/test_torch_faformer_bf16.py`; the Equiformer in bfloat16 still
+    raises, ROADMAP item 11: `tests/test_torch_equiformer.py`), and the 2-D
+    baselines take the flag and ignore it, as in JAX. `remat` and `equiformer_equihnns` are
     ported and build (remat's steps: `tests/test_torch_remat.py`; the
     Equiformer: `tests/test_torch_equiformer.py`). `cross_molecule_knn=True`
     is ported (`tests/test_torch_egnn_flat.py`)."""
     cfg = ModelConfig(**{**CFG, **override})
-    if method == "faformer_equihnns":
-        with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-            create_model(method, num_target=1, cfg=cfg)
-        return
     model = create_model(method, num_target=1, cfg=cfg, **(
         {"gnn_type": method} if method in ("gat", "gin") else {}))
     assert model.cfg.remat == bool(override.get("remat"))

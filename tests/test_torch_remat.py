@@ -48,11 +48,13 @@ PATHS = {
     "se3": ("se3_transformer_equihnns", {}, {"A": 3, "J": 4}),
     # the per-J checkpoints recompute L in the backward pass without remat too
     "se3_bf16": ("se3_transformer_equihnns", dict(compute_dtype="bfloat16"), {"A": 3, "L": 8}),
+    # kernel D's bf16 dropout mask replayed in the recompute
+    "faformer_bf16": ("faformer_equihnns", dict(compute_dtype="bfloat16"), {"A": 3, "D": 5}),
     "equiformer": ("equiformer_equihnns", {}, {"A": 3}),
 }
 ENCODER_FWD = {"egnn": {"B": 1}, "egnn_full": {"B": 1}, "faformer": {"D": 5},
                "visnet": {"F": 6, "H": 5}, "se3": {"J": 4}, "se3_bf16": {"L": 4},
-               "equiformer": {}}
+               "faformer_bf16": {"D": 5}, "equiformer": {}}
 
 
 def _batch(n=5, seed=23):
@@ -102,7 +104,7 @@ def _step(method, cfg, batch, remat, monkeypatch):
 def test_remat_gives_the_same_step(path, monkeypatch):
     method, over, calls = PATHS[path]
     cfg = {**CFG, **over}
-    if over.get("compute_dtype") == "bfloat16":
+    if path == "se3_bf16":
         cfg["dropout"] = 0.0  # the bf16 encoder has no dropout; the trunk's is held above
     batch = _batch()
     p0, g0, c0 = _step(method, cfg, batch, False, monkeypatch)

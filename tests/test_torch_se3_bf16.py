@@ -202,10 +202,10 @@ def test_bf16_routes_pooled_units_through_pooled_m(case, monkeypatch):
 def test_bf16_elsewhere_raises(method, override):
     """bfloat16 raises where the port does not run it yet (ROADMAP item 11);
     `egnn_equihnns` runs it since (`tests/test_torch_bf16_hypergraph.py`),
-    `visnet_equihnns` too (`tests/test_torch_visnet_bf16.py`), and both
-    build."""
+    `visnet_equihnns` too (`tests/test_torch_visnet_bf16.py`), and
+    `faformer_equihnns` (`tests/test_torch_faformer_bf16.py`): they build."""
     cfg = ModelConfig(**{**BF16, **override})
-    if method in ("egnn_equihnns", "visnet_equihnns"):
+    if method in ("egnn_equihnns", "visnet_equihnns", "faformer_equihnns"):
         assert create_model(method, num_target=1, cfg=cfg).cfg.compute_dtype == "bfloat16"
         return
     with pytest.raises(NotImplementedError, match="ROADMAP item 11"):

@@ -335,11 +335,11 @@ def test_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="vertex"):
         tvis.ViS_MP(8, 16, 5.0, None, False, vertex=True, **GEN)
     # bfloat16 runs on the ViSNet models (tests/test_torch_visnet_bf16.py);
-    # FAFormer's is still to be ported
+    # the Equiformer's is still to be ported
     assert create_model("visnet_equihnns", num_target=1,
                         cfg=ModelConfig(**CFG, compute_dtype="bfloat16")).cfg.compute_dtype
     with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-        create_model("faformer_equihnns", num_target=1,
+        create_model("equiformer_equihnns", num_target=1,
                      cfg=ModelConfig(**CFG, compute_dtype="bfloat16"))
     # remat is ported (its step: tests/test_torch_remat.py)
     assert create_model("visnet_equihnns", num_target=1,
