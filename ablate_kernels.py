@@ -4,7 +4,7 @@ shapes) and timed beside the whole kernel, the PyTorch call that computes
 its function (where there is one) and itself again, at the batch-768 shapes
 of `chip_smoke.py` (its batch, kNN mask and timer).
 
-    python3 ablate_kernels.py [--kernels A,B,C,D,E,GI,H,J,K,L,M] [--vis-mix-before FILE]
+    python3 ablate_kernels.py [--kernels A,B,C,D,E,GI,H,J,K,L,M,Jb] [--vis-mix-before FILE]
         [--edge-mlp-before FILE] [--frame-swiglu-before FILE] [--pooled-m-before FILE]
 
 B (`csrc/edge_mlp.cu`, the EGNN edge MLP's forward at `edge_mlp_inputs`),
@@ -80,6 +80,12 @@ J (`csrc/pooled_conv_fwd.cu`, with the model's live sites, C = 1 and 3):
   full; consumers only (the producers neither copy nor build: the products
   and the barriers); producers only (the consumers skip the products: the
   copies, the M-builds and the barriers); `torch.einsum`.
+Jb (`csrc/pooled_conv_bf16.cu`, J in bf16, with the model's live sites,
+  C = 1 and 3): full; its M build on the tensor cores (chunks of 16 i × 8
+  f, a row's [16 i, 8 f] of M one bf16 mma.sync.m16n8k16 a k16, in place
+  of the CUDA cores' k-ordered float32 sums); bf16 `torch.einsum`. One call
+  a sample, device time alone (torch.profiler), and each one's distance
+  from the plain bf16 version (the variant's output is checked, not held).
 K (`csrc/pooled_conv.cu`, with the model's live sites, C = 1 and 3): full;
   dM products only (the dM kernel skips the dh and dtc reductions); dM
   without products (its copies, stores and reductions); dW consumers only
@@ -132,6 +138,7 @@ import torch
 from chip_smoke import (
     HIDDEN,
     bench_batch,
+    bf16_distance,
     edge_mlp_inputs,
     frame_swiglu_sites,
     kernel_split,
@@ -143,9 +150,9 @@ from chip_smoke import (
 from equihgnn_tpu_torch.ops.kernels import build
 from equihgnn_tpu_torch.ops.kernels.edge_mlp import fwd_workspace_floats
 
-A_SRC, J_SRC, K_SRC, L_SRC, GI_SRC, C_SRC, E_SRC = (build.CSRC_DIR / n for n in (
+A_SRC, J_SRC, K_SRC, L_SRC, GI_SRC, C_SRC, E_SRC, JB_SRC = (build.CSRC_DIR / n for n in (
     "segment_sum.cu", "pooled_conv_fwd.cu", "pooled_conv.cu", "pooled_m.cu", "vis_mix.cu",
-    "edge_mlp.cu", "frame_swiglu.cu"))
+    "edge_mlp.cu", "frame_swiglu.cu", "pooled_conv_bf16.cu"))
 _TR, _BATCH = "constexpr int TR = 32;", "constexpr int BATCH = 16;"
 A_PATCHES = {  # name -> (patches, rows of a tile)
     "16-row tiles": ([(_TR, "constexpr int TR = 16;")], 16),
@@ -158,6 +165,82 @@ J_PATCHES = {  # name -> (text, its replacement)
                        ("        load_wh<VEC>(h, w, d, n + 1, n_fc, o0, b, p);", ""),
                        ("        load_t<VEC>(tc, d, Chunk(n + 1, n_fc).ic, b, p);", "")],
     "producers only": [("    mma_chunk(d, n, b, acc);", "")],
+}
+# J in bf16 with its M build on the tensor cores: chunks of 16 i × 8 f, K
+# padded to 16s, h staged in bf16, and a row's [16 i, 8 f] of M one bf16
+# mma.sync.m16n8k16 a k16 (A the row's tcᵀ, B its site's h)
+JB_PATCHES = {
+    "M build on mma.sync": [
+        ("constexpr int FC = 4;         // f of a chunk: four k16 steps",
+         """constexpr int FC = 8;
+__host__ __device__ inline int k_pad(int k) { return (k + 15) / 16 * 16; }
+__device__ __forceinline__ uint32_t pack(bf16 lo, bf16 hi) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
+         static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16;
+}"""),
+        ("    const int spt = BM / c;\n    w = 0;",
+         "    const int spt = BM / c, kp = k_pad(k);\n    w = 0;"),
+        ("""    h = tc + up16(static_cast<size_t>(BM) * k * IC * sizeof(bf16));
+    sid = h + up16(static_cast<size_t>(spt) * k * FC * sizeof(float));""",
+         """    h = tc + up16(static_cast<size_t>(BM) * kp * IC * sizeof(bf16));
+    sid = h + up16(static_cast<size_t>(spt) * kp * FC * sizeof(bf16));"""),
+        ("  float* hs = reinterpret_cast<float*>(smem + off_h);",
+         "  bf16* hs = reinterpret_cast<bf16*>(smem + off_h);"),
+        ("  const int spt = BM / C, rows = spt * C;",
+         "  const int spt = BM / C, rows = spt * C, kp = k_pad(K);"),
+        ("""    if (f0 == 0) {  // tc [rows, K, 16 i] of the i-chunk
+      for (int u = tid; u < rows * K * 2; u += THREADS) {
+        const int half = u & 1, rk = u >> 1, r = rk / K, k = rk % K;
+        const int site = sid[r / C], c = r % C, i = i0 + half * 8;""",
+         """    if (f0 == 0) {
+      for (int u = tid; u < BM * kp * 2; u += THREADS) {
+        const int half = u & 1, rk = u >> 1, r = rk / kp, k = rk % kp;
+        const int site = r < rows && k < K ? sid[r / C] : -1, c = r % C, i = i0 + half * 8;"""),
+        ("""    for (int u = tid; u < spt * K * FC; u += THREADS) {  // h [sites, K, 4 f]
+      const int fl = u % FC, sk = u / FC, sl = sk / K, k = sk % K;
+      const int site = sid[sl], f = f0 + fl;
+      hs[u] = site >= 0 && f < F ? f32(h[(static_cast<int64_t>(site) * K + k) * F + f]) : 0.f;
+    }""",
+         """    const bool hvec = F % 8 == 0 && reinterpret_cast<uintptr_t>(h) % 16 == 0;
+    for (int u = tid; u < spt * kp; u += THREADS) {
+      const int sl = u / kp, k = u % kp, site = k < K ? sid[sl] : -1;
+      const uint4 v = site >= 0 ? load8(h + (static_cast<int64_t>(site) * K + k) * F + f0, F - f0, hvec) : make_uint4(0, 0, 0, 0);
+      *reinterpret_cast<uint4*>(hs + u * FC) = v;
+    }"""),
+        ("""    // the M tile [64 rows, (4 f) × (16 i)], each element k in order, rounded
+    for (int e = tid; e < BM * KC; e += THREADS) {
+      const int r = e / KC, col = e % KC, fl = col / IC, il = col % IC;
+      float m = 0.f;
+      if (r < rows && sid[r / C] >= 0) {
+        const float* hp = hs + (r / C) * K * FC + fl;
+        const bf16* tp = tcs + r * K * IC + il;
+        for (int k = 0; k < K; ++k) m = fmaf(hp[k * FC], f32(tp[k * IC]), m);
+      }
+      as[r * AS + col] = __float2bfloat16_rn(m);
+""",
+         """    for (int r = warp; r < BM; r += THREADS / 32) {
+      const int g = lane >> 2, t = lane & 3;
+      float m[4] = {0.f, 0.f, 0.f, 0.f};
+      if (r < rows) {
+        const bf16* tp = tcs + r * kp * IC;
+        const bf16* hp = hs + (r / C) * kp * FC;
+        for (int k0 = 0; k0 < kp; k0 += 16) {
+          const bf16* t0 = tp + (k0 + 2 * t) * IC;
+          const bf16* h0 = hp + (k0 + 2 * t) * FC;
+          const uint32_t a[4] = {pack(t0[g], t0[IC + g]), pack(t0[g + 8], t0[IC + g + 8]),
+                                 pack(t0[8 * IC + g], t0[9 * IC + g]),
+                                 pack(t0[8 * IC + g + 8], t0[9 * IC + g + 8])};
+          const uint32_t b[2] = {pack(h0[g], h0[FC + g]), pack(h0[8 * FC + g], h0[9 * FC + g])};
+          mma(m, a, b);
+        }
+      }
+      bf16* ap = as + r * AS;
+      ap[2 * t * IC + g] = __float2bfloat16_rn(m[0]);
+      ap[(2 * t + 1) * IC + g] = __float2bfloat16_rn(m[1]);
+      ap[2 * t * IC + g + 8] = __float2bfloat16_rn(m[2]);
+      ap[(2 * t + 1) * IC + g + 8] = __float2bfloat16_rn(m[3]);
+"""),
+    ],
 }
 _STAGES, _OC = "constexpr int STAGES = 2;", "constexpr int OC = 64;"
 K_PATCHES = {
@@ -742,7 +825,7 @@ def _time_a(libs, batch, dev) -> None:
 def _time_jkl(libs, batch, dev) -> None:
     from equihgnn_tpu_torch.ops.kernels.pooled_conv import live_sites
 
-    jn = [n for n in libs if n.startswith("J")]
+    jn = [n for n in libs if n.startswith("J ")]
     kn = [n for n in libs if n.startswith("K")]
     ln = [n for n in libs if n.startswith("L")]
     if not (jn or kn or ln):
@@ -812,6 +895,52 @@ def _time_jkl(libs, batch, dev) -> None:
         times = median_ms(*fns, iters=10, reps=10)
         print(f"L X={x}: " + ", ".join(f"{n} {t:.4f} ms" for n, t in
                                        zip(ln + ["torch.bmm", "L full again"], times)))
+
+
+def _time_jb(libs, batch, dev) -> None:
+    """J in bf16 (`pooled_conv_bf16.cu`) and its variants with the model's
+    live sites, C = 1 and 3: one call a sample beside the one bf16
+    `torch.einsum` call, device time alone, and each variant's distance
+    from the plain bf16 version (`chip_smoke.bf16_distance`)."""
+    from equihgnn_tpu_torch.ops.kernels.pooled_conv import live_sites, pooled_conv_plain
+
+    names = [n for n in libs if n.startswith("Jb")]
+    mask = pooled_mask(batch)
+    g, a, k = mask.shape
+    s, f, i, o = g * a, 128, HIDDEN, HIDDEN
+    live = mask.any(-1)
+    sites = live_sites(live)
+    gen = torch.Generator().manual_seed(1)
+    stream = torch.cuda.current_stream().cuda_stream
+    P, I = ctypes.c_void_p, ctypes.c_int
+    for c in (1, 3):
+        h = (torch.randn(g, a, k, f, generator=gen).to(dev) * mask[..., None]).bfloat16()
+        tc = (torch.randn(g, a, k, c * i, generator=gen).to(dev) * mask[..., None]).bfloat16()
+        w = ((torch.rand(f, o, i, generator=gen) * 2 - 1).to(dev) / f ** 0.5).bfloat16()
+        want = pooled_conv_plain(h, tc, w, c, live)
+        fns = []
+        for name in names:
+            out = torch.zeros(g, a, c, o, device=dev, dtype=torch.bfloat16)  # dead sites: 0
+            fn = libs[name].pooled_conv_fwd_bf16
+            fn.argtypes = (P, P, P, P, P, P, I, I, I, I, I, I, P)
+            fns.append(lambda fn=fn, out=out: (fn(h.data_ptr(), tc.data_ptr(), w.data_ptr(),
+                                                  sites.ids.data_ptr(), sites.count.data_ptr(),
+                                                  out.data_ptr(), s, k, c, i, f, o, stream),
+                                               out)[1])
+        for name, fn in zip(names, fns):
+            same, far = bf16_distance(fn(), want)
+            print(f"J bf16 C={c} {name}: {same:.5f} the plain version's bits, {far:.2f} bf16 "
+                  f"ulps at most")
+        fns += [lambda: torch.einsum("gakf,gakci,foi->gaco", h, tc.view(g, a, k, c, i), w),
+                fns[0]]
+        times = median_ms(*fns, iters=10)
+        dev_ms = [profiled_device_ms(fn) for fn in fns[:-1]]
+        print(f"J bf16 C={c} (one call; device alone): " + ", ".join(
+            f"{n} {t:.4f} / {dv:.4f} ms" for n, t, dv in
+            zip(names + ["bf16 torch.einsum"], times, dev_ms)) +
+            f", Jb full again {times[-1]:.4f} ms")
+        del h, tc, w, want, fns
+        torch.cuda.empty_cache()
 
 
 def _time_gi(libs, batch) -> None:
@@ -1125,8 +1254,9 @@ def _time_e(libs, batch) -> None:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--kernels", default="A,B,C,D,E,GI,H,J,K,L,M",
-                        help="the kernels to ablate, of A, B, C, D, E, GI, H, J, K, L and M")
+    parser.add_argument("--kernels", default="A,B,C,D,E,GI,H,J,K,L,M,Jb",
+                        help="the kernels to ablate, of A, B, C, D, E, GI, H, J, K, L, M and "
+                             "Jb (J in bf16)")
     parser.add_argument("--vis-mix-before", type=Path,
                         help="another vis_mix.cu whose G and I (and H) to time beside this one's")
     parser.add_argument("--pooled-m-before", type=Path,
@@ -1155,7 +1285,8 @@ def main() -> int:
                                  ("K", K_SRC, K_PATCHES), ("L", L_SRC, L_PATCHES),
                                  ("C", C_SRC, C_PATCHES), ("E", E_SRC, E_PATCHES),
                                  ("B", C_SRC, B_PATCHES), ("D", E_SRC, D_PATCHES),
-                                 ("H", GI_SRC, H_PATCHES), ("M", L_SRC, M_PATCHES)):
+                                 ("H", GI_SRC, H_PATCHES), ("M", L_SRC, M_PATCHES),
+                                 ("Jb", JB_SRC, JB_PATCHES)):
             if kind not in kinds:
                 continue
             srcs[f"{kind} full"] = src
@@ -1198,6 +1329,8 @@ def main() -> int:
             _time_h(libs, batch)
         if "M" in kinds:
             _time_m(libs, batch, dev)
+        if "Jb" in kinds:
+            _time_jb(libs, batch, dev)
         _time_jkl(libs, batch, dev)
     return 0
 

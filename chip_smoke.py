@@ -71,8 +71,15 @@ result line), each printing its seconds:
    sites against their plain bf16 versions, out and dx within one bf16 ulp
    (dropout 0 and 0.1, cases (a) and (b), a bf16 mask probe against the f32
    plain version), the f32 D and E also against the parent commit's bits
-   (`FRAME_F32_BEFORE`); error, median time, allocation and the card's
-   least time (`bound_ms`) of each;
+   (`FRAME_F32_BEFORE`); then J and K in bf16 (`pooled_conv_bf16_rows`,
+   the bf16 recipe's fused pooled units) at J's and K's f32 shapes, with
+   the model's `live` and without, against their plain bf16 versions
+   within one bf16 ulp (K's dh and dtc past the bound of dM's rounding),
+   the same bits twice, +0 at the dead sites, timed one call a sample and
+   by device time alone, J also against one bf16 `torch.einsum` call, their
+   bounds at the bf16 peak; the f32 J and K also against the parent
+   commit's bits (`PC_F32_BEFORE`); error, median time, allocation and the
+   card's least time (`bound_ms`) of each;
 then, for each path, `egnn_equihnns`, `faformer_equihnns`,
 `visnet_equihnns`, `se3_transformer_equihnns` and `equiformer_equihnns`,
 the MHNN family `mhnn`,
@@ -90,7 +97,10 @@ its attention and feed-forward take part, `live_branches`), and
 `se3_transformer_equihnns bf16`, the
 SE(3)-Transformer with `--compute_dtype bfloat16` at the CLI's default
 widths (hidden 64, output hidden 64 over 2 layers; its pooled units take
-kernels L and M), `egnn_equihnns bf16` and `mhnns bf16` (the recipe with
+kernels L and M; trained on 4,800 molecules),
+`se3_transformer_equihnns bf16 recipe` (the recipe with `--compute_dtype
+bfloat16`: JAX's gate fuses its four pooled units at A = 32, kernels J and
+K in bf16; the trunk's A in f32), `egnn_equihnns bf16` and `mhnns bf16` (the recipe with
 `--compute_dtype bfloat16`: the EGNN and the trunk in bf16, kernels A, B
 and C in bf16), `visnet_equihnns bf16` (ViSNet's layer loop in bf16,
 kernels F-I in bf16, its readout and the trunk f32) and, served only (4),
@@ -108,7 +118,8 @@ kNN), with random weights from a seed:
    768 synthetic molecules through the same library path. The kernels'
    launch counters must show that both requests ran through the model's
    kernels (egnn: A 3x and B per forward; faformer: A 3x and D 5x;
-   visnet: A 3x, F 6x, H 5x; se3: A 3x, J 4x; se3 bf16: A 3x, L 4x;
+   visnet: A 3x, F 6x, H 5x; se3: A 3x, J 4x; se3 bf16: A 3x, L 4x; se3
+   bf16 recipe: A 3x, J 4x, also on the bf16 counter, no L;
    egnn bf16: A 3x and B, mhnns bf16: A 3x, each also on the wrapper's
    bf16 counter (`launches_bf16`, which the f32 paths must leave at 0);
    visnet bf16 and its hybrids: F 6x and H 5x, each also on the bf16
@@ -128,7 +139,8 @@ kNN), with random weights from a seed:
    CPU (plain versions) with the card's pattern of ReLU signs; every
    parameter the CPU reaches must be reached on the card (the bf16 paths:
    against their CPU bf16 runs, as relative L2 over all parameters, a step
-   and the encoder under a smooth loss, BF16_GRAD_SHARE); a hybrid takes
+   and the encoder under a smooth loss, BF16_GRAD_SHARE; se3 bf16 recipe
+   with its attention queries scaled by GRAD_QUERY_SCALE); a hybrid takes
    16 molecules and checks the step only: its encoder alone is held on
    its `*_equihnns` path; a 2-D baseline takes 64 molecules, the CPU run
    taking the card's ReLU and LeakyReLU signs, every parameter reached on
@@ -136,14 +148,15 @@ kNN), with random weights from a seed:
 6. train: `equihgnn_tpu_torch.main.run` on `synthetic_hg_3d` (the MHNN
    family: `synthetic_hg`, which has no coordinates; the 2-D baselines:
    `synthetic_g`, plain graphs) at the recipe, batch
-   768, 3 epochs of ~10 steps (the hybrids, gcn, gat and gatv2: ~5, on
-   4,800 molecules), a
+   768, 3 epochs of ~10 steps (the hybrids, gcn, gat and gatv2 and se3
+   bf16: ~5, on 4,800 molecules), a
    learnable target, into a temporary log directory, at lr 1e-3 (visnet's
    paths 1e-4: it diverges at 5e-4 in both frameworks). Every train loss
    finite and the last below the first; the launch counters show the
    model's kernels on every train step (egnn: A 3x, B, C; faformer: A 3x,
    D 5x, E 4x; visnet: A 3x, F 6x, H 5x, G 6x, I 5x; se3: A 3x, J 4x, K 4x;
-   se3 bf16: A 3x, L 8x, M 4x; visnet bf16: as visnet, F-I on the bf16
+   se3 bf16: A 3x, L 8x, M 4x; se3 bf16 recipe: A 3x, J 4x, K 4x, J and
+   K also on the bf16 counters; visnet bf16: as visnet, F-I on the bf16
    counters too; faformer bf16: as faformer, A, D and E on the bf16
    counters too; the MHNN family and equiformer: A 3x; a
    hybrid: its encoder's; the 2-D baselines: none) and every eval forward;
@@ -157,13 +170,13 @@ kNN), with random weights from a seed:
    beside the rows the model masks (egnn's dm must be 0 on every masked
    edge); for egnn bf16, the kNN on the batch's bf16 positions on the card
    and the CPU: the slots whose neighbour set differs (recorded);
-8. remat (the encoder paths, se3 bf16, egnn bf16, visnet bf16 and faformer
-   bf16): one
+8. remat (the encoder paths, se3 bf16, se3 bf16 recipe, egnn bf16, visnet
+   bf16 and faformer bf16): one
    train step with `remat=True` against the same step without it on the
    card, training mode, the gradient phase's molecules; the remat step's launches (the
    encoder's kernels again in its backward: egnn B, faformer D 5x, visnet
-   F 6x and H 5x, se3 J 4x, se3 bf16 L 4x, egnn bf16 B more, faformer bf16
-   D 5x more); the steps
+   F 6x and H 5x, se3 J 4x, se3 bf16 L 4x, se3 bf16 recipe J 4x in bf16,
+   egnn bf16 B more, faformer bf16 D 5x more); the steps
    with PyTorch's deterministic algorithms (`index_add_` in a fixed order,
    not with atomics); each gradient within 1e-5 of its max plus twice the
    card's own change between two plain steps; for se3 and equiformer, the
@@ -180,7 +193,7 @@ held to the CPU on the molecules whose CPU prediction moves by at most
 1e-5 under six translations of the input by 1e-4 to 1e-3 Å (the models are
 translation invariant), at least 8 of the sample's 20; the others are
 printed with that spread. The gradient phase takes the 32 molecules of 64
-that move least.
+that move least (fewer on the slower paths, GRAD_CUT).
 
 The second-to-last line is `{"kernels": [...]}`, the last
 `{"ok": true, "device": {...}}`. Without a CUDA device, or outside a
@@ -238,6 +251,9 @@ VISNET_HYBRIDS_BF16 = ("visnet_equihnn bf16", "visnet_equihnnm bf16")
 # hybrids are served only (their encoder is held on the faformer_equihnns path)
 FAFORMER_BF16 = "faformer_equihnns bf16"
 FAFORMER_HYBRIDS_BF16 = ("faformer_equihnn bf16", "faformer_equihnnm bf16")
+# se3_transformer_equihnns with --compute_dtype bfloat16 at the recipe (hidden
+# 256): JAX's gate fuses its four pooled units at A = 32 (kernels J and K in bf16)
+SE3_BF16 = "se3_transformer_equihnns bf16 recipe"
 SERVE_ONLY = VISNET_HYBRIDS_BF16 + FAFORMER_HYBRIDS_BF16
 # egnn_equihnns with the reference's batch-as-one-point-cloud kNN
 # (cross_molecule_knn=True): EGNN's flat path, JAX's unfused edge MLP (no kernel B)
@@ -249,6 +265,7 @@ PATHS = {**{m: (m, {}) for m in METHODS},
                                                       compute_dtype="bfloat16")),
          EGNN_BF16: ("egnn_equihnns", dict(compute_dtype="bfloat16")),
          MHNNS_BF16: ("mhnns", dict(compute_dtype="bfloat16")),
+         SE3_BF16: ("se3_transformer_equihnns", dict(compute_dtype="bfloat16")),
          **{p: (p.removesuffix(" bf16"), dict(compute_dtype="bfloat16"))
             for p in (VISNET_BF16, *VISNET_HYBRIDS_BF16, FAFORMER_BF16,
                       *FAFORMER_HYBRIDS_BF16)},
@@ -270,6 +287,8 @@ FWD_LAUNCHES = {
     "se3_transformer_equihnns": {"sorted_segment_sum": 3, "pooled_conv": 4},
     # the same four units, each a per-J step through kernel L
     BF16_PATH: {"sorted_segment_sum": 3, "pooled_m": 4},
+    # the same four units fused, J in bf16; the encoder's output is f32: A in f32
+    SE3_BF16: {"sorted_segment_sum": 3, "pooled_conv": 4, "pooled_conv bf16": 4},
     # the Equiformer runs no kernel (JAX computes it with XLA einsums)
     "equiformer_equihnns": {"sorted_segment_sum": 3},
     # bf16: each launch counts on the wrapper's counter and on its bf16 one
@@ -292,6 +311,8 @@ BWD_LAUNCHES = {
     "se3_transformer_equihnns": {"pooled_conv_bwd": 4},
     # kernel M, and L again where the checkpointed step is recomputed
     BF16_PATH: {"pooled_m": 4, "pooled_m_bwd": 4},
+    # kernel K in bf16; the fused unit has no checkpoint: J does not run again
+    SE3_BF16: {"pooled_conv_bwd": 4, "pooled_conv_bwd bf16": 4},
     "equiformer_equihnns": {},
     EGNN_BF16: {"fused_edge_messages_bwd": 1, "fused_edge_messages_bwd bf16": 1},
     MHNNS_BF16: {},
@@ -332,6 +353,8 @@ TRAIN_SIZE = dict.fromkeys(HYBRID_METHODS, "4800")  # the others: 9600
 # gin, the slice's full-width path, trains on 9,600 molecules; gcn, gat and
 # gatv2 share its data path and CLI, and take 4,800
 TRAIN_SIZE.update(dict.fromkeys(GRAPH_METHODS[1:], "4800"))
+# the hidden-64 bf16 SE(3)-Transformer takes 4,800 (the script's time limit)
+TRAIN_SIZE[BF16_PATH] = "4800"
 # the H100 SXM's published peaks: HBM3 bandwidth, dense f32, TF32 and bf16 rates
 PEAK_BYTES_S, PEAK_F32_S, PEAK_TF32_S, PEAK_BF16_S = 3.35e12, 67e12, 495e12, 989e12
 SFU_OPS_CLK = 16  # special-function operations (ex2, rcp) an H100 SM issues a clock
@@ -596,7 +619,7 @@ def check_frame_swiglu_f32_ptxas(report: str) -> None:
 def counters() -> dict:
     """name → (the launch-counted wrapper of a kernel, its counter's
     attribute): `launches` of every wrapper, in any dtype, and beside it
-    `launches_bf16` of the wrappers of A-I, the bf16 launches alone (named
+    `launches_bf16` of the wrappers of A-K, the bf16 launches alone (named
     "<wrapper> bf16")."""
     from equihgnn_tpu_torch.ops.kernels.edge_mlp import (
         fused_edge_messages,
@@ -628,7 +651,8 @@ def counters() -> dict:
     out = {name: (fn, "launches") for name, fn in fns.items()}
     for name in ("sorted_segment_sum", "fused_edge_messages", "fused_edge_messages_bwd",
                  "fused_frame_swiglu", "fused_frame_swiglu_bwd", "vis_vec_agg",
-                 "vis_vec_agg_bwd", "vis_wdot", "vis_wdot_bwd"):
+                 "vis_vec_agg_bwd", "vis_wdot", "vis_wdot_bwd", "pooled_conv",
+                 "pooled_conv_bwd"):
         out[f"{name} bf16"] = (fns[name], "launches_bf16")
     return out
 
@@ -719,6 +743,8 @@ def phase_kernels(batch) -> list[dict]:
     rows += vis_mix_rows(batch)
     rows += vis_mix_bf16_rows(batch)
     rows += pooled_conv_rows(batch, gen)
+    check_pooled_conv_f32_bits()
+    rows += pooled_conv_bf16_rows(batch, gen)
     rows += pooled_m_rows(batch, gen)
     for row in rows:
         print(f"  {row['name']}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
@@ -913,10 +939,11 @@ def bf16_distance(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
 
 
 def check_bf16(what: str, got, want, ulps: float = 1, equal: float = 0.99,
-               slack=None) -> float:
+               slack=None, rounded: str = "dz") -> float:
     """`got` within `ulps` bf16 ulps of `want` (`bf16_distance`) past a
-    per-element `slack` (none by default), at least `equal` of it the same
-    bits; returns max|d|."""
+    per-element `slack` (none by default: the bound of what rounding the
+    operand `rounded` at another boundary can move it), at least `equal`
+    of it the same bits; returns max|d|."""
     err = float((got.float() - want.float()).abs().max()) if want.numel() else 0.0
     same, far = bf16_distance(got, want)
     if slack is not None:
@@ -924,7 +951,7 @@ def check_bf16(what: str, got, want, ulps: float = 1, equal: float = 0.99,
         far = bf16_distance(want.float() + excess, want.float())[1]
     ok = got.dtype == want.dtype == torch.bfloat16 and same >= equal and far <= ulps
     print(f"{what}: {same:.5f} the same bits, {far:.2f} bf16 ulps at most"
-          f"{'' if slack is None else ' past the dz rounding bound'} (limit {ulps}, at "
+          f"{'' if slack is None else f' past the {rounded} rounding bound'} (limit {ulps}, at "
           f"least {equal} the same), max|d| {err:.3e}: {'ok' if ok else 'FAIL'}")
     check(ok, f"{what} disagrees with its plain version")
     return err
@@ -1785,6 +1812,170 @@ def pooled_conv_rows(batch, gen) -> list[dict]:
     return rows
 
 
+def pooled_conv_bf16_rows(batch, gen) -> list[dict]:
+    """Kernels J and K in bf16 (`csrc/pooled_conv_bf16.cu`, the bf16
+    recipe's fused pooled units) at the pooled sites of the batch, as
+    `pooled_conv_rows` (k = 16, F = 128, I = O = 256; C = 1 and 3; with the
+    model's `live` and without), in bf16: each against its plain bf16
+    version on the card within one bf16 ulp, at least 99 % the same bits
+    (K's dh and dtc past `bwd_bf16_rounding_bound`: the two round dM from
+    f32 sums in other orders, and dh, dtc sum 256 or 128 such terms that
+    can cancel), the same bits twice, 0 (+0 for dh and dtc) at the dead
+    sites; timed one call a sample (alternating with the plain version
+    and, for J, the one bf16 `torch.einsum` call; 10 samples, 5 for every
+    site) and, with `live`, by device time alone and K by kernel; bound at
+    the bf16 peak (J 2(E·CIF + S'·CIFO), K 2(3E·CIF + 2S'·CIFO))
+    or by the bf16 bytes. Rows "pooled_conv bf16" and "pooled_conv_bwd
+    bf16" at C = 1 with `live`; the rest printed."""
+    from equihgnn_tpu_torch.ops.kernels.pooled_conv import (
+        bwd_bf16_rounding_bound,
+        live_sites,
+        pooled_conv,
+        pooled_conv_bwd,
+        pooled_conv_bwd_plain,
+        pooled_conv_plain,
+    )
+
+    dev = torch.device("cuda")
+    mask = pooled_mask(batch)
+    g, a, k = mask.shape
+    f, i, o = 128, HIDDEN, HIDDEN
+    live = mask.any(-1)
+    sites = live_sites(live)
+    e_live, s_live = int(mask.sum()), int(live.sum())
+    rows = []
+    for c in (1, 3):
+        h = (torch.randn(g, a, k, f, generator=gen).to(dev) * mask[..., None]).bfloat16()
+        tc = (torch.randn(g, a, k, c * i, generator=gen).to(dev) * mask[..., None]).bfloat16()
+        w = ((torch.rand(f, o, i, generator=gen) * 2 - 1).to(dev) / f ** 0.5).bfloat16()
+        dout = torch.randn(g, a, c, o, generator=gen).to(dev).bfloat16()
+        edge_b, w_b, out_b = e_live * (f + c * i) * 2, f * o * i * 2, s_live * c * o * 2
+        m_ops, proj_ops = 2 * e_live * c * i * f, 2 * s_live * c * i * f * o
+        j_bytes, k_bytes = edge_b + w_b + out_b, 2 * edge_b + 2 * w_b + out_b
+        j_bound = bound(j_bytes, m_ops + proj_ops, PEAK_BF16_S)
+        # K reads h, tc, W and dout, writes dh, dtc and dW; the M rebuild, dh
+        # and dtc (3 M-sized contractions), dM = dout·Wᵀ and dW
+        k_bound = bound(k_bytes, 3 * m_ops + 2 * proj_ops, PEAK_BF16_S)
+        cases = {
+            # name: (letter, kernel call, plain call, library call, bound, operations, mask)
+            "pooled_conv bf16": ("J", lambda: pooled_conv(h, tc, w, c, sites),
+                                 lambda: pooled_conv_plain(h, tc, w, c, live),
+                                 lambda: torch.einsum("gakf,gakci,foi->gaco", h,
+                                                      tc.view(g, a, k, c, i), w),
+                                 j_bound, j_bytes, m_ops + proj_ops, live),
+            "pooled_conv bf16 (every site)": ("J", lambda: pooled_conv(h, tc, w, c),
+                                              lambda: pooled_conv_plain(h, tc, w, c), None,
+                                              j_bound, j_bytes, m_ops + proj_ops, None),
+            "pooled_conv_bwd bf16": ("K", lambda: pooled_conv_bwd(h, tc, w, c, dout, sites),
+                                     lambda: pooled_conv_bwd_plain(h, tc, w, c, dout, live),
+                                     None, k_bound, k_bytes, 3 * m_ops + 2 * proj_ops, live),
+            "pooled_conv_bwd bf16 (every site)": (
+                "K", lambda: pooled_conv_bwd(h, tc, w, c, dout),
+                lambda: pooled_conv_bwd_plain(h, tc, w, c, dout), None, k_bound, k_bytes,
+                3 * m_ops + 2 * proj_ops, None),
+        }
+        for name, (letter, call, plain, library, bnd, nb, ops, lv) in cases.items():
+            with torch.no_grad():
+                got, ref = call(), plain()
+                again = call()
+            torch.cuda.synchronize()
+            got = got if isinstance(got, tuple) else (got,)
+            ref = ref if isinstance(ref, tuple) else (ref,)
+            again = again if isinstance(again, tuple) else (again,)
+            slack = (bwd_bf16_rounding_bound(h, tc, w, c, dout, lv) + (None,)
+                     if letter == "K" else (None,))
+            err = max(check_bf16(f"kernel {letter} {name} C={c} {out_name} "
+                                 f"{tuple(x.shape)}", x, y, slack=sl, rounded="dM")
+                      for out_name, x, y, sl in zip(("out",) if letter == "J" else
+                                                    ("dh", "dtc", "dW"), got, ref, slack))
+            check(all(torch.equal(x, y) for x, y in zip(got, again)),
+                  f"kernel {letter} ({name}) at C = {c} gave other bits on a second run")
+            if lv is not None:  # J's out 0, K's dh and dtc +0 in every bit at the dead sites
+                check(not any(x[~lv].view(torch.int16).any()
+                              for x in got[:2 if letter == "K" else 1]),
+                      f"kernel {letter} ({name}) is not +0 at the dead sites")
+            del got, ref, again, slack
+            torch.cuda.empty_cache()
+            every = "every site" in name  # timed alongside only (the script's time limit)
+            with torch.no_grad():
+                fns = [call, plain] + ([library] if library else [])
+                times = median_ms(*fns, iters=5 if every else 10)
+                alone = None if every else profiled_device_ms(call, calls=5)
+                lib_alone = profiled_device_ms(library, calls=5) if library else None
+            ms, plain_ms = times[:2]
+            library_ms = times[2] if library else None
+            row = dict(name=name, route="cuda",
+                       source="equihgnn_tpu_torch/csrc/pooled_conv_bf16.cu",
+                       replaces="equihgnn_tpu/ops/pallas/pooled_conv.py"
+                                + (":200" if letter == "J" else ":233"),
+                       max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms, **bnd)
+            lib_txt = (f", bf16 torch.einsum {library_ms:.4f} ms (device alone "
+                       f"{lib_alone:.4f})" if library else "")
+            alone_txt = "" if alone is None else f"; device alone {alone:.4f} ms (torch.profiler)"
+            print(f"kernel {letter} {name} [G={g}, A={a}, k={k}, C={c}, I={i}, F={f}, O={o}]: "
+                  f"{ms:.4f} ms vs plain {plain_ms:.4f} ms{lib_txt} (median of "
+                  f"{5 if every else 10}, CUDA events){alone_txt}; bound {row['bound_ms']:.4f} ms "
+                  f"by {row['bound_by']} ({ops / PEAK_BF16_S * 1e3:.4f} ms of operations at the "
+                  f"bf16 peak, {nb / PEAK_BYTES_S * 1e3:.4f} ms of bytes); {ops / 1e12:.3f} "
+                  f"TFLOP of live work, {ops / ms / 1e9:.1f} TFLOP/s achieved; deterministic")
+            if letter == "K" and not every:
+                with torch.no_grad():
+                    split = kernel_split(call)
+                print(f"  kernel K {name} C={c} by kernel (torch.profiler, device time): " +
+                      "; ".join(f"{kname} {t:.4f} ms ({t / sum(split.values()):.1%})"
+                                for kname, t in split.items()))
+            if c == 1 and not every:
+                rows.append(row)
+        del h, tc, w, dout
+        torch.cuda.empty_cache()
+    return rows
+
+
+def pooled_conv_digests() -> dict[str, str]:
+    """`digest`s of the f32 kernels J's and K's outputs on inputs drawn on
+    the CPU from seed 20 (G = 64, A = 32, k = 16, F = 128, I = O = 256, a
+    random live mask; C = 1 and 3): J with the live sites and without, K
+    with them and without; and the inputs' own digest."""
+    from equihgnn_tpu_torch.ops.kernels.pooled_conv import pooled_conv, pooled_conv_bwd
+
+    gen = torch.Generator().manual_seed(20)
+    dev = torch.device("cuda")
+    g, a, k, f, i, o = 64, 32, 16, 128, HIDDEN, HIDDEN
+    inputs, out = [], {}
+    for c in (1, 3):
+        live = (torch.rand(g, a, generator=gen) < 0.6).to(dev)
+        h = torch.randn(g, a, k, f, generator=gen).to(dev)
+        tc = torch.randn(g, a, k, c * i, generator=gen).to(dev)
+        w = ((torch.rand(f, o, i, generator=gen) * 2 - 1) / f ** 0.5).to(dev)
+        dout = torch.randn(g, a, c, o, generator=gen).to(dev)
+        inputs += [live, h, tc, w, dout]
+        with torch.no_grad():
+            out[f"J C={c}"] = digest(pooled_conv(h, tc, w, c, live), pooled_conv(h, tc, w, c))
+        out[f"K C={c}"] = digest(*pooled_conv_bwd(h, tc, w, c, dout, live),
+                                 *pooled_conv_bwd(h, tc, w, c, dout))
+    return {"inputs": digest(*inputs), **out}
+
+
+# The f32 kernels J's and K's outputs at `pooled_conv_digests`' inputs, as
+# the kernels of the parent commit 413d80c computed them on the card (its
+# first 16 hex digits), beside the digest of those inputs: the f32 J and K
+# (`pooled_conv_fwd.cu`, `pooled_conv.cu`) are the parent's source, the
+# bf16 ones live apart. The inputs come from torch's CPU generator; a run
+# whose inputs have another digest (another torch's generator) fails.
+PC_F32_BEFORE = {"inputs": "7d85e3fb79b0d772", "J C=1": "b2ca57cd3e9a5f6b",
+                 "K C=1": "141d4182eae509fa", "J C=3": "90e44e203a08218b",
+                 "K C=3": "7a21de8a906df8ae"}
+
+
+def check_pooled_conv_f32_bits() -> None:
+    got = pooled_conv_digests()
+    print(f"f32 J/K digests {got}; the parent's {PC_F32_BEFORE}")
+    check(got["inputs"] == PC_F32_BEFORE["inputs"],
+          "the f32 J/K digests' inputs differ from those recorded: nothing to compare with")
+    for name, bits in got.items():
+        check(bits == PC_F32_BEFORE[name], f"f32 kernel {name} gave other bits than the parent's")
+
+
 def _bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> int:
     """The largest distance in bfloat16 ulps (bit patterns as ordered integers)."""
     def ordered(t):
@@ -1990,7 +2181,8 @@ def phase_serve(path: str, samples, smi: str) -> dict[str, int]:
         check(bool(np.isfinite(vals).all()), "non-finite prediction in the SDF request")
         check(rows[4]["title"] == "benzene", f"row 4 is {rows[4]['title']!r}, not benzene")
         if cfg.compute_dtype:
-            check_bf16_serve(model, method, cfg, vals, samples, preds)
+            check_bf16_serve(model, method, cfg, vals, samples, preds,
+                             BF16_SERVE_CUT.get(path, 64))
         else:
             check_serve_against_cpu(model, ckpt, out_cpu, vals, rows)
         model.to(dev)
@@ -2143,12 +2335,15 @@ def check_serve_against_cpu(model, ckpt: str, out_cpu: str, vals, rows) -> None:
 # (SDF) and 0.42 (64 molecules of the request) of that distance (se3 bf16);
 # egnn bf16 0.21 / 0.69, mhnns bf16 0.23 / 0.83.
 BF16_SERVE_SHARE = 1.0
+# molecules of the request the CPU references of a bf16 path take (the others:
+# 64); the SE(3)-Transformer's CPU runs at hidden 256 are slow
+BF16_SERVE_CUT = {SE3_BF16: 16}
 
 
-def check_bf16_serve(model, method: str, cfg, vals, samples, preds) -> None:
+def check_bf16_serve(model, method: str, cfg, vals, samples, preds, n_ref: int = 64) -> None:
     """The bf16 model's predictions on the card against its CPU run (plain
     versions, which `tests/test_torch_se3_bf16.py` holds to JAX's bf16
-    model), on the SDF and the first 64 molecules of the batch-768 request,
+    model), on the SDF and the first `n_ref` molecules of the batch-768 request,
     in batches of 32 on both: within BF16_SERVE_SHARE of the CPU's own
     bf16-vs-f32 distance at the same weights. Recorded beside it: max |bf16 − f32| / (mean |f32| + 1e-3) on
     the card, the measure of `tests/test_bf16.py:33-35`, whose bound of 0.1
@@ -2170,7 +2365,8 @@ def check_bf16_serve(model, method: str, cfg, vals, samples, preds) -> None:
               f"to 0.1)")
     # the same batches on both devices: in bf16 a molecule's prediction moves
     # with the batch's padding (other product shapes round otherwise)
-    for what, mols in (("SDF", sets["SDF"][0]), ("the first 64 of the request", samples[:64])):
+    for what, mols in (("SDF", sets["SDF"][0]),
+                       (f"the first {n_ref} of the request", samples[:n_ref])):
         card16 = predict_samples(model.to(dev).eval(), mols, 32, dev)
         cpu16 = predict_samples(model.to(cpu).eval(), mols, 32, cpu)
         cpu32 = predict_samples(f32.to(cpu).eval(), mols, 32, cpu)
@@ -2207,7 +2403,7 @@ ENCODER_LIMIT = {"se3_transformer_equihnns": 1e-2}  # the others: 1e-4
 # CPU references take 16 molecules and one draw. The draws feed a printed
 # reading only (the CPU's own spread); ViSNet's CPU step at full width takes
 # ~10 s, so it takes one
-GRAD_CUT = {"se3_transformer_equihnns": (16, 1), BF16_PATH: (16, 0),
+GRAD_CUT = {"se3_transformer_equihnns": (16, 1), BF16_PATH: (16, 0), SE3_BF16: (16, 0),
             **dict.fromkeys(BF16_HYPER_PATHS, (16, 0)), VISNET_BF16: (16, 0),
             FAFORMER_BF16: (16, 0),
             "visnet_equihnns": (32, 1), **dict.fromkeys(HYBRID_METHODS, (16, 1)),
@@ -2511,6 +2707,17 @@ def phase_grads_2d(path: str, pool) -> None:
 # bf16 gradients by 0.11-0.13 of it on the CPU alone (se3 bf16); egnn bf16
 # 0.54 / 0.005, mhnns bf16 0.41 / 1e-7.
 BF16_GRAD_SHARE = 1.0
+# Each attention's query weights (`attn_*.to_q`) scaled by this before a
+# path's gradients are compared (the others: as initialized). At the init the
+# bf16 recipe's second attention block has logits up to ~2e3 (a row's range
+# ~250): its softmax is saturated, what float32 passes through it is tiny
+# and what bf16 passes is rounding, so the gradients of every parameter
+# before it lie 0.6-0.9 of their norm from float32 on the CPU (those after it
+# 0.02-0.08), and any other rounding (the card's) lies ~0.85 of that from
+# the CPU's: the check could not tell bf16 from float32. At 0.1 the logits
+# stay under ~160 and the gap is 0.08, resolved in every module
+# (`se3_bf16_gap.py`).
+GRAD_QUERY_SCALE = {SE3_BF16: 0.1}
 
 
 def _rel_l2(got: dict, want: dict) -> float:
@@ -2523,7 +2730,7 @@ def phase_grads_bf16(path: str, pool) -> None:
     """A bf16 path's gradients on the card (se3 bf16: kernels L and M; egnn
     bf16: A, B and C; mhnns bf16: A) against the CPU's bf16 model (their
     plain versions), eval mode, on GRAD_CUT
-    molecules: of a train step (masked MSE) and of the encoder under a
+    molecules, the queries scaled by GRAD_QUERY_SCALE: of a train step (masked MSE) and of the encoder under a
     smooth loss, each held to BF16_GRAD_SHARE of the CPU's bf16-vs-f32
     distance; every parameter the CPU reaches must be reached on the card."""
     from equihgnn_tpu_torch import create_model
@@ -2547,6 +2754,10 @@ def phase_grads_bf16(path: str, pool) -> None:
         model = create_model(method, num_target=1, device=device,
                              cfg=dataclasses.replace(cfg, compute_dtype=dtype),
                              generator=torch.Generator().manual_seed(3)).eval()
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                if ".to_q." in name:
+                    p.mul_(GRAD_QUERY_SCALE.get(path, 1.0))
         loss_fn(model, batch.to(device)).backward()
         return {n: (p.grad.cpu() if p.grad is not None else None)
                 for n, p in model.named_parameters()}
@@ -2593,7 +2804,8 @@ def phase_train(path: str, smi: str) -> dict[str, int]:
     hyper = method not in GRAPH_METHODS
     data = TRAIN_DATA.get(method, "synthetic_hg_3d")
     argv = ["--data", data, "--method", method, "--device", "cuda",
-            "--batch_size", str(BATCH), "--synthetic_size", TRAIN_SIZE.get(method, "9600"),
+            "--batch_size", str(BATCH),
+            "--synthetic_size", TRAIN_SIZE.get(path, TRAIN_SIZE.get(method, "9600")),
             "--epochs", "3",
             "--lr", LR.get(method, "1e-3"), "--MLP_hidden", str(cfg.mlp_hidden),
             "--output_hidden", str(cfg.output_hidden),
@@ -2724,7 +2936,7 @@ def phase_step(path: str, samples, smi: str) -> None:
 
 
 # the paths whose encoder `remat` checkpoints, held with it on the card
-REMAT_PATHS = ENCODER_METHODS + (BF16_PATH, EGNN_BF16, VISNET_BF16, FAFORMER_BF16)
+REMAT_PATHS = ENCODER_METHODS + (BF16_PATH, SE3_BF16, EGNN_BF16, VISNET_BF16, FAFORMER_BF16)
 # the paths whose batch-768 train step's peak memory is read with and without remat
 REMAT_MEMORY = ("se3_transformer_equihnns", "equiformer_equihnns")
 

@@ -31,8 +31,9 @@ Differences from the JAX CLI:
   * `--compute_dtype bfloat16` runs where the model takes it, while the
     parameters, Adam and the loss stay float32, as in JAX: the encoder of
     `se3_transformer_equihnns` computes in bfloat16 (its pooled units
-    through kernels L and M on the card; its widths must leave JAX's fused
-    pooled unit out, `--MLP_hidden` not a multiple of 128), and `mhnn`,
+    through kernels J and K in bf16 on the card where JAX fuses them, at
+    `--MLP_hidden 256` or 128, and through kernels L and M where it does
+    not), and `mhnn`,
     `mhnns`, `mhnnm` and the three `egnn_equihnn*` models compute in
     bfloat16 from the atom embedding to the prediction (kernels A, B and C
     in bf16), and the three `visnet_equihnn*` models in ViSNet's layer loop
@@ -130,8 +131,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--streaming", action="store_true",
                    help="object-free packed data path")
     p.add_argument("--compute_dtype", default=None, choices=["bfloat16"],
-                   help="bf16 activations (the SE(3)-Transformer's encoder, the MHNN "
-                        "family and the EGNN models)")
+                   help="bf16 activations (the SE(3)-Transformer's encoder at any width, "
+                        "the MHNN family, the EGNN, ViSNet and FAFormer models)")
     p.add_argument("--remat", action="store_true",
                    help="additionally checkpoint whole encoders")
     return p

@@ -11,13 +11,14 @@ has no dropout; `--dropout` reaches the trunk) in float32, where the
 pooled ConvSE3 units run kernels J and K on the card, and with
 `compute_dtype="bfloat16"`, which as in JAX reaches the encoder only (its
 output is cast back to float32; the AtomEncoder, the trunk, the
-parameters and the loss stay float32), where they run kernels L and M.
-With `remat` the SE(3)-Transformer is checkpointed, as JAX remats it
-(`equihnn_se3_transformer.py:35`), around the bf16 path's per-J
-checkpoints: kernel J (bf16: L) runs again in the backward pass.
-Configurations the port does not support yet raise here: another
-`compute_dtype`, and bfloat16 at a width whose pooled units JAX would fuse
-(`MLP_hidden` a multiple of 128; ROADMAP item 11).
+parameters and the loss stay float32), where each pooled unit takes the
+route JAX's gate gives it at the call's shapes: kernels J and K in
+bfloat16 where JAX fuses the unit (`MLP_hidden` 128 or 256 at the
+batches' molecule rows), kernels L and M where it does not (a width that
+is no multiple of 128, 384 and 512). With `remat` the SE(3)-Transformer
+is checkpointed, as JAX remats it (`equihnn_se3_transformer.py:35`),
+around the per-J path's checkpoints: kernel J (per-J: L) runs again in
+the backward pass. Another `compute_dtype` raises (ROADMAP item 11).
 """
 
 from __future__ import annotations

@@ -12,11 +12,17 @@ R_J = W_J·h + b_J with h the radial hidden, never materialized per edge.
     against the neighbours first and apply W_J once per node. In float32
     that is `ops/kernels/pooled_conv.py`, kernels J and K on the card, the
     plain version on the CPU; the bias term and Σ_k stay plain, as in JAX.
-    In bfloat16 it is JAX's per-J path: in one checkpointed step per J,
-    the pooled-M build M = Σ_k h_k ⊗ t_k (`ops/kernels/pooled_m.py`,
-    kernels L and M on the card), rounded to bfloat16, then the projection
-    by W_J as one plain product; where JAX's fused unit would take the
-    shape instead (`pooled_conv_shape_ok`), the unit raises.
+    In bfloat16 the route is JAX's, chosen at each call by its gate
+    `pooled_conv_supported` from the shapes (A, k, C, I, F, O): where it
+    holds (hidden 128 and 256 at the batches' A), the fused unit, kernels
+    J and K in bfloat16 (M rounded to bfloat16 inside them); where it
+    fails (hidden 384 and 512, a narrow width, a wide A), JAX's per-J
+    path: in one checkpointed step per J, the pooled-M build M = Σ_k h_k ⊗
+    t_k (`ops/kernels/pooled_m.py`, kernels L and M on the card), rounded
+    to bfloat16, then the projection by W_J as one plain product. The two
+    round otherwise (the fused unit adds each J's projection and its bias
+    term to the sum in turn), so the port takes JAX's branch at every
+    shape.
   * The unpooled units (the attention keys and values, one `stack=2`
     conv) apply W_J at the node sites, place the radial hidden densely on
     [A, A] by a scatter on the neighbour index and mix the two by a batched
@@ -62,7 +68,7 @@ from equihgnn_tpu_torch.ops.gather import index_select, nbr_gather
 from equihgnn_tpu_torch.ops.kernels.pooled_conv import (
     live_sites,
     pooled_conv,
-    pooled_conv_shape_ok,
+    pooled_conv_supported,
 )
 from equihgnn_tpu_torch.ops.kernels.pooled_m import pooled_m
 from equihgnn_tpu_torch.ops.knn import knn_dense
@@ -89,15 +95,6 @@ def _rounded(v: float, dtype: torch.dtype) -> float:
 
 def _js(din: int, dout: int) -> list[int]:
     return list(range(abs(din - dout), din + dout + 1))
-
-
-def _check_unfused(dtype: torch.dtype, i: int, f: int, o: int) -> None:
-    """Below float32, a pooled unit whose shape JAX's fused unit takes
-    (`pooled_conv_shape_ok`) is J and K in that type, which the port lacks."""
-    if dtype != torch.float32 and pooled_conv_shape_ok(i, f, o):
-        raise NotImplementedError(
-            f"a {dtype} pooled ConvSE3 unit at I = {i}, F = {f}, O = {o} is JAX's fused unit: "
-            f"kernels J and K in {dtype}, ROADMAP item 11")
 
 
 def _sum_parts(parts: list, dtype: torch.dtype, exact: bool) -> torch.Tensor:
@@ -235,25 +232,36 @@ class _ConvSE3Pair(nn.Module):
         the CG×SH-contracted neighbour feature (`se3_transformer.py:240-258`).
         xg is zero on masked neighbours, so are t and Σ_k t; a site with no
         neighbour has t = 0 and is passed to J as not live (its output is 0
-        either way), so that J skips its work."""
+        either way), so that J skips its work. Below float32 the route is
+        JAX's, chosen at each call from the shapes by its gate
+        (`pooled_conv_supported`, `se3_transformer.py:232-234`): the fused
+        unit where it holds, else the per-J path."""
         g, a, k = nbr_idx.shape
         c_out = 2 * self.dout + 1
+        dt = xn.dtype
         xg = nbr_gather(xn, nbr_idx, nbr_mask)  # [G, A, k, i, b]
         cnt = torch.clamp(torch.sum(nbr_mask.float(), dim=2), min=1.0)[..., None, None]
-        if xn.dtype != torch.float32:
-            return self._pooled_per_j(xg, w_sh, h, W, bias) / cnt[None].to(xn.dtype)
+        if dt != torch.float32 and not (self.stack == 1 and pooled_conv_supported(
+                a, k, c_out, self.nc_in, self.f, self.nc_out, dt.itemsize)):
+            return self._pooled_per_j(xg, w_sh, h, W, bias) / cnt[None].to(dt)
         live = live_sites(nbr_mask.any(-1))  # [G, A] and J's list of them, once per conv
         outs = []
         for si in range(self.stack):
             acc = 0.0
             for jidx in range(W.shape[-1]):
-                tcj = torch.einsum("gakbc,gakib->gakci", w_sh[..., jidx, :, :], xg)
-                tsum = torch.sum(tcj, dim=2)  # [G, A, c, i]
+                # t rounded for J and K; Σ_k t of the unrounded products, as
+                # XLA reduces them (the per-J path's `tc32`); the bias term a
+                # float32 sum rounded once (in float32 every cast is a no-op)
+                tc32 = torch.einsum("gakbc,gakib->gakci", w_sh[..., jidx, :, :].float(),
+                                    xg.float())
+                tcj, tsum = tc32.to(dt), torch.sum(tc32, dim=2).to(dt)  # tsum [G, A, c, i]
+                bias_term = torch.einsum("oi,gaci->gaco", bias[si, ..., jidx].float(),
+                                         tsum.float()).to(dt)
                 acc = acc + pooled_conv(h[si], tcj.reshape(g, a, k, c_out * self.nc_in)
                                         .contiguous(), W[si, ..., jidx], c_out, live)
-                acc = acc + torch.einsum("oi,gaci->gaco", bias[si, ..., jidx], tsum)
+                acc = acc + bias_term
             outs.append(torch.transpose(acc, -1, -2))  # [G, A, o, c]
-        return torch.stack(outs) / cnt[None]  # [S, G, A, o, c]
+        return torch.stack(outs) / cnt[None].to(dt)  # [S, G, A, o, c]
 
     def _pooled_per_j(self, xg, w_sh, h, W, bias):
         """JAX's per-J path below float32 (`se3_transformer.py:260-306`): per
@@ -262,7 +270,6 @@ class _ConvSE3Pair(nn.Module):
         the bias term; the sum over J, undivided, [S, G, A, o, c]."""
         g, a, k = xg.shape[:3]
         f, i = h.shape[-1], self.nc_in
-        _check_unfused(xg.dtype, i, f, self.nc_out)
 
         def one_j(wj, bj, wshj, hs, xg):
             # XLA sums the unrounded products into Σ_k t (a reduction takes
@@ -476,9 +483,9 @@ class SE3Transformer(nn.Module):
     `depth` pre-norm attention + FFN blocks, conv_out; returns float32 type-0
     features in the flat [N, dim] atom layout. `dtype` is the compute type
     (None: float32; "bfloat16"), the parameters stay float32. In bfloat16
-    the pooled units (I = O = dim, F = 128) take kernels L and M, and a dim
-    at which JAX's fused unit would take them (`pooled_conv_shape_ok`)
-    raises."""
+    each pooled unit (I = O = dim, F = 128) takes kernels J and K where
+    JAX's gate `pooled_conv_supported` fuses it at the call's shapes, and
+    kernels L and M where it does not."""
 
     def __init__(self, dim: int = 64, heads: int = 2, depth: int = 2, dim_head: int = 32,
                  num_degrees: int = 2, valid_radius: float = 1e5, num_neighbors: int = 16,
@@ -488,7 +495,6 @@ class SE3Transformer(nn.Module):
         self.depth, self.num_degrees = depth, num_degrees
         self.valid_radius, self.num_neighbors = valid_radius, num_neighbors
         self.dtype = getattr(torch, dtype) if dtype is not None else torch.float32
-        _check_unfused(self.dtype, dim, 128, dim)  # the pooled units of conv_in and conv_out
         fiber_hidden = (dim,) * num_degrees
         self.conv_in = ConvSE3((dim,), fiber_hidden, generator=generator)
         for i in range(depth):

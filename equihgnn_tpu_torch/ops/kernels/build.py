@@ -64,6 +64,8 @@ SIGNATURES = {
     "pooled_conv_fwd_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "pooled_conv_bwd_workspace_f32": (_I, _I, _I, ctypes.POINTER(_I64)),
     "pooled_conv_bwd_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "pooled_conv_fwd_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "pooled_conv_bwd_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "pooled_m_fwd_bf16": (_P, _P, _P, _I64, _I, _I, _I, _P),
     "pooled_m_fwd_f32": (_P, _P, _P, _I64, _I, _I, _I, _P),
     "pooled_m_bwd_bf16": (_P, _P, _P, _P, _P, _I64, _I, _I, _I, _P),

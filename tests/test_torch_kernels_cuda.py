@@ -44,7 +44,11 @@ kernels L and M the batch-768 shapes (G = 769, A = 32, K = 16, F = 128,
 X = 64 and 192) in bfloat16 and float32, K = 0, 5 and 20, ragged F and X,
 12,000 sites, many more than L's persistent grid has blocks, and sites
 whose operands are all ±0 (L skips their products; M reads no dM there and
-writes +0 while dM is random, also in a live site's ±0 neighbour rows). The autograd tests show
+writes +0 while dM is random, also in a live site's ±0 neighbour rows); for
+kernels J and K in bfloat16 the f32 cases' shapes and more (C = 2, 17; K
+= 32; O = 384; G·A = 1,280), with live masks (random, all dead, all
+live) and without, the same bits twice, +0 at the dead sites, and their
+refusals (mixed types, K > 32, C > 64, a non-contiguous h, tc or dout). The autograd tests show
 that a CUDA call of each wrapper is differentiable (its output has a
 `grad_fn`) and gives the gradients of the plain version on the card.
 Gradient tolerance: max |Δ| ≤ 1e-4·max |plain| + 1e-6 per tensor (f32 sums
@@ -53,7 +57,10 @@ and H forward: 1e-5·max |plain| + 1e-6 per tensor; kernel J forward
 1e-4·max |plain| + 1e-6 (sums of I·F = 32,768 products at the model's
 widths). Kernels L and M in bfloat16: at least 99 % of the elements equal
 to the plain version's and every one within one bfloat16 ulp (both round
-an f32 sum once); in float32 within rtol = atol = 1e-5. The bf16 model on
+an f32 sum once); in float32 within rtol = atol = 1e-5. Kernels J and K
+in bfloat16: the same, K's dh and dtc within one ulp past the bound of
+dM's rounding (`bwd_bf16_rounding_bound`: the kernel and the plain
+version round dM from f32 sums in other orders). The bf16 model on
 the card against the bf16 model on the CPU: predictions within the CPU's
 own bfloat16-vs-float32 distance at the same weights, and the encoder's
 gradients under a smooth loss (relative L2 over all parameters) within
@@ -85,6 +92,9 @@ float16 x or a dout of another dtype raise; `faformer_equihnns` in bf16 at
 hidden 64 on the card against the CPU, D and E on the bf16 counters.
 """
 
+import importlib.util
+from pathlib import Path
+
 import pytest
 import torch
 
@@ -101,6 +111,9 @@ from equihgnn_tpu_torch.ops.kernels.frame_swiglu import (
     frame_swiglu_plain,
     fused_frame_swiglu,
     fused_frame_swiglu_bwd,
+)
+from equihgnn_tpu_torch.ops.kernels.pooled_conv import (
+    bwd_bf16_rounding_bound as pc_rounding_bound,
 )
 from equihgnn_tpu_torch.ops.kernels.pooled_conv import (
     live_sites,
@@ -1344,15 +1357,18 @@ def bf16_ulp_distance(got, want):
     return (got - want).abs() / ulp
 
 
-def _assert_bf16_close(got, want, name, ulps=1, equal=0.99):
+def _assert_bf16_close(got, want, name, ulps=1, equal=0.99, slack=0.0):
     """bfloat16 outputs of a kernel and its plain version, both f32 sums
     rounded once: at least `equal` of the elements the same bits, every one
-    within `ulps` bfloat16 ulps (`bf16_ulp_distance`)."""
+    within `ulps` bfloat16 ulps (`bf16_ulp_distance`) past `slack` (a
+    bound per element of what an operand's rounding at another boundary
+    can move it, or 0)."""
     assert got.dtype == want.dtype == torch.bfloat16 and got.shape == want.shape, name
     if not want.numel():
         return
     same = float((got == want).float().mean())
-    far = float(bf16_ulp_distance(got, want).max())
+    excess = ((got.float() - want.float()).abs() - slack).clamp(min=0)
+    far = float(bf16_ulp_distance(want.float() + excess, want.float()).max())
     assert same >= equal and far <= ulps, f"{name}: {same:.5f} equal, {far:.2f} ulps at most"
 
 
@@ -1971,3 +1987,111 @@ def test_faformer_bf16_on_card_matches_cpu(dev):
         assert name in got and bool(got[name].abs().max() > 0), name
     want, want32 = grads("cpu", encoder), grads("cpu", encoder, None)
     assert _rel_l2(grads(dev, encoder), want) <= 0.5 * _rel_l2(want, want32)
+
+
+# ------------------------------------------------ kernels J and K in bfloat16
+
+PC16_CASES = [  # (g, a, k, c, i, f, o, live mask or None)
+    (3, 23, 16, 1, 256, 128, 256, None), (3, 23, 16, 3, 256, 128, 256, None),
+    (4, 32, 16, 1, 256, 128, 256, "random"), (4, 32, 16, 3, 256, 128, 256, "random"),
+    (2, 29, 4, 5, 40, 24, 200, None), (5, 7, 0, 3, 16, 16, 64, "random"),
+    (4, 32, 16, 1, 19, 13, 260, None), (1, 1, 4, 3, 8, 8, 8, None),
+    (3, 23, 16, 3, 64, 32, 128, "all_dead"), (3, 9, 32, 2, 128, 128, 384, "all_live"),
+    (2, 3, 7, 17, 24, 16, 128, "random"), (40, 32, 16, 3, 128, 128, 128, "random"),
+]
+
+
+def _pc16_args(g, a, k, c, i, f, o, seed, dev):
+    args, dout = _pc_args(g, a, k, c, i, f, o, seed)
+    return [t.to(dev).bfloat16() for t in args], dout.to(dev).bfloat16()
+
+
+@pytest.mark.parametrize("g,a,k,c,i,f,o,mask", PC16_CASES)
+def test_pooled_conv_bf16_kernels(dev, g, a, k, c, i, f, o, mask):
+    """Kernels J and K in bfloat16 against their plain bfloat16 versions
+    (float32 sums of exact products, rounded where JAX's bfloat16 kernels
+    round): at least 99 % of the elements the same bits, each within one
+    bfloat16 ulp (K's dh and dtc past `bwd_bf16_rounding_bound`: the two
+    round dM from sums in other orders); with live sites (random, all dead, all live) 0 at the
+    dead sites; the same bits twice; one launch on each counter."""
+    (h, tc, w), dout = _pc16_args(g, a, k, c, i, f, o, seed=g + a + k + c, dev=dev)
+    live = None if mask is None else _live_mask(g, a, mask, seed=g + k).to(dev)
+    before = [pooled_conv.launches, pooled_conv.launches_bf16, pooled_conv_bwd.launches,
+              pooled_conv_bwd.launches_bf16]
+    with torch.no_grad():
+        got, again = pooled_conv(h, tc, w, c, live), pooled_conv(h, tc, w, c, live)
+    assert got.dtype == torch.bfloat16 and torch.equal(got, again)
+    _assert_bf16_close(got, pooled_conv_plain(h, tc, w, c, live), "J bf16")
+    grads = pooled_conv_bwd(h, tc, w, c, dout, live)
+    assert [pooled_conv.launches, pooled_conv.launches_bf16, pooled_conv_bwd.launches,
+            pooled_conv_bwd.launches_bf16] == [n + m for n, m in zip(before, (2, 2, 1, 1))]
+    bounds = pc_rounding_bound(h, tc, w, c, dout, live) + (0.0,)
+    for name, x, y, z, slack in zip(("dh", "dtc", "dW"), grads,
+                                    pooled_conv_bwd_plain(h, tc, w, c, dout, live),
+                                    pooled_conv_bwd(h, tc, w, c, dout, live), bounds):
+        _assert_bf16_close(x, y, f"K bf16 {name}", slack=slack)
+        assert torch.equal(x, z), name
+    if live is not None:
+        assert not got[~live].any()
+        assert not grads[0][~live].view(torch.int16).any()  # +0 in every bit
+        assert not grads[1][~live].view(torch.int16).any()
+    if k == 0:
+        assert not got.any() and not grads[2].any()
+
+
+def test_pooled_conv_bf16_autograd(dev):
+    """Autograd through J in bfloat16 with live sites gives kernel K's
+    bfloat16 gradients; W may be a strided slice, as the conv passes it."""
+    (h, tc, _), dout = _pc16_args(6, 17, 16, 3, 64, 128, 128, seed=9, dev=dev)
+    w2 = torch.randn(128, 128, 64, 2, device=dev).bfloat16()
+    live = _live_mask(6, 17, "random", seed=2).to(dev)
+    leaves = [t.clone().requires_grad_() for t in (h, tc, w2)]
+    before = pooled_conv_bwd.launches_bf16
+    out = pooled_conv(leaves[0], leaves[1], leaves[2][..., 1], 3, live)
+    assert out.dtype == torch.bfloat16 and out.grad_fn is not None
+    out.backward(dout)
+    assert pooled_conv_bwd.launches_bf16 == before + 1
+    want = pooled_conv_bwd(h, tc, w2[..., 1], 3, dout, live)
+    for name, x, y in zip(("dh", "dtc", "dW"), (leaves[0].grad, leaves[1].grad,
+                                                leaves[2].grad[..., 1]), want):
+        assert torch.equal(x, y), name
+    assert not leaves[2].grad[..., 0].any()
+
+
+def test_pooled_conv_f32_keeps_the_parent_bits(dev):
+    """The f32 kernels J and K give the output bits of the parent commit's
+    (`chip_smoke.PC_F32_BEFORE`, on `chip_smoke.pooled_conv_digests`'
+    inputs): their sources are the parent's, the bf16 kernels live apart."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    got = smoke.pooled_conv_digests()
+    assert got["inputs"] == smoke.PC_F32_BEFORE["inputs"], "other inputs: nothing to compare"
+    assert got == smoke.PC_F32_BEFORE
+
+
+def test_pooled_conv_bf16_rejects_unsupported_inputs(dev):
+    """Mixed types, a K past 32 or a C past 64, a non-contiguous h, tc or
+    dout raise, and a call afterwards runs."""
+    (h, tc, w), dout = _pc16_args(2, 5, 4, 3, 8, 8, 8, seed=1, dev=dev)
+    with pytest.raises(TypeError):
+        pooled_conv(h, tc.float(), w, 3)
+    with pytest.raises(TypeError):
+        pooled_conv(h, tc, w.float(), 3)
+    with pytest.raises(TypeError):
+        pooled_conv_bwd(h, tc, w, 3, dout.float())
+    (h33, tc33, w33), d33 = _pc16_args(1, 2, 33, 1, 8, 8, 8, seed=2, dev=dev)
+    with pytest.raises(ValueError, match="K ≤ 32"):
+        pooled_conv(h33, tc33, w33, 1)
+    with pytest.raises(ValueError, match="K ≤ 32"):
+        pooled_conv_bwd(h33, tc33, w33, 1, d33)
+    with pytest.raises(ValueError):  # C beyond a row tile
+        pooled_conv(h, torch.zeros(2, 5, 4, 65 * 8, device=dev).bfloat16(), w, 65)
+    for name, args in (("h", (h.transpose(0, 1).contiguous().transpose(0, 1), tc, w, 3)),
+                       ("tc", (h, tc.transpose(0, 1).contiguous().transpose(0, 1), w, 3))):
+        with pytest.raises(ValueError, match=f"contiguous {name}"):
+            pooled_conv(*args)
+    with pytest.raises(ValueError, match="contiguous dout"):
+        pooled_conv_bwd(h, tc, w, 3, dout.transpose(0, 1).contiguous().transpose(0, 1))
+    assert pooled_conv(h, tc, w, 3).shape == (2, 5, 3, 8)

@@ -41,6 +41,7 @@ from equihgnn_tpu.nn import se3_transformer as jse3
 from equihgnn_tpu.ops import sh as jsh
 from equihgnn_tpu.ops import so3 as jso3
 from equihgnn_tpu.ops.knn import knn_dense as jax_knn_dense
+from equihgnn_tpu.ops.pallas import pooled_conv as jpc
 from equihgnn_tpu.ops.pallas.pooled_conv import pooled_conv as jax_pooled_conv
 from equihgnn_tpu.train.trainer import Trainer as JaxTrainer
 from equihgnn_tpu.train.trainer import masked_mse as jax_masked_mse
@@ -496,16 +497,32 @@ def test_one_atom_batch_has_no_neighbours():
     np.testing.assert_allclose(alone[0], together[0], rtol=1e-5, atol=1e-6)
 
 
-def test_unported_options_raise():
-    """Another compute dtype; bfloat16 at a width whose pooled units JAX
-    would fuse (`tests/test_torch_se3_bf16.py` runs it at 16). `remat` is
-    ported: the model builds, and its encoder is a checkpoint
-    (`tests/test_torch_remat.py` holds its step)."""
-    for override in (dict(compute_dtype="float16"),
-                     dict(compute_dtype="bfloat16", mlp_hidden=256)):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-            create_model("se3_transformer_equihnns", num_target=1,
-                         cfg=ModelConfig(**{**CFG, **override}))
+def test_unported_options_raise(monkeypatch):
+    """Another compute dtype raises. bfloat16 at hidden 256, where JAX fuses
+    the pooled units, builds, and a pooled unit of it takes the route JAX's
+    gate gives it at the call's shapes: the fused unit (`pooled_conv`) at
+    A = 8, k = 7, C = 3 (`tests/test_torch_se3_bf16_fused.py` holds the
+    route and the numbers). `remat` is ported: the model builds, and its
+    encoder is a checkpoint (`tests/test_torch_remat.py` holds its step)."""
+    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
+        create_model("se3_transformer_equihnns", num_target=1,
+                     cfg=ModelConfig(**{**CFG, "compute_dtype": "float16"}))
+    model = create_model("se3_transformer_equihnns", num_target=1,
+                         cfg=ModelConfig(**{**CFG, "compute_dtype": "bfloat16",
+                                            "mlp_hidden": 256}))
+    assert model.se3_transformer_layer.dtype == torch.bfloat16
+    assert jpc.pooled_conv_supported(8, 7, 3, 256, 128, 256, jnp.bfloat16)
+    calls = []
+    monkeypatch.setattr(tse3, "pooled_conv", lambda *a: calls.append("J") or pooled_conv(*a))
+    monkeypatch.setattr(tse3, "pooled_m", lambda *a: calls.append("L"))
+    pos, mask = _edge_case(g=1, a=8, seed=2)
+    idx, nmask, _, wsh = tse3.se3_edges(_t(pos), _t(mask), 7, 5.0, 2, dtype=torch.bfloat16)
+    gen = torch.Generator().manual_seed(0)
+    xn = torch.randn(1, 8, 256, 1, generator=gen).bfloat16()
+    h = (torch.randn(1, 1, 8, 7, 128, generator=gen) * nmask[..., None]).bfloat16()
+    with torch.no_grad():
+        out = model.se3_transformer_layer.conv_in.pair_0_1(xn, idx, nmask, wsh[(0, 1)], h)
+    assert calls == ["J"] and out.dtype == torch.bfloat16 and out.shape == (1, 1, 8, 256, 3)
     model = create_model("se3_transformer_equihnns", num_target=1,
                          cfg=ModelConfig(**CFG, remat=True))
     assert model.cfg.remat

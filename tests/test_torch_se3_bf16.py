@@ -199,17 +199,29 @@ def test_bf16_routes_pooled_units_through_pooled_m(case, monkeypatch):
     ("se3_transformer_equihnns", dict(mlp_hidden=128)),  # JAX's fused unit takes this width
     ("egnn_equihnns", {}), ("faformer_equihnns", {}), ("visnet_equihnns", {}),
 ])
-def test_bf16_elsewhere_raises(method, override):
-    """bfloat16 raises where the port does not run it yet (ROADMAP item 11);
-    `egnn_equihnns` runs it since (`tests/test_torch_bf16_hypergraph.py`),
-    `visnet_equihnns` too (`tests/test_torch_visnet_bf16.py`), and
-    `faformer_equihnns` (`tests/test_torch_faformer_bf16.py`): they build."""
+def test_bf16_elsewhere_raises(method, override, monkeypatch):
+    """bfloat16 raised where the port did not run it yet (ROADMAP item 11);
+    these models run it since and build: `egnn_equihnns`
+    (`tests/test_torch_bf16_hypergraph.py`), `visnet_equihnns`
+    (`tests/test_torch_visnet_bf16.py`), `faformer_equihnns`
+    (`tests/test_torch_faformer_bf16.py`) and `se3_transformer_equihnns` at
+    hidden 128, whose pooled units take JAX's route at each call
+    (`tests/test_torch_se3_bf16_fused.py`): on this module's batch (A = 16)
+    all four fused, through `pooled_conv`, none through `pooled_m`."""
     cfg = ModelConfig(**{**BF16, **override})
-    if method in ("egnn_equihnns", "visnet_equihnns", "faformer_equihnns"):
-        assert create_model(method, num_target=1, cfg=cfg).cfg.compute_dtype == "bfloat16"
+    model = create_model(method, num_target=1, cfg=cfg)
+    assert model.cfg.compute_dtype == "bfloat16"
+    if method != "se3_transformer_equihnns":
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-        create_model(method, num_target=1, cfg=cfg)
+    calls = {"pooled_m": 0, "pooled_conv": 0}
+    for name in calls:
+        monkeypatch.setattr(tse3, name, lambda *a, name=name, fn=getattr(tse3, name): (
+            calls.__setitem__(name, calls[name] + 1), fn(*a))[1])
+    _, tb = _batches([s for s in make_synthetic_dataset(40, seed=23, num_targets=1)
+                      if s.n_atoms <= 14][:4], batch_size=4)
+    with torch.no_grad():
+        assert bool(torch.isfinite(model(tb)).all())
+    assert calls == {"pooled_m": 0, "pooled_conv": 4}
 
 
 def test_bf16_trains_through_the_cli_and_serves(tmp_path, monkeypatch):
