@@ -4,8 +4,9 @@ shapes) and timed beside the whole kernel, the PyTorch call that computes
 its function (where there is one) and itself again, at the batch-768 shapes
 of `chip_smoke.py` (its batch, kNN mask and timer).
 
-    python3 ablate_kernels.py [--kernels A,B,C,D,E,GI,H,J,K,L,M,Jb] [--vis-mix-before FILE]
+    python3 ablate_kernels.py [--kernels A,B,C,D,E,GI,H,J,K,L,M,Jb,Kb] [--vis-mix-before FILE]
         [--edge-mlp-before FILE] [--frame-swiglu-before FILE] [--pooled-m-before FILE]
+        [--pooled-conv-bf16-before FILE]
 
 B (`csrc/edge_mlp.cu`, the EGNN edge MLP's forward at `edge_mlp_inputs`),
   serving, in case (a), no mask (every edge), and case (b), the model's
@@ -80,12 +81,27 @@ J (`csrc/pooled_conv_fwd.cu`, with the model's live sites, C = 1 and 3):
   full; consumers only (the producers neither copy nor build: the products
   and the barriers); producers only (the consumers skip the products: the
   copies, the M-builds and the barriers); `torch.einsum`.
-Jb (`csrc/pooled_conv_bf16.cu`, J in bf16, with the model's live sites,
-  C = 1 and 3): full; its M build on the tensor cores (chunks of 16 i × 8
-  f, a row's [16 i, 8 f] of M one bf16 mma.sync.m16n8k16 a k16, in place
-  of the CUDA cores' k-ordered float32 sums); bf16 `torch.einsum`. One call
-  a sample, device time alone (torch.profiler), and each one's distance
-  from the plain bf16 version (the variant's output is checked, not held).
+Jb, Kb (`csrc/pooled_conv_bf16.cu`, J and K in bf16, with the model's live
+  sites, C = 1 and 3; one build of the whole source for both): J full;
+  products alone (the producers copy and store M as 0, without its FMAs); M
+  build alone (the consumers skip the products); copies alone (both
+  skipped: the copies and the barriers); 2 producer warpgroups, not 3;
+  tiles of 64 rows (64 / C sites) on the persistent grid, not the live
+  sites spread evenly over it; the M build unrolled 4, not 2; the tensor
+  cores' sums from 0 each chunk, not each 4; no TMA (J's general path:
+  cp.async W, h 4 f a chunk); and, with --pooled-conv-bf16-before (e.g.
+  `git show <commit>:equihgnn_tpu_torch/csrc/pooled_conv_bf16.cu`), that
+  source's J and K; bf16 `torch.einsum`. One call a sample and device time alone
+  (torch.profiler), and each one's distance from the plain bf16 version (a
+  variant's output is wrong by design where it skips work). K full; its dM
+  kernels without the dh and dtc products, or without the dM products, or
+  with a W ring of 2 stages, or K's general dM path (cp.async W, 128-column
+  chunks); its dW kernel without its products (M built), without its M
+  build (products run), or K's general dW (64 pairs a block); the cuBLAS
+  composition of K's function (`chip_smoke.k_bf16_reference`); one call a
+  sample, and each build's kernels by device time (torch.profiler).
+  ptxas's registers and spills of every kernel of the full build and of
+  the before one, and of each variant's patched kernels.
 K (`csrc/pooled_conv.cu`, with the model's live sites, C = 1 and 3): full;
   dM products only (the dM kernel skips the dh and dtc reductions); dM
   without products (its copies, stores and reductions); dW consumers only
@@ -150,6 +166,7 @@ from chip_smoke import (
 from equihgnn_tpu_torch.ops.kernels import build
 from equihgnn_tpu_torch.ops.kernels.edge_mlp import fwd_workspace_floats
 
+_KINDS: set[str] = set()  # the --kernels given
 A_SRC, J_SRC, K_SRC, L_SRC, GI_SRC, C_SRC, E_SRC, JB_SRC = (build.CSRC_DIR / n for n in (
     "segment_sum.cu", "pooled_conv_fwd.cu", "pooled_conv.cu", "pooled_m.cu", "vis_mix.cu",
     "edge_mlp.cu", "frame_swiglu.cu", "pooled_conv_bf16.cu"))
@@ -166,81 +183,54 @@ J_PATCHES = {  # name -> (text, its replacement)
                        ("        load_t<VEC>(tc, d, Chunk(n + 1, n_fc).ic, b, p);", "")],
     "producers only": [("    mma_chunk(d, n, b, acc);", "")],
 }
-# J in bf16 with its M build on the tensor cores: chunks of 16 i × 8 f, K
-# padded to 16s, h staged in bf16, and a row's [16 i, 8 f] of M one bf16
-# mma.sync.m16n8k16 a k16 (A the row's tcᵀ, B its site's h)
+# J and K in bf16 (`pooled_conv_bf16.cu`), each with one part of its work
+# switched off: J's M build (the producers store M as 0 without its FMAs),
+# its products (the consumers only wait and signal), both (the copies and
+# the barriers alone), its tiles of 64 rows (not balanced); K's dM kernels without their dh / dtc products or
+# without their dM products, or with a W ring of 2 stages; K's dW kernel
+# without its M build or without its products
+_J_BUILD = "          on ? d.k : 0, m);"
+_J_PRODUCTS = ("      wg_products(smem + a.lay.m + (n % MS_T) * M_BYTES, smem + (n % NS_T) * W_BYTES, cg, on,\n"
+               "                  q % PART_CHUNKS == 0, part);\n")
+_J_WGS = "constexpr int PRODUCER_WGS = 3;  // warpgroups of copies and M builds: chunk n is n % 3's"
+_J_UNROLL = "#pragma unroll 2\n  for (int k = 0; k < k_n; ++k) {"
+_J_SHARE = ("  const int64_t lo = static_cast<int64_t>(live) * blockIdx.x / per;\n"
+            "  const int share = static_cast<int>(static_cast<int64_t>(live) * (blockIdx.x + 1) / per - lo);\n")
+# the blocks' shares as whole tiles of 64 / C sites, as many a block as the
+# busiest block of the tiles' own grid takes (the rest idle)
+_J_TILES64 = ("  const int span = ((live + BM / d.c - 1) / (BM / d.c) + per - 1) / per * (BM / d.c);\n"
+              "  const int64_t lo = static_cast<int64_t>(span) * blockIdx.x < live\n"
+              "                         ? static_cast<int64_t>(span) * blockIdx.x : live;\n"
+              "  const int share = static_cast<int>(lo + span < live ? span : live - lo);\n")
+_J_PART = "constexpr int PART_CHUNKS = 4;  // chunks summed in the tensor cores before a flush"
 JB_PATCHES = {
-    "M build on mma.sync": [
-        ("constexpr int FC = 4;         // f of a chunk: four k16 steps",
-         """constexpr int FC = 8;
-__host__ __device__ inline int k_pad(int k) { return (k + 15) / 16 * 16; }
-__device__ __forceinline__ uint32_t pack(bf16 lo, bf16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16;
-}"""),
-        ("    const int spt = BM / c;\n    w = 0;",
-         "    const int spt = BM / c, kp = k_pad(k);\n    w = 0;"),
-        ("""    h = tc + up16(static_cast<size_t>(BM) * k * IC * sizeof(bf16));
-    sid = h + up16(static_cast<size_t>(spt) * k * FC * sizeof(float));""",
-         """    h = tc + up16(static_cast<size_t>(BM) * kp * IC * sizeof(bf16));
-    sid = h + up16(static_cast<size_t>(spt) * kp * FC * sizeof(bf16));"""),
-        ("  float* hs = reinterpret_cast<float*>(smem + off_h);",
-         "  bf16* hs = reinterpret_cast<bf16*>(smem + off_h);"),
-        ("  const int spt = BM / C, rows = spt * C;",
-         "  const int spt = BM / C, rows = spt * C, kp = k_pad(K);"),
-        ("""    if (f0 == 0) {  // tc [rows, K, 16 i] of the i-chunk
-      for (int u = tid; u < rows * K * 2; u += THREADS) {
-        const int half = u & 1, rk = u >> 1, r = rk / K, k = rk % K;
-        const int site = sid[r / C], c = r % C, i = i0 + half * 8;""",
-         """    if (f0 == 0) {
-      for (int u = tid; u < BM * kp * 2; u += THREADS) {
-        const int half = u & 1, rk = u >> 1, r = rk / kp, k = rk % kp;
-        const int site = r < rows && k < K ? sid[r / C] : -1, c = r % C, i = i0 + half * 8;"""),
-        ("""    for (int u = tid; u < spt * K * FC; u += THREADS) {  // h [sites, K, 4 f]
-      const int fl = u % FC, sk = u / FC, sl = sk / K, k = sk % K;
-      const int site = sid[sl], f = f0 + fl;
-      hs[u] = site >= 0 && f < F ? f32(h[(static_cast<int64_t>(site) * K + k) * F + f]) : 0.f;
-    }""",
-         """    const bool hvec = F % 8 == 0 && reinterpret_cast<uintptr_t>(h) % 16 == 0;
-    for (int u = tid; u < spt * kp; u += THREADS) {
-      const int sl = u / kp, k = u % kp, site = k < K ? sid[sl] : -1;
-      const uint4 v = site >= 0 ? load8(h + (static_cast<int64_t>(site) * K + k) * F + f0, F - f0, hvec) : make_uint4(0, 0, 0, 0);
-      *reinterpret_cast<uint4*>(hs + u * FC) = v;
-    }"""),
-        ("""    // the M tile [64 rows, (4 f) × (16 i)], each element k in order, rounded
-    for (int e = tid; e < BM * KC; e += THREADS) {
-      const int r = e / KC, col = e % KC, fl = col / IC, il = col % IC;
-      float m = 0.f;
-      if (r < rows && sid[r / C] >= 0) {
-        const float* hp = hs + (r / C) * K * FC + fl;
-        const bf16* tp = tcs + r * K * IC + il;
-        for (int k = 0; k < K; ++k) m = fmaf(hp[k * FC], f32(tp[k * IC]), m);
-      }
-      as[r * AS + col] = __float2bfloat16_rn(m);
-""",
-         """    for (int r = warp; r < BM; r += THREADS / 32) {
-      const int g = lane >> 2, t = lane & 3;
-      float m[4] = {0.f, 0.f, 0.f, 0.f};
-      if (r < rows) {
-        const bf16* tp = tcs + r * kp * IC;
-        const bf16* hp = hs + (r / C) * kp * FC;
-        for (int k0 = 0; k0 < kp; k0 += 16) {
-          const bf16* t0 = tp + (k0 + 2 * t) * IC;
-          const bf16* h0 = hp + (k0 + 2 * t) * FC;
-          const uint32_t a[4] = {pack(t0[g], t0[IC + g]), pack(t0[g + 8], t0[IC + g + 8]),
-                                 pack(t0[8 * IC + g], t0[9 * IC + g]),
-                                 pack(t0[8 * IC + g + 8], t0[9 * IC + g + 8])};
-          const uint32_t b[2] = {pack(h0[g], h0[FC + g]), pack(h0[8 * FC + g], h0[9 * FC + g])};
-          mma(m, a, b);
-        }
-      }
-      bf16* ap = as + r * AS;
-      ap[2 * t * IC + g] = __float2bfloat16_rn(m[0]);
-      ap[(2 * t + 1) * IC + g] = __float2bfloat16_rn(m[1]);
-      ap[2 * t * IC + g + 8] = __float2bfloat16_rn(m[2]);
-      ap[(2 * t + 1) * IC + g + 8] = __float2bfloat16_rn(m[3]);
-"""),
-    ],
+    "products alone": [(_J_BUILD, "          0, m);")],
+    "M build alone": [(_J_PRODUCTS, "")],
+    "copies alone": [(_J_BUILD, "          0, m);"), (_J_PRODUCTS, "")],
+    "2 producer warpgroups": [(_J_WGS, _J_WGS.replace("= 3", "= 2"))],
+    "tiles of 64 rows (unbalanced)": [(_J_SHARE, _J_TILES64)],
+    "M build unrolled 4": [(_J_UNROLL, _J_UNROLL.replace("unroll 2", "unroll 4"))],
+    "sums from 0 each chunk": [(_J_PART, _J_PART.replace("= 4", "= 1"))],
+    "no TMA (cp.async W, 8-byte h)": [
+        ("  if (launch_fwd_tma(a, stream, err)) return err;\n", "")],
+}
+_DW_BUILD = "  build_m(hs + row * PF + fq * 4, RC * PF, ts + row * PI, RC * PI, a.d.k, m);"
+_DW_MMA = ("    mma_chunk(a, smem, q, o0, acc);\n"
+           "    if (q + 2 < nq) bar_arrive(BAR_EMPTY + q % NS, THREADS);")
+KB_PATCHES = {
+    "dM without dh, dtc products": [
+        ("            mma(part[kt][0], af, b[0], b[1]);\n"
+         "            mma(part[kt][1], af, b[2], b[3]);", ""),
+        ("          mma(part[0], af, b[0], b[1]);\n          mma(part[1], af, b[2], b[3]);", "")],
+    "dM without dM products": [("    dm_products_t(L, smem, u, acc);\n", "")],
+    "dM W ring of 2": [("  for (int nsw = 4; nsw >= 2; --nsw) {\n    l.nsw = nsw;\n    l.w",
+                        "  for (int nsw = 2; nsw >= 2; --nsw) {\n    l.nsw = nsw;\n    l.w")],
+    "dM general path (cp.async W, 128 columns)": [
+        ("    if (k > 16 ? launch_dm_tma<2>(a, stream, err) : launch_dm_tma<1>(a, stream, err)) {",
+         "    if (false) {")],
+    "dW products alone": [(_DW_BUILD, _DW_BUILD.replace("a.d.k", "0"))],
+    "dW M build alone": [(_DW_MMA, _DW_MMA.split("\n")[1])],
+    "dW 64 pairs (general)": [("  if (lv.ns) {  // dW, 128 pairs a block", "  if (false) {")],
 }
 _STAGES, _OC = "constexpr int STAGES = 2;", "constexpr int OC = 64;"
 K_PATCHES = {
@@ -753,7 +743,10 @@ REGISTERS = {"B full": ("fwd_kernel", "w1_frags"), "B before": ("fwd_kernel", "w
              "H before": ("wdot_fwd_kernel", "vec_agg_fwd_kernel"),
              "GI full": ("vec_agg_bwd_kernel", "wdot_bwd_kernel"),
              "GI before": ("vec_agg_bwd_kernel", "wdot_bwd_kernel"),
-             "M full": ("pooled_m_bwd",), "M before": ("pooled_m_bwd",)}
+             "M full": ("pooled_m_bwd",), "M before": ("pooled_m_bwd",),
+             "JKb full": ("fwd_kernel", "fwd_tma_kernel", "dm_kernel", "dm_tma_kernel",
+                          "dw_kernel"),
+             "JKb before": ("fwd_kernel", "dm_kernel", "dw_kernel")}
 
 def _patched(src: Path, patches, out: Path) -> Path:
     """`src` with each (text, replacement) applied: every occurrence, of
@@ -781,6 +774,9 @@ def _build_all(tmp: Path, srcs: dict[str, Path]) -> dict[str, ctypes.CDLL]:
             raise RuntimeError(f"nvcc failed for {name}:\n{err}")
         if name in REGISTERS:
             _print_registers(name, err, REGISTERS[name])
+        elif name[:3] in ("Jb ", "Kb "):  # a variant's own kernel, patched
+            _print_registers(name, err, ("fwd_tma_kernel",) if name[0] == "J" else
+                             ("dm_tma_kernel", "dw_kernel"))
     return {name: ctypes.CDLL(str(path)) for name, path in libs.items()}
 
 
@@ -826,7 +822,7 @@ def _time_jkl(libs, batch, dev) -> None:
     from equihgnn_tpu_torch.ops.kernels.pooled_conv import live_sites
 
     jn = [n for n in libs if n.startswith("J ")]
-    kn = [n for n in libs if n.startswith("K")]
+    kn = [n for n in libs if n.startswith("K ")]
     ln = [n for n in libs if n.startswith("L")]
     if not (jn or kn or ln):
         return
@@ -897,14 +893,24 @@ def _time_jkl(libs, batch, dev) -> None:
                                        zip(ln + ["torch.bmm", "L full again"], times)))
 
 
-def _time_jb(libs, batch, dev) -> None:
-    """J in bf16 (`pooled_conv_bf16.cu`) and its variants with the model's
-    live sites, C = 1 and 3: one call a sample beside the one bf16
-    `torch.einsum` call, device time alone, and each variant's distance
-    from the plain bf16 version (`chip_smoke.bf16_distance`)."""
+def _time_jkb(libs, batch, dev) -> None:
+    """J and K in bf16 (`pooled_conv_bf16.cu`) with the model's live sites,
+    C = 1 and 3: the full kernels, their variants and, with
+    --pooled-conv-bf16-before, another source's ("JKb before"), in turns;
+    J one call a sample and device time alone beside the one bf16
+    `torch.einsum` call, with each build's distance from the plain bf16
+    version (a variant's output is wrong by design); K one call a sample
+    beside its cuBLAS composition (`chip_smoke.k_bf16_reference`, on the
+    live sites gathered beforehand), and each build's kernels by device
+    time (torch.profiler)."""
+    from chip_smoke import k_bf16_reference
     from equihgnn_tpu_torch.ops.kernels.pooled_conv import live_sites, pooled_conv_plain
 
-    names = [n for n in libs if n.startswith("Jb")]
+    before = ["JKb before"] if "JKb before" in libs else []
+    jn = ["JKb full"] + [n for n in libs if n.startswith("Jb ")] + before
+    kn = ["JKb full"] + [n for n in libs if n.startswith("Kb ")] + before
+    do_j = any(n.startswith("Jb ") for n in libs) or "Jb" in _KINDS
+    do_k = any(n.startswith("Kb ") for n in libs) or "Kb" in _KINDS
     mask = pooled_mask(batch)
     g, a, k = mask.shape
     s, f, i, o = g * a, 128, HIDDEN, HIDDEN
@@ -917,29 +923,50 @@ def _time_jb(libs, batch, dev) -> None:
         h = (torch.randn(g, a, k, f, generator=gen).to(dev) * mask[..., None]).bfloat16()
         tc = (torch.randn(g, a, k, c * i, generator=gen).to(dev) * mask[..., None]).bfloat16()
         w = ((torch.rand(f, o, i, generator=gen) * 2 - 1).to(dev) / f ** 0.5).bfloat16()
-        want = pooled_conv_plain(h, tc, w, c, live)
-        fns = []
-        for name in names:
-            out = torch.zeros(g, a, c, o, device=dev, dtype=torch.bfloat16)  # dead sites: 0
-            fn = libs[name].pooled_conv_fwd_bf16
-            fn.argtypes = (P, P, P, P, P, P, I, I, I, I, I, I, P)
-            fns.append(lambda fn=fn, out=out: (fn(h.data_ptr(), tc.data_ptr(), w.data_ptr(),
-                                                  sites.ids.data_ptr(), sites.count.data_ptr(),
-                                                  out.data_ptr(), s, k, c, i, f, o, stream),
-                                               out)[1])
-        for name, fn in zip(names, fns):
-            same, far = bf16_distance(fn(), want)
-            print(f"J bf16 C={c} {name}: {same:.5f} the plain version's bits, {far:.2f} bf16 "
-                  f"ulps at most")
-        fns += [lambda: torch.einsum("gakf,gakci,foi->gaco", h, tc.view(g, a, k, c, i), w),
-                fns[0]]
-        times = median_ms(*fns, iters=10)
-        dev_ms = [profiled_device_ms(fn) for fn in fns[:-1]]
-        print(f"J bf16 C={c} (one call; device alone): " + ", ".join(
-            f"{n} {t:.4f} / {dv:.4f} ms" for n, t, dv in
-            zip(names + ["bf16 torch.einsum"], times, dev_ms)) +
-            f", Jb full again {times[-1]:.4f} ms")
-        del h, tc, w, want, fns
+        dout = torch.randn(g, a, c, o, generator=gen).to(dev).bfloat16()
+        if do_j:
+            want = pooled_conv_plain(h, tc, w, c, live)
+            fns = []
+            for name in jn:
+                out = torch.zeros(g, a, c, o, device=dev, dtype=torch.bfloat16)  # dead: 0
+                fn = libs[name].pooled_conv_fwd_bf16
+                fn.argtypes = (P, P, P, P, P, P, I, I, I, I, I, I, P)
+                fns.append(lambda fn=fn, out=out: (
+                    fn(h.data_ptr(), tc.data_ptr(), w.data_ptr(), sites.ids.data_ptr(),
+                       sites.count.data_ptr(), out.data_ptr(), s, k, c, i, f, o, stream), out)[1])
+            for name, fn in zip(jn, fns):
+                same, far = bf16_distance(fn(), want)
+                print(f"J bf16 C={c} {name}: {same:.5f} the plain version's bits, {far:.2f} bf16 "
+                      f"ulps at most")
+            fns += [lambda: torch.einsum("gakf,gakci,foi->gaco", h, tc.view(g, a, k, c, i), w),
+                    fns[0]]
+            times = median_ms(*fns, iters=10)
+            dev_ms = [profiled_device_ms(fn, calls=5) for fn in fns[:-1]]
+            print(f"J bf16 C={c} (one call; device alone): " + ", ".join(
+                f"{n} {t:.4f} / {dv:.4f} ms" for n, t, dv in
+                zip(jn + ["bf16 torch.einsum"], times, dev_ms)) +
+                f", JKb full again {times[-1]:.4f} ms")
+            del want, fns
+        if do_k:
+            fns = []
+            for name in kn:
+                dh, dtc, dw = torch.empty_like(h), torch.empty_like(tc), torch.empty_like(w)
+                fn = libs[name].pooled_conv_bwd_bf16
+                fn.argtypes = (P,) * 9 + (I,) * 6 + (P,)
+                fns.append(lambda fn=fn, dh=dh, dtc=dtc, dw=dw: fn(
+                    h.data_ptr(), tc.data_ptr(), w.data_ptr(), dout.data_ptr(),
+                    sites.ids.data_ptr(), sites.count.data_ptr(), dh.data_ptr(), dtc.data_ptr(),
+                    dw.data_ptr(), s, k, c, i, f, o, stream))
+            ref = k_bf16_reference(h, tc, w, c, dout, live)
+            times = median_ms(*fns, ref, fns[0], iters=5)
+            print(f"K bf16 C={c} (one call): " + ", ".join(
+                f"{n} {t:.4f} ms" for n, t in zip(kn + ["cuBLAS composition"], times)) +
+                f", JKb full again {times[-1]:.4f} ms")
+            for name, fn in zip(kn + ["cuBLAS composition"], fns + [ref]):
+                print(f"  K bf16 C={c} {name} by kernel: " + ", ".join(
+                    f"{kname} {t:.4f} ms" for kname, t in kernel_split(fn).items()))
+            del fns, ref
+        del h, tc, w, dout
         torch.cuda.empty_cache()
 
 
@@ -1254,19 +1281,22 @@ def _time_e(libs, batch) -> None:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--kernels", default="A,B,C,D,E,GI,H,J,K,L,M,Jb",
-                        help="the kernels to ablate, of A, B, C, D, E, GI, H, J, K, L, M and "
-                             "Jb (J in bf16)")
+    parser.add_argument("--kernels", default="A,B,C,D,E,GI,H,J,K,L,M,Jb,Kb",
+                        help="the kernels to ablate, of A, B, C, D, E, GI, H, J, K, L, M, "
+                             "Jb and Kb (J and K in bf16)")
     parser.add_argument("--vis-mix-before", type=Path,
                         help="another vis_mix.cu whose G and I (and H) to time beside this one's")
     parser.add_argument("--pooled-m-before", type=Path,
                         help="another pooled_m.cu whose M to time beside this one's")
     parser.add_argument("--edge-mlp-before", type=Path,
                         help="another edge_mlp.cu whose B (and C) to time beside this one's")
+    parser.add_argument("--pooled-conv-bf16-before", type=Path,
+                        help="another pooled_conv_bf16.cu whose J and K to time beside this one's")
     parser.add_argument("--frame-swiglu-before", type=Path,
                         help="another frame_swiglu.cu whose D and E to time beside this one's")
     args = parser.parse_args()
     kinds = args.kernels.split(",")
+    _KINDS.update(kinds)
     if not torch.cuda.is_available():
         print("ablate_kernels: no CUDA device is available", file=sys.stderr)
         return 1
@@ -1286,10 +1316,13 @@ def main() -> int:
                                  ("C", C_SRC, C_PATCHES), ("E", E_SRC, E_PATCHES),
                                  ("B", C_SRC, B_PATCHES), ("D", E_SRC, D_PATCHES),
                                  ("H", GI_SRC, H_PATCHES), ("M", L_SRC, M_PATCHES),
-                                 ("Jb", JB_SRC, JB_PATCHES)):
+                                 ("Jb", JB_SRC, JB_PATCHES), ("Kb", JB_SRC, KB_PATCHES)):
             if kind not in kinds:
                 continue
-            srcs[f"{kind} full"] = src
+            if kind in ("Jb", "Kb"):  # one build of the whole source serves both
+                srcs["JKb full"] = src
+            else:
+                srcs[f"{kind} full"] = src
             for name, patches in table.items():
                 srcs[f"{kind} {name}"] = _patched(src, patches, tmp / f"v{len(srcs)}.cu")
         b_masks = {n for n in srcs if n.startswith("B")}  # B variants that take a mask
@@ -1299,6 +1332,8 @@ def main() -> int:
             srcs["H before"] = args.vis_mix_before
         if "M" in kinds and args.pooled_m_before:
             srcs["M before"] = args.pooled_m_before
+        if ("Jb" in kinds or "Kb" in kinds) and args.pooled_conv_bf16_before:
+            srcs["JKb before"] = args.pooled_conv_bf16_before
         if "B" in kinds and args.edge_mlp_before:
             srcs["B before"] = args.edge_mlp_before
             for name, patches in B_BEFORE_PATCHES.items():
@@ -1329,8 +1364,8 @@ def main() -> int:
             _time_h(libs, batch)
         if "M" in kinds:
             _time_m(libs, batch, dev)
-        if "Jb" in kinds:
-            _time_jb(libs, batch, dev)
+        if "Jb" in kinds or "Kb" in kinds:
+            _time_jkb(libs, batch, dev)
         _time_jkl(libs, batch, dev)
     return 0
 

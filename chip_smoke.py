@@ -144,7 +144,12 @@ kNN), with random weights from a seed:
    16 molecules and checks the step only: its encoder alone is held on
    its `*_equihnns` path; a 2-D baseline takes 64 molecules, the CPU run
    taking the card's ReLU and LeakyReLU signs, every parameter reached on
-   both, no kernel launched;
+   both, no kernel launched; the f32 paths' CPU references that need no
+   card (`grads_cpu_refs`) run from the kernels phase on in a worker
+   process (CPU_WORKER_THREADS threads), beside the card's phases, and
+   stopped while the host times anything (`host_quiet`: every timing
+   function, the served SDF request, the train and step phases); these
+   f32 gradient phases run after every path's other phases;
 6. train: `equihgnn_tpu_torch.main.run` on `synthetic_hg_3d` (the MHNN
    family: `synthetic_hg`, which has no coordinates; the 2-D baselines:
    `synthetic_g`, plain graphs) at the recipe, batch
@@ -202,6 +207,7 @@ checkout of the repository, the script exits non-zero and prints neither.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import csv
 import dataclasses
@@ -209,8 +215,10 @@ import functools
 import hashlib
 import json
 import math
+import multiprocessing
 import os
 import re
+import signal
 import subprocess
 import sys
 import tempfile
@@ -398,6 +406,37 @@ def pooled_mask(batch) -> torch.Tensor:
     return mask
 
 
+# The CPU worker process of `main` (a future of its pid), stopped while the
+# host times the card, so that no timed reading shares the host with it.
+_WORKER = {"pid": None, "depth": 0}
+
+
+@contextlib.contextmanager
+def host_quiet():
+    """Stops the CPU worker (SIGSTOP) for the block and lets it go on
+    (SIGCONT) after; nested blocks stop it once."""
+    pid = _WORKER["pid"].result() if _WORKER["pid"] is not None else None
+    if pid is not None and _WORKER["depth"] == 0:
+        os.kill(pid, signal.SIGSTOP)
+    _WORKER["depth"] += 1
+    try:
+        yield
+    finally:
+        _WORKER["depth"] -= 1
+        if pid is not None and _WORKER["depth"] == 0:
+            os.kill(pid, signal.SIGCONT)
+
+
+def quiet(fn):
+    """`fn` run under `host_quiet`: every timing function and timed phase."""
+    @functools.wraps(fn)
+    def run(*args, **kw):
+        with host_quiet():
+            return fn(*args, **kw)
+    return run
+
+
+@quiet
 def median_ms(*fns, iters: int = 20, warmup_s: float = 0.3, reps: int = 1) -> list[float]:
     """Median device time in ms of each of `fns`, from CUDA events around
     each call. The card first runs `warmup_s` seconds of the same work, so
@@ -438,6 +477,7 @@ def device_kernels(prof, calls: int) -> list[tuple[float, int, str]]:
     return sorted(rows, reverse=True)
 
 
+@quiet
 def kernel_split(fn, calls: int = 3) -> dict[str, float]:
     """Device ms a launch of each kernel `fn` launches once a call
     (torch.profiler over `calls` calls), by the kernel's name without its
@@ -465,6 +505,7 @@ def kernel_split(fn, calls: int = 3) -> dict[str, float]:
     return split
 
 
+@quiet
 def profiled_device_ms(fn, calls: int = 20) -> float:
     """Device time in ms per call of `fn`: the sum of its kernels' times
     under `torch.profiler`, without the host time between launches."""
@@ -1113,6 +1154,7 @@ def bf16_kernel_rows(batch, args, pair_mask, gen) -> list[dict]:
     return rows
 
 
+@quiet
 def host_us_per_call(fn, calls: int = 200) -> float:
     """µs of host time a call of `fn` takes to enqueue, without a sync."""
     fn()
@@ -1822,8 +1864,10 @@ def pooled_conv_bf16_rows(batch, gen) -> list[dict]:
     f32 sums in other orders, and dh, dtc sum 256 or 128 such terms that
     can cancel), the same bits twice, 0 (+0 for dh and dtc) at the dead
     sites; timed one call a sample (alternating with the plain version
-    and, for J, the one bf16 `torch.einsum` call; 10 samples, 5 for every
-    site) and, with `live`, by device time alone and K by kernel; bound at
+    and, for J, the one bf16 `torch.einsum` call, for K with `live` its
+    cuBLAS composition, `k_bf16_reference`; 10 samples, 5 for every
+    site) and, with `live`, by device time alone and by kernel, which
+    must show the TMA kernels (`fwd_tma_kernel`, `dm_tma_kernel`); bound at
     the bf16 peak (J 2(E·CIF + S'·CIFO), K 2(3E·CIF + 2S'·CIFO))
     or by the bf16 bytes. Rows "pooled_conv bf16" and "pooled_conv_bwd
     bf16" at C = 1 with `live`; the rest printed."""
@@ -1897,11 +1941,16 @@ def pooled_conv_bf16_rows(batch, gen) -> list[dict]:
             del got, ref, again, slack
             torch.cuda.empty_cache()
             every = "every site" in name  # timed alongside only (the script's time limit)
+            # K's yardstick: the cuBLAS composition of its function (a reference)
+            reference = (k_bf16_reference(h, tc, w, c, dout, lv)
+                         if letter == "K" and not every else None)
             with torch.no_grad():
-                fns = [call, plain] + ([library] if library else [])
+                fns = [call, plain] + ([library] if library else []) + (
+                    [reference] if reference else [])
                 times = median_ms(*fns, iters=5 if every else 10)
                 alone = None if every else profiled_device_ms(call, calls=5)
                 lib_alone = profiled_device_ms(library, calls=5) if library else None
+                ref_alone = profiled_device_ms(reference, calls=5) if reference else None
             ms, plain_ms = times[:2]
             library_ms = times[2] if library else None
             row = dict(name=name, route="cuda",
@@ -1912,23 +1961,54 @@ def pooled_conv_bf16_rows(batch, gen) -> list[dict]:
             lib_txt = (f", bf16 torch.einsum {library_ms:.4f} ms (device alone "
                        f"{lib_alone:.4f})" if library else "")
             alone_txt = "" if alone is None else f"; device alone {alone:.4f} ms (torch.profiler)"
+            if reference:
+                alone_txt += (f"; cuBLAS composition (a reference, not one call) {times[-1]:.4f} "
+                              f"ms, device alone {ref_alone:.4f}")
+            del reference
             print(f"kernel {letter} {name} [G={g}, A={a}, k={k}, C={c}, I={i}, F={f}, O={o}]: "
                   f"{ms:.4f} ms vs plain {plain_ms:.4f} ms{lib_txt} (median of "
                   f"{5 if every else 10}, CUDA events){alone_txt}; bound {row['bound_ms']:.4f} ms "
                   f"by {row['bound_by']} ({ops / PEAK_BF16_S * 1e3:.4f} ms of operations at the "
                   f"bf16 peak, {nb / PEAK_BYTES_S * 1e3:.4f} ms of bytes); {ops / 1e12:.3f} "
                   f"TFLOP of live work, {ops / ms / 1e9:.1f} TFLOP/s achieved; deterministic")
-            if letter == "K" and not every:
+            if not every:
                 with torch.no_grad():
                     split = kernel_split(call)
-                print(f"  kernel K {name} C={c} by kernel (torch.profiler, device time): " +
-                      "; ".join(f"{kname} {t:.4f} ms ({t / sum(split.values()):.1%})"
-                                for kname, t in split.items()))
+                print(f"  kernel {letter} {name} C={c} by kernel (torch.profiler, device time): "
+                      + "; ".join(f"{kname} {t:.4f} ms ({t / sum(split.values()):.1%})"
+                                  for kname, t in split.items()))
+                # the model's shapes take the TMA kernels (the launch counters
+                # count wrapper calls, not which kernel the C entry chose)
+                fast = "fwd_tma_kernel" if letter == "J" else "dm_tma_kernel"
+                check(fast in split, f"kernel {letter} ({name}) at C = {c} did not run {fast}")
             if c == 1 and not every:
                 rows.append(row)
         del h, tc, w, dout
         torch.cuda.empty_cache()
     return rows
+
+
+def k_bf16_reference(h, tc, w, c: int, dout, live):
+    """The cuBLAS composition of kernel K's bf16 function at the live sites
+    of `live` [G, A] (gathered here, once, with W re-laid as [O, I·F]): one
+    bf16 matmul for dM, two `torch.bmm` for dh and dtc, M's `torch.bmm` and
+    a matmul for dW. K's yardstick, not one call and not the port's: returns
+    the function to time."""
+    g, a, k, f = h.shape
+    o, i = w.shape[1], w.shape[2]
+    idx = live.reshape(-1).nonzero().squeeze(1)
+    n = idx.numel()
+    hl = h.reshape(g * a, k, f)[idx]
+    tcl = tc.reshape(g * a, k, c * i)[idx]
+    dl = dout.reshape(g * a, c, o)[idx].reshape(n * c, o)
+    wr = w.permute(1, 2, 0).reshape(o, i * f)
+
+    def run():
+        dm = (dl @ wr).view(n, c * i, f)
+        m = torch.bmm(tcl.transpose(1, 2), hl)
+        return (torch.bmm(tcl, dm), torch.bmm(hl, dm.transpose(1, 2)),
+                m.view(n * c, i * f).t() @ dl)
+    return run
 
 
 def pooled_conv_digests() -> dict[str, str]:
@@ -2161,11 +2241,12 @@ def phase_serve(path: str, samples, smi: str) -> dict[str, int]:
         out_gpu, out_cpu = os.path.join(tmp, "gpu.csv"), os.path.join(tmp, "cpu.csv")
 
         reset_launches()
-        t0 = time.perf_counter()
-        run(build_parser().parse_args(
-            ["--ckpt", ckpt, "--sdf", SDF, "--out", out_gpu, "--device", "cuda"] +
-            (["--compute_dtype", cfg.compute_dtype] if cfg.compute_dtype else [])))
-        t_sdf = time.perf_counter() - t0
+        with host_quiet():
+            t0 = time.perf_counter()
+            run(build_parser().parse_args(
+                ["--ckpt", ckpt, "--sdf", SDF, "--out", out_gpu, "--device", "cuda"] +
+                (["--compute_dtype", cfg.compute_dtype] if cfg.compute_dtype else [])))
+            t_sdf = time.perf_counter() - t0
         model_gpu = model.to(dev).eval()
         preds = predict_samples(model_gpu, samples, BATCH, dev)
         launches = read_launches()
@@ -2207,6 +2288,7 @@ def request_batch(path: str, samples, target: int | None = None):
                              with_pos=hyper, target=target))
 
 
+@quiet
 def serve_rates(path: str, model_gpu, samples, smi: str) -> None:
     """The batch-768 request's throughput (host batching + copy + forward,
     median of 5 after a warm-up), the forward alone and its peak memory."""
@@ -2259,9 +2341,10 @@ def phase_serve_2d(path: str, samples, smi: str) -> dict[str, int]:
             return read_csv(out)
 
         reset_launches()
-        t0 = time.perf_counter()
-        outs["sdf"] = serve("sdf", SDF, "cuda")
-        t_sdf = time.perf_counter() - t0
+        with host_quiet():
+            t0 = time.perf_counter()
+            outs["sdf"] = serve("sdf", SDF, "cuda")
+            t_sdf = time.perf_counter() - t0
         outs["smiles"] = serve("smiles", smiles, "cuda")
         model_gpu = model.to(dev).eval()
         preds = predict_samples(model_gpu, samples, BATCH, dev)
@@ -2403,6 +2486,9 @@ ENCODER_LIMIT = {"se3_transformer_equihnns": 1e-2}  # the others: 1e-4
 # CPU references take 16 molecules and one draw. The draws feed a printed
 # reading only (the CPU's own spread); ViSNet's CPU step at full width takes
 # ~10 s, so it takes one
+# torch threads of the worker process that computes the f32 gradient phases'
+# CPU references beside the card's phases (half the card machine's 8 cores)
+CPU_WORKER_THREADS = 4
 GRAD_CUT = {"se3_transformer_equihnns": (16, 1), BF16_PATH: (16, 0), SE3_BF16: (16, 0),
             **dict.fromkeys(BF16_HYPER_PATHS, (16, 0)), VISNET_BF16: (16, 0),
             FAFORMER_BF16: (16, 0),
@@ -2518,27 +2604,25 @@ def hold_relu_pattern(path: str, cpu_relu: list, card_relu: list, kink_limit: fl
     return flipped
 
 
-def phase_grads(path: str, pool) -> None:
-    """Gradients on the card (kernels) against the CPU (plain versions), full
-    width, on the 32 (GRAD_CUT) molecules of `pool` whose CPU predictions are
-    the least sensitive to rounding, in eval mode (dropout off, gradients
-    on): of one train step (masked MSE), and of the encoder alone under a
-    smooth loss."""
+def _grad_model(path: str, device):
+    """`phase_grads`' model of `path` on `device` (its weights drawn on the
+    CPU from seed 3: the same in every process), in eval mode."""
     from equihgnn_tpu_torch import create_model
+
+    return live_branches(create_model(PATHS[path][0], num_target=1, cfg=recipe(path),
+                                      device=device,
+                                      generator=torch.Generator().manual_seed(3))).eval()
+
+
+def _grad_losses(path: str, samples):
+    """`phase_grads`' batch of `samples`, its two losses (one train step's
+    masked MSE, with a relative jitter of the trunk's input; the encoder's
+    output times a fixed random matrix, with a relative jitter of the atom
+    embedding), the generator that drew that matrix and draws the jitters,
+    and the gradients of a loss on a device. The same in every process."""
     from equihgnn_tpu_torch.data.batching import iter_batches, spec_for_samples
     from equihgnn_tpu_torch.train.trainer import masked_mse
 
-    method, cfg = PATHS[path][0], recipe(path)
-
-    def make(device):
-        return live_branches(create_model(method, num_target=1, cfg=cfg, device=device,
-                                          generator=torch.Generator().manual_seed(3))).eval()
-
-    n_mol, draws = GRAD_CUT.get(path, (32, 4))
-    spread = translation_spread(make("cpu"), pool, len(pool))
-    pick = np.sort(np.argsort(spread, kind="stable")[:n_mol])
-    check(float(spread[pick].max()) <= 1e-5, f"fewer than {n_mol} well-conditioned molecules")
-    samples = [pool[i] for i in pick]
     batch = next(iter_batches(samples, spec_for_samples(samples, len(samples)),
                               with_pos=True, target=0))
     gen = torch.Generator().manual_seed(4)
@@ -2557,10 +2641,75 @@ def phase_grads(path: str, pool) -> None:
         return torch.sum(model.encode(b)[b.atom_mask] * proj.to(b.pos.device)[b.atom_mask])
 
     def grads(device, loss_fn, **kw):
-        model = make(device)
+        model = _grad_model(path, device)
         loss_fn(model, batch.to(device), **kw).backward()
         return {n: (p.grad.cpu() if p.grad is not None else None)
                 for n, p in model.named_parameters()}
+
+    return batch, gen, step_loss, encoder_loss, grads
+
+
+def _rel_spread(a, b):
+    return max(float((a[n] - b[n]).abs().max()) / float(b[n].abs().max())
+               for n in b if b[n] is not None and float(b[n].abs().max()) > 0)
+
+
+def grads_cpu_refs(path: str, pool) -> dict:
+    """The CPU side of `phase_grads` that needs no card: the molecules of
+    `pool` whose CPU predictions are the least sensitive to rounding, the
+    CPU's step gradients with its own ReLU pattern (recorded), their change
+    under the jitter draws, and (an encoder path) the encoder's gradients
+    and their change under a jitter. `main` runs it for every such path in a
+    worker process, from the start, while the card works on earlier phases."""
+    method = PATHS[path][0]
+    n_mol, draws = GRAD_CUT.get(path, (32, 4))
+    spread = translation_spread(_grad_model(path, "cpu"), pool, len(pool))
+    pick = np.sort(np.argsort(spread, kind="stable")[:n_mol])
+    out = dict(pick=pick, spread_max=float(spread[pick].max()), cpu_relu=[])
+    batch, gen, step_loss, encoder_loss, grads = _grad_losses(path, [pool[i] for i in pick])
+    with relu_sites(record=out["cpu_relu"]):
+        out["want"] = grads("cpu", step_loss)
+    out["cpu_spread"] = max(
+        _rel_spread(grads("cpu", step_loss,
+                          jitter=1e-6 * torch.randn(batch.num_atoms, HIDDEN, generator=gen)),
+                    out["want"])
+        for _ in range(draws))
+    if method in ENCODER_METHODS:
+        out["want_enc"] = grads("cpu", encoder_loss)
+        if method in ENCODER_LIMIT:
+            jitter = 1e-6 * torch.randn(batch.num_atoms, HIDDEN, generator=gen)
+            out["enc_own"] = _rel_spread(grads("cpu", encoder_loss, emb_jitter=jitter),
+                                         out["want_enc"])
+    return _refs_as(out, lambda t: t.numpy())
+
+
+def _refs_as(ref: dict, conv) -> dict:
+    """`grads_cpu_refs`' result with `conv` applied to its tensors (the
+    gradients and the recorded ReLU inputs). The worker returns numpy
+    arrays, which its result queue pickles by value: a tensor would cross
+    through shared memory, whose allocation failed on the card's machine
+    when `host_quiet` stopped the worker."""
+    out = dict(ref, cpu_relu=[conv(x) for x in ref["cpu_relu"]])
+    for key in ("want", "want_enc"):
+        if key in ref:
+            out[key] = {n: None if g is None else conv(g) for n, g in ref[key].items()}
+    return out
+
+
+def phase_grads(path: str, pool, refs=None) -> None:
+    """Gradients on the card (kernels) against the CPU (plain versions), full
+    width, on the 32 (GRAD_CUT) molecules of `pool` whose CPU predictions are
+    the least sensitive to rounding, in eval mode (dropout off, gradients
+    on): of one train step (masked MSE), and of the encoder alone under a
+    smooth loss. `refs`: `grads_cpu_refs`' result for it (a future of the
+    worker's), else computed here."""
+    method = PATHS[path][0]
+    ref = _refs_as(refs.result() if refs is not None else grads_cpu_refs(path, pool),
+                   torch.from_numpy)
+    n_mol = GRAD_CUT.get(path, (32, 4))[0]
+    check(ref["spread_max"] <= 1e-5, f"fewer than {n_mol} well-conditioned molecules")
+    samples = [pool[i] for i in ref["pick"]]
+    batch, _, step_loss, encoder_loss, grads = _grad_losses(path, samples)
 
     def compare(want, got, limit, what):
         worst, reached = 0.0, 0
@@ -2577,24 +2726,14 @@ def phase_grads(path: str, pool) -> None:
                                 f"rel {rel:.3e} > {limit:g}")
         return worst, reached
 
-    def rel_spread(a, b):
-        return max(float((a[n] - b[n]).abs().max()) / float(b[n].abs().max())
-                   for n in b if b[n] is not None and float(b[n].abs().max()) > 0)
-
-    cpu_relu, card_relu = [], []
-    with relu_sites(record=cpu_relu):
-        want = grads("cpu", step_loss)
-    cpu_spread = max(
-        rel_spread(grads("cpu", step_loss,
-                         jitter=1e-6 * torch.randn(batch.num_atoms, HIDDEN, generator=gen)), want)
-        for _ in range(draws))
+    want, card_relu = ref["want"], []
     reset_launches()
     with relu_sites(record=card_relu):
         got = grads("cuda", step_loss)
     launches = read_launches()
     check(launches == expected_launches(path, 1, 1),
           f"the card's train step did not run through {path}'s kernels: {launches}")
-    flipped = hold_relu_pattern(path, cpu_relu, card_relu, KINK.get(method, 1e-5))
+    flipped = hold_relu_pattern(path, ref["cpu_relu"], card_relu, KINK.get(method, 1e-5))
     if flipped:
         own, _ = compare(want, got, math.inf, "train step, the CPU's own ReLU pattern")
         with relu_sites(signs=card_relu):
@@ -2607,20 +2746,19 @@ def phase_grads(path: str, pool) -> None:
         check(want[name] is not None and float(want[name].abs().max()) > 0, f"{name} unreached")
     print(f"{path} gradients, card vs cpu with the card's ReLU pattern, one train step at "
           f"full width on {len(samples)} molecules (CPU translation spread <= "
-          f"{spread[pick].max():.1e}): {reached} parameters reached on both (of {len(want)}), "
+          f"{ref['spread_max']:.1e}): {reached} parameters reached on both (of {len(want)}), "
           f"worst max|d| / max|cpu| {worst:.3e} (limit {limit:g} per tensor; the CPU's own "
-          f"change under a 1e-6 relative jitter of the trunk's input, largest of {draws} "
-          f"draws: {cpu_spread:.3e}); launches {launches}")
+          f"change under a 1e-6 relative jitter of the trunk's input, largest of "
+          f"{GRAD_CUT.get(path, (32, 4))[1]} draws: {ref['cpu_spread']:.3e}); launches {launches}")
     if method not in ENCODER_METHODS:
         return  # the MHNN family has no encoder; a hybrid's is held on its *_equihnns path
     enc_limit = ENCODER_LIMIT.get(method, 1e-4)
-    want = grads("cpu", encoder_loss)
-    worst, reached = compare(want, grads("cuda", encoder_loss), enc_limit, "encoder, smooth loss")
+    worst, reached = compare(ref["want_enc"], grads("cuda", encoder_loss), enc_limit,
+                             "encoder, smooth loss")
     own = ""
     if method in ENCODER_LIMIT:
-        jitter = 1e-6 * torch.randn(batch.num_atoms, HIDDEN, generator=gen)
         own = (f"; the CPU's own change under a 1e-6 relative jitter of the atom embedding: "
-               f"{rel_spread(grads('cpu', encoder_loss, emb_jitter=jitter), want):.3e}")
+               f"{ref['enc_own']:.3e}")
     print(f"{method} encoder gradients under a smooth loss (sum of its output times a "
           f"fixed random matrix), card vs cpu: {reached} parameters reached on both, worst "
           f"max|d| / max|cpu| {worst:.3e} (limit {enc_limit:g} per tensor{own})")
@@ -2793,6 +2931,7 @@ def phase_grads_bf16(path: str, pool) -> None:
     print(f"{path}: {len(reached)} of {len(want)} parameters reached on both; launches {launches}")
 
 
+@quiet
 def phase_train(path: str, smi: str) -> dict[str, int]:
     """Train through `equihgnn_tpu_torch.main.run` at the recipe, batch 768."""
     from equihgnn_tpu_torch.data.batching import iter_batches, spec_for_samples
@@ -2871,6 +3010,7 @@ def phase_train(path: str, smi: str) -> dict[str, int]:
     return launches
 
 
+@quiet
 def phase_step(path: str, samples, smi: str) -> None:
     """One train step at batch 768: launches, device time (and the eval
     forward's), memory, profile."""
@@ -3165,8 +3305,29 @@ def main() -> int:
 
     samples, batch = bench_batch()
     graphs = graph_samples()
+    # the f32 gradient phases' CPU references, in a worker process from now on
+    # (stopped while the host times the card: `host_quiet`)
+    cpu = concurrent.futures.ProcessPoolExecutor(
+        max_workers=1, mp_context=multiprocessing.get_context("spawn"),
+        initializer=torch.set_num_threads, initargs=(CPU_WORKER_THREADS,))
+    _WORKER["pid"] = cpu.submit(os.getpid)
+    refs = {path: cpu.submit(grads_cpu_refs, path, samples[:2 * GRAD_CUT.get(path, (32,))[0]])
+            for path in PATHS if path not in GRAPH_METHODS and path not in SERVE_ONLY
+            and not PATHS[path][1].get("compute_dtype")}
+    try:
+        return drive(samples, batch, graphs, name, smi, refs)
+    finally:
+        cpu.shutdown(wait=True, cancel_futures=True)
+
+
+def drive(samples, batch, graphs, name: str, smi: str, refs: dict) -> int:
+    """The phases after the build: kernels, then every path's (`refs`: the
+    worker's futures of `grads_cpu_refs` by path). The f32 gradient phases,
+    which read the worker's references, come after every path's other
+    phases: the worker, stopped while the host times the card, computes
+    them in the untimed windows before."""
     kernels = timed("kernels", phase_kernels, batch)
-    paths = {}
+    paths, later = {}, []
     for path in PATHS:
         if path in GRAPH_METHODS:
             paths[f"{path} serve"] = timed(f"{path} serve", phase_serve_2d, path, graphs, smi)
@@ -3175,15 +3336,20 @@ def main() -> int:
             paths[f"{path} serve"] = timed(f"{path} serve", phase_serve, path, samples, smi)
             if path in SERVE_ONLY:
                 continue
-            timed(f"{path} gradients",
-                  phase_grads_bf16 if PATHS[path][1].get("compute_dtype") else phase_grads,
-                  path, samples[:2 * GRAD_CUT.get(path, (32,))[0]])
+            if path in refs:
+                later.append(path)
+            else:
+                timed(f"{path} gradients", phase_grads_bf16, path,
+                      samples[:2 * GRAD_CUT.get(path, (32,))[0]])
         if path != CROSS_PATH:  # neither CLI sets cross_molecule_knn
             paths[f"{path} train"] = timed(f"{path} train", phase_train, path, smi)
         timed(f"{path} step", phase_step, path, graphs if path in GRAPH_METHODS else samples,
               smi)
         if path in REMAT_PATHS:
             timed(f"{path} remat", phase_remat, path, samples, smi)
+    for path in later:
+        timed(f"{path} gradients", phase_grads, path,
+              samples[:2 * GRAD_CUT.get(path, (32,))[0]], refs[path])
     for row in kernels:
         row["launches"] = sum(counts[row["name"]] for counts in paths.values())
     print(f"launches by path: {paths}")

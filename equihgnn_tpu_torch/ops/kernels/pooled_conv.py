@@ -32,9 +32,13 @@ entry, and the wrapper raises. K takes a workspace of W's size (W re-laid
 for its copies), allocated by `pooled_conv_bwd`. In bfloat16 they compute
 JAX's bfloat16 kernels' function: float32 sums of the exact products, M
 and dM rounded to bfloat16, out, dh and dtc rounded once, dW summed in
-float32 over every site and rounded once; bf16 `mma.sync` on the tensor
-cores. They take K ≤ 32 (`MAX_K_BF16`; the wrapper raises beyond) and C in
-1..64; their C entry refuses a shape whose tiles do not fit shared memory.
+float32 over every site and rounded once; the products on the tensor cores
+(J's by wgmma and K's dM by mma.sync, with W brought by TMA, at the model's
+shapes; a general path in the same source for the others, e.g. an I not a
+multiple of 8, or K > 16). They take K ≤ 32 (`MAX_K_BF16`; the wrapper
+raises beyond) and C in 1..64; their C entry refuses a shape whose tiles do
+not fit shared memory (K's dM kernels stage a tile's dout rows: O ≤ 1,088
+at K = 16, C = 1).
 
 Routing (`nn/se3_transformer.py` `_ConvSE3Pair`): a float32 pooled unit
 takes J and K at every width (where JAX's gate refuses it, JAX runs the

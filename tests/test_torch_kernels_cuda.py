@@ -971,6 +971,8 @@ PC_LIVE_CASES = [  # (g, a, k, c, i, f, o, mask)
 
 def _live_mask(g, a, kind, seed):
     gen = torch.Generator().manual_seed(seed)
+    if kind == "all_but_3":  # every site live but the last three: a known live count
+        return torch.arange(g * a).reshape(g, a) < g * a - 3
     return {"random": torch.rand(g, a, generator=gen) < 0.5,
             "all_dead": torch.zeros(g, a, dtype=torch.bool),
             "all_live": torch.ones(g, a, dtype=torch.bool)}[kind]
@@ -1998,6 +2000,14 @@ PC16_CASES = [  # (g, a, k, c, i, f, o, live mask or None)
     (4, 32, 16, 1, 19, 13, 260, None), (1, 1, 4, 3, 8, 8, 8, None),
     (3, 23, 16, 3, 64, 32, 128, "all_dead"), (3, 9, 32, 2, 128, 128, 384, "all_live"),
     (2, 3, 7, 17, 24, 16, 128, "random"), (40, 32, 16, 3, 128, 128, 128, "random"),
+    # 132 live sites: J's and the dM kernels' last tile (64 sites) holds 4, dW's
+    # last chunk (64 rows) 4 rows
+    (3, 45, 16, 1, 256, 128, 256, "all_but_3"),
+    # C = 3: a tile holds 21 sites (63 rows); dW's 64-row chunks split sites' rows
+    (4, 32, 16, 3, 64, 32, 128, None),
+    (6, 32, 16, 1, 128, 128, 128, "random"),  # O = 128: the hidden-128 fused path
+    (2, 32, 32, 3, 256, 128, 256, "random"),  # K = 32: the shallower rings
+    (769, 32, 16, 1, 256, 128, 256, "random"),  # the batch-768 grid
 ]
 
 
@@ -2073,7 +2083,8 @@ def test_pooled_conv_f32_keeps_the_parent_bits(dev):
 
 def test_pooled_conv_bf16_rejects_unsupported_inputs(dev):
     """Mixed types, a K past 32 or a C past 64, a non-contiguous h, tc or
-    dout raise, and a call afterwards runs."""
+    dout, and an O past what K's shared memory holds raise, and a call
+    afterwards runs."""
     (h, tc, w), dout = _pc16_args(2, 5, 4, 3, 8, 8, 8, seed=1, dev=dev)
     with pytest.raises(TypeError):
         pooled_conv(h, tc.float(), w, 3)
@@ -2095,3 +2106,9 @@ def test_pooled_conv_bf16_rejects_unsupported_inputs(dev):
     with pytest.raises(ValueError, match="contiguous dout"):
         pooled_conv_bwd(h, tc, w, 3, dout.transpose(0, 1).contiguous().transpose(0, 1))
     assert pooled_conv(h, tc, w, 3).shape == (2, 5, 3, 8)
+    # K's dM kernels stage a tile's dout rows whole: O ≤ 1,088 at K = 16, C = 1
+    (h16, tc16, w16), d16 = _pc16_args(1, 2, 16, 1, 8, 8, 1089, seed=3, dev=dev)
+    with pytest.raises(RuntimeError, match="pooled_conv_bwd_bf16"):
+        pooled_conv_bwd(h16, tc16, w16, 1, d16)
+    (h16, tc16, w16), d16 = _pc16_args(1, 2, 16, 1, 8, 8, 1088, seed=3, dev=dev)
+    assert pooled_conv_bwd(h16, tc16, w16, 1, d16)[2].shape == (8, 1088, 8)

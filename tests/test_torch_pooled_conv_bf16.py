@@ -17,9 +17,15 @@ versions, against the JAX package on the CPU.
     kernel would take minutes to trace (C = 1, the whole model), is held to
     the same kernel under the same limits (measured: out 0.99974, dW
     0.99998 the same bits, dh and dtc all).
+  * K's yardstick: `chip_smoke.k_bf16_reference`, the cuBLAS composition
+    timed beside kernel K on the card, computes K's function (float32,
+    against the plain backward at the live sites).
 
 Inputs are numpy-seeded; JAX calls are jitted.
 """
+
+import importlib.util
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -247,3 +253,26 @@ def test_plain_refuses_mixed_types():
             pooled_conv(*args)
     with pytest.raises(TypeError):
         pooled_conv_bwd_plain(h, tc, w, 1, dout.float())
+
+
+@pytest.mark.parametrize("c", [1, 3])
+def test_k_reference_computes_k(c):
+    """`chip_smoke.k_bf16_reference`, the cuBLAS composition timed beside
+    kernel K as its yardstick (dM by one matmul, dh and dtc by two bmm, M by
+    one bmm, dW by a matmul, at the live sites), computes K's function: in
+    float32 it gives the plain backward's dh, dtc (at the live sites) and
+    dW, the last in its own [I, F, O] layout."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    g, a, k, i, f, o = 2, 5, 4, 8, 16, 24
+    h, tc, w, dout = (torch.from_numpy(_f(x).copy()).float()
+                      for x in _inputs(g=g, a=a, k=k, c=c, i=i, f=f, o=o, seed=c))
+    live = torch.from_numpy(np.random.default_rng(c).random((g, a)) < 0.6)
+    dh, dtc, dw = smoke.k_bf16_reference(h, tc, w, c, dout, live)()
+    want_dh, want_dtc, want_dw = pooled_conv_bwd_plain(h, tc, w, c, dout, live)
+    idx = live.reshape(-1).nonzero().squeeze(1)
+    torch.testing.assert_close(dh, want_dh.reshape(g * a, k, f)[idx], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(dtc, want_dtc.reshape(g * a, k, c * i)[idx], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(dw.view(i, f, o).permute(1, 2, 0), want_dw, rtol=1e-5, atol=1e-4)
