@@ -4,9 +4,9 @@ shapes) and timed beside the whole kernel, the PyTorch call that computes
 its function (where there is one) and itself again, at the batch-768 shapes
 of `chip_smoke.py` (its batch, kNN mask and timer).
 
-    python3 ablate_kernels.py [--kernels A,B,C,D,E,GI,H,J,K,L,M,Jb,Kb] [--vis-mix-before FILE]
+    python3 ablate_kernels.py [--kernels A,B,C,D,E,GI,GIb,H,J,K,L,M,Jb,Kb] [--vis-mix-before FILE]
         [--edge-mlp-before FILE] [--frame-swiglu-before FILE] [--pooled-m-before FILE]
-        [--pooled-conv-bf16-before FILE]
+        [--pooled-conv-bf16-before FILE] [--step PATH]
 
 B (`csrc/edge_mlp.cu`, the EGNN edge MLP's forward at `edge_mlp_inputs`),
   serving, in case (a), no mask (every edge), and case (b), the model's
@@ -73,6 +73,19 @@ G and I (`csrc/vis_mix.cu`, ViSNet's vector-mix backward at `chip_smoke`'s
   another `vis_mix.cu` (e.g. an earlier commit's, from `git show
   <commit>:equihgnn_tpu_torch/csrc/vis_mix.cu`), timed in the same turns.
   One call a sample, and device time alone (torch.profiler).
+--step PATH: `chip_smoke.phase_step` of that path (a train step at batch 768:
+  its time, peak memory and profile), with this tree's kernels and, with
+  --vis-mix-before, with that vis_mix.cu in place of this one, in turns.
+GIb (G and I in bf16, `vis_mix_inputs` in bf16): full; one block an SM (no
+  minimum of 2 blocks: registers up to 128 a thread); blocks of 12 warps,
+  not 16 (two an SM: 85 registers a thread); G without its edges'
+  rows ahead, or 8 ahead, not 4; G skipping a masked edge's ds1 products;
+  I's target pass alone, its walk alone; I keeping no gw rows in shared
+  memory; and, with --vis-mix-before, the bf16 G and I of another
+  `vis_mix.cu`; beside them the full build's f32 G and I at the same inputs
+  in f32, in the same turns. One call a sample, device time alone, each
+  build's distance from the plain bf16 version, and ptxas's registers and
+  spills of each build's bf16 G and I.
 
 A (`csrc/segment_sum.cu`, the batch's hyperedge ids, D = 256): 32-row
   tiles (the kernel), 16 and 64 rows, 8 and 32 rows in flight a thread;
@@ -288,6 +301,40 @@ GI_PATCHES = {
     "I no u restage": [("      stage_chunk_async(u, g, a_slots, L, h, n * HC, vec4, x_s);\n", "")],
     "I keeps no gw": [("    keep = (TWO_BLOCK_SMEM - base) / per_row < ak ? (TWO_BLOCK_SMEM - base) / per_row : ak;",
                        "    keep = 0;")],
+}
+# G and I in bf16, each with one part of the design switched off: one block
+# an SM (no minimum of 2 blocks, so registers up to 128 a thread), no edges'
+# s2m / s1 rows ahead (G; I reads its kept gw rows from shared memory), 8
+# ahead, not 4; G skipping a masked edge's ds1 products; each of I's passes
+# alone; I keeping no gw rows (both passes read them from device memory)
+_GB_BOUNDS = "__launch_bounds__(THREADS, 2)\nvec_agg_bwd_bf16_kernel("
+_IB_BOUNDS = "__launch_bounds__(THREADS, 2)\nwdot_bwd_bf16_kernel("
+_GB_AHEAD = "constexpr int AHEAD_GB = 4;"
+_GB_T1 = """          const uint32_t v = j >= 0 ? vec_at(j, l) : 0u;
+          t1x = add(t1x, mul(bf_lo(v), gx[l]));
+          t1y = add(t1y, mul(bf_hi(v), gy[l]));
+"""
+_GB_PART = "          part[l] = add(mul(sx, gx[l]), mul(sy, gy[l]));\n        }\n"
+GIB_PATCHES = {
+    "one block an SM": [(_GB_BOUNDS, _GB_BOUNDS.replace(", 2)", ")")),
+                        (_IB_BOUNDS, _IB_BOUNDS.replace(", 2)", ")"))],
+    "12 warps a block (85 registers)": [("constexpr int WARPS = 16;", "constexpr int WARPS = 12;")],
+    "G no edges ahead": [(_GB_AHEAD, _GB_AHEAD.replace("4", "1"))],
+    "G 8 edges ahead": [(_GB_AHEAD, _GB_AHEAD.replace("4", "8"))],
+    # a masked edge's ds1 products skipped (+0, the value for finite gva)
+    "G masked edges' ds1 skipped": [
+        (_GB_T1, ""),
+        (_GB_PART, _GB_PART + "        if (j >= 0) {\n#pragma unroll\n"
+         "          for (int l = 0; l < L; ++l) {\n            const uint32_t v = vec_at(j, l);\n"
+         "            t1x = add(t1x, mul(bf_lo(v), gx[l]));\n"
+         "            t1y = add(t1y, mul(bf_hi(v), gy[l]));\n          }\n        }\n")],
+    # what each of I's passes costs: the other one alone (outputs wrong)
+    "I target pass alone": [("      const int begin = off_s[j], end = off_s[j + 1];",
+                             "      const int begin = off_s[j], end = begin;")],
+    "I walk alone": [("    for (int i = warp; i < a_slots; i += WARPS) {\n      float ux[L], uy[L];",
+                      "    for (int i = a_slots; i < a_slots; i += WARPS) {\n      float ux[L], uy[L];")],
+    "I keeps no gw": [("  if (n_chunks <= MAX_CLUSTER && base < TWO_BLOCK_SMEM)",
+                       "  if (false)")],
 }
 C_PATCHES = {
     "no skip": [
@@ -743,6 +790,8 @@ REGISTERS = {"B full": ("fwd_kernel", "w1_frags"), "B before": ("fwd_kernel", "w
              "H before": ("wdot_fwd_kernel", "vec_agg_fwd_kernel"),
              "GI full": ("vec_agg_bwd_kernel", "wdot_bwd_kernel"),
              "GI before": ("vec_agg_bwd_kernel", "wdot_bwd_kernel"),
+             "GIb full": ("vec_agg_bwd_bf16_kernel", "wdot_bwd_bf16_kernel"),
+             "GIb before": ("vec_agg_bwd_bf16_kernel", "wdot_bwd_bf16_kernel"),
              "M full": ("pooled_m_bwd",), "M before": ("pooled_m_bwd",),
              "JKb full": ("fwd_kernel", "fwd_tma_kernel", "dm_kernel", "dm_tma_kernel",
                           "dw_kernel"),
@@ -774,6 +823,8 @@ def _build_all(tmp: Path, srcs: dict[str, Path]) -> dict[str, ctypes.CDLL]:
             raise RuntimeError(f"nvcc failed for {name}:\n{err}")
         if name in REGISTERS:
             _print_registers(name, err, REGISTERS[name])
+        elif name.startswith("GIb "):
+            _print_registers(name, err, REGISTERS["GIb full"])
         elif name[:3] in ("Jb ", "Kb "):  # a variant's own kernel, patched
             _print_registers(name, err, ("fwd_tma_kernel",) if name[0] == "J" else
                              ("dm_tma_kernel", "dw_kernel"))
@@ -999,6 +1050,94 @@ def _time_gi(libs, batch) -> None:
         print(f"{letter} (one call a sample; device alone): " + ", ".join(
             f"{n[3:]} {t:.4f} / {dv:.4f} ms" for n, t, dv in zip(names, times, dev_ms))
             + f", full again {times[-1]:.4f} ms")
+
+
+def _time_gib(libs, batch) -> None:
+    """G and I in bf16 of each build at `vis_mix_inputs` in bf16 (the bf16
+    ViSNet's shapes), beside the full build's f32 G and I at the f32 inputs,
+    in the same turns: one call a sample, then device time alone; and each
+    build's distance from the plain bf16 version (a variant that skips work
+    is not wrong by design here: each computes the whole function)."""
+    from equihgnn_tpu_torch.ops.kernels.vis_mix import vec_agg_bwd_plain, wdot_bwd_plain
+
+    gen = torch.Generator().manual_seed(18)
+    xb = vis_mix_inputs(batch, gen, torch.bfloat16)
+    x32 = {n: t.float() if t.is_floating_point() else t for n, t in xb.items()}
+    x32["s1"] = xb["s1"].float()  # a contiguous f32 copy of the strided view
+    g, a, k = xb["idx"].shape
+    L, h = xb["d"].shape[-1], xb["vec"].shape[-1]
+    stream = torch.cuda.current_stream().cuda_stream
+    names = [n for n in libs if n.startswith("GIb")]
+
+    def call(lib, entry, x, out):
+        fn = getattr(lib, entry)
+        fn.argtypes = build.SIGNATURES[entry]
+        p = {n: t.data_ptr() for n, t in x.items()}
+        o = [t.data_ptr() for t in out]
+        if entry.startswith("vis_vec_agg"):
+            return lambda: fn(p["vec"], p["s1"], x["s1"].stride(2), p["s2m"], p["d"], p["idx"],
+                              p["mask"], p["gva"], *o, g, a, k, L, h, stream)
+        return lambda: fn(p["d"], p["u"], p["vv"], p["idx"], p["mask"], p["gw"], *o, g, a, k, L,
+                          h, stream)
+
+    for letter, stem in (("G", "vis_vec_agg_bwd"), ("I", "vis_wdot_bwd")):
+        if letter == "G":
+            want = vec_agg_bwd_plain(*(xb[n] for n in ("vec", "s1", "s2m", "d", "idx", "mask",
+                                                       "gva")))
+            shapes = [t.shape for t in want]  # dvec, ds1, ds2m, dd
+            order = [0, 1, 2, 3]
+        else:
+            want = wdot_bwd_plain(*(xb[n] for n in ("d", "u", "vv", "idx", "mask", "gw")))
+            shapes = [want[1].shape, want[2].shape, want[0].shape]  # du, dvv, dd
+            order = [2, 0, 1]  # the plain version's (dd, du, dvv) from the entry's outputs
+        fns = []
+        for name in names:
+            out = [torch.empty(s, dtype=torch.bfloat16, device=xb["d"].device) for s in shapes]
+            fns.append(call(libs[name], f"{stem}_bf16", xb, out))
+            fns[-1]()
+            torch.cuda.synchronize()
+            far = max(bf16_distance(out[order[q]], w)[1] for q, w in enumerate(want))
+            same = min(bf16_distance(out[order[q]], w)[0] for q, w in enumerate(want))
+            print(f"{letter} bf16 {name}: {same:.5f} the plain version's bits (least of its "
+                  f"outputs), {far:.2f} bf16 ulps at most")
+        out32 = [torch.empty(s, device=xb["d"].device) for s in shapes]
+        fns.append(call(libs["GIb full"], f"{stem}_f32", x32, out32))
+        del want
+        times = median_ms(*fns, fns[0])
+        dev_ms = [profiled_device_ms(fn) for fn in fns]
+        print(f"{letter} bf16 (one call a sample; device alone): " + ", ".join(
+            f"{n[4:]} {t:.4f} / {dv:.4f} ms" for n, t, dv in
+            zip(names + ["GIb f32 (full build)"], times, dev_ms))
+            + f", full again {times[-1]:.4f} ms")
+        del fns, out32
+        torch.cuda.empty_cache()
+
+
+def _time_steps(path: str, vis_mix_before: Path | None, tmp: Path) -> None:
+    """`chip_smoke.phase_step` of `path` (one train step at batch 768: its
+    time, memory and profile) with this tree's kernels and, given another
+    vis_mix.cu, with a copy of csrc/ that has it in place of this one, in
+    turns: before, this, this, before (each build cached by its sources)."""
+    import shutil
+
+    from chip_smoke import phase_device, phase_step
+
+    _, smi = phase_device()
+    samples = bench_batch()[0]
+    dirs = {"this": build.CSRC_DIR}
+    order = ["this"]
+    if vis_mix_before:
+        dirs["before"] = tmp / "csrc_before"
+        shutil.copytree(build.CSRC_DIR, dirs["before"])
+        shutil.copy(vis_mix_before, dirs["before"] / "vis_mix.cu")
+        order = ["before", "this", "this", "before"]
+    for name in order:
+        build.CSRC_DIR = dirs[name]
+        build.library.cache_clear()
+        print(f"--- {path} train step with the {name} kernels (csrc {dirs[name]})")
+        phase_step(path, samples, smi)
+    build.CSRC_DIR = dirs["this"]
+    build.library.cache_clear()
 
 
 def _time_h(libs, batch) -> None:
@@ -1281,11 +1420,17 @@ def _time_e(libs, batch) -> None:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--kernels", default="A,B,C,D,E,GI,H,J,K,L,M,Jb,Kb",
-                        help="the kernels to ablate, of A, B, C, D, E, GI, H, J, K, L, M, "
-                             "Jb and Kb (J and K in bf16)")
+    parser.add_argument("--kernels", default="A,B,C,D,E,GI,GIb,H,J,K,L,M,Jb,Kb",
+                        help="the kernels to ablate, of A, B, C, D, E, GI, GIb, H, J, K, L, M, "
+                             "Jb and Kb (GIb: G and I in bf16; Jb, Kb: J and K in bf16)")
     parser.add_argument("--vis-mix-before", type=Path,
-                        help="another vis_mix.cu whose G and I (and H) to time beside this one's")
+                        help="another vis_mix.cu whose G and I (f32 or bf16, and H) to time "
+                             "beside this one's")
+    parser.add_argument("--step",
+                        help="a chip_smoke path (e.g. 'visnet_equihnns bf16') whose train step "
+                             "chip_smoke.phase_step times and profiles, with this tree's kernels "
+                             "and, with --vis-mix-before, with that vis_mix.cu in its place, "
+                             "in turns: before, this, this, before")
     parser.add_argument("--pooled-m-before", type=Path,
                         help="another pooled_m.cu whose M to time beside this one's")
     parser.add_argument("--edge-mlp-before", type=Path,
@@ -1316,7 +1461,8 @@ def main() -> int:
                                  ("C", C_SRC, C_PATCHES), ("E", E_SRC, E_PATCHES),
                                  ("B", C_SRC, B_PATCHES), ("D", E_SRC, D_PATCHES),
                                  ("H", GI_SRC, H_PATCHES), ("M", L_SRC, M_PATCHES),
-                                 ("Jb", JB_SRC, JB_PATCHES), ("Kb", JB_SRC, KB_PATCHES)):
+                                 ("Jb", JB_SRC, JB_PATCHES), ("Kb", JB_SRC, KB_PATCHES),
+                                 ("GIb", GI_SRC, GIB_PATCHES)):
             if kind not in kinds:
                 continue
             if kind in ("Jb", "Kb"):  # one build of the whole source serves both
@@ -1328,6 +1474,8 @@ def main() -> int:
         b_masks = {n for n in srcs if n.startswith("B")}  # B variants that take a mask
         if "GI" in kinds and args.vis_mix_before:
             srcs["GI before"] = args.vis_mix_before
+        if "GIb" in kinds and args.vis_mix_before:
+            srcs["GIb before"] = args.vis_mix_before
         if "H" in kinds and args.vis_mix_before:
             srcs["H before"] = args.vis_mix_before
         if "M" in kinds and args.pooled_m_before:
@@ -1360,6 +1508,8 @@ def main() -> int:
             _time_e(libs, batch)
         if "GI" in kinds:
             _time_gi(libs, batch)
+        if "GIb" in kinds:
+            _time_gib(libs, batch)
         if "H" in kinds:
             _time_h(libs, batch)
         if "M" in kinds:
@@ -1367,6 +1517,8 @@ def main() -> int:
         if "Jb" in kinds or "Kb" in kinds:
             _time_jkb(libs, batch, dev)
         _time_jkl(libs, batch, dev)
+        if args.step:
+            _time_steps(args.step, args.vis_mix_before, tmp)
     return 0
 
 

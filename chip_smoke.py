@@ -464,6 +464,9 @@ def median_ms(*fns, iters: int = 20, warmup_s: float = 0.3, reps: int = 1) -> li
     return [float(np.median(ts)) for ts in times]
 
 
+PORT_KERNEL = "void (anonymous namespace)::"  # how the profiler names a csrc kernel
+
+
 def device_kernels(prof, calls: int) -> list[tuple[float, int, str]]:
     """(device ms per call, launches per call, kernel name) of every device
     kernel a `torch.profiler` run recorded over `calls` calls, largest first."""
@@ -3068,6 +3071,10 @@ def phase_step(path: str, samples, smi: str) -> None:
           f"per step:" if kernels else "torch.profiler: no device kernel events recorded")
     for t, n, key in kernels[:12]:
         print(f"  {t:8.3f} ms  {n:3d}x  {key[:110]}")
+    own = [(t, n, key) for t, n, key in kernels[12:] if key.startswith(PORT_KERNEL)]
+    if own:  # the csrc kernels below the top 12 (their anonymous namespace)
+        print("  the port's other kernels per step: " + "; ".join(
+            f"{t:.3f} ms {n}x {key[len(PORT_KERNEL):].split('(')[0]}" for t, n, key in own))
     gradient_zero_shares(path, trainer, batch)
     if path == CROSS_PATH:
         knn_graph_reading(batch, smi)

@@ -92,14 +92,38 @@
 // bf16 before their f32 sum over the edges that share a source (the TPU's
 // one-hot matmul takes bf16 operands); dd is summed over all of h in f32
 // and rounded once. The f32 kernels above are kept apart, so that their
-// code is what it was. The bf16 kernels keep the designs of F-I, with a
-// chunk of HC2 = 64 columns, a pair a lane: a warp reads a 128-byte row as
-// __nv_bfloat162 pairs, as the f32 kernels read 32 floats. The staged
-// chunks and the row's d are bf16; the sums of dd stay f32. At L = 8,
-// k = 17 a block of F or H holds a row of A ≤ 170 slots (1,364 bytes a
-// slot), and G and I take the same rows; G stages vec and gva up to A = 77,
-// I vv and u up to A = 113. I keeps no gw rows in shared memory (the f32
-// I's `keep`): both passes read them from device memory.
+// code is what it was. The bf16 kernels take a chunk of HC2 = 64 columns, a
+// pair a lane: a warp reads a 128-byte row as bf16 pairs, as the f32
+// kernels read 32 floats. The staged chunks and the row's d are bf16; the
+// sums of dd stay f32. At L = 8, k = 17 a block of F or H holds a row of
+// A ≤ 170 slots (1,364 bytes a slot), and G and I take the same rows. F and
+// H in bf16 keep the designs of F and H.
+//
+// G and I in bf16 (redesigned for Hopper; they replace `_vec_agg_bwd` and
+// `_wdot_bwd`, bodies `_agg_bwd_kernel` and `_wdot_bwd_kernel`) keep the f32
+// G's and I's clusters, source lists and dd sums, and run two 16-warp
+// blocks an SM (at most 64 registers a thread: a lane keeps the bf16 pairs
+// it loads as 32 bits and widens them where it uses them), so that one
+// block's setup (the row's d, indices, lists and copies) runs while the
+// other computes. Bound at the batch-768 shapes (G = 769, A = 32, K = 17,
+// L = 8, h = 256): bytes, G 1.06 GB (0.315 ms at 3.35 TB/s), I 0.52 GB
+// (0.154 ms). What sets their pace is instruction throughput: the unfused
+// f32 arithmetic for 2 columns a lane, the widening, the bf16 roundings and
+// the butterflies: by a count of this source some 500 instructions a live
+// edge and warp in I (its walk, which also spills at 64 registers, takes
+// most of them) and some 180 an edge in G.
+// G: the target pass takes the warp's edges as one stream, the s2m pairs of
+// the next AHEAD_GB = 4 edges in flight across its slots; the walk loads
+// the s1 pairs of 4 edges of a list at a time. It stages vec and gva up to
+// A = 77.
+// I: the live gw rows of the chunk are copied into shared memory once, by
+// the edge's place among the row's live edges (`live_places`), by cp.async
+// started before the lists are built; at A = 32 two blocks an SM keep 499
+// places of 544, more than the model's rows have live. Both passes read
+// them there, so gw comes from device memory once, and the walk leaves
+// each edge's terms of dd in its row's place. It stages vv, then u, up to
+// A = 109; the walk reads its source's vv row from device memory, once a
+// source with edges.
 
 #include <cooperative_groups.h>
 #include <cstdint>
@@ -762,6 +786,7 @@ using bf16 = __nv_bfloat16;
 using bf162 = __nv_bfloat162;
 
 constexpr int HC2 = 64;  // bf16 columns a chunk: a pair a lane
+constexpr int AHEAD_GB = 4;  // edges whose rows a warp of G in bf16 loads before it uses them
 
 __host__ __device__ constexpr size_t pad16(size_t n) { return (n + 15) & ~static_cast<size_t>(15); }
 
@@ -781,6 +806,25 @@ __device__ __forceinline__ void st_pair(bf16* p, float x, float y) {
 // x rounded to bf16 and widened back.
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// x and y rounded to bf16 by one conversion, as a pair's bits (element 0
+// in the low half).
+__device__ __forceinline__ uint32_t round_pair(float x, float y) {
+  const bf162 v = __floats2bfloat162_rn(x, y);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// A bf16 pair as loaded (element 0 in the low half) and its elements widened.
+__device__ __forceinline__ uint32_t ld_bits(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+__device__ __forceinline__ float bf_lo(uint32_t b) { return __uint_as_float(b << 16); }
+__device__ __forceinline__ float bf_hi(uint32_t b) { return __uint_as_float(b & 0xffff0000u); }
+
+// A pair rounded to bf16 by a streaming store (written once, read later).
+__device__ __forceinline__ void st_pair_cs(bf16* p, float x, float y) {
+  __stcs(reinterpret_cast<unsigned int*>(p), round_pair(x, y));
 }
 
 // The f32 arithmetic of the bf16 kernels: IEEE products and sums, never
@@ -817,11 +861,18 @@ __device__ __forceinline__ void stage_chunk_bf16_async(const bf16* __restrict__ 
   }
 }
 
-// An edge's L values of d, widened, from the row's bf16 d in shared memory.
+// An edge's L values of d, widened, from the row's bf16 d in shared memory
+// (16-byte aligned): one 16-byte load where L = 8.
 template <int L>
 __device__ __forceinline__ void load_d_bf16(const bf16* de, float (&dl)[L]) {
+  if constexpr (L == 8) {
+    const uint4 w = *reinterpret_cast<const uint4*>(de);
+    dl[0] = bf_lo(w.x), dl[1] = bf_hi(w.x), dl[2] = bf_lo(w.y), dl[3] = bf_hi(w.y);
+    dl[4] = bf_lo(w.z), dl[5] = bf_hi(w.z), dl[6] = bf_lo(w.w), dl[7] = bf_hi(w.w);
+  } else {
 #pragma unroll
-  for (int l = 0; l < L; ++l) dl[l] = __bfloat162float(de[l]);
+    for (int l = 0; l < L; ++l) dl[l] = __bfloat162float(de[l]);
+  }
 }
 
 // Kernel F in bf16. Grid (G, ceil(h / HC2)). Shared memory: the chunk of
@@ -951,11 +1002,15 @@ wdot_fwd_bf16_kernel(const bf16* __restrict__ d, const bf16* __restrict__ u,
 }
 
 // Kernel G in bf16. Grid (G · CL) in clusters of CL = min(h / HC2, 8)
-// blocks, one cluster per row g; as the f32 G, with the chunk of HC2
-// columns and dvec's per-edge terms rounded to bf16. STAGE: vec and gva of
-// the block's chunk in shared memory (else gathered from device memory).
+// blocks, one cluster per row g, two blocks an SM; as the f32 G, with the
+// chunk of HC2 columns and dvec's per-edge terms rounded to bf16. STAGE: vec
+// and gva of the block's chunk in shared memory (else gathered from device
+// memory). The target pass takes the warp's edges (i, k), i ≡ warp
+// (mod WARPS), as one stream, the s2m pairs of the next AHEAD_GB edges in
+// flight across its slots; the walk loads the s1 pairs of AHEAD_GB edges of
+// a source's list at a time.
 template <int L, bool STAGE>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 2)
 vec_agg_bwd_bf16_kernel(const bf16* __restrict__ vec, const bf16* __restrict__ s1,
                         int64_t s1_stride, const bf16* __restrict__ s2m,
                         const bf16* __restrict__ d, const int64_t* __restrict__ idx,
@@ -993,7 +1048,14 @@ vec_agg_bwd_bf16_kernel(const bf16* __restrict__ vec, const bf16* __restrict__ s
   __syncthreads();
   build_source_lists(idx_s, ak, a_slots, k_nbrs, off_s, list_s);
 
-  const float2 zero = make_float2(0.f, 0.f);
+  // the warp's n_e edges, from edge warp·K on, K of a slot in a row, then
+  // `jump` on to the first of its next slot
+  const int n_e = warp < a_slots ? ((a_slots - 1 - warp) / WARPS + 1) * k_nbrs : 0;
+  const int jump = 1 + (WARPS - 1) * k_nbrs;
+  auto next = [&](int& e, int& k) {
+    if (++k == k_nbrs) k = 0, e += jump;
+    else ++e;
+  };
   for (int n = rank; n < n_chunks; n += cl) {
     const int c = n * HC2 + 2 * lane;
     const bool live = c < h;
@@ -1006,46 +1068,64 @@ vec_agg_bwd_bf16_kernel(const bf16* __restrict__ vec, const bf16* __restrict__ s
     cp_async_wait_all();
     __syncthreads();
     auto vec_at = [&](int s, int l) {
-      if constexpr (STAGE) return ld_pair(vec_s + (s * L + l) * HC2 + 2 * lane);
-      else return ld_pair(vec + (row_v + s * L + l) * h + cr);
+      if constexpr (STAGE) return ld_bits(vec_s + (s * L + l) * HC2 + 2 * lane);
+      else return ld_bits(vec + (row_v + s * L + l) * h + cr);
     };
     auto gva_at = [&](int s, int l) {
-      if constexpr (STAGE) return ld_pair(g_s + (s * L + l) * HC2 + 2 * lane);
-      else return ld_pair(gva + (row_v + s * L + l) * h + cr);
+      if constexpr (STAGE) return ld_bits(g_s + (s * L + l) * HC2 + 2 * lane);
+      else return ld_bits(gva + (row_v + s * L + l) * h + cr);
     };
 
     // the target pass, per edge (i, k): ds1 = Σ_l vec[j]·gva[i], ds2m =
     // Σ_l d·gva[i] (l in order) and this chunk's terms of dd = Σ_c s2m·gva[i]
-    for (int i = warp; i < a_slots; i += WARPS) {
-      float2 gi[L];
+    uint32_t a2[AHEAD_GB];  // the s2m pairs of the next edges, as loaded
+    int le = warp * k_nbrs, lk = 0;  // the next edge to load, its k
 #pragma unroll
-      for (int l = 0; l < L; ++l) gi[l] = gva_at(i, l);
-      for (int k = 0; k < k_nbrs; ++k) {
-        const int e = i * k_nbrs + k;
+    for (int q = 0; q < AHEAD_GB; ++q) {
+      a2[q] = live && q < n_e ? ld_bits(s2m + (row_e + le) * h + c) : 0u;
+      next(le, lk);
+    }
+    float gx[L], gy[L];  // gva[i] of the slot i of the edge computed
+    int e = warp * k_nbrs, kk = 0, i = warp;
+    for (int n0 = 0; n0 < n_e; n0 += AHEAD_GB) {
+#pragma unroll
+      for (int q = 0; q < AHEAD_GB; ++q) {
+        if (n0 + q >= n_e) break;  // the same for the whole warp
+        const float sx = bf_lo(a2[q]), sy = bf_hi(a2[q]);
+        a2[q] = live && n0 + q + AHEAD_GB < n_e ? ld_bits(s2m + (row_e + le) * h + c) : 0u;
+        next(le, lk);
+        if (kk == 0) {
+#pragma unroll
+          for (int l = 0; l < L; ++l) {
+            const uint32_t b = gva_at(i, l);
+            gx[l] = bf_lo(b), gy[l] = bf_hi(b);
+          }
+        }
         const int j = idx_s[e];
         const size_t er = row_e + e;
-        const float2 a2 = live ? ld_pair(s2m + er * h + c) : zero;
         float dl[L], part[P];
         load_d_bf16<L>(d_s + e * L, dl);
         float t1x = 0.f, t1y = 0.f, t2x = 0.f, t2y = 0.f;
 #pragma unroll
         for (int l = 0; l < L; ++l) {
-          const float2 v = j >= 0 ? vec_at(j, l) : zero;
-          t1x = add(t1x, mul(v.x, gi[l].x));
-          t1y = add(t1y, mul(v.y, gi[l].y));
-          t2x = add(t2x, mul(dl[l], gi[l].x));
-          t2y = add(t2y, mul(dl[l], gi[l].y));
-          part[l] = add(mul(a2.x, gi[l].x), mul(a2.y, gi[l].y));
+          const uint32_t v = j >= 0 ? vec_at(j, l) : 0u;
+          t1x = add(t1x, mul(bf_lo(v), gx[l]));
+          t1y = add(t1y, mul(bf_hi(v), gy[l]));
+          t2x = add(t2x, mul(dl[l], gx[l]));
+          t2y = add(t2y, mul(dl[l], gy[l]));
+          part[l] = add(mul(sx, gx[l]), mul(sy, gy[l]));
         }
 #pragma unroll
         for (int l = L; l < P; ++l) part[l] = 0.f;
         if (live) {
-          st_pair(ds1 + er * h + c, t1x, t1y);
-          st_pair(ds2m + er * h + c, t2x, t2y);
+          st_pair_cs(ds1 + er * h + c, t1x, t1y);
+          st_pair_cs(ds2m + er * h + c, t2x, t2y);
         }
         const float r = warp_sum_many<P>(part, lane);
         const int l = lane / SPAN;
         if (lane % SPAN == 0 && l < L) dd_s[e * L + l] = n == rank ? r : dd_s[e * L + l] + r;
+        if (kk + 1 == k_nbrs) i += WARPS;
+        next(e, kk);
       }
     }
 
@@ -1056,15 +1136,26 @@ vec_agg_bwd_bf16_kernel(const bf16* __restrict__ vec, const bf16* __restrict__ s
 #pragma unroll
       for (int l = 0; l < L; ++l) ax[l] = ay[l] = 0.f;
       const int end = off_s[j + 1];
-      for (int p = off_s[j]; p < end; ++p) {
-        const int v = list_s[p];
-        const int i = v >> 16;
-        const float2 a1 = live ? ld_pair(s1 + (row_e + (v & 0xffff)) * s1_stride + c) : zero;
+      for (int p0 = off_s[j]; p0 < end; p0 += AHEAD_GB) {
+        uint32_t a1[AHEAD_GB];
 #pragma unroll
-        for (int l = 0; l < L; ++l) {
-          const float2 gi = gva_at(i, l);
-          ax[l] = add(ax[l], round_bf16(mul(a1.x, gi.x)));
-          ay[l] = add(ay[l], round_bf16(mul(a1.y, gi.y)));
+        for (int q = 0; q < AHEAD_GB; ++q) {
+          const int p = p0 + q;
+          a1[q] = live && p < end ? ld_bits(s1 + (row_e + (list_s[p] & 0xffff)) * s1_stride + c)
+                                  : 0u;
+        }
+#pragma unroll
+        for (int q = 0; q < AHEAD_GB; ++q) {
+          if (p0 + q >= end) break;  // the same for the whole warp
+          const int i = list_s[p0 + q] >> 16;
+          const float sx = bf_lo(a1[q]), sy = bf_hi(a1[q]);
+#pragma unroll
+          for (int l = 0; l < L; ++l) {
+            const uint32_t b = gva_at(i, l);
+            const uint32_t r = round_pair(mul(sx, bf_lo(b)), mul(sy, bf_hi(b)));
+            ax[l] = add(ax[l], bf_lo(r));
+            ay[l] = add(ay[l], bf_hi(r));
+          }
         }
       }
       if (live) {
@@ -1078,34 +1169,82 @@ vec_agg_bwd_bf16_kernel(const bf16* __restrict__ vec, const bf16* __restrict__ s
   cluster_dd_sum(cluster, dd_s, [](int t) { return t; }, ak * L, dd + row_e * L);
 }
 
+// Each edge's place among the row's live edges (idx_s ≥ 0) in edge order,
+// or −1 (pos_s [A·K]): a ballot a word of 32 edges, the running counts of
+// the words in cnt_s [ceil(A·K / 32)] (scratch), and the ballots again.
+__device__ void live_places(const int* idx_s, int ak, int* cnt_s, int* pos_s) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n_words = (ak + 31) / 32;
+  for (int q = warp; q < n_words; q += WARPS) {
+    const int e = 32 * q + lane;
+    const unsigned b = __ballot_sync(FULL, e < ak && idx_s[e] >= 0);
+    if (lane == 0) cnt_s[q] = __popc(b);
+  }
+  __syncthreads();
+  if (warp == 0) {  // the live edges before each word, 32 words at a time
+    int carry = 0;
+    for (int q0 = 0; q0 < n_words; q0 += 32) {
+      const int q = q0 + lane;
+      const int own = q < n_words ? cnt_s[q] : 0;
+      int v = own;
+#pragma unroll
+      for (int o = 1; o < 32; o *= 2) {
+        const int y = __shfl_up_sync(FULL, v, o);
+        if (lane >= o) v += y;
+      }
+      if (q < n_words) cnt_s[q] = carry + v - own;
+      carry += __shfl_sync(FULL, v, 31);
+    }
+  }
+  __syncthreads();
+  for (int q = warp; q < n_words; q += WARPS) {
+    const int e = 32 * q + lane;
+    const bool on = e < ak && idx_s[e] >= 0;
+    const unsigned b = __ballot_sync(FULL, on);
+    if (e < ak) pos_s[e] = on ? cnt_s[q] + __popc(b & ((1u << lane) - 1)) : -1;
+  }
+  __syncthreads();
+}
+
 // Kernel I in bf16. Grid (G · CL) in clusters of CL = min(h / HC2, 8)
-// blocks, one cluster per row g; as the f32 I, with the chunk of HC2
-// columns and dvv's per-edge terms rounded to bf16, and no gw rows kept in
-// shared memory: the walk leaves each edge's terms of dd in ddx_s [A·K][L]
-// by the edge's index. STAGE: vv's chunk for the target pass, u's in its
-// place for the walk (else both gathered from device memory).
+// blocks, one cluster per row g, two blocks an SM; as the f32 I, with the
+// chunk of HC2 columns and dvv's per-edge terms rounded to bf16. The live
+// gw rows of the chunk are copied into shared memory once, [keep][HC2] by
+// the edge's place among the row's live edges (`live_places`), for places
+// < keep (a block that takes one chunk; `keep` is what the shared memory
+// left for two blocks an SM allows), by cp.async started before the source
+// lists are built; both passes read them there, the others from device
+// memory, and the walk leaves each edge's terms of dd in its gw row's place
+// (< keep) or in ddx_s [A·K − keep][L]. STAGE: the target pass gathers vv
+// from the block's chunk staged in shared memory, the walk u from the same
+// place, restaged (else both are gathered from device memory); the walk
+// reads its source's vv row from device memory.
 template <int L, bool STAGE>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 2)
 wdot_bwd_bf16_kernel(const bf16* __restrict__ d, const bf16* __restrict__ u,
                      const bf16* __restrict__ vv, const int64_t* __restrict__ idx,
                      const bool* __restrict__ mask, const bf16* __restrict__ gw,
                      bf16* __restrict__ du, bf16* __restrict__ dvv, bf16* __restrict__ dd,
-                     int a_slots, int k_nbrs, int h, bool vec16) {
+                     int a_slots, int k_nbrs, int h, int keep, bool vec16, bool gw16) {
   constexpr int P = pow2_ceil(L);
   constexpr int SPAN = 32 / P;
+  constexpr int ROW_F = HC2 * sizeof(bf16) / sizeof(float);  // floats a kept gw row spans
   cg::cluster_group cluster = cg::this_cluster();
   const int cl = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
   extern __shared__ __align__(16) unsigned char smem_b[];
   const int ak = a_slots * k_nbrs;
   const size_t chunk = STAGE ? chunk_bytes(a_slots, L) : 0;
+  const size_t t_at = chunk + pad16(static_cast<size_t>(ak) * L * sizeof(bf16));
+  const size_t gw_at_b = t_at + pad16(static_cast<size_t>(ak) * sizeof(float));
   bf16* x_s = reinterpret_cast<bf16*>(smem_b);                           // [A][L][HC2] (STAGE)
   bf16* d_s = reinterpret_cast<bf16*>(smem_b + chunk);                   // [A·K][L]
-  float* t_s = reinterpret_cast<float*>(smem_b + chunk +                 // [A·K] 2 − |d|²
-                                        pad16(static_cast<size_t>(ak) * L * sizeof(bf16)));
-  float* ddx_s = t_s + ak;                                               // [A·K][L] f32
-  int* idx_s = reinterpret_cast<int*>(ddx_s + ak * L);                   // [A·K]
-  int* off_s = idx_s + ak;                                               // [A + 1]
+  float* t_s = reinterpret_cast<float*>(smem_b + t_at);                  // [A·K] 2 − |d|²
+  bf16* gw_s = reinterpret_cast<bf16*>(smem_b + gw_at_b);                // [keep][HC2]
+  float* ddx_s = reinterpret_cast<float*>(gw_s + static_cast<size_t>(keep) * HC2);  // [A·K − keep][L]
+  int* idx_s = reinterpret_cast<int*>(ddx_s + (ak - keep) * L);          // [A·K]
+  int* pos_s = idx_s + ak;                                               // [A·K] live place, or −1
+  int* off_s = pos_s + ak;                                               // [A + 1]
   int* list_s = off_s + a_slots + 1;                                     // [A·K]
   const int g = blockIdx.x / cl;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -1115,9 +1254,23 @@ wdot_bwd_bf16_kernel(const bf16* __restrict__ d, const bf16* __restrict__ u,
   stage_bf16_async(d + row_e * L, ak * L, d_s);
   if constexpr (STAGE) stage_chunk_bf16_async(vv, g, a_slots, L, h, rank * HC2, vec16, x_s);
   cp_async_commit();
-  for (int t = threadIdx.x; t < ak * L; t += THREADS) ddx_s[t] = 0.f;
+  for (int t = threadIdx.x; t < (ak - keep) * L; t += THREADS) ddx_s[t] = 0.f;
   load_idx(idx, mask, row_e, ak, a_slots, idx_s);
   __syncthreads();
+  live_places(idx_s, ak, list_s, pos_s);
+  if (keep > 0) {  // the kept gw rows of the block's one chunk, in flight while the lists are built
+    const int c0 = rank * HC2, w = gw16 ? 8 : 2, per = HC2 / w;  // values a copy, copies a row
+    for (int t = threadIdx.x; t < ak * per; t += THREADS) {
+      const int e = t / per, p = pos_s[e], cc = t % per * w;
+      if (p < 0 || p >= keep) continue;
+      const bool ok = c0 + cc < h;
+      const float* src = reinterpret_cast<const float*>(ok ? gw + (row_e + e) * h + c0 + cc : gw);
+      float* dst = reinterpret_cast<float*>(gw_s + p * HC2 + cc);
+      if (gw16) cp_async<16>(dst, src, ok);
+      else cp_async<4>(dst, src, ok);
+    }
+    cp_async_commit();
+  }
   build_source_lists(idx_s, ak, a_slots, k_nbrs, off_s, list_s);
   cp_async_wait_all();
   __syncthreads();
@@ -1129,8 +1282,7 @@ wdot_bwd_bf16_kernel(const bf16* __restrict__ d, const bf16* __restrict__ u,
     t_s[e] = __fsub_rn(2.f, dde);
   }
 
-  const float2 zero = make_float2(0.f, 0.f);
-  for (int n = rank; n < n_chunks; n += cl) {
+  for (int n = rank; n < n_chunks; n += cl) {  // keep > 0: once
     const int c = n * HC2 + 2 * lane;
     const bool live = c < h;
     const int cr = live ? c : h - 2;  // a column pair the dead lanes may read (results dropped)
@@ -1140,6 +1292,11 @@ wdot_bwd_bf16_kernel(const bf16* __restrict__ d, const bf16* __restrict__ u,
       cp_async_wait_all();
     }
     __syncthreads();
+    // the gw pair of edge e at live place p: kept, or from device memory
+    auto gw_pair = [&](int e, int p) {
+      return p < keep ? ld_bits(gw_s + p * HC2 + 2 * lane)
+                      : live ? ld_bits(gw + (row_e + e) * h + c) : 0u;
+    };
 
     // the target pass: du[i] = Σ_k gw·vv[j] + dud·d, dud = −gw·vd·(2 − |d|²)
     for (int i = warp; i < a_slots; i += WARPS) {
@@ -1150,23 +1307,25 @@ wdot_bwd_bf16_kernel(const bf16* __restrict__ d, const bf16* __restrict__ u,
         const int e = i * k_nbrs + k;
         const int j = idx_s[e];
         if (j < 0) continue;  // the same for the whole warp; a masked edge adds 0
-        const float2 gwv = live ? ld_pair(gw + (row_e + e) * h + c) : zero;
+        const uint32_t gb = gw_pair(e, pos_s[e]);
+        const float gwx = bf_lo(gb), gwy = bf_hi(gb);
         float dl[L];
-        float2 vjl[L];
+        uint32_t vb[L];
         load_d_bf16<L>(d_s + e * L, dl);
         float vdx = 0.f, vdy = 0.f;
 #pragma unroll
         for (int l = 0; l < L; ++l) {
-          if constexpr (STAGE) vjl[l] = ld_pair(x_s + (j * L + l) * HC2 + 2 * lane);
-          else vjl[l] = ld_pair(vv + (row_v + j * L + l) * h + cr);
-          vdx = add(vdx, mul(dl[l], vjl[l].x));
-          vdy = add(vdy, mul(dl[l], vjl[l].y));
+          if constexpr (STAGE) vb[l] = ld_bits(x_s + (j * L + l) * HC2 + 2 * lane);
+          else vb[l] = ld_bits(vv + (row_v + j * L + l) * h + cr);
+          vdx = add(vdx, mul(dl[l], bf_lo(vb[l])));
+          vdy = add(vdy, mul(dl[l], bf_hi(vb[l])));
         }
-        const float dudx = mul(mul(-gwv.x, vdx), t_s[e]), dudy = mul(mul(-gwv.y, vdy), t_s[e]);
+        const float te = t_s[e];
+        const float dudx = mul(mul(-gwx, vdx), te), dudy = mul(mul(-gwy, vdy), te);
 #pragma unroll
         for (int l = 0; l < L; ++l) {
-          ux[l] = add(ux[l], add(mul(gwv.x, vjl[l].x), mul(dudx, dl[l])));
-          uy[l] = add(uy[l], add(mul(gwv.y, vjl[l].y), mul(dudy, dl[l])));
+          ux[l] = add(ux[l], add(mul(gwx, bf_lo(vb[l])), mul(dudx, dl[l])));
+          uy[l] = add(uy[l], add(mul(gwy, bf_hi(vb[l])), mul(dudy, dl[l])));
         }
       }
       if (live) {
@@ -1187,42 +1346,48 @@ wdot_bwd_bf16_kernel(const bf16* __restrict__ d, const bf16* __restrict__ u,
     // order, of gw·u[i] + dvd·d (dvd = −gw·ud·(2 − |d|²)), each term rounded
     // to bf16; and each edge's terms of dd: dvd·vv[j] + dud·u[i] + 2·d·gw·ud·vd
     for (int j = warp; j < a_slots; j += WARPS) {
-      float2 vj[L];
+      const int begin = off_s[j], end = off_s[j + 1];
+      uint32_t vj[L];
       float ax[L], ay[L];
 #pragma unroll
       for (int l = 0; l < L; ++l) {
-        vj[l] = ld_pair(vv + (row_v + j * L + l) * h + cr);
+        vj[l] = begin < end ? ld_bits(vv + (row_v + j * L + l) * h + cr) : 0u;
         ax[l] = ay[l] = 0.f;
       }
-      const int end = off_s[j + 1];
-      for (int p = off_s[j]; p < end; ++p) {
+      for (int p = begin; p < end; ++p) {
         const int v = list_s[p];
-        const int e = v & 0xffff, i = v >> 16;
-        const float2 gwv = live ? ld_pair(gw + (row_e + e) * h + c) : zero;
+        const int e = v & 0xffff, i = v >> 16, q = pos_s[e];
+        const uint32_t gb = gw_pair(e, q);
+        const float gwx = bf_lo(gb), gwy = bf_hi(gb);
+        auto u_at = [&](int l) {
+          if constexpr (STAGE) return ld_bits(x_s + (i * L + l) * HC2 + 2 * lane);
+          else return ld_bits(u + (row_v + i * L + l) * h + cr);
+        };
         float dl[L], part[P];
-        float2 ui[L];
         load_d_bf16<L>(d_s + e * L, dl);
         float udx = 0.f, udy = 0.f, vdx = 0.f, vdy = 0.f;
 #pragma unroll
         for (int l = 0; l < L; ++l) {
-          if constexpr (STAGE) ui[l] = ld_pair(x_s + (i * L + l) * HC2 + 2 * lane);
-          else ui[l] = ld_pair(u + (row_v + i * L + l) * h + cr);
-          udx = add(udx, mul(ui[l].x, dl[l]));
-          udy = add(udy, mul(ui[l].y, dl[l]));
-          vdx = add(vdx, mul(dl[l], vj[l].x));
-          vdy = add(vdy, mul(dl[l], vj[l].y));
+          const uint32_t ub = u_at(l);
+          udx = add(udx, mul(bf_lo(ub), dl[l]));
+          udy = add(udy, mul(bf_hi(ub), dl[l]));
+          vdx = add(vdx, mul(dl[l], bf_lo(vj[l])));
+          vdy = add(vdy, mul(dl[l], bf_hi(vj[l])));
         }
         const float t = t_s[e];
-        const float dvdx = mul(mul(-gwv.x, udx), t), dvdy = mul(mul(-gwv.y, udy), t);
-        const float dudx = mul(mul(-gwv.x, vdx), t), dudy = mul(mul(-gwv.y, vdy), t);
-        const float gx = mul(mul(gwv.x, udx), vdx), gy = mul(mul(gwv.y, udy), vdy);
+        const float dvdx = mul(mul(-gwx, udx), t), dvdy = mul(mul(-gwy, udy), t);
+        const float dudx = mul(mul(-gwx, vdx), t), dudy = mul(mul(-gwy, vdy), t);
+        const float gx = mul(mul(gwx, udx), vdx), gy = mul(mul(gwy, udy), vdy);
 #pragma unroll
         for (int l = 0; l < L; ++l) {
-          ax[l] = add(ax[l], round_bf16(add(mul(gwv.x, ui[l].x), mul(dvdx, dl[l]))));
-          ay[l] = add(ay[l], round_bf16(add(mul(gwv.y, ui[l].y), mul(dvdy, dl[l]))));
-          const float px = add(add(mul(dvdx, vj[l].x), mul(dudx, ui[l].x)),
+          const uint32_t ub = u_at(l);
+          // each column's term rounded by its own conversion: the pair's one
+          // conversion holds both terms live at once and spills (measured)
+          ax[l] = add(ax[l], round_bf16(add(mul(gwx, bf_lo(ub)), mul(dvdx, dl[l]))));
+          ay[l] = add(ay[l], round_bf16(add(mul(gwy, bf_hi(ub)), mul(dvdy, dl[l]))));
+          const float px = add(add(mul(dvdx, bf_lo(vj[l])), mul(dudx, bf_lo(ub))),
                                mul(mul(2.f, dl[l]), gx));
-          const float py = add(add(mul(dvdy, vj[l].y), mul(dudy, ui[l].y)),
+          const float py = add(add(mul(dvdy, bf_hi(vj[l])), mul(dudy, bf_hi(ub))),
                                mul(mul(2.f, dl[l]), gy));
           part[l] = add(px, py);
         }
@@ -1230,7 +1395,11 @@ wdot_bwd_bf16_kernel(const bf16* __restrict__ d, const bf16* __restrict__ u,
         for (int l = L; l < P; ++l) part[l] = 0.f;
         const float r = warp_sum_many<P>(part, lane);
         const int l = lane / SPAN;
-        if (lane % SPAN == 0 && l < L) ddx_s[e * L + l] += r;
+        __syncwarp();  // every lane has read its gw pair of this edge
+        if (lane % SPAN == 0 && l < L) {
+          if (q < keep) reinterpret_cast<float*>(gw_s)[q * ROW_F + l] = r;
+          else ddx_s[(q - keep) * L + l] += r;
+        }
       }
       if (live) {
         bf16* o = dvv + (row_v + j * L) * h + c;
@@ -1240,7 +1409,12 @@ wdot_bwd_bf16_kernel(const bf16* __restrict__ d, const bf16* __restrict__ u,
     }
     if constexpr (STAGE) __syncthreads();  // u's chunk is read no more
   }
-  cluster_dd_sum(cluster, ddx_s, [](int t) { return t; }, ak * L, dd + row_e * L);
+  // dd's terms of edge e at its live place q, in the kept gw rows or ddx_s
+  // (the same offsets in every rank's shared memory)
+  cluster_dd_sum(cluster, reinterpret_cast<float*>(gw_s), [&](int t) {
+    const int q = pos_s[t / L];
+    return q < 0 ? -1 : q < keep ? q * ROW_F + t % L : keep * ROW_F + (q - keep) * L + t % L;
+  }, ak * L, dd + row_e * L);
 }
 
 // Dynamic shared memory of a block of F or H. It grows with the slot axis
@@ -1419,12 +1593,13 @@ size_t agg_bwd_smem_bf16(int a_slots, int k_nbrs, int L, bool stage) {
          ak * L * sizeof(float) + (2 * ak + a + 1) * sizeof(int);
 }
 
-// I in bf16: the staged chunk (STAGE), the row's d, 2 − |d|², dd's f32
-// terms, the indices and the lists. STAGE at L = 8, k = 17: A ≤ 113.
+// I in bf16 without the kept gw: the staged chunk (STAGE), the row's d and
+// 2 − |d|², dd's f32 terms, the indices, the edges' live places and the
+// lists; each kept gw row adds HC2 bf16 and takes L of dd's terms.
 size_t wdot_bwd_smem_bf16(int a_slots, int k_nbrs, int L, bool stage) {
   const size_t a = a_slots, ak = a * k_nbrs;
   return (stage ? chunk_bytes(a_slots, L) : 0) + pad16(ak * L * sizeof(bf16)) +
-         ak * (L + 1) * sizeof(float) + (2 * ak + a + 1) * sizeof(int);
+         pad16(ak * sizeof(float)) + ak * L * sizeof(float) + (3 * ak + a + 1) * sizeof(int);
 }
 
 // Whether 16-byte copies of a bf16 [G, A, L, h] tensor's chunks are aligned.
@@ -1495,10 +1670,20 @@ extern "C" int vis_wdot_bwd_bf16(const bf16* d, const bf16* u, const bf16* vv, c
                                 dd, sizeof(bf16), stream, &launch);
   if (!launch) return code;
   const bool stage = wdot_bwd_smem_bf16(a_slots, k_nbrs, L, true) <= MAX_SMEM;
-  const size_t smem = wdot_bwd_smem_bf16(a_slots, k_nbrs, L, stage);
+  const size_t base = wdot_bwd_smem_bf16(a_slots, k_nbrs, L, stage);
+  const size_t ak = static_cast<size_t>(a_slots) * k_nbrs;
+  const size_t per_row = HC2 * sizeof(bf16) - L * sizeof(float);  // a kept gw row less its dd terms
+  const int n_chunks = (h + HC2 - 1) / HC2;
+  size_t keep = 0;  // a block that takes more than one chunk keeps none
+  if (n_chunks <= MAX_CLUSTER && base < TWO_BLOCK_SMEM) {
+    const size_t room = (TWO_BLOCK_SMEM - base) / per_row;
+    keep = room < ak ? room : ak;
+  }
   auto kernel = L == 8 ? (stage ? wdot_bwd_bf16_kernel<8, true> : wdot_bwd_bf16_kernel<8, false>)
                        : (stage ? wdot_bwd_bf16_kernel<3, true> : wdot_bwd_bf16_kernel<3, false>);
-  return static_cast<int>(launch_rows(kernel, g_rows, (h + HC2 - 1) / HC2, smem, stream, d, u, vv,
-                                      idx, mask, gw, du, dvv, dd, a_slots, k_nbrs, h,
-                                      rows16_bf16(vv, h) && rows16_bf16(u, h)));
+  return static_cast<int>(launch_rows(kernel, g_rows, n_chunks, base + keep * per_row, stream, d,
+                                      u, vv, idx, mask, gw, du, dvv, dd, a_slots, k_nbrs, h,
+                                      static_cast<int>(keep),
+                                      rows16_bf16(vv, h) && rows16_bf16(u, h),
+                                      rows16_bf16(gw, h)));
 }

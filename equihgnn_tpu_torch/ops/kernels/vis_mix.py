@@ -55,7 +55,9 @@ writes +0 at a masked edge without reading d or vv (the plain version's
 value for finite u and d). G and I run a row's column chunks as a
 thread-block cluster and sum dd over its shared memory; at L = 8, k = 17
 they stage the gathered chunks in shared memory up to A = 70 (G) and 97
-(I) in f32, 77 and 113 in bf16, and gather from device memory above that.
+(I) in f32, 77 and 109 in bf16, and gather from device memory above that;
+I keeps a row's live gw rows in shared memory (in bf16 all of them up to A
+= 30, 499 of 544 places at A = 32, none above A = 54).
 Contract: every index lies in [0, A), as `knn_dense` gives them (the
 kernels treat one outside as masked; checking would cost a sync).
 `.launches` on each of the four wrappers counts kernel launches in either

@@ -79,8 +79,10 @@ SE(3)-Transformer's. Kernels F-I in bfloat16 against their plain bf16
 versions: within one bf16 ulp and at least 99 % the same bits, the same
 bits twice, at `MIX_CASES`' kinds of input (h = 42 and 34 take the 4-byte
 copies, h = 576 two turns of a cluster of 8), on both sides of G's and
-I's staging switches (A = 77 / 113) and at the rows' limit (A = 170 at L
-= 8, k = 17; 171 raises); a mixed dtype or an odd h raises;
+I's staging switches (A = 77 / 109), of I's kept gw rows (every live row
+kept to A = 30, some to A = 54, none above), with every edge of a row live
+(I's kept rows full, and past them from A = 31) and at the rows' limit (A
+= 170 at L = 8, k = 17; 171 raises); a mixed dtype or an odd h raises;
 `visnet_equihnns` in bf16 at hidden 32 on the card against the CPU, F-I
 on the bf16 counters and the trunk's A in f32. Kernels D and E in
 bfloat16 against their plain bf16 versions (the f32 function of x.float()
@@ -1675,10 +1677,12 @@ def test_vis_mix_bf16_kernels(dev, g, a, k, L, h, pad):
 def test_vis_mix_bf16_rows_at_each_switch_and_the_limit(dev):
     """At L = 8, k = 17 a bf16 block of F or H holds a row of A ≤ 170 slots
     (1,364 bytes a slot of shared memory; f32: 142); G stages vec and gva up
-    to A = 77, I vv and u up to A = 113 (above that they gather from device
-    memory): on both sides of each switch and at the limit all four match
+    to A = 77, I vv and u up to A = 109 (above that they gather from device
+    memory); I keeps as many of a row's live gw rows as two blocks an SM
+    leave room for: all A·K of them up to A = 30, fewer up to A = 54, none
+    above: on both sides of each switch and at the limit all four match
     their plain versions; one slot past it, each raises."""
-    for a in (77, 78, 113, 114, 170):
+    for a in (30, 31, 54, 55, 77, 78, 109, 110, 170):
         _check_bf16_mix([t.to(dev) for t in _bf16_mix_args(2, a, 17, 8, 72, a)], a)
     vec, s1, s2m, d, idx, mask, u, vv = (t.to(dev) for t in _bf16_mix_args(1, 171, 17, 8, 32, 6))
     gw = torch.ones(1, 171, 17, 32, dtype=torch.bfloat16, device=dev)
@@ -1691,6 +1695,17 @@ def test_vis_mix_bf16_rows_at_each_switch_and_the_limit(dev):
     # the refusal leaves no error behind for the next launch
     small = [t.to(dev) for t in _bf16_mix_args(2, 6, 5, 8, 32, 1)]
     assert vis_vec_agg(*small[:6]).dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("a", [30, 31, 32, 54])
+def test_vis_mix_bf16_rows_with_every_edge_live(dev, a):
+    """A row whose A·K edges are all live: I's kept gw rows full at A = 30,
+    and from A = 31 (the model's A = 32: 499 kept of 544) more live rows
+    than it keeps, the rest read from device memory in both passes; each
+    kernel against its plain version, the same bits twice."""
+    args = [t.to(dev) for t in _bf16_mix_args(2, a, 17, 8, 72, a + 1)]
+    args[5][0] = True  # row 0: every edge live
+    _check_bf16_mix(args, a + 1)
 
 
 def test_vis_mix_bf16_is_deterministic_with_many_edges_on_one_source(dev):

@@ -8,7 +8,9 @@ Tolerances, each stated against what the two frameworks round:
   * the plain bf16 F-I (`vec_agg_plain`, `vec_agg_bwd_plain`, `wdot_plain`,
     `wdot_bwd_plain`) against JAX's `_vec_agg` / `_wdot` custom VJPs on
     bf16 inputs at A % 8 = 0, L = 8 and 3, h = 16 and 256 (two h blocks of
-    JAX's grid, whose dd it sums over both): every output and gradient
+    JAX's grid, whose dd it sums over both), and with up to 8·k edges on
+    one source slot and slots that are no edge's source (the per-source
+    walk of kernels G and I; h = 16 and 64): every output and gradient
     within one bf16 ulp (`bf16_ulp_distance`) and at least 99 % the same
     bits (measured: 99.89-100 %; the f32 sums run in other orders);
   * at A % 8 ≠ 0, where JAX's gate sends bf16 to the XLA composition
@@ -130,18 +132,34 @@ def _jax_mix(args, idx, mask, agg, wdot):
     return run(*args)
 
 
-@pytest.mark.parametrize("L,h", [(8, 16), (8, 256), (3, 16), (3, 256)])
-def test_plain_bf16_mix_matches_the_pallas_kernels(L, h):
+@pytest.mark.parametrize("L,h,crowd", [
+    pytest.param(8, 16, 0, id="8-16"), pytest.param(8, 256, 0, id="8-256"),
+    pytest.param(3, 16, 0, id="3-16"), pytest.param(3, 256, 0, id="3-256"),
+    pytest.param(8, 64, 3, id="8-64-crowded"), pytest.param(8, 16, 5, id="8-16-one-source"),
+    pytest.param(3, 16, 2, id="3-16-crowded")])
+def test_plain_bf16_mix_matches_the_pallas_kernels(L, h, crowd):
     """JAX's ViSNet runs these kernels in bf16 (`vis_mix_supported` at A = 8);
-    the port's plain bf16 versions give their bits or one ulp."""
+    the port's plain bf16 versions give their bits or one ulp. With `crowd`,
+    the walk's stress for the backwards (G's and I's yardstick on the card):
+    the first `crowd` of every slot's k neighbours on source slot 0 (up to
+    8·k edges on one source), the others on slots 1 and 2, so that slots 3-7
+    are no edge's source; the last row is fully masked in every case."""
     g, a, k = 3, 8, 5
     assert vis_mix_supported(a, k, L, h, jnp.bfloat16)
-    args, idx, mask = _mix_inputs(g, a, k, L, h, seed=L + h)
+    args, idx, mask = _mix_inputs(g, a, k, L, h, seed=L + h + 10 * crowd)
+    if crowd:
+        idx = np.random.default_rng(crowd).integers(1, 3, (g, a, k))
+        idx[:, :, :crowd] = 0
+        assert mask[:-1, :, :crowd].sum() > 2 * a
+    assert not mask[-1].any()
     ji, jm = jnp.asarray(idx, jnp.int32), jnp.asarray(mask)
     want = _jax_mix(args, idx, mask, lambda *x: _vec_agg(*x, ji, jm),
                     lambda *x: _wdot(*x, ji, jm))
-    for name, x, y in zip(MIX_NAMES, _port_mix(args, idx, mask), want):
+    got = _port_mix(args, idx, mask)
+    for name, x, y in zip(MIX_NAMES, got, want):
         _assert_bf16_matches(x, _torch(y), name, equal=0.99)
+    if crowd:  # dvec and dvv of the slots that are no edge's source
+        assert bool((got[1][:, 3:] == 0).all()) and bool((got[8][:, 3:] == 0).all())
 
 
 def test_plain_bf16_mix_off_the_gate_is_within_rounding_of_xla_mix():
